@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as a JSON line; any failure raises and exits non-zero:
+
+1. device   — the card's name; then the raw ``nvidia-smi`` name and power
+              limit line.
+2. build    — ``nvcc`` builds every kernel of ``src/repro_torch/kernels/csrc``
+              into ``build/repro_torch_kernels/`` (one process per source).
+3. kernels  — each hand-written kernel against its plain PyTorch version on
+              the card: at the main path's shapes (float64), at a ragged
+              shape (h % B ≠ 0) and in float32, with times of the kernel,
+              the plain version and one library call (CUDA events).
+4. main     — ``cv_picholesky`` and ``cv_exact_cholesky`` at the repo's
+              configuration (h=1024, n=4096, k=5, q=31 over [1e-3, 1], g=4,
+              r=2, block=128, float64) on the ``cuda`` backend, held against
+              the ``reference`` backend on the card.  The launch counts are
+              set to 0 just before each sweep and read just after it: each
+              kernel of that sweep must have launched, and no other; wall
+              times of both (in turns, repeated).
+5. trace    — one profiled run of each sweep: device busy time, its share
+              of the wall time, and the kernels that take the most time.
+6. table4   — the λ* indices on ``tests/data/torch_table4.npz`` (made by the
+              JAX package) must be reproduced on the ``cuda`` backend, and
+              its curves within 1e-9 relative.
+
+Then one ``{"kernels": [...]}`` line, and last the device line
+``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
+one CUDA card; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# configs/picholesky.py of the JAX package, copied
+H, N_TRAIN, K_FOLDS, N_LAMBDAS, G_SAMPLES, DEGREE = 1024, 4096, 5, 31, 4, 2
+LAM_LO, LAM_HI, BLOCK = 1e-3, 1.0, 128
+SEED = 0
+LAM_CHUNK = 3    # what lam_chunk='auto' gives at h=1024, block=128, float64
+
+TOL = {torch.float64: 1e-10, torch.float32: 1e-4}   # max |Δ| / max |plain|
+MAIN_TOL = 1e-8            # curve of the cuda backend vs the reference one
+TABLE4_TOL = 1e-9          # curve on the card vs the JAX fixture, as the
+                           # CPU test tests/test_torch_table4.py holds it
+WALL_REPEATS = 5           # timed sweeps per (strategy, backend)
+
+# Published peaks (NVIDIA data sheets, dense): bytes/s, FP64 on tensor
+# cores, FP64 and FP32 outside them.  Chosen by the card's name.
+PEAKS = {
+    "SXM": dict(bw=3.35e12, fp64_tc=67e12, fp64=34e12, fp32=67e12),
+    "PCIe": dict(bw=2.0e12, fp64_tc=51e12, fp64=26e12, fp32=51e12),
+    "NVL": dict(bw=3.9e12, fp64_tc=60e12, fp64=30e12, fp32=60e12),
+}
+
+REPLACES = {
+    "pack_tril": "src/repro/kernels/tri_pack.py:73",
+    "cholesky_blocked": "src/repro/kernels/chol_blocked.py:115",
+    "solve_lower_blocked": "src/repro/kernels/trsm.py:102",
+    "interp_solve": "src/repro/kernels/poly_interp.py:195",
+}
+# The kernels each sweep of the main path launches; it launches no other.
+PATH_KERNELS = {
+    "picholesky": ("cholesky_blocked", "pack_tril", "interp_solve"),
+    "exact": ("cholesky_blocked", "solve_lower_blocked"),
+}
+SOURCES = {
+    "pack_tril": "src/repro_torch/kernels/csrc/tri_pack.cu",
+    "cholesky_blocked": "src/repro_torch/kernels/csrc/chol_blocked.cu",
+    "solve_lower_blocked": "src/repro_torch/kernels/csrc/trsm.cu",
+    "interp_solve": "src/repro_torch/kernels/csrc/poly_interp.cu",
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def peaks_for(name: str) -> dict:
+    key = "PCIe" if "PCIe" in name else "NVL" if "NVL" in name else "SXM"
+    return dict(PEAKS[key], part=key)
+
+
+def timed_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` calls after one warm-up,
+    between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def errors(out: torch.Tensor, plain: torch.Tensor) -> tuple[float, float]:
+    if not torch.isfinite(out).all():
+        raise AssertionError("kernel output is not finite")
+    diff = float((out - plain).abs().max())
+    return diff, diff / max(float(plain.abs().max()), 1e-300)
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("device", kind=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         peaks=peaks_for(name))
+    print(smi, flush=True)
+    return dict(name=name, smi=smi, peaks=peaks_for(name))
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    regs = {}
+    for name in _build.SOURCES:
+        log = _build._target(name).with_suffix(".log")
+        regs[name] = [line.split("info    : ")[-1] for line in
+                      log.read_text().splitlines() if "registers" in line] \
+            if log.exists() else []
+    emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
+         ptxas=regs)
+
+
+def main_inputs(dev):
+    from repro_torch.core import cv
+    from repro_torch.data import make_regression_dataset
+    x, y = make_regression_dataset(N_TRAIN, H, seed=SEED,
+                                   dtype=torch.float64, device=dev)
+    folds = cv.make_folds(x, y, K_FOLDS, device=dev)
+    lams = torch.logspace(np.log10(LAM_LO), np.log10(LAM_HI), N_LAMBDAS,
+                          dtype=torch.float64, device=dev)
+    return folds, lams
+
+
+def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
+                  dtype, folds=None, lams=None, timing=None) -> dict:
+    """Every kernel against its plain version on one set of inputs; with
+    ``timing`` (a peaks dict), also times and bounds."""
+    from repro_torch.core import packing, picholesky
+    from repro_torch.kernels import (chol_blocked, poly_interp, ref, trsm,
+                                     tri_pack)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if folds is not None:
+        h_tr = folds.hess[None] - folds.fold_hess
+        g_tr = folds.grad[None] - folds.fold_grad
+        sample = picholesky.choose_sample_lambdas(
+            float(lams[0]), float(lams[-1]), G_SAMPLES, device=dev)
+        eye = torch.eye(h, dtype=dtype, device=dev)
+        anchors = (h_tr[:, None] + sample[:, None, None] * eye
+                   ).reshape(-1, h, h)
+        exact = (h_tr[:, None] + lams[:LAM_CHUNK, None, None] * eye
+                 ).reshape(-1, h, h)
+        rhs = g_tr[:, None].expand(-1, LAM_CHUNK, -1).reshape(-1, h, 1)
+    else:
+        x = torch.randn(n_anchor, 2 * h, h, generator=gen, device=dev,
+                        dtype=torch.float64)
+        anchors = (x.mT @ x / h + torch.eye(h, device=dev,
+                                            dtype=torch.float64)).to(dtype)
+        exact = anchors[:n_exact].contiguous()
+        h_tr = anchors[:n_exact]
+        g_tr = torch.randn(n_exact, h, generator=gen, device=dev,
+                           dtype=torch.float64).to(dtype)
+        rhs = g_tr[:, :, None].contiguous()
+        sample = torch.logspace(-3, 0, G_SAMPLES, dtype=torch.float64,
+                                device=dev)
+    tol = TOL[dtype]
+    res = {}
+
+    # cholesky_blocked
+    l_k = chol_blocked.cholesky_blocked(anchors, block)
+    l_p = ref.cholesky_blocked(anchors, block)
+    res["cholesky_blocked"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                       errors(l_k, l_p)))
+    # pack_tril (on the anchor factors, as fit packs them)
+    v_k = tri_pack.pack_tril(l_p, block)
+    v_p = packing.pack_tril(l_p, block)
+    res["pack_tril"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                errors(v_k, v_p)))
+    # solve_lower_blocked: forward then transposed solve of one exact chunk
+    l_e = torch.linalg.cholesky(exact).contiguous()
+    inv = ref.dense_diag_inverses(l_e, block)
+
+    def trsm_kernel():
+        w = trsm.solve_lower_blocked(l_e, rhs, block, inv_diag=inv)
+        return trsm.solve_lower_blocked(l_e, w, block, transpose=True,
+                                        inv_diag=inv)
+
+    def trsm_plain():
+        w = ref.solve_lower_blocked(l_e, rhs, block, inv_diag=inv)
+        return ref.solve_lower_blocked(l_e, w, block, transpose=True,
+                                       inv_diag=inv)
+
+    res["solve_lower_blocked"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                          errors(trsm_kernel(),
+                                                 trsm_plain())))
+    # interp_solve: Θ fitted on the anchors, one λ chunk, every fold
+    n_fold = h_tr.shape[0]
+    targets = v_p.reshape(-1, G_SAMPLES, v_p.shape[-1])[:n_fold] \
+        if folds is not None else v_p[:n_fold, None].expand(
+            -1, G_SAMPLES, -1)
+    v = picholesky.vandermonde(sample, DEGREE).to(dtype)
+    theta = torch.linalg.solve(v.T @ v, v.T @ targets.to(dtype)).contiguous()
+    lam_c = lams[:LAM_CHUNK] if lams is not None else sample[:LAM_CHUNK]
+    hp = packing.num_tiles(h, block) * block
+    x_c = lam_c.to(dtype)
+
+    def interp_kernel():
+        return poly_interp.interp_solve(theta, lam_c, g_tr, h, block)
+
+    def interp_plain():
+        inv_d = ref.interp_diag_inverses(theta, x_c, h, block)
+        gp = torch.nn.functional.pad(g_tr[..., None], (0, 0, 0, hp - h))
+        return ref.interp_solve(theta, x_c, inv_d, gp, h, block)[:, :, :h, 0]
+
+    res["interp_solve"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                   errors(interp_kernel(), interp_plain())))
+    for name, r in res.items():
+        r["tol_rel"] = 0.0 if name == "pack_tril" else tol
+        r["ok"] = r["max_rel_err"] <= r["tol_rel"]
+    if timing is None:
+        return res
+
+    # times at these shapes, and the least time the card could take
+    isz = torch.finfo(dtype).bits // 8
+    bw = timing["bw"]
+    p_size = packing.packed_size(h, block)
+    nb_a, nb_e = anchors.shape[0], exact.shape[0]
+    tri = h * (h + 1) // 2
+    ii, jj = packing.tile_index_pairs(h, block)
+    rows = (ii[:, None, None] * block + np.arange(block)[None, :, None])
+    cols = (jj[:, None, None] * block + np.arange(block)[None, None, :])
+    gather_idx = torch.as_tensor((rows * h + cols).reshape(-1), device=dev)
+    flat = l_p.reshape(nb_a, -1)
+    work = dict(
+        cholesky_blocked=dict(
+            kernel=lambda: chol_blocked.cholesky_blocked(anchors, block),
+            plain=lambda: ref.cholesky_blocked(anchors, block),
+            library=lambda: torch.linalg.cholesky(anchors),
+            bytes=nb_a * (tri + h * h) * isz, flops=nb_a * h ** 3 / 3,
+            peak=timing["fp64_tc"]),
+        pack_tril=dict(
+            kernel=lambda: tri_pack.pack_tril(l_p, block),
+            plain=lambda: packing.pack_tril(l_p, block),
+            library=(lambda: flat.index_select(1, gather_idx))
+            if h % block == 0 else None,
+            bytes=nb_a * (tri + p_size) * isz, flops=0.0,
+            peak=timing["fp64"]),
+        solve_lower_blocked=dict(
+            kernel=trsm_kernel, plain=trsm_plain,
+            library=lambda: torch.cholesky_solve(rhs, l_e),
+            bytes=nb_e * (tri + 2 * h) * isz, flops=nb_e * 2.0 * h * h,
+            peak=timing["fp64"]),
+        interp_solve=dict(
+            kernel=interp_kernel, plain=interp_plain, library=None,
+            bytes=(theta.numel() + g_tr.numel()
+                   + n_fold * LAM_CHUNK * h) * isz,
+            flops=n_fold * LAM_CHUNK * 2.0 * p_size * (2 * DEGREE + 2),
+            peak=timing["fp64"]),
+    )
+    for name, w in work.items():
+        t_bytes = w["bytes"] / bw * 1e3
+        t_ops = w["flops"] / w["peak"] * 1e3
+        res[name].update(
+            ms=timed_ms(w["kernel"], 5), plain_ms=timed_ms(w["plain"], 2),
+            library_ms=None if w["library"] is None
+            else timed_ms(w["library"], 5),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            work_bytes=w["bytes"], work_flops=w["flops"])
+    return res
+
+
+def phase_kernels(dev, folds, lams, peaks) -> dict:
+    main = check_kernels(dev, H, BLOCK, K_FOLDS * G_SAMPLES,
+                         K_FOLDS * LAM_CHUNK, torch.float64, folds, lams,
+                         timing=peaks)
+    emit("kernels", shape="main", h=H, block=BLOCK, dtype="float64",
+         anchor_batch=K_FOLDS * G_SAMPLES, exact_batch=K_FOLDS * LAM_CHUNK,
+         results=main)
+    ragged = check_kernels(dev, 1000, BLOCK, 4, 3, torch.float64)
+    emit("kernels", shape="ragged", h=1000, block=BLOCK, dtype="float64",
+         results=ragged)
+    f32 = check_kernels(dev, H, BLOCK, 4, 3, torch.float32)
+    emit("kernels", shape="float32", h=H, block=BLOCK, dtype="float32",
+         results=f32)
+    bad = [(case, name) for case, res in
+           (("main", main), ("ragged", ragged), ("float32", f32))
+           for name, r in res.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{bad}")
+    return main
+
+
+def _wall(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def runners(dev, folds, lams) -> dict:
+    """The two sweeps of the main path on one backend each."""
+    from repro_torch.core import cv
+    return {
+        "picholesky": lambda backend: cv.cv_picholesky(
+            folds, lams, g=G_SAMPLES, degree=DEGREE, block=BLOCK,
+            backend=backend, device=dev),
+        "exact": lambda backend: cv.cv_exact_cholesky(
+            folds, lams, backend=backend, device=dev),
+    }
+
+
+def counted(run):
+    """``run("cuda")`` with the launch counts set to 0 just before it;
+    returns its result and the counts read just after it."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    res = run("cuda")
+    torch.cuda.synchronize()
+    return res, dict(LAUNCHES)
+
+
+def phase_main(dev, folds, lams) -> dict:
+    run = runners(dev, folds, lams)
+    pi, exact = run["picholesky"], run["exact"]
+    r_pi, n_pi = counted(pi)
+    r_ex, n_ex = counted(exact)
+    launches = dict(picholesky=n_pi, exact=n_ex)
+    ref_pi, ref_ex = pi("reference"), exact("reference")
+    out = dict(launches=launches, n_exact_chol=dict(
+        picholesky=r_pi.n_exact_chol, exact=r_ex.n_exact_chol))
+    for tag, r, rr in (("picholesky", r_pi, ref_pi), ("exact", r_ex, ref_ex)):
+        if r.errors.shape != (N_LAMBDAS,) or not np.isfinite(r.errors).all():
+            raise AssertionError(f"{tag}: curve is not {N_LAMBDAS} finite "
+                                 "values")
+        rel = float(np.max(np.abs(r.errors - rr.errors) / np.abs(rr.errors)))
+        out[tag] = dict(argmin=int(np.argmin(r.errors)),
+                        argmin_reference=int(np.argmin(rr.errors)),
+                        best_lam=r.best_lam, curve_rel_err=rel,
+                        tol=MAIN_TOL)
+        if out[tag]["argmin"] != out[tag]["argmin_reference"] or rel > MAIN_TOL:
+            raise AssertionError(f"{tag}: cuda backend disagrees with the "
+                                 f"reference backend: {out[tag]}")
+    if out["n_exact_chol"] != dict(picholesky=K_FOLDS * G_SAMPLES,
+                                   exact=K_FOLDS * N_LAMBDAS):
+        raise AssertionError(f"factorization budget {out['n_exact_chol']}")
+    for tag, counts in launches.items():
+        missing = [k for k in PATH_KERNELS[tag] if counts[k] == 0]
+        stray = [k for k, n in counts.items()
+                 if n and k not in PATH_KERNELS[tag]]
+        if missing or stray:
+            raise AssertionError(f"{tag} sweep: never launched {missing}, "
+                                 f"launched {stray} it should not: {counts}")
+    walls = {f"{tag}_{bk}": [] for tag in run for bk in ("cuda", "reference")}
+    for _ in range(WALL_REPEATS):           # in turns, after the warm runs
+        for key in walls:
+            tag, bk = key.rsplit("_", 1)
+            walls[key].append(_wall(lambda: run[tag](bk)))
+    out["wall_s"] = walls
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    out["wall_s_median"] = med
+    out["exact_over_picholesky_cuda"] = med["exact_cuda"] / \
+        med["picholesky_cuda"]
+    emit("main", h=H, n=N_TRAIN, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES,
+         r=DEGREE, block=BLOCK, dtype="float64", **out)
+    return launches
+
+
+def phase_trace(dev, folds, lams) -> None:
+    """One profiled run of each sweep on the cuda backend (after a warm
+    run): device busy time (union of kernel intervals), its share of the
+    host wall time, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for tag, run in runners(dev, folds, lams).items():
+        run("cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run("cuda")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name: dict = {}
+        for e in kern:
+            rec = by_name.setdefault(e.name[:80], [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+        busy_us, end = 0.0, float("-inf")
+        for start, stop in sorted((e.time_range.start, e.time_range.end)
+                                  for e in kern):
+            busy_us += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        out[tag] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                        device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
+                        n_kernels=len(kern),
+                        top=[dict(name=n, ms=ms, count=c)
+                             for n, (ms, c) in top])
+    emit("trace", **out)
+
+
+def phase_table4(dev) -> None:
+    from repro_torch.core import cv
+    data = np.load(ROOT / "tests" / "data" / "torch_table4.npz")
+    folds = cv.make_folds(data["x"], data["y"], int(data["k"]), device=dev)
+    lams = torch.as_tensor(data["lams"], device=dev)
+    r_pi = cv.cv_picholesky(folds, lams, g=int(data["g"]),
+                            block=int(data["block"]), backend="cuda",
+                            device=dev)
+    r_ex = cv.cv_exact_cholesky(folds, lams, backend="cuda", device=dev)
+    out = {}
+    for tag, r in (("picholesky", r_pi), ("exact", r_ex)):
+        ref_err = data[f"errors_{tag}"]
+        out[tag] = dict(
+            argmin=int(np.argmin(r.errors)), argmin_jax=int(data[f"i_{tag}"]),
+            curve_rel_err=float(np.max(np.abs(r.errors - ref_err)
+                                       / np.abs(ref_err))), tol=TABLE4_TOL)
+        if out[tag]["argmin"] != out[tag]["argmin_jax"]:
+            raise AssertionError(f"table4 {tag}: λ* index differs from the "
+                                 f"JAX reference: {out[tag]}")
+        if out[tag]["curve_rel_err"] > TABLE4_TOL:
+            raise AssertionError(f"table4 {tag}: curve differs from the JAX "
+                                 f"reference by more than {TABLE4_TOL}: "
+                                 f"{out[tag]}")
+    emit("table4", **out)
+
+
+def main() -> None:
+    dev_info = phase_device()
+    dev = torch.device("cuda")
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    phase_build()
+    folds, lams = main_inputs(dev)
+    kern = phase_kernels(dev, folds, lams, dev_info["peaks"])
+    launches = phase_main(dev, folds, lams)
+    phase_trace(dev, folds, lams)
+    phase_table4(dev)
+    rows = []
+    for name in ("pack_tril", "cholesky_blocked", "solve_lower_blocked",
+                 "interp_solve"):
+        r = kern[name]
+        by_path = {tag: n[name] for tag, n in launches.items()}
+        rows.append(dict(name=name, route="cuda", source=SOURCES[name],
+                         replaces=REPLACES[name],
+                         launches=sum(by_path.values()),
+                         launches_by_path=by_path,
+                         max_abs_err=r["max_abs_err"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"],
+                         library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_info["name"],
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

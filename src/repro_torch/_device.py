@@ -1,0 +1,26 @@
+"""Device resolution shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device.  A CUDA request without a CUDA device
+    raises instead of quietly running on the CPU; the CPU runs only when
+    the caller asks for it.
+
+    On CUDA, float32 matrix products and convolutions are pinned to full
+    float32 (TF32 off), so a float32 run on the card rounds like float32
+    everywhere and not like TF32 in some places.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev

@@ -1,0 +1,9 @@
+"""Core of the port: packing, precision, backends, piCholesky, solvers,
+folds, the CV engine and its drivers."""
+from .cv import cv_exact_cholesky, cv_picholesky
+from .engine import CVEngine, make_strategy
+from .folds import CVResult, FoldData, holdout_nrmse, make_folds
+
+__all__ = ["CVEngine", "make_strategy", "CVResult", "FoldData",
+           "holdout_nrmse", "make_folds", "cv_exact_cholesky",
+           "cv_picholesky"]

@@ -1,0 +1,216 @@
+"""Linear-algebra backend selection — the single ``backend=`` switch.
+
+Each hot spot of the factor pipeline (factorize, triangular solve, pack,
+fused interpolant solve) has two implementations behind one object:
+
+* :class:`ReferenceBackend` (``"reference"``) — plain ``torch.linalg``,
+  correct on every device;
+* :class:`CudaBackend` (``"cuda"``) — the hand-written CUDA kernels of
+  :mod:`repro_torch.kernels`.  Given CUDA tensors its methods launch those
+  kernels and nothing else (no cuSOLVER/cuBLAS factorization or triangular
+  solve); given CPU tensors the kernel wrappers run their plain versions,
+  which is how the CPU tests drive this backend.
+
+:func:`resolve_backend` maps ``"auto"`` to ``cuda`` on a CUDA device and to
+``reference`` on the CPU.  Every backend carries the pipeline's
+:class:`~repro_torch.core.precision.PrecisionPolicy`.  Leading dimensions
+of every argument are batch dimensions (folds, λs).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+from .precision import PRESETS, PrecisionLike, PrecisionPolicy, \
+    resolve_precision
+
+__all__ = ["LinalgBackend", "ReferenceBackend", "CudaBackend",
+           "resolve_backend", "BackendLike"]
+
+
+class LinalgBackend:
+    """Interface shared by both backends."""
+
+    name: str = "abstract"
+    precision: PrecisionPolicy = PRESETS["native"]
+
+    def with_precision(self, policy: PrecisionPolicy) -> "LinalgBackend":
+        return dataclasses.replace(self, precision=policy)
+
+    def cholesky(self, a: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def solve_lower(self, l: torch.Tensor, b: torch.Tensor, *,
+                    transpose: bool = False) -> torch.Tensor:
+        raise NotImplementedError
+
+    def solve_from_factor(self, l, g: torch.Tensor) -> torch.Tensor:
+        """L Lᵀ θ = g by forward + back substitution; ``l`` may be dense or
+        a :class:`~repro_torch.core.packing.PackedFactor`."""
+        from .packing import PackedFactor
+        if isinstance(l, PackedFactor):
+            return self.solve_packed(l, g)
+        w = self.solve_lower(l, g)
+        return self.solve_lower(l, w, transpose=True)
+
+    def pack_tril(self, mat: torch.Tensor, block: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def solve_packed(self, pf, g: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def interp_solve(self, theta: torch.Tensor, lams: torch.Tensor,
+                     g: torch.Tensor, *, h: int, block: int, center=0.0,
+                     rhs_per_lam: bool = False) -> torch.Tensor:
+        """Fused interpolant evaluation + substitution at a λ chunk:
+        theta (…, r+1, P), g (…, h[, m]) → (…, q, h[, m])."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceBackend(LinalgBackend):
+    """``torch.linalg`` path, on any device."""
+
+    name: str = "reference"
+    precision: PrecisionPolicy = PRESETS["native"]
+
+    def cholesky(self, a):
+        return torch.linalg.cholesky(
+            a.to(self.precision.accum_dtype(a.dtype)))
+
+    def solve_lower(self, l, b, *, transpose=False):
+        l = l.to(self.precision.accum_dtype(l.dtype))
+        squeeze = b.ndim == l.ndim - 1
+        b2 = (b[..., None] if squeeze else b).to(l.dtype)
+        if transpose:
+            out = torch.linalg.solve_triangular(l.mT, b2, upper=True)
+        else:
+            out = torch.linalg.solve_triangular(l, b2, upper=False)
+        return out[..., 0] if squeeze else out
+
+    def pack_tril(self, mat, block):
+        from . import packing
+        return packing.pack_tril(mat, block)
+
+    def solve_packed(self, pf, g):
+        from . import packing
+        ad = self.precision.accum_dtype(pf.vec.dtype)
+        return packing.solve_packed_ref(pf.vec, g.to(ad), pf.h, pf.block,
+                                        accum_dtype=ad)
+
+    def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
+                     rhs_per_lam=False):
+        from . import packing, picholesky
+        ad = self.precision.accum_dtype(theta.dtype)
+        model = picholesky.PiCholesky(
+            theta=theta, center=torch.as_tensor(center, dtype=ad,
+                                                device=theta.device),
+            h=h, block=block)
+        vecs = model.eval_packed(lams.reshape(-1))      # (…, q, P)
+        lead = theta.shape[:-2]
+        q = vecs.shape[-2]
+        if not rhs_per_lam:
+            extra = g.shape[len(lead):]
+            g = g.unsqueeze(len(lead)).expand(*lead, q, *extra)
+        return packing.solve_packed_ref(vecs, g.to(ad), h, block,
+                                        accum_dtype=ad)
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaBackend(LinalgBackend):
+    """The hand-written CUDA kernels: blocked Cholesky, blocked trsm, tile
+    pack and the fused Horner + packed substitution.
+
+    ``chol_block`` / ``trsm_block`` are the kernel tile sizes; the packed
+    layout block is carried by the data.  Runs the policies whose compute
+    dtype is the accumulation dtype (``native``, ``fp32``, ``fp64``).
+    """
+
+    name: str = "cuda"
+    chol_block: int = 128
+    trsm_block: int = 128
+    precision: PrecisionPolicy = PRESETS["native"]
+
+    def __post_init__(self):
+        p = self.precision
+        if p.refine_iters or any(
+                d in ("bfloat16", "float16")
+                for d in (p.store, p.compute, p.accum, p.fit)):
+            raise NotImplementedError(
+                f"the cuda backend runs the native, fp32 and fp64 policies; "
+                f"{p.name!r} (16-bit storage/compute, refinement) is queued "
+                "in ROADMAP.md queue 1 item 7")
+
+    def _accum(self, t):
+        return t.to(self.precision.accum_dtype(t.dtype)).contiguous()
+
+    def cholesky(self, a):
+        from repro_torch.kernels.chol_blocked import cholesky_blocked
+        return cholesky_blocked(self._accum(a), self.chol_block)
+
+    def solve_lower(self, l, b, *, transpose=False, inv_diag=None):
+        from repro_torch.kernels.trsm import solve_lower_blocked
+        l = self._accum(l)
+        return solve_lower_blocked(l, b.to(l.dtype).contiguous(),
+                                   self.trsm_block, transpose=transpose,
+                                   inv_diag=inv_diag)
+
+    def solve_from_factor(self, l, g):
+        from .packing import PackedFactor
+        from repro_torch.kernels.ref import dense_diag_inverses
+        if isinstance(l, PackedFactor):
+            return self.solve_packed(l, g)
+        l = self._accum(l)
+        inv = dense_diag_inverses(l, self.trsm_block)   # for both sweeps
+        w = self.solve_lower(l, g, inv_diag=inv)
+        return self.solve_lower(l, w, transpose=True, inv_diag=inv)
+
+    def pack_tril(self, mat, block):
+        from repro_torch.kernels.tri_pack import pack_tril
+        return pack_tril(mat.contiguous(), block)
+
+    def solve_packed(self, pf, g):
+        raise NotImplementedError(
+            "the packed trsm kernel (src/repro/kernels/packed_trsm.py) is "
+            "not ported yet; see ROADMAP.md queue 2")
+
+    def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
+                     rhs_per_lam=False):
+        from repro_torch.kernels.poly_interp import interp_solve
+        ad = self.precision.accum_dtype(theta.dtype)
+        return interp_solve(theta.to(ad).contiguous(), lams, g, h, block,
+                            center=center, rhs_per_lam=rhs_per_lam)
+
+
+BackendLike = Union[None, str, LinalgBackend]
+
+
+def resolve_backend(backend: BackendLike = None, *, block: int | None = None,
+                    precision: PrecisionLike = None,
+                    device=None) -> LinalgBackend:
+    """Map a ``backend=`` argument to a :class:`LinalgBackend`.
+
+    ``None`` / ``"auto"`` is ``"cuda"`` on a CUDA device (``device=None``
+    means the CUDA device) and ``"reference"`` on the CPU.  ``block`` sizes
+    both kernel tiles.  A backend instance keeps its own policy unless
+    ``precision`` is given.
+    """
+    if isinstance(backend, LinalgBackend):
+        if precision is not None:
+            pol = resolve_precision(precision)
+            if pol != backend.precision:
+                backend = backend.with_precision(pol)
+        return backend
+    pol = resolve_precision(precision)
+    if backend is None or backend == "auto":
+        dev = torch.device("cuda" if device is None else device)
+        backend = "cuda" if dev.type == "cuda" else "reference"
+    if backend in ("reference", "ref"):
+        return ReferenceBackend(precision=pol)
+    if backend == "cuda":
+        return CudaBackend(chol_block=block or 128, trsm_block=block or 128,
+                           precision=pol)
+    raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
+                     "'cuda', 'reference', or a LinalgBackend")

@@ -1,0 +1,76 @@
+"""Synthetic ridge data: the JAX package's construction on a
+``torch.Generator``.
+
+Two-class Gaussian-mixture data pushed through the Kar–Karnick random
+polynomial feature map, with labels from a planted linear model plus noise
+(the regime where the hold-out curve has an interior optimum in λ).  The
+random stream differs from ``jax.random``, so the same seed gives other
+numbers than the JAX package; parity tests feed both packages the same
+arrays instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from .._device import resolve_device
+
+__all__ = ["make_classification", "random_polynomial_features",
+           "make_regression_dataset"]
+
+
+def make_classification(gen: torch.Generator, n: int, raw_dim: int, *,
+                        class_sep: float = 1.0, dtype=torch.float32,
+                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Balanced two-class Gaussian mixture; labels in {−1, +1}."""
+    mu = torch.randn(raw_dim, generator=gen, dtype=dtype, device=device
+                     ) * class_sep / math.sqrt(raw_dim)
+    half = n // 2
+    x = torch.randn(2 * half, raw_dim, generator=gen, dtype=dtype,
+                    device=device)
+    x[:half] += mu
+    x[half:] -= mu
+    y = torch.cat([torch.ones(half, dtype=dtype, device=device),
+                   -torch.ones(half, dtype=dtype, device=device)])
+    perm = torch.randperm(2 * half, generator=gen, device=device)
+    return x[perm], y[perm]
+
+
+def random_polynomial_features(gen: torch.Generator, x: torch.Tensor,
+                               out_dim: int, degree: int = 2, *,
+                               add_intercept: bool = True) -> torch.Tensor:
+    """Kar–Karnick random features for (x·z + 1)^p: each feature is
+    ∏_{t≤p} (ω_tᵀ[1; x]) with Rademacher ω, scaled by 1/√out_dim, plus an
+    intercept column."""
+    n, d = x.shape
+    x1 = torch.cat([torch.ones(n, 1, dtype=x.dtype, device=x.device), x],
+                   dim=1)
+    feats = torch.ones(n, out_dim, dtype=x.dtype, device=x.device)
+    for _ in range(degree):
+        omega = torch.randint(0, 2, (d + 1, out_dim), generator=gen,
+                              device=x.device).to(x.dtype) * 2 - 1
+        feats = feats * (x1 @ omega)
+    feats = feats / math.sqrt(out_dim)
+    if add_intercept:
+        feats = torch.cat([feats, torch.ones(n, 1, dtype=x.dtype,
+                                             device=x.device)], dim=1)
+    return feats
+
+
+def make_regression_dataset(n: int, h: int, *, seed: int = 0,
+                            raw_dim: int = 64, noise: float = 1.0,
+                            signal_scale: float = 3.0, dtype=torch.float32,
+                            device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n, h) features (h includes the intercept) and (n,) labels, made on
+    ``device`` (``None``: the CUDA device) from ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x_raw, _ = make_classification(gen, n, raw_dim, dtype=dtype, device=dev)
+    feats = random_polynomial_features(gen, x_raw, h - 1, add_intercept=True)
+    theta_true = signal_scale * torch.randn(h, generator=gen, dtype=dtype,
+                                            device=dev) / math.sqrt(h)
+    y = feats @ theta_true + noise * torch.randn(n, generator=gen,
+                                                 dtype=dtype, device=dev)
+    return feats, y

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Each wrapper module (``tri_pack``, ``chol_blocked``, ``trsm``,
+``poly_interp``) replaces one Pallas kernel of ``src/repro/kernels``.  A
+wrapper given CPU tensors runs the plain version in :mod:`.ref`; given CUDA
+tensors it launches its kernel, built from ``csrc/`` at first use, or
+raises.  :data:`LAUNCHES` counts the CUDA kernel launches per wrapper.
+"""
+from ._build import LAUNCHES, build_all, reset_launches
+
+__all__ = ["LAUNCHES", "build_all", "reset_launches"]

@@ -1,0 +1,162 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface and loaded with :mod:`ctypes`; no PyTorch header
+is compiled.  Sources are built at first use, into
+``build/repro_torch_kernels/`` at the root of the checkout, under a name
+that carries a hash of the source, so an edited source is rebuilt and a
+stale library is never loaded.  :func:`build_all` starts one ``nvcc`` per
+source at once and waits for all of them.
+
+Importing this module needs neither ``nvcc`` nor a GPU.
+
+Every C entry point takes its pointers and the CUDA stream as ``void *``
+and returns the ``cudaError_t`` of its launches; :func:`check` raises on a
+non-zero code.  :data:`LAUNCHES` counts, per wrapper, the CUDA kernel
+launches it made (a call that launches several kernels adds each of them;
+a call that failed or took the plain CPU path adds nothing).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "LAUNCHES", "build_all", "load",
+           "check", "check_tensor", "c_function", "count_launch",
+           "reset_launches", "ptr", "stream_ptr", "suffix"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in
+                            ("pack_tril", "cholesky_blocked",
+                             "solve_lower_blocked", "interp_solve")}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    LAUNCHES[name] += n
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built on a machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every missing library, one ``nvcc`` per source started
+    together.  Returns seconds per source built (0.0 when already there);
+    the compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    goes to ``<lib>.log`` beside each library."""
+    out = {n: 0.0 for n in names}
+    missing = [n for n in out if not _target(n).exists()]
+    nvcc = _nvcc() if missing else None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in missing:
+        target = _target(name)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        log = open(target.with_suffix(".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       tmp, target, log, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, log, t0) in procs.items():
+        rc = proc.wait()
+        out[name] = time.perf_counter() - t0
+        log.close()
+        if rc:
+            failed.append(name)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        logs = "\n".join(_target(n).with_suffix(".log").read_text()[-4000:]
+                         for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_tensor(t, what: str, dtype=None) -> None:
+    """The checks every wrapper makes before a launch: a contiguous float32
+    or float64 CUDA tensor (of ``dtype`` when given)."""
+    import torch
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: kernels take float32 or float64, got "
+                        f"{t.dtype}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def suffix(dtype) -> str:
+    import torch
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def c_function(lib_name: str, fn_name: str, argtypes):
+    """``lib_name``'s C entry point with its ctypes signature set (every
+    entry point returns an int error code)."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

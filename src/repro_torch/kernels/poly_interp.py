@@ -1,0 +1,84 @@
+"""Fused Horner evaluation + packed substitution, as a CUDA kernel.
+
+Replaces ``src/repro/kernels/poly_interp.py`` ``interp_solve`` (the Pallas
+call ``_interp_sweep`` at ``:195``, body ``_make_solve_kernel`` ``:109``):
+for every λ of a chunk and every fold, solve ``L(λ) L(λ)ᵀ θ = g`` with the
+off-diagonal tiles of L(λ) Horner-evaluated from Θ inside the substitution
+walk, so no L(λ) is ever written to device memory.  One block per
+(λ, fold, RHS column) runs the forward and the reverse sweep; the diagonal
+tiles are Horner-evaluated and inverted outside the kernel, as at
+``poly_interp.py:247-255``.  Bound by bytes (Θ); see
+``csrc/poly_interp.cu``.  ``interp_factors`` (``:97``) is not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core import packing
+
+from . import _build, ref
+
+__all__ = ["interp_solve"]
+
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def interp_solve(theta: torch.Tensor, lams: torch.Tensor, g: torch.Tensor,
+                 h: int, block: int = 128, *, center=0.0,
+                 rhs_per_lam: bool = False) -> torch.Tensor:
+    """Solve L(λ) L(λ)ᵀ θ = g at every λ without materializing any L(λ).
+
+    ``theta``: (…, r+1, P) packed coefficients (leading dims are folds);
+    ``lams``: (q,); ``g``: (…, h) or (…, h, m) shared over λ — or, with
+    ``rhs_per_lam``, (…, q, h) / (…, q, h, m).  Returns (…, q, h) (or
+    (…, q, h, m)) at Θ's dtype.  λ − center is cast to Θ's dtype before
+    Horner.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel.
+    """
+    lead = theta.shape[:-2]
+    r1, p_size = theta.shape[-2:]
+    if p_size != packing.packed_size(h, block):
+        raise ValueError(f"interp_solve: theta last dim {p_size} != "
+                         f"packed_size({h}, {block})")
+    nt = packing.num_tiles(h, block)
+    hp = nt * block
+    n = math.prod(lead)
+    dt = theta.dtype
+    lams = lams.reshape(-1)
+    q = lams.shape[0]
+    squeeze = g.ndim == len(lead) + (2 if rhs_per_lam else 1)
+    g2 = (g[..., None] if squeeze else g).to(dt)
+    g2 = torch.nn.functional.pad(g2, (0, 0, 0, hp - h))
+    g2 = g2.reshape(n, q, hp, -1) if rhs_per_lam else g2.reshape(n, hp, -1)
+    th = theta.reshape(n, r1, p_size)
+    x = lams.to(dt) - torch.as_tensor(center, dtype=dt, device=theta.device)
+    inv = ref.interp_diag_inverses(th, x, h, block)
+
+    if theta.device.type == "cpu":
+        out = ref.interp_solve(th, x, inv, g2, h, block)
+    else:
+        for t, what in ((th, "theta"), (x, "lams"), (inv, "inverses"),
+                        (g2, "rhs")):
+            _build.check_tensor(t, f"interp_solve {what}", dt)
+        if block > 256:
+            raise ValueError(f"interp_solve: block {block} > 256")
+        nrhs = g2.shape[-1]
+        pmap = torch.as_tensor(packing.tile_pos_map(h, block),
+                               device=theta.device)
+        out = torch.empty((n, q, hp, nrhs), dtype=dt, device=theta.device)
+        if n and q and nrhs:
+            fn = _build.c_function("poly_interp",
+                                   f"rt_interp_solve_{_build.suffix(dt)}",
+                                   _ARGS)
+            rc = fn(_build.ptr(th), _build.ptr(x), _build.ptr(inv),
+                    _build.ptr(g2), _build.ptr(pmap), _build.ptr(out), n, q,
+                    r1 - 1, nt, block, p_size, nrhs, int(rhs_per_lam),
+                    _build.stream_ptr(theta.device))
+            _build.check(rc, "interp_solve")
+            _build.count_launch("interp_solve")
+    out = out[:, :, :h].reshape(*lead, q, h, -1)
+    return out[..., 0] if squeeze else out

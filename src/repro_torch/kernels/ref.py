@@ -1,0 +1,180 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+The plain version of ``pack_tril`` is
+:func:`repro_torch.core.packing.pack_tril`.
+
+Each function computes what its kernel computes, with the kernel's
+algorithm written as tensor operations (blocked loops where the kernel
+walks tiles), on any device.  The wrappers call these for CPU tensors, the
+CPU tests hold them against the JAX package, and ``chip_smoke.py`` holds
+each kernel against its plain version on the card.  They are oracles, not
+yardsticks of speed.
+
+The diagonal-tile helpers (:func:`dense_diag_inverses`,
+:func:`interp_diag_inverses`) are shared with the wrappers: the diagonal
+inverses are computed outside the kernels, as the JAX package computes
+them outside Pallas.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import packing
+
+__all__ = ["cholesky_blocked", "solve_lower_blocked", "interp_solve",
+           "dense_diag_inverses", "interp_diag_inverses"]
+
+
+def _identity_padded(a: torch.Tensor, block: int) -> torch.Tensor:
+    """Copy of ``a`` (…, h, h) padded to a tile multiple, identity on the
+    padded diagonal (keeps the padded factor finite and nonsingular)."""
+    h = a.shape[-1]
+    hp = packing.num_tiles(h, block) * block
+    out = a.new_zeros((*a.shape[:-2], hp, hp))
+    out[..., :h, :h] = a
+    idx = torch.arange(h, hp, device=a.device)
+    out[..., idx, idx] = 1
+    return out
+
+
+def _potf2(a: torch.Tensor) -> torch.Tensor:
+    """Unblocked Cholesky of (…, B, B) tiles (lower triangle read)."""
+    a = a.clone()
+    for k in range(a.shape[-1]):
+        piv = torch.sqrt(a[..., k, k])
+        col = a[..., k + 1:, k] / piv[..., None]
+        a[..., k, k] = piv
+        a[..., k + 1:, k] = col
+        a[..., k + 1:, k + 1:] -= col[..., :, None] * col[..., None, :]
+    return torch.tril(a)
+
+
+def _inv_lower(l: torch.Tensor) -> torch.Tensor:
+    """X with L X = I by row-wise forward substitution."""
+    b = l.shape[-1]
+    x = torch.zeros_like(l)
+    for k in range(b):
+        s = (l[..., k:k + 1, :k] @ x[..., :k, :])[..., 0, :]
+        e = torch.zeros(b, dtype=l.dtype, device=l.device)
+        e[k] = 1
+        x[..., k, :] = (e - s) / l[..., k, k, None]
+    return x
+
+
+def cholesky_blocked(a: torch.Tensor, block: int) -> torch.Tensor:
+    """Blocked right-looking Cholesky of SPD (…, h, h) → lower (…, h, h):
+    per tile column, potf2 and inversion of the diagonal tile, the panel as
+    a product with the inverse, then the trailing update."""
+    h = a.shape[-1]
+    nt = packing.num_tiles(h, block)
+    out = _identity_padded(a, block)
+    for j in range(nt):
+        lo, hi = j * block, (j + 1) * block
+        l11 = _potf2(out[..., lo:hi, lo:hi])
+        out[..., lo:hi, lo:hi] = l11
+        if j + 1 < nt:
+            sub = out[..., hi:, lo:hi] @ _inv_lower(l11).mT
+            out[..., hi:, lo:hi] = sub
+            out[..., hi:, hi:] -= sub @ sub.mT
+    return torch.tril(out[..., :h, :h])
+
+
+def dense_diag_inverses(l: torch.Tensor, block: int) -> torch.Tensor:
+    """(…, nt, B, B) inverses of the diagonal tiles of dense lower factors
+    (…, h, h), the last one identity-padded when h % B ≠ 0."""
+    h = l.shape[-1]
+    nt = packing.num_tiles(h, block)
+    diag = l.new_zeros((*l.shape[:-2], nt, block, block))
+    for k in range(nt):
+        lo, hi = k * block, min((k + 1) * block, h)
+        diag[..., k, :hi - lo, :hi - lo] = l[..., lo:hi, lo:hi]
+    diag[..., nt - 1, :, :] += torch.as_tensor(
+        packing._identity_tail(h, block), dtype=l.dtype, device=l.device)
+    return packing.invert_diag_tiles(diag).contiguous()
+
+
+def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
+                        transpose: bool = False,
+                        inv_diag: torch.Tensor | None = None) -> torch.Tensor:
+    """Blocked ``L w = g`` (or ``Lᵀ w = g``): l (…, h, h), g (…, h, q) →
+    (…, h, q).  Per tile row, the row panel over the solved columns times
+    the solved segment, then the pre-inverted diagonal tile."""
+    h = l.shape[-1]
+    nt = packing.num_tiles(h, block)
+    hp = nt * block
+    if inv_diag is None:
+        inv_diag = dense_diag_inverses(l, block)
+    lp = _identity_padded(l, block)
+    gp = torch.nn.functional.pad(g, (0, 0, 0, hp - h))
+    w = torch.zeros_like(gp)
+    for step in range(nt):
+        i = nt - 1 - step if transpose else step
+        lo, hi = i * block, (i + 1) * block
+        if transpose:
+            s = lp[..., hi:, lo:hi].mT @ w[..., hi:, :]
+            inv = inv_diag[..., i, :, :].mT
+        else:
+            s = lp[..., lo:hi, :lo] @ w[..., :lo, :]
+            inv = inv_diag[..., i, :, :]
+        w[..., lo:hi, :] = inv @ (gp[..., lo:hi, :] - s)
+    return w[..., :h, :]
+
+
+def interp_diag_inverses(theta: torch.Tensor, x: torch.Tensor, h: int,
+                         block: int) -> torch.Tensor:
+    """Horner-evaluated, identity-padded and inverted diagonal tiles of the
+    interpolated factors: theta (n, r+1, P), x (q,) → (n, q, nt, B, B), at
+    Θ's dtype."""
+    degree = theta.shape[-2] - 1
+    nt = packing.num_tiles(h, block)
+    starts = torch.as_tensor(packing.column_starts(h, block).astype("int64"),
+                             device=theta.device)
+    coeff = theta.reshape(theta.shape[0], degree + 1, -1, block, block
+                          ).index_select(2, starts)      # (n, r+1, nt, B, B)
+    xs = x.to(theta.dtype)[None, :, None, None, None]
+    diag = coeff[:, degree, None].expand(-1, x.shape[0], -1, -1, -1)
+    for k in range(degree - 1, -1, -1):
+        diag = diag * xs + coeff[:, k, None]
+    tail = packing._identity_tail(h, block)
+    if tail.any():
+        diag = diag.clone()
+        diag[:, :, nt - 1] += torch.as_tensor(tail, dtype=diag.dtype,
+                                              device=diag.device)
+    return packing.invert_diag_tiles(diag).contiguous()
+
+
+def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
+                 g: torch.Tensor, h: int, block: int) -> torch.Tensor:
+    """The fused sweep: theta (n, r+1, P), x (q,) λ−center, inv_diag
+    (n, q, nt, B, B), g (n, hp, m) shared or (n, q, hp, m) per λ →
+    (n, q, hp, m).  Each off-diagonal tile is Horner-evaluated as the walk
+    needs it; the forward sweep is followed by the reverse (Lᵀ) sweep."""
+    n, r1, _ = theta.shape
+    degree = r1 - 1
+    nt = packing.num_tiles(h, block)
+    pmap = packing.tile_pos_map(h, block)
+    tiles = theta.reshape(n, r1, -1, block, block)
+    xs = x.to(theta.dtype)[None, :, None, None]
+
+    def tile(p):                                   # (n, q, B, B)
+        v = tiles[:, degree, p, None]
+        for k in range(degree - 1, -1, -1):
+            v = v * xs + tiles[:, k, p, None]
+        return v
+
+    q = x.shape[0]
+    g = g if g.ndim == 4 else g[:, None].expand(-1, q, -1, -1)
+    w = g.new_zeros(g.shape)
+    for i in range(nt):
+        lo, hi = i * block, (i + 1) * block
+        acc = torch.zeros_like(g[..., lo:hi, :])
+        for t in range(i):
+            acc = acc + tile(int(pmap[i, t])) @ w[..., t * block:(t + 1) * block, :]
+        w[..., lo:hi, :] = inv_diag[:, :, i] @ (g[..., lo:hi, :] - acc)
+    for i in range(nt - 1, -1, -1):
+        lo, hi = i * block, (i + 1) * block
+        acc = torch.zeros_like(g[..., lo:hi, :])
+        for t in range(i + 1, nt):
+            acc = acc + tile(int(pmap[t, i])).mT @ w[..., t * block:(t + 1) * block, :]
+        w[..., lo:hi, :] = inv_diag[:, :, i].mT @ (w[..., lo:hi, :] - acc)
+    return w

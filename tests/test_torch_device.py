@@ -1,0 +1,105 @@
+"""Device rules of the port: entry points run on the CUDA device unless
+asked for the CPU, and the port never imports JAX or the JAX package."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import backends, cv, engine, precision  # noqa: E402
+from repro_torch.data import make_regression_dataset  # noqa: E402
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+
+
+def _folds():
+    rng = np.random.default_rng(0)
+    return cv.make_folds(rng.standard_normal((40, 8)),
+                         rng.standard_normal(40), 4, device="cpu")
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: cv.make_folds(np.ones((8, 2)), np.ones(8), 2),
+    lambda: engine.CVEngine("picholesky"),
+    lambda: cv.cv_picholesky(_folds(), np.logspace(-2, 1, 5), block=8),
+    lambda: cv.cv_exact_cholesky(_folds(), np.logspace(-2, 1, 5)),
+    lambda: make_regression_dataset(16, 8),
+], ids=["make_folds", "CVEngine", "cv_picholesky", "cv_exact_cholesky",
+        "make_regression_dataset"])
+def test_default_device_is_cuda_and_raises_without_it(entry):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_cpu_when_asked():
+    x, y = make_regression_dataset(60, 8, seed=3, dtype=torch.float64,
+                                   device="cpu")
+    assert x.shape == (60, 8) and y.shape == (60,) and x.device.type == "cpu"
+    assert torch.all(x[:, -1] == 1)          # intercept column
+    res = cv.cv_picholesky(cv.make_folds(x, y, 3, device="cpu"),
+                           np.logspace(-2, 1, 7), block=8, device="cpu")
+    assert res.extras["engine"]["backend"] == "reference"
+    assert res.extras["engine"]["device"] == "cpu"
+
+
+def test_auto_backend_follows_device():
+    assert backends.resolve_backend("auto", device="cpu").name == "reference"
+    assert backends.resolve_backend("auto", device="cuda").name == "cuda"
+    assert backends.resolve_backend(None).name == "cuda"
+    bk = backends.resolve_backend("cuda", block=32)
+    assert (bk.chol_block, bk.trsm_block) == (32, 32)
+    with pytest.raises(ValueError, match="unknown backend"):
+        backends.resolve_backend("pallas")
+
+
+@pytest.mark.parametrize("policy", ["bf16_store", "bf16_refined"])
+def test_cuda_backend_refuses_16_bit_policies(policy):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        backends.resolve_backend("cuda", precision=policy)
+
+
+def test_precision_presets_match_reference():
+    from repro.core import precision as jprec
+    for name, pol in precision.PRESETS.items():
+        jpol = jprec.PRESETS[name]
+        for role in ("store", "compute", "accum", "fit", "refine_iters"):
+            assert getattr(pol, role) == getattr(jpol, role)
+        for dt in ("float32", "float64"):
+            for role in ("store", "compute", "accum", "fit"):
+                want = str(getattr(jpol, f"{role}_dtype")(dt))
+                got = str(getattr(pol, f"{role}_dtype")(dt))
+                assert got == f"torch.{want}"
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import sys, json, repro_torch, repro_torch.core.cv, "
+            "repro_torch.convert, repro_torch.data, repro_torch.kernels.ref, "
+            "repro_torch.kernels.tri_pack, repro_torch.kernels.chol_blocked, "
+            "repro_torch.kernels.trsm, repro_torch.kernels.poly_interp; "
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout
+    mods = json.loads(out.strip().splitlines()[-1])
+    bad = [m for m in mods if m == "jax" or m.startswith("jax.")
+           or m == "repro" or m.startswith("repro.")]
+    assert bad == []
+    assert "repro_torch.core.cv" in mods
+
+
+def test_chip_smoke_imports_no_jax():
+    root = SRC.parent
+    text = (root / "chip_smoke.py").read_text()
+    assert "import jax" not in text and "from repro." not in text \
+        and "import repro." not in text
