@@ -27,7 +27,19 @@ from .precision import PRESETS, PrecisionLike, PrecisionPolicy, \
     resolve_precision
 
 __all__ = ["LinalgBackend", "ReferenceBackend", "CudaBackend",
-           "resolve_backend", "BackendLike"]
+           "resolve_backend", "BackendLike", "shared_rhs"]
+
+
+def shared_rhs(pf, g: torch.Tensor) -> torch.Tensor:
+    """The right-hand side of a packed solve, ``g`` (h,) or (h, m), shared
+    by every factor of the batch ``pf.vec`` (…, P): expanded (a view) to
+    (…, h[, m]), as the reference batches ``solve_packed`` with
+    ``vmap(in_axes=(0, None))``."""
+    if g.ndim not in (1, 2) or g.shape[0] != pf.h:
+        raise ValueError(
+            f"solve_packed: g must be (h,) or (h, m) with h={pf.h}, shared "
+            f"by every factor of the batch; got {tuple(g.shape)}")
+    return g.expand(*pf.vec.shape[:-1], *g.shape)
 
 
 class LinalgBackend:
@@ -59,6 +71,9 @@ class LinalgBackend:
         raise NotImplementedError
 
     def solve_packed(self, pf, g: torch.Tensor) -> torch.Tensor:
+        """L Lᵀ θ = g on tile-packed factor(s) ``pf.vec`` (…, P) with one
+        ``g`` (h,) or (h, m) shared by the batch → (…, h[, m]) at the
+        accumulation dtype."""
         raise NotImplementedError
 
     def interp_solve(self, theta: torch.Tensor, lams: torch.Tensor,
@@ -97,8 +112,8 @@ class ReferenceBackend(LinalgBackend):
     def solve_packed(self, pf, g):
         from . import packing
         ad = self.precision.accum_dtype(pf.vec.dtype)
-        return packing.solve_packed_ref(pf.vec, g.to(ad), pf.h, pf.block,
-                                        accum_dtype=ad)
+        return packing.solve_packed_ref(pf.vec, shared_rhs(pf, g).to(ad),
+                                        pf.h, pf.block, accum_dtype=ad)
 
     def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
                      rhs_per_lam=False):

@@ -36,5 +36,5 @@ def cv_picholesky(folds: FoldData, lams, g: int = 4, degree: int = 2, *,
     result = eng.run(folds, lams)
     lams = np.asarray(result.lams)
     result.extras["sample_lams"] = picholesky.choose_sample_lambdas(
-        float(lams[0]), float(lams[-1]), g).numpy()
+        float(lams[0]), float(lams[-1]), g, device="cpu").numpy()
     return result

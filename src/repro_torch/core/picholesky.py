@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from .._device import resolve_device
 from . import packing
 from .backends import BackendLike, resolve_backend
 
@@ -33,8 +34,9 @@ def choose_sample_lambdas(lo, hi, g: int, spacing: str = "log", *,
     """The g sample shifts spanning [lo, hi]: ``logspace(log10 lo,
     log10 hi, g)`` (or evenly spaced), computed in ``dtype`` with the same
     arithmetic as ``jnp.linspace`` — ``start·(1−s) + stop·s`` with the last
-    node set to ``stop`` exactly — and ``log10 x = log x / log 10``."""
-    lo = torch.as_tensor(lo, dtype=dtype, device=device)
+    node set to ``stop`` exactly — and ``log10 x = log x / log 10``.
+    ``device=None`` is the CUDA device."""
+    lo = torch.as_tensor(lo, dtype=dtype, device=resolve_device(device))
     hi = torch.as_tensor(hi, dtype=dtype, device=lo.device)
     if spacing == "log":
         ten = torch.tensor(10.0, dtype=dtype, device=lo.device)

@@ -120,10 +120,11 @@ def test_vandermonde_and_sample_lambdas_match():
         np.asarray(jpi.vandermonde(jnp.asarray(lams), 3, 0.5)), rtol=1e-15)
     for lo, hi, g in ((1e-3, 1e2, 4), (1e-3, 1.0, 5), (0.2, 0.3, 2)):
         np.testing.assert_allclose(
-            tpi.choose_sample_lambdas(lo, hi, g).numpy(),
+            tpi.choose_sample_lambdas(lo, hi, g, device="cpu").numpy(),
             np.asarray(jpi.choose_sample_lambdas(lo, hi, g)), rtol=4e-15)
         np.testing.assert_allclose(
-            tpi.choose_sample_lambdas(lo, hi, g, "linear").numpy(),
+            tpi.choose_sample_lambdas(lo, hi, g, "linear",
+                                      device="cpu").numpy(),
             np.asarray(jpi.choose_sample_lambdas(lo, hi, g, "linear")),
             rtol=4e-15)
 
