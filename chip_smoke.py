@@ -20,9 +20,23 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               set to 0 just before each sweep and read just after it: each
               kernel of that sweep must have launched, and no other; wall
               times of both (in turns, repeated).
-5. trace    — one profiled run of each sweep: device busy time, its share
-              of the wall time, and the kernels that take the most time.
-6. table4   — the λ* indices on ``tests/data/torch_table4.npz`` (made by the
+5. trace    — one profiled run of each sweep and each host driver: device
+              busy time, its share of the wall time, and the kernels that
+              take the most time.
+6. host     — the host-loop drivers (``host_cv_picholesky``,
+              ``host_cv_exact_cholesky``, ``host_cv_pinrmse``: folds one at
+              a time, dense interpolated factors) at the main configuration
+              on ``cuda``, against ``reference`` and against the engine;
+              launch counts as predicted from the loop structure; wall
+              medians of host vs engine.
+7. packed   — the packed anchors unpacked (== the dense anchors exactly),
+              and per fold the interpolated factors kept packed and solved
+              by the packed trsm, against the fused ``interp_solve`` and
+              ``reference`` (1e-10); unpack and the packed trsm counted.
+8. gauss_newton — the damped Gauss–Newton head on the full Hessian: steps
+              inside the fitted damping range and one outside it (clipped),
+              against ``reference`` and a dense solve.
+9. table4   — the λ* indices on ``tests/data/torch_table4.npz`` (made by the
               JAX package) must be reproduced on the ``cuda`` backend, and
               its curves within 1e-9 relative.
 
@@ -55,6 +69,10 @@ MAIN_TOL = 1e-8            # curve of the cuda backend vs the reference one
 TABLE4_TOL = 1e-9          # curve on the card vs the JAX fixture, as the
                            # CPU test tests/test_torch_table4.py holds it
 WALL_REPEATS = 5           # timed sweeps per (strategy, backend)
+HOST_REPEATS = 3           # timed runs per host driver / engine sweep
+PACKED_TOL = 1e-10         # packed route vs fused interp_solve / reference
+GN_TOL = 1e-2              # Gauss–Newton step vs a dense solve, as
+                           # tests/test_optim.py holds the reference
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, FP64 on tensor
 # cores, FP64 and FP32 outside them.  Chosen by the card's name.
@@ -69,7 +87,12 @@ REPLACES = {
     "cholesky_blocked": "src/repro/kernels/chol_blocked.py:115",
     "solve_lower_blocked": "src/repro/kernels/trsm.py:102",
     "interp_solve": "src/repro/kernels/poly_interp.py:195",
+    "unpack_tril": "src/repro/kernels/tri_pack.py:104",
+    "interp_factors": "src/repro/kernels/poly_interp.py:97",
+    "solve_lower_packed": "src/repro/kernels/packed_trsm.py:166",
 }
+# kernels that only move values: they must equal their plain versions
+EXACT_KERNELS = ("pack_tril", "unpack_tril")
 # The kernels each sweep of the main path launches; it launches no other.
 PATH_KERNELS = {
     "picholesky": ("cholesky_blocked", "pack_tril", "interp_solve"),
@@ -80,6 +103,9 @@ SOURCES = {
     "cholesky_blocked": "src/repro_torch/kernels/csrc/chol_blocked.cu",
     "solve_lower_blocked": "src/repro_torch/kernels/csrc/trsm.cu",
     "interp_solve": "src/repro_torch/kernels/csrc/poly_interp.cu",
+    "unpack_tril": "src/repro_torch/kernels/csrc/tri_pack.cu",
+    "interp_factors": "src/repro_torch/kernels/csrc/poly_interp.cu",
+    "solve_lower_packed": "src/repro_torch/kernels/csrc/packed_trsm.cu",
 }
 
 
@@ -159,8 +185,8 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
     """Every kernel against its plain version on one set of inputs; with
     ``timing`` (a peaks dict), also times and bounds."""
     from repro_torch.core import packing, picholesky
-    from repro_torch.kernels import (chol_blocked, poly_interp, ref, trsm,
-                                     tri_pack)
+    from repro_torch.kernels import (chol_blocked, packed_trsm, poly_interp,
+                                     ref, trsm, tri_pack)
     gen = torch.Generator(device=dev).manual_seed(1)
     if folds is not None:
         h_tr = folds.hess[None] - folds.fold_hess
@@ -236,8 +262,42 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
 
     res["interp_solve"] = dict(zip(("max_abs_err", "max_rel_err"),
                                    errors(interp_kernel(), interp_plain())))
+    # unpack_tril: the packed anchor factors back to dense
+    res["unpack_tril"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                  errors(tri_pack.unpack_tril(v_p, h, block),
+                                         packing.unpack_tril(v_p, h, block))))
+    # interp_factors: Θ of every fold at the whole λ grid
+    lam_f = lams if lams is not None else torch.logspace(
+        np.log10(LAM_LO), np.log10(LAM_HI), N_LAMBDAS, dtype=torch.float64,
+        device=dev)
+    x_f = lam_f.to(dtype)
+
+    def factors_kernel():
+        return poly_interp.interp_factors(theta, lam_f, h, block)
+
+    def factors_plain():
+        return ref.interp_factors(theta, x_f, h, block)
+
+    res["interp_factors"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                     errors(factors_kernel(),
+                                            factors_plain())))
+    # packed solve: fold 0's interpolated packed factors at the whole grid,
+    # one shared right-hand side, forward then transposed sweep
+    vecs = picholesky.PiCholesky(theta=theta[0], center=x_f.new_zeros(()),
+                                 h=h, block=block).eval_packed(x_f)
+    g_0 = g_tr[0].expand(vecs.shape[0], h).contiguous()
+
+    def psolve_kernel():
+        return packed_trsm.solve_packed(vecs, g_0, h, block)
+
+    def psolve_plain():
+        return packing.solve_packed_ref(vecs, g_0, h, block)
+
+    res["solve_lower_packed"] = dict(zip(("max_abs_err", "max_rel_err"),
+                                         errors(psolve_kernel(),
+                                                psolve_plain())))
     for name, r in res.items():
-        r["tol_rel"] = 0.0 if name == "pack_tril" else tol
+        r["tol_rel"] = 0.0 if name in EXACT_KERNELS else tol
         r["ok"] = r["max_rel_err"] <= r["tol_rel"]
     if timing is None:
         return res
@@ -278,6 +338,23 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
                    + n_fold * LAM_CHUNK * h) * isz,
             flops=n_fold * LAM_CHUNK * 2.0 * p_size * (2 * DEGREE + 2),
             peak=timing["fp64"]),
+        unpack_tril=dict(
+            kernel=lambda: tri_pack.unpack_tril(v_p, h, block),
+            plain=lambda: packing.unpack_tril(v_p, h, block),
+            library=(lambda: torch.zeros(nb_a, h * h, dtype=dtype, device=dev)
+                     .index_copy_(1, gather_idx, v_p))
+            if h % block == 0 else None,
+            bytes=nb_a * (p_size + h * h) * isz, flops=0.0,
+            peak=timing["fp64"]),
+        interp_factors=dict(
+            kernel=factors_kernel, plain=factors_plain, library=None,
+            bytes=(theta.numel() + n_fold * lam_f.numel() * h * h) * isz,
+            flops=n_fold * lam_f.numel() * tri * 2.0 * DEGREE,
+            peak=timing["fp64"]),
+        solve_lower_packed=dict(
+            kernel=psolve_kernel, plain=psolve_plain, library=None,
+            bytes=(vecs.numel() + h + vecs.shape[0] * h) * isz,
+            flops=vecs.shape[0] * 2 * 2.0 * tri, peak=timing["fp64"]),
     )
     for name, w in work.items():
         t_bytes = w["bytes"] / bw * 1e3
@@ -391,14 +468,29 @@ def phase_main(dev, folds, lams) -> dict:
     return launches
 
 
+def host_drivers(folds, lams) -> dict:
+    """The host-loop drivers at the main configuration, one backend each."""
+    from repro_torch.core import cv_host
+    return {
+        "host_picholesky": lambda bk: cv_host.host_cv_picholesky(
+            folds, lams, g=G_SAMPLES, degree=DEGREE, block=BLOCK, backend=bk),
+        "host_exact": lambda bk: cv_host.host_cv_exact_cholesky(
+            folds, lams, backend=bk),
+        "host_pinrmse": lambda bk: cv_host.host_cv_pinrmse(
+            folds, lams, g=G_SAMPLES, degree=DEGREE, backend=bk),
+    }
+
+
 def phase_trace(dev, folds, lams) -> None:
-    """One profiled run of each sweep on the cuda backend (after a warm
-    run): device busy time (union of kernel intervals), its share of the
-    host wall time, and the kernels that take the most device time."""
+    """One profiled run of each sweep and each host driver on the cuda
+    backend (after a warm run): device busy time (union of kernel
+    intervals), its share of the host wall time, and the kernels that take
+    the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for tag, run in runners(dev, folds, lams).items():
+    paths = {**runners(dev, folds, lams), **host_drivers(folds, lams)}
+    for tag, run in paths.items():
         run("cuda")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -425,6 +517,178 @@ def phase_trace(dev, folds, lams) -> None:
                         top=[dict(name=n, ms=ms, count=c)
                              for n, (ms, c) in top])
     emit("trace", **out)
+
+
+def chol_launches(h: int, block: int) -> int:
+    """CUDA launches of one ``cholesky_blocked`` call: 3·nt − 2."""
+    from repro_torch.core import packing
+    return 3 * packing.num_tiles(h, block) - 2
+
+
+def check_counts(tag: str, counts: dict, expected: dict) -> None:
+    """Every kernel launched exactly as predicted, and no other."""
+    want = {k: expected.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, predicted {want}")
+
+
+def curve_check(tag: str, got, want, other: str) -> dict:
+    """Same λ* index and curves within MAIN_TOL relative."""
+    if got.errors.shape != (N_LAMBDAS,) or not np.isfinite(got.errors).all():
+        raise AssertionError(f"{tag}: curve is not {N_LAMBDAS} finite values")
+    rel = float(np.max(np.abs(got.errors - want.errors)
+                       / np.abs(want.errors)))
+    out = dict(argmin=int(np.argmin(got.errors)),
+               argmin_other=int(np.argmin(want.errors)), other=other,
+               curve_rel_err=rel, tol=MAIN_TOL)
+    if out["argmin"] != out["argmin_other"] or rel > MAIN_TOL:
+        raise AssertionError(f"{tag} disagrees with {other}: {out}")
+    return out
+
+
+def phase_host(dev, folds, lams) -> dict:
+    """The host-loop drivers (one fold at a time, dense interpolated
+    factors) on the cuda backend, each against itself on the reference
+    backend and, for picholesky and exact, against the engine on cuda."""
+    from repro_torch.core import backends
+    chol = chol_launches(H, backends.CudaBackend().chol_block)
+    drivers = host_drivers(folds, lams)
+    # predicted from the loop structure: per fold one Cholesky call (the g
+    # anchors, or the q shifts), one pack, one interp_factors, two trsm
+    exact_counts = dict(cholesky_blocked=K_FOLDS * chol,
+                        solve_lower_blocked=2 * K_FOLDS)
+    expected = {
+        "host_picholesky": dict(exact_counts, pack_tril=K_FOLDS,
+                                interp_factors=K_FOLDS),
+        "host_exact": exact_counts,
+        "host_pinrmse": exact_counts,
+    }
+    engine = runners(dev, folds, lams)
+    engine_of = {"host_picholesky": "picholesky", "host_exact": "exact"}
+    launches, out = {}, {}
+    for tag, run in drivers.items():
+        res, counts = counted(run)
+        check_counts(tag, counts, expected[tag])
+        launches[tag] = counts
+        out[tag] = dict(best_lam=res.best_lam,
+                        reference=curve_check(tag, res, run("reference"),
+                                              "reference backend"))
+        if tag in engine_of:
+            out[tag]["engine"] = curve_check(
+                tag, res, engine[engine_of[tag]]("cuda"), "engine on cuda")
+    walls = {key: [] for key in ("host_picholesky", "engine_picholesky",
+                                 "host_exact", "engine_exact")}
+    for _ in range(HOST_REPEATS):               # in turns
+        for key in walls:
+            kind, tag = key.split("_", 1)
+            fn = drivers[key] if kind == "host" else engine[tag]
+            walls[key].append(_wall(lambda: fn("cuda")))
+    emit("host", h=H, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES, r=DEGREE,
+         block=BLOCK, dtype="float64", launches=launches,
+         launches_predicted=expected, **out, wall_s=walls,
+         wall_s_median={k: float(np.median(v)) for k, v in walls.items()})
+    return launches
+
+
+def phase_packed(dev, folds, lams) -> dict:
+    """The packed-factor route: the packed anchors brought back dense by
+    unpack (they must equal the dense anchors exactly) and, per fold, the
+    interpolated factors at the whole grid kept packed and solved by the
+    packed trsm, against the fused interp_solve and the reference
+    backend."""
+    import dataclasses
+    from repro_torch.core import backends, packing, picholesky, solvers
+    bk = backends.CudaBackend()
+    h_tr = folds.hess[None] - folds.fold_hess
+    g_tr = folds.grad[None] - folds.fold_grad
+    sample = picholesky.choose_sample_lambdas(
+        float(lams[0]), float(lams[-1]), G_SAMPLES, device=dev)
+    eye = torch.eye(H, dtype=torch.float64, device=dev)
+    anchors = bk.cholesky(h_tr[:, None] + sample[:, None, None] * eye)
+    packed_anchors = bk.pack_tril(anchors, BLOCK)
+    model = picholesky.fit(None, sample, DEGREE, block=BLOCK, backend=bk,
+                           factors=packing.PackedFactor(packed_anchors, H,
+                                                        BLOCK))
+    folds_models = [dataclasses.replace(model, theta=model.theta[f])
+                    for f in range(K_FOLDS)]
+
+    def solve(backend):
+        return torch.stack([
+            solvers.solve_packed(m.eval_packed_factor(lams), g_tr[f],
+                                 backend=backend)
+            for f, m in enumerate(folds_models)])
+
+    def packed_route(backend):
+        dense = backends.resolve_backend(backend).unpack_tril(
+            packed_anchors, H, BLOCK)
+        return dense, solve(backend)
+
+    (dense, got), counts = counted(packed_route)
+    check_counts("packed", counts, dict(unpack_tril=1,
+                                        solve_lower_packed=2 * K_FOLDS))
+    if not torch.equal(dense, anchors):
+        raise AssertionError("packed: unpack(pack(L)) differs from L")
+    fused = model.solve(lams, g_tr, backend="cuda")
+    plain = solve("reference")
+    out = {}
+    for other, want in (("interp_solve", fused), ("reference", plain)):
+        err = errors(got, want)
+        out[other] = dict(max_abs_err=err[0], max_rel_err=err[1],
+                          tol=PACKED_TOL)
+        if err[1] > PACKED_TOL:
+            raise AssertionError(f"packed route vs {other}: {out[other]}")
+    ms = dict(packed=timed_ms(lambda: solve("cuda"), 3),
+              interp_solve=timed_ms(
+                  lambda: model.solve(lams, g_tr, backend="cuda"), 3))
+    emit("packed", h=H, k=K_FOLDS, q=N_LAMBDAS, block=BLOCK,
+         dtype="float64", launches=counts, unpack_roundtrip_exact=True,
+         **out, ms=ms)
+    return counts
+
+
+def phase_gauss_newton(dev, folds) -> dict:
+    """The damped Gauss–Newton head on the full Hessian: steps at λs inside
+    the fitted range and one far outside, on cuda against reference and
+    against a dense solve of (H + λI) δ = grad."""
+    from repro_torch.core import backends
+    from repro_torch.optim import damped_gauss_newton_head
+    lam_range, g_samples = (1e-4, 10.0), 6
+    steps = [*np.logspace(-3.5, 0.5, 5), 1e3]
+
+    def run(backend):
+        state, step = damped_gauss_newton_head(
+            folds.hess, lam_range, g_samples=g_samples, degree=DEGREE,
+            block=BLOCK, backend=backend)
+        deltas, used = [], []
+        for lam in steps:
+            delta, state = step(state, folds.grad, float(lam))
+            deltas.append(delta)
+            used.append(float(state.lam))
+        return deltas, used
+
+    (deltas, used), counts = counted(run)
+    check_counts("gauss_newton", counts, dict(
+        cholesky_blocked=chol_launches(H, backends.CudaBackend().chol_block),
+        pack_tril=1, interp_factors=len(steps),
+        solve_lower_blocked=2 * len(steps)))
+    ref_deltas, ref_used = run("reference")
+    eye = torch.eye(H, dtype=torch.float64, device=dev)
+    rows = []
+    for lam, d, r, lam_used in zip(steps, deltas, ref_deltas, used):
+        exact = torch.linalg.solve(folds.hess + lam_used * eye, folds.grad)
+        rows.append(dict(
+            lam=float(lam), lam_used=lam_used,
+            rel_vs_reference=float((d - r).norm() / r.norm()),
+            rel_vs_dense_solve=float((d - exact).norm() / exact.norm())))
+    bad = [r for r in rows if r["rel_vs_reference"] > MAIN_TOL
+           or r["rel_vs_dense_solve"] > GN_TOL
+           or not lam_range[0] <= r["lam_used"] <= lam_range[1]]
+    if bad or used != ref_used or used[-1] != lam_range[1]:
+        raise AssertionError(f"gauss_newton: {bad or used}")
+    emit("gauss_newton", h=H, lam_range=lam_range, g_samples=g_samples,
+         r=DEGREE, block=BLOCK, dtype="float64", launches=counts,
+         steps=rows, tol=dict(vs_reference=MAIN_TOL, vs_dense_solve=GN_TOL))
+    return counts
 
 
 def phase_table4(dev) -> None:
@@ -462,10 +726,12 @@ def main() -> None:
     kern = phase_kernels(dev, folds, lams, dev_info["peaks"])
     launches = phase_main(dev, folds, lams)
     phase_trace(dev, folds, lams)
+    launches.update(phase_host(dev, folds, lams))
+    launches["packed"] = phase_packed(dev, folds, lams)
+    launches["gauss_newton"] = phase_gauss_newton(dev, folds)
     phase_table4(dev)
     rows = []
-    for name in ("pack_tril", "cholesky_blocked", "solve_lower_blocked",
-                 "interp_solve"):
+    for name in REPLACES:
         r = kern[name]
         by_path = {tag: n[name] for tag, n in launches.items()}
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],
@@ -476,6 +742,9 @@ def main() -> None:
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"]))
+    idle = [r["name"] for r in rows if r["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels launched on no path: {idle}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["name"],

@@ -14,9 +14,10 @@ import torch
 from .core.folds import FoldData
 from .core.packing import PackedFactor
 from .core.picholesky import PiCholesky
+from .optim.gauss_newton import GNState
 
 __all__ = ["folds_from_numpy", "picholesky_from_numpy",
-           "packed_factor_from_numpy"]
+           "packed_factor_from_numpy", "gn_state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -42,3 +43,10 @@ def packed_factor_from_numpy(pf, device="cpu") -> PackedFactor:
     """A reference ``PackedFactor`` (vec, h, block)."""
     return PackedFactor(_tensor(pf.vec, device), int(pf.h),
                         int(pf.block))
+
+
+def gn_state_from_numpy(state, device="cpu") -> GNState:
+    """A reference Gauss–Newton ``GNState`` (model, lam, lo, hi)."""
+    return GNState(model=picholesky_from_numpy(state.model, device),
+                   lam=_tensor(state.lam, device), lo=_tensor(state.lo, device),
+                   hi=_tensor(state.hi, device))

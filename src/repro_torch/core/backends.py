@@ -1,7 +1,8 @@
 """Linear-algebra backend selection — the single ``backend=`` switch.
 
-Each hot spot of the factor pipeline (factorize, triangular solve, pack,
-fused interpolant solve) has two implementations behind one object:
+Each hot spot of the factor pipeline (factorize, triangular solve, pack and
+unpack, packed solve, fused interpolant solve, dense interpolated factors)
+has two implementations behind one object:
 
 * :class:`ReferenceBackend` (``"reference"``) — plain ``torch.linalg``,
   correct on every device;
@@ -70,6 +71,11 @@ class LinalgBackend:
     def pack_tril(self, mat: torch.Tensor, block: int) -> torch.Tensor:
         raise NotImplementedError
 
+    def unpack_tril(self, vec: torch.Tensor, h: int,
+                    block: int) -> torch.Tensor:
+        """Packed (…, P) → dense lower-triangular (…, h, h)."""
+        raise NotImplementedError
+
     def solve_packed(self, pf, g: torch.Tensor) -> torch.Tensor:
         """L Lᵀ θ = g on tile-packed factor(s) ``pf.vec`` (…, P) with one
         ``g`` (h,) or (h, m) shared by the batch → (…, h[, m]) at the
@@ -81,6 +87,12 @@ class LinalgBackend:
                      rhs_per_lam: bool = False) -> torch.Tensor:
         """Fused interpolant evaluation + substitution at a λ chunk:
         theta (…, r+1, P), g (…, h[, m]) → (…, q, h[, m])."""
+        raise NotImplementedError
+
+    def interp_factors(self, theta: torch.Tensor, lams: torch.Tensor, *,
+                       h: int, block: int, center=0.0) -> torch.Tensor:
+        """Dense interpolated factors L(λ): theta (…, r+1, P), lams (q,) →
+        (…, q, h, h) — the dense-factor route (evaluate, then substitute)."""
         raise NotImplementedError
 
 
@@ -109,6 +121,10 @@ class ReferenceBackend(LinalgBackend):
         from . import packing
         return packing.pack_tril(mat, block)
 
+    def unpack_tril(self, vec, h, block):
+        from . import packing
+        return packing.unpack_tril(vec, h, block)
+
     def solve_packed(self, pf, g):
         from . import packing
         ad = self.precision.accum_dtype(pf.vec.dtype)
@@ -132,11 +148,21 @@ class ReferenceBackend(LinalgBackend):
         return packing.solve_packed_ref(vecs, g.to(ad), h, block,
                                         accum_dtype=ad)
 
+    def interp_factors(self, theta, lams, *, h, block, center=0.0):
+        from . import picholesky
+        model = picholesky.PiCholesky(
+            theta=theta, center=torch.as_tensor(center, dtype=theta.dtype,
+                                                device=theta.device),
+            h=h, block=block)
+        lams = picholesky.lam_tensor(lams, theta.device).reshape(-1)
+        return self.unpack_tril(model.eval_packed(lams), h, block)
+
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(LinalgBackend):
     """The hand-written CUDA kernels: blocked Cholesky, blocked trsm, tile
-    pack and the fused Horner + packed substitution.
+    pack and unpack, packed trsm, the fused Horner + packed substitution
+    and Horner into dense factors.
 
     ``chol_block`` / ``trsm_block`` are the kernel tile sizes; the packed
     layout block is carried by the data.  Runs the policies whose compute
@@ -186,10 +212,15 @@ class CudaBackend(LinalgBackend):
         from repro_torch.kernels.tri_pack import pack_tril
         return pack_tril(mat.contiguous(), block)
 
+    def unpack_tril(self, vec, h, block):
+        from repro_torch.kernels.tri_pack import unpack_tril
+        return unpack_tril(vec.contiguous(), h, block)
+
     def solve_packed(self, pf, g):
-        raise NotImplementedError(
-            "the packed trsm kernel (src/repro/kernels/packed_trsm.py) is "
-            "not ported yet; see ROADMAP.md queue 2")
+        from repro_torch.kernels.packed_trsm import solve_packed
+        vec = self._accum(pf.vec)
+        return solve_packed(vec, shared_rhs(pf, g).to(vec.dtype), pf.h,
+                            pf.block)
 
     def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
                      rhs_per_lam=False):
@@ -197,6 +228,13 @@ class CudaBackend(LinalgBackend):
         ad = self.precision.accum_dtype(theta.dtype)
         return interp_solve(theta.to(ad).contiguous(), lams, g, h, block,
                             center=center, rhs_per_lam=rhs_per_lam)
+
+    def interp_factors(self, theta, lams, *, h, block, center=0.0):
+        from repro_torch.kernels.poly_interp import interp_factors
+        from . import picholesky
+        lams = picholesky.lam_tensor(lams, theta.device)
+        return interp_factors(theta.contiguous(), lams, h, block,
+                              center=center)
 
 
 BackendLike = Union[None, str, LinalgBackend]

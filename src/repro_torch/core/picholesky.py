@@ -13,13 +13,24 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from . import packing
 from .backends import BackendLike, resolve_backend
 
-__all__ = ["PiCholesky", "fit", "vandermonde", "choose_sample_lambdas"]
+__all__ = ["PiCholesky", "fit", "vandermonde", "choose_sample_lambdas",
+           "evaluate", "evaluate_packed", "lam_tensor"]
+
+
+def lam_tensor(lam, device) -> torch.Tensor:
+    """λ (scalar or vector) as a tensor on ``device``.  A tensor keeps its
+    dtype; anything else goes through numpy, so a Python float is float64,
+    as ``jnp.asarray`` makes it in the reference's 64-bit mode."""
+    if isinstance(lam, torch.Tensor):
+        return lam.to(device)
+    return torch.as_tensor(np.asarray(lam), device=device)
 
 
 def vandermonde(lams: torch.Tensor, degree: int, center=0.0) -> torch.Tensor:
@@ -66,7 +77,7 @@ class PiCholesky:
 
     def eval_packed(self, lam) -> torch.Tensor:
         """Horner evaluation at scalar or vector λ → (…, [q,] P)."""
-        lam = torch.as_tensor(lam, device=self.theta.device)
+        lam = lam_tensor(lam, self.theta.device)
         x = (lam - self.center).to(self.theta.dtype)
         scalar = x.ndim == 0
         x = x.reshape(-1)
@@ -76,14 +87,31 @@ class PiCholesky:
             acc = acc * x[:, None] + self.theta[..., k, None, :]
         return acc[..., 0, :] if scalar else acc
 
+    def eval_packed_factor(self, lam) -> packing.PackedFactor:
+        """Interpolated factor(s) in the packed layout: vec (…, [q,] P)."""
+        return packing.PackedFactor(self.eval_packed(lam), self.h,
+                                    self.block)
+
     def solve(self, lam, g: torch.Tensor,
               backend: BackendLike = "reference") -> torch.Tensor:
         """θ(λ) = (H + λI)⁻¹ g for a λ chunk by the fused packed pipeline:
         g (…, h) → (…, q, h)."""
-        lam = torch.as_tensor(lam, device=self.theta.device).reshape(-1)
+        lam = lam_tensor(lam, self.theta.device).reshape(-1)
         return resolve_backend(backend).interp_solve(
             self.theta, lam, g, h=self.h, block=self.block,
             center=self.center)
+
+    def eval_factor(self, lam,
+                    backend: BackendLike = "reference") -> torch.Tensor:
+        """Dense interpolated factor(s) L(λ): (…, q, h, h) for a vector λ,
+        (…, h, h) for a scalar one — the dense-factor route of Algorithm 1
+        (evaluate, then substitute).  On the ``cuda`` backend one pass of
+        the ``interp_factors`` kernel over Θ writes every L(λ)."""
+        lam = lam_tensor(lam, self.theta.device)
+        out = resolve_backend(backend).interp_factors(
+            self.theta, lam.reshape(-1), h=self.h, block=self.block,
+            center=self.center)
+        return out[..., 0, :, :] if lam.ndim == 0 else out
 
 
 def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
@@ -142,3 +170,13 @@ def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
                       center=center.to(fit_dtype).to(targets.device),
                       h=h, block=block)
 
+
+def evaluate_packed(model: PiCholesky, lams) -> packing.PackedFactor:
+    """Interpolated factors at a λ grid, still tile-packed: vec (…, q, P)."""
+    return model.eval_packed_factor(lams)
+
+
+def evaluate(model: PiCholesky, lams) -> torch.Tensor:
+    """Dense interpolated factors (…, q, h, h); the sweep path consumes
+    :func:`evaluate_packed` / :meth:`PiCholesky.solve` instead."""
+    return model.eval_factor(lams)

@@ -8,8 +8,8 @@ import torch
 
 from .backends import BackendLike, resolve_backend
 
-__all__ = ["solve_from_factor", "solve_packed", "solve_cholesky",
-           "solve_cholesky_sweep"]
+__all__ = ["solve_from_factor", "solve_packed", "solve_interpolant_sweep",
+           "solve_cholesky", "solve_cholesky_sweep"]
 
 
 def solve_from_factor(l, g: torch.Tensor,
@@ -21,8 +21,19 @@ def solve_from_factor(l, g: torch.Tensor,
 
 def solve_packed(pf, g: torch.Tensor,
                  backend: BackendLike = "reference") -> torch.Tensor:
-    """Packed-domain solve L Lᵀ θ = g on tile-packed factor(s) (…, P)."""
+    """Packed-domain solve L Lᵀ θ = g on tile-packed factor(s) (…, P);
+    ``g`` (h,) or (h, m) is shared by every factor → (…, h[, m])."""
     return resolve_backend(backend).solve_packed(pf, g)
+
+
+def solve_interpolant_sweep(model, lams, g: torch.Tensor,
+                            backend: BackendLike = "reference"
+                            ) -> torch.Tensor:
+    """θ(λ) for a λ chunk straight from a fitted
+    :class:`~repro_torch.core.picholesky.PiCholesky`: fused Horner
+    evaluation + packed substitution, no (q, h, h) intermediate.
+    g (…, h) → (…, q, h)."""
+    return model.solve(lams, g, backend=backend)
 
 
 def solve_cholesky(hessian: torch.Tensor, g: torch.Tensor, lam,

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 Each wrapper module (``tri_pack``, ``chol_blocked``, ``trsm``,
-``poly_interp``) replaces one Pallas kernel of ``src/repro/kernels``.  A
-wrapper given CPU tensors runs the plain version in :mod:`.ref`; given CUDA
+``poly_interp``, ``packed_trsm``) replaces the Pallas kernels of the module
+of the same name in ``src/repro/kernels``.  A wrapper given CPU tensors
+runs its plain version (:mod:`.ref` or :mod:`repro_torch.core.packing`);
+given CUDA
 tensors it launches its kernel, built from ``csrc/`` at first use, or
 raises.  :data:`LAUNCHES` counts the CUDA kernel launches per wrapper.
 """

@@ -1,14 +1,26 @@
-"""Fused Horner evaluation + packed substitution, as a CUDA kernel.
+"""Horner evaluation of the interpolant, as CUDA kernels: into dense
+factors, and fused with the packed substitution.
 
-Replaces ``src/repro/kernels/poly_interp.py`` ``interp_solve`` (the Pallas
-call ``_interp_sweep`` at ``:195``, body ``_make_solve_kernel`` ``:109``):
-for every λ of a chunk and every fold, solve ``L(λ) L(λ)ᵀ θ = g`` with the
-off-diagonal tiles of L(λ) Horner-evaluated from Θ inside the substitution
-walk, so no L(λ) is ever written to device memory.  One block per
+``interp_factors`` replaces ``src/repro/kernels/poly_interp.py``
+``interp_factors`` (the Pallas call at ``:97``, body ``_make_kernel``
+``:48``): one block per (dense tile, fold, chunk of λs) Horner-evaluates
+its tile of every L(λ) of the chunk from Θ and writes it straight into the
+unpadded (…, q, h, h) output, upper tiles and the upper half of diagonal
+tiles as zeros.  Bound by bytes (the dense outputs).
+
+``interp_solve`` replaces ``src/repro/kernels/poly_interp.py``
+``interp_solve`` (the Pallas call ``_interp_sweep`` at ``:195``, body
+``_make_solve_kernel`` ``:109``): for every λ of a chunk and every fold,
+solve ``L(λ) L(λ)ᵀ θ = g`` with the off-diagonal tiles of L(λ)
+Horner-evaluated from Θ inside the substitution walk, so no L(λ) is ever
+written to device memory.  One block per
 (λ, fold, RHS column) runs the forward and the reverse sweep; the diagonal
 tiles are Horner-evaluated and inverted outside the kernel, as at
 ``poly_interp.py:247-255``.  Bound by bytes (Θ); see
-``csrc/poly_interp.cu``.  ``interp_factors`` (``:97``) is not ported yet.
+``csrc/poly_interp.cu``.
+
+In both, λ is cast to Θ's dtype before ``center`` is subtracted, as at
+``poly_interp.py:84``.
 """
 from __future__ import annotations
 
@@ -21,10 +33,54 @@ from repro_torch.core import packing
 
 from . import _build, ref
 
-__all__ = ["interp_solve"]
+__all__ = ["interp_factors", "interp_solve"]
 
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_FACTOR_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
+def _shifted(lams: torch.Tensor, center, dtype, device) -> torch.Tensor:
+    """(q,) λ − center: λ cast to Θ's dtype first, as the reference does."""
+    return (lams.reshape(-1).to(device=device, dtype=dtype)
+            - torch.as_tensor(center, dtype=dtype, device=device))
+
+
+def interp_factors(theta: torch.Tensor, lams: torch.Tensor, h: int,
+                   block: int = 128, *, center=0.0) -> torch.Tensor:
+    """Dense interpolated factors L(λ) at every λ.
+
+    ``theta``: (…, r+1, P) packed coefficients (leading dims are folds);
+    ``lams``: (q,).  Returns (…, q, h, h) lower-triangular at Θ's dtype.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    lead = theta.shape[:-2]
+    r1, p_size = theta.shape[-2:]
+    if p_size != packing.packed_size(h, block):
+        raise ValueError(f"interp_factors: theta last dim {p_size} != "
+                         f"packed_size({h}, {block})")
+    dt = theta.dtype
+    x = _shifted(lams, center, dt, theta.device)
+    if theta.device.type == "cpu":
+        return ref.interp_factors(theta, x, h, block)
+    n, q = math.prod(lead), x.shape[0]
+    th = theta.reshape(n, r1, p_size)
+    for t, what in ((th, "theta"), (x, "lams")):
+        _build.check_tensor(t, f"interp_factors {what}", dt)
+    nt = packing.num_tiles(h, block)
+    pmap = torch.as_tensor(packing.tile_pos_map(h, block), device=theta.device)
+    out = torch.empty((n, q, h, h), dtype=dt, device=theta.device)
+    if n and q and h:
+        fn = _build.c_function("poly_interp",
+                               f"rt_interp_factors_{_build.suffix(dt)}",
+                               _FACTOR_ARGS)
+        rc = fn(_build.ptr(th), _build.ptr(x), _build.ptr(pmap),
+                _build.ptr(out), n, q, r1 - 1, nt, block, p_size, h,
+                _build.stream_ptr(theta.device))
+        _build.check(rc, "interp_factors")
+        _build.count_launch("interp_factors")
+    return out.reshape(*lead, q, h, h)
 
 
 def interp_solve(theta: torch.Tensor, lams: torch.Tensor, g: torch.Tensor,
@@ -55,7 +111,7 @@ def interp_solve(theta: torch.Tensor, lams: torch.Tensor, g: torch.Tensor,
     g2 = torch.nn.functional.pad(g2, (0, 0, 0, hp - h))
     g2 = g2.reshape(n, q, hp, -1) if rhs_per_lam else g2.reshape(n, hp, -1)
     th = theta.reshape(n, r1, p_size)
-    x = lams.to(dt) - torch.as_tensor(center, dtype=dt, device=theta.device)
+    x = _shifted(lams, center, dt, theta.device)
     inv = ref.interp_diag_inverses(th, x, h, block)
 
     if theta.device.type == "cpu":

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-The plain version of ``pack_tril`` is
-:func:`repro_torch.core.packing.pack_tril`.
+The plain versions of ``pack_tril``, ``unpack_tril`` and the packed trsm
+(``solve_lower_packed`` / ``solve_packed``) are those of
+:mod:`repro_torch.core.packing`.
 
 Each function computes what its kernel computes, with the kernel's
 algorithm written as tensor operations (blocked loops where the kernel
@@ -11,9 +12,9 @@ each kernel against its plain version on the card.  They are oracles, not
 yardsticks of speed.
 
 The diagonal-tile helpers (:func:`dense_diag_inverses`,
-:func:`interp_diag_inverses`) are shared with the wrappers: the diagonal
-inverses are computed outside the kernels, as the JAX package computes
-them outside Pallas.
+:func:`packed_diag_inverses`, :func:`interp_diag_inverses`) are shared
+with the wrappers: the diagonal inverses are computed outside the kernels,
+as the JAX package computes them outside Pallas.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 from repro_torch.core import packing
 
 __all__ = ["cholesky_blocked", "solve_lower_blocked", "interp_solve",
-           "dense_diag_inverses", "interp_diag_inverses"]
+           "interp_factors", "dense_diag_inverses", "packed_diag_inverses",
+           "interp_diag_inverses"]
 
 
 def _identity_padded(a: torch.Tensor, block: int) -> torch.Tensor:
@@ -93,6 +95,16 @@ def dense_diag_inverses(l: torch.Tensor, block: int) -> torch.Tensor:
     return packing.invert_diag_tiles(diag).contiguous()
 
 
+def packed_diag_inverses(vec: torch.Tensor, h: int,
+                         block: int) -> torch.Tensor:
+    """(…, nt, B, B) inverses of the diagonal tiles of packed factors
+    (…, P), the last one identity-padded when h % B ≠ 0, at ``vec``'s
+    dtype; one inversion serves the forward and the transposed sweep."""
+    tiles = vec.reshape(*vec.shape[:-1], -1, block, block)
+    return packing.invert_diag_tiles(
+        packing._diag_tiles(tiles, h, block)).contiguous()
+
+
 def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
                         transpose: bool = False,
                         inv_diag: torch.Tensor | None = None) -> torch.Tensor:
@@ -141,6 +153,19 @@ def interp_diag_inverses(theta: torch.Tensor, x: torch.Tensor, h: int,
         diag[:, :, nt - 1] += torch.as_tensor(tail, dtype=diag.dtype,
                                               device=diag.device)
     return packing.invert_diag_tiles(diag).contiguous()
+
+
+def interp_factors(theta: torch.Tensor, x: torch.Tensor, h: int,
+                   block: int) -> torch.Tensor:
+    """Dense interpolated factors: theta (…, r+1, P), x (q,) λ − center at
+    Θ's dtype → (…, q, h, h).  Horner over the packed rows, then
+    :func:`~repro_torch.core.packing.unpack_tril`."""
+    degree = theta.shape[-2] - 1
+    xs = x.to(theta.dtype)[:, None]
+    acc = theta.new_zeros((*theta.shape[:-2], x.shape[0], theta.shape[-1]))
+    for k in range(degree, -1, -1):
+        acc = acc * xs + theta[..., k, None, :]
+    return packing.unpack_tril(acc, h, block)
 
 
 def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,

@@ -1,10 +1,17 @@
-"""Tile-major packing of lower triangles, as a CUDA kernel.
+"""Tile-major packing and unpacking of lower triangles, as CUDA kernels.
 
-Replaces ``src/repro/kernels/tri_pack.py`` ``pack_tril`` (the Pallas call at
-``:73``, body ``_pack_kernel`` ``:25``): one block per (packed tile, matrix)
-copies its B×B tile, masking the ragged edge and the upper half of diagonal
-tiles itself.  Bound by bytes; see ``csrc/tri_pack.cu``.  ``unpack_tril``
-(``:104``) is not ported yet.
+Replaces ``src/repro/kernels/tri_pack.py``:
+
+* ``pack_tril`` (the Pallas call at ``:73``, body ``_pack_kernel`` ``:25``):
+  one block per (packed tile, matrix) copies its B×B tile, masking the
+  ragged edge and the upper half of diagonal tiles itself;
+* ``unpack_tril`` (``:104``, body ``_unpack_kernel`` ``:38``): one block per
+  (dense tile, matrix) writes its tile of the unpadded (h, h) output, lower
+  tiles from the packed vector through the (nt, nt) → packed-index map,
+  upper tiles and the upper half of diagonal tiles as zeros.
+
+Both are bound by bytes; see ``csrc/tri_pack.cu``.  The plain versions are
+:func:`repro_torch.core.packing.pack_tril` / ``unpack_tril``.
 """
 from __future__ import annotations
 
@@ -18,9 +25,10 @@ from repro_torch.core import packing
 
 from . import _build
 
-__all__ = ["pack_tril"]
+__all__ = ["pack_tril", "unpack_tril"]
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_UNPACK_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def pack_tril(mat: torch.Tensor, block: int = 128) -> torch.Tensor:
@@ -48,4 +56,32 @@ def pack_tril(mat: torch.Tensor, block: int = 128) -> torch.Tensor:
             batch, h, block, _build.stream_ptr(mat.device))
     _build.check(rc, "pack_tril")
     _build.count_launch("pack_tril")
+    return out
+
+
+def unpack_tril(vec: torch.Tensor, h: int, block: int = 128) -> torch.Tensor:
+    """Unpack tile-major packed vectors (…, P) into lower-triangular
+    (…, h, h).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if vec.device.type == "cpu":
+        return packing.unpack_tril(vec, h, block)
+    _build.check_tensor(vec, "unpack_tril")
+    p_size = packing.packed_size(h, block)
+    if vec.ndim < 1 or vec.shape[-1] != p_size:
+        raise ValueError(f"unpack_tril: expected (…, {p_size}) for h={h}, "
+                         f"block={block}, got {tuple(vec.shape)}")
+    lead = vec.shape[:-1]
+    batch = math.prod(lead)
+    pmap = torch.as_tensor(packing.tile_pos_map(h, block), device=vec.device)
+    out = torch.empty((*lead, h, h), dtype=vec.dtype, device=vec.device)
+    if batch and h:
+        fn = _build.c_function("tri_pack",
+                               f"rt_unpack_tril_{_build.suffix(vec.dtype)}",
+                               _UNPACK_ARGS)
+        rc = fn(_build.ptr(vec), _build.ptr(out), _build.ptr(pmap), batch, h,
+                block, _build.stream_ptr(vec.device))
+        _build.check(rc, "unpack_tril")
+        _build.count_launch("unpack_tril")
     return out

@@ -2,8 +2,9 @@
 
 Each kernel is held against its plain PyTorch version on the card (the
 same check ``chip_smoke.py`` makes at the main path's shapes), for blocks
-16, 32, 64 and 128, for h below, between and above the blocks, in float64
-and float32; then both drivers at blocks 16 and 64 on the kernel backend
+16, 32, 64 and 128, for h below, between and above the blocks (ragged
+everywhere), in float64 and float32; then the engine drivers, the host-loop
+drivers, the packed solve and the Gauss–Newton head on the kernel backend
 against the reference backend.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
@@ -74,4 +75,71 @@ def test_launch_counts_are_kernel_launches(dev, h, block):
     tri_pack.pack_tril(l, block)
     torch.cuda.synchronize()
     assert LAUNCHES == dict(cholesky_blocked=3 * nt - 2, pack_tril=1,
-                            solve_lower_blocked=0, interp_solve=0)
+                            solve_lower_blocked=0, interp_solve=0,
+                            unpack_tril=0, interp_factors=0,
+                            solve_lower_packed=0)
+
+
+@pytest.mark.parametrize("h, block", [(40, 16), (200, 64), (1000, 128)])
+def test_factor_route_kernels_launch_once_per_call(dev, h, block):
+    """unpack and interp_factors launch one kernel per call; a packed
+    solve launches the forward and the transposed sweep."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import (LAUNCHES, packed_trsm, poly_interp,
+                                     reset_launches, tri_pack)
+    eye = torch.eye(h, dtype=torch.float64, device=dev).expand(3, h, h)
+    vec = packing.pack_tril(eye * 2, block).contiguous()
+    theta = torch.stack([vec, vec * 0, vec * 0], dim=1).contiguous()
+    lams = torch.logspace(-3, 0, 9, dtype=torch.float64, device=dev)
+    g = torch.ones(3, h, dtype=torch.float64, device=dev)
+    reset_launches()
+    dense = tri_pack.unpack_tril(vec, h, block)
+    factors = poly_interp.interp_factors(theta, lams, h, block)
+    theta_sol = packed_trsm.solve_packed(vec, g, h, block)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in LAUNCHES.items() if n} == dict(
+        unpack_tril=1, interp_factors=1, solve_lower_packed=2)
+    torch.testing.assert_close(dense, eye * 2, rtol=0, atol=0)
+    torch.testing.assert_close(factors, (eye * 2)[:, None].expand(
+        3, 9, h, h), rtol=0, atol=0)
+    torch.testing.assert_close(theta_sol, g / 4, rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("block", [32, 64])
+def test_host_drivers_packed_solve_and_gauss_newton_match_reference(
+        dev, block):
+    from repro_torch.core import cv, cv_host, picholesky, solvers
+    from repro_torch.optim import damped_gauss_newton_head
+    data = np.load(ROOT / "tests" / "data" / "torch_table4.npz")
+    folds = cv.make_folds(data["x"], data["y"], int(data["k"]), device=dev)
+    lams = torch.as_tensor(data["lams"], device=dev)
+    for run in (lambda bk: cv_host.host_cv_picholesky(
+                    folds, lams, block=block, backend=bk),
+                lambda bk: cv_host.host_cv_exact_cholesky(
+                    folds, lams, backend=bk),
+                lambda bk: cv_host.host_cv_pinrmse(folds, lams, backend=bk)):
+        got, want = run("cuda"), run("reference")
+        assert int(np.argmin(got.errors)) == int(np.argmin(want.errors))
+        np.testing.assert_allclose(got.errors, want.errors, rtol=1e-8)
+    h_tr = folds.hess - folds.fold_hess[0]
+    g_tr = folds.grad - folds.fold_grad[0]
+    sample = picholesky.choose_sample_lambdas(1e-3, 1e2, 4, device=dev)
+    model = picholesky.fit(h_tr, sample, 2, block=block, backend="cuda")
+    pf = model.eval_packed_factor(lams)
+    packed = solvers.solve_packed(pf, g_tr, backend="cuda")
+    for want in (solvers.solve_packed(pf, g_tr, backend="reference"),
+                 model.solve(lams, g_tr, backend="cuda")):
+        assert float((packed - want).abs().max()) <= \
+            1e-10 * float(want.abs().max())
+    steps = []
+    for backend in ("cuda", "reference"):
+        state, step = damped_gauss_newton_head(
+            folds.hess, (1e-2, 1e1), block=block, backend=backend)
+        deltas = []
+        for lam in (0.05, 2.0, 1e4):
+            delta, state = step(state, folds.grad, lam)
+            deltas.append(delta)
+        steps.append(torch.stack(deltas))
+        assert float(state.lam) == 10.0
+    assert float((steps[0] - steps[1]).abs().max()) <= \
+        1e-8 * float(steps[1].abs().max())

@@ -86,7 +86,9 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, json, repro_torch, repro_torch.core.cv, "
             "repro_torch.convert, repro_torch.data, repro_torch.kernels.ref, "
             "repro_torch.kernels.tri_pack, repro_torch.kernels.chol_blocked, "
-            "repro_torch.kernels.trsm, repro_torch.kernels.poly_interp; "
+            "repro_torch.kernels.trsm, repro_torch.kernels.poly_interp, "
+            "repro_torch.kernels.packed_trsm, repro_torch.core.cv_host, "
+            "repro_torch.optim; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,

@@ -147,6 +147,7 @@ def test_build_module_imports_without_nvcc(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout
     assert "refused: nvcc not found" in out
-    for name in ("chol_blocked", "poly_interp", "trsm", "tri_pack"):
+    for name in ("chol_blocked", "poly_interp", "trsm", "tri_pack",
+                 "packed_trsm"):
         assert (SRC / "repro_torch" / "kernels" / "csrc"
                 / f"{name}.cu").exists()
