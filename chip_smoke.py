@@ -39,13 +39,32 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
 9. table4   — the λ* indices on ``tests/data/torch_table4.npz`` (made by the
               JAX package) must be reproduced on the ``cuda`` backend, and
               its curves within 1e-9 relative.
+10. mamba_fixture — the reduced Falcon-Mamba model (weights, tokens and
+              answers of ``tests/data/torch_mamba.npz``, made by the JAX
+              package) on the kernel: forward, prefill and two decode steps
+              within 1e-4 relative.
+11. mamba   — Falcon-Mamba-7B at its published widths in float32, 4 layers,
+              seeded weights: forward, prefill (logits and cache) and 8
+              decode steps with the ``ssm_scan`` kernel against its plain
+              version (``scan="reference"``), and decode-after-prefill
+              against forward, all within 1e-4 relative.
+12. serve   — Falcon-Mamba-7B as published (bf16, 64 layers): prefill of 4
+              prompts of 2048 tokens, 32 greedy decode steps, and a forward
+              over the extended sequences; finite logits, decode consistent
+              with forward; prefill and decode walls (median of 3 after a
+              warm run), peak memory, launch counts per path; then one
+              profiled prefill and one profiled decode step (a second
+              ``trace`` line).
 
-Then one ``{"kernels": [...]}`` line, and last the device line
+The ``kernels`` phase also holds ``ssm_scan`` against its plain version at
+the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
+one.  Then one ``{"kernels": [...]}`` line, and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
 one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,12 +93,31 @@ PACKED_TOL = 1e-10         # packed route vs fused interp_solve / reference
 GN_TOL = 1e-2              # Gauss–Newton step vs a dense solve, as
                            # tests/test_optim.py holds the reference
 
+# the LM path: configs/falcon_mamba_7b.py (published widths)
+MAMBA_ARCH = "falcon-mamba-7b"
+SCAN_SHAPE = (4, 2048, 8192, 16)      # (B, S, d_inner, N) of a serve prefill
+SCAN_RAGGED = (3, 999, 8100, 16)      # S % 32 ≠ 0, d_inner % 64 ≠ 0
+MAMBA_TOL = 1e-4           # max |Δ| / max |ref|, float32: kernel vs plain
+                           # scan, decode vs forward, card vs JAX fixture
+MAMBA_DEPTH, MAMBA_BATCH, MAMBA_SEQ, MAMBA_DECODE = 4, 2, 250, 8
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 2048, 32
+SERVE_TOL = 5e-2           # bf16, 64 layers: decode vs forward logits at the
+                           # last position, max |Δ| / max |forward|
+SERVE_REPEATS = 3
+
 # Published peaks (NVIDIA data sheets, dense): bytes/s, FP64 on tensor
-# cores, FP64 and FP32 outside them.  Chosen by the card's name.
+# cores, FP64 and FP32 outside them.  Chosen by the card's name.  ``sfu``:
+# exponentials per second on the special-function units, 16 per clock per
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) × SMs × boost clock (SXM 132 × 1.98 GHz, PCIe 114 ×
+# 1.755 GHz, NVL 132 × 1.785 GHz; NVIDIA data sheets).
 PEAKS = {
-    "SXM": dict(bw=3.35e12, fp64_tc=67e12, fp64=34e12, fp32=67e12),
-    "PCIe": dict(bw=2.0e12, fp64_tc=51e12, fp64=26e12, fp32=51e12),
-    "NVL": dict(bw=3.9e12, fp64_tc=60e12, fp64=30e12, fp32=60e12),
+    "SXM": dict(bw=3.35e12, fp64_tc=67e12, fp64=34e12, fp32=67e12,
+                sfu=16 * 132 * 1.98e9),
+    "PCIe": dict(bw=2.0e12, fp64_tc=51e12, fp64=26e12, fp32=51e12,
+                 sfu=16 * 114 * 1.755e9),
+    "NVL": dict(bw=3.9e12, fp64_tc=60e12, fp64=30e12, fp32=60e12,
+                sfu=16 * 132 * 1.785e9),
 }
 
 REPLACES = {
@@ -90,6 +128,7 @@ REPLACES = {
     "unpack_tril": "src/repro/kernels/tri_pack.py:104",
     "interp_factors": "src/repro/kernels/poly_interp.py:97",
     "solve_lower_packed": "src/repro/kernels/packed_trsm.py:166",
+    "ssm_scan": "src/repro/kernels/ssm_scan.py:83",
 }
 # kernels that only move values: they must equal their plain versions
 EXACT_KERNELS = ("pack_tril", "unpack_tril")
@@ -106,6 +145,7 @@ SOURCES = {
     "unpack_tril": "src/repro_torch/kernels/csrc/tri_pack.cu",
     "interp_factors": "src/repro_torch/kernels/csrc/poly_interp.cu",
     "solve_lower_packed": "src/repro_torch/kernels/csrc/packed_trsm.cu",
+    "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 
 
@@ -369,6 +409,57 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
     return res
 
 
+def scan_inputs(dev, b: int, s: int, di: int, n: int, seed: int = 2):
+    """Selective-scan inputs as the model makes them: dt = softplus(·) of
+    order 0.05, A = -(1..N) (the ``mamba_a`` init), normal x, B, C, D."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xc = torch.randn(b, s, di, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, generator=gen, device=dev) - 3.0)
+    bm, cm = (torch.randn(b, s, n, generator=gen, device=dev)
+              for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(
+        di, n).contiguous()
+    d = torch.randn(di, generator=gen, device=dev)
+    return xc, dt, bm, cm, a, d
+
+
+def check_ssm_scan(dev, shape, timing=None) -> dict:
+    """``ssm_scan`` against its plain version on the card (y and h_last);
+    with ``timing`` (a peaks dict), also times and the bound."""
+    from repro_torch.kernels import ref, ssm_scan
+    ins = scan_inputs(dev, *shape)
+
+    def kernel():
+        return ssm_scan.ssm_scan(*ins)
+
+    def plain():
+        return ref.ssm_scan(*ins)
+
+    (y, h), (y_p, h_p) = kernel(), plain()
+    ey, eh = errors(y, y_p), errors(h, h_p)
+    res = dict(max_abs_err=max(ey[0], eh[0]), max_rel_err=max(ey[1], eh[1]),
+               tol_rel=TOL[torch.float32])
+    res["ok"] = res["max_rel_err"] <= res["tol_rel"]
+    if timing is None:
+        return res
+    b, s, di, n = shape
+    # read x, dt, B, C, A, D once; write y and h_last once (float32)
+    work_bytes = (3 * b * s * di + 2 * b * s * n + di * n + di
+                  + b * di * n) * 4
+    exps = b * s * di * n
+    flops = 4.0 * b * s * di * n       # dt·A, dx·B, the h and y FMAs
+    t_bytes = work_bytes / timing["bw"] * 1e3
+    t_ops = max(exps / timing["sfu"], flops / timing["fp32"]) * 1e3
+    res.update(ms=timed_ms(kernel, 10), plain_ms=timed_ms(plain, 1),
+               library_ms=None, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes_ms=t_bytes, exp_ms=exps / timing["sfu"] * 1e3,
+               fp32_ms=flops / timing["fp32"] * 1e3, work_bytes=work_bytes,
+               work_exps=exps, work_flops=flops)
+    return res
+
+
 def phase_kernels(dev, folds, lams, peaks) -> dict:
     main = check_kernels(dev, H, BLOCK, K_FOLDS * G_SAMPLES,
                          K_FOLDS * LAM_CHUNK, torch.float64, folds, lams,
@@ -382,8 +473,17 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     f32 = check_kernels(dev, H, BLOCK, 4, 3, torch.float32)
     emit("kernels", shape="float32", h=H, block=BLOCK, dtype="float32",
          results=f32)
+    scan = {"ssm_scan": check_ssm_scan(dev, SCAN_SHAPE, timing=peaks)}
+    scan_ragged = {"ssm_scan": check_ssm_scan(dev, SCAN_RAGGED)}
+    for tag, shape, res in (("ssm_scan", SCAN_SHAPE, scan),
+                            ("ssm_scan_ragged", SCAN_RAGGED, scan_ragged)):
+        emit("kernels", shape=tag, dtype="float32",
+             **dict(zip(("batch", "seq", "d_inner", "state"), shape)),
+             results=res)
+    main.update(scan)
     bad = [(case, name) for case, res in
-           (("main", main), ("ragged", ragged), ("float32", f32))
+           (("main", main), ("ragged", ragged), ("float32", f32),
+            ("ssm_scan_ragged", scan_ragged))
            for name, r in res.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -481,42 +581,46 @@ def host_drivers(folds, lams) -> dict:
     }
 
 
-def phase_trace(dev, folds, lams) -> None:
-    """One profiled run of each sweep and each host driver on the cuda
-    backend (after a warm run): device busy time (union of kernel
-    intervals), its share of the host wall time, and the kernels that take
-    the most device time."""
+def profiled(fn) -> tuple[dict, dict]:
+    """One profiled call of ``fn`` (after a warm call): device busy time
+    (union of kernel intervals), its share of the host wall time, and the
+    kernels that take the most device time; also the device ms by kernel
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    out = {}
-    paths = {**runners(dev, folds, lams), **host_drivers(folds, lams)}
-    for tag, run in paths.items():
-        run("cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run("cuda")
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name: dict = {}
-        for e in kern:
-            rec = by_name.setdefault(e.name[:80], [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
-            rec[1] += 1
-        busy_us, end = 0.0, float("-inf")
-        for start, stop in sorted((e.time_range.start, e.time_range.end)
-                                  for e in kern):
-            busy_us += max(0.0, stop - max(start, end))
-            end = max(end, stop)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-        out[tag] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
-                        device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
-                        n_kernels=len(kern),
-                        top=[dict(name=n, ms=ms, count=c)
-                             for n, (ms, c) in top])
-    emit("trace", **out)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kern:
+        rec = by_name.setdefault(e.name[:80], [0.0, 0])
+        rec[0] += e.time_range.elapsed_us() / 1e3
+        rec[1] += 1
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kern):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
+                n_kernels=len(kern),
+                top=[dict(name=n, ms=ms, count=c)
+                     for n, (ms, c) in top]), by_name
+
+
+def phase_trace(dev, folds, lams) -> None:
+    """One profiled run of each sweep and each host driver on the cuda
+    backend (after a warm run)."""
+    paths = {**runners(dev, folds, lams), **host_drivers(folds, lams)}
+    emit("trace", **{tag: profiled(lambda: run("cuda"))[0]
+                     for tag, run in paths.items()})
 
 
 def chol_launches(h: int, block: int) -> int:
@@ -717,6 +821,232 @@ def phase_table4(dev) -> None:
     emit("table4", **out)
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |Δ| / max |want|, failing on a non-finite value."""
+    return errors(got.float(), want.float())[1]
+
+
+def fixture_params(data) -> dict:
+    """The nested parameter tree of the JAX ``Model.init`` from the flat
+    ``param/<dotted name>`` entries of a fixture."""
+    params: dict = {}
+    for key in data.files:
+        if key.startswith("param/"):
+            *path, leaf = key[len("param/"):].split(".")
+            node = params
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return params
+
+
+def phase_mamba_fixture(dev) -> dict:
+    """The reduced Falcon-Mamba model of ``tests/data/torch_mamba.npz`` (JAX
+    weights and answers) on the kernel: forward, prefill (logits, conv
+    tail, scan state) and two decode steps within MAMBA_TOL."""
+    from repro_torch import configs, convert
+    data = np.load(ROOT / "tests" / "data" / "torch_mamba.npz")
+    cfg = configs.get(MAMBA_ARCH).reduced()
+    model = convert.model_from_numpy(cfg, fixture_params(data), device=dev,
+                                     scan="cuda")
+    tokens = torch.as_tensor(data["tokens"], device=dev)
+    got = {"forward": model(tokens)[0]}
+    got["prefill"], cache = model.prefill(tokens)
+    got["prefill_conv"] = torch.stack([c["conv"] for c in cache["groups"]])
+    got["prefill_h"] = torch.stack([c["h"] for c in cache["groups"]])
+    steps = []
+    for tok in data["steps"]:
+        logits, cache = model.decode(cache, torch.as_tensor(tok, device=dev))
+        steps.append(logits)
+    got["decode"] = torch.stack(steps)
+    out = {}
+    for key, t in got.items():
+        rel = rel_err(t, torch.as_tensor(data[key], device=dev))
+        out[key] = dict(rel_err=rel, tol=MAMBA_TOL, ok=rel <= MAMBA_TOL)
+    emit("mamba_fixture", layers=cfg.n_layers, d_model=cfg.d_model,
+         d_inner=cfg.d_inner, state=cfg.ssm_state, results=out)
+    bad = [k for k, r in out.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"mamba_fixture: {bad} differ from the JAX "
+                             f"fixture: {out}")
+    return out
+
+
+def mamba_config(depth: int, dtype: str):
+    """configs/falcon_mamba_7b.py at its published widths, ``depth``
+    layers, activations and parameters in ``dtype``."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(MAMBA_ARCH), n_layers=depth,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def counted_call(fn):
+    """``fn()`` with the launch counts set to 0 just before it; returns its
+    result and the counts read just after it."""
+    return counted(lambda _: fn())
+
+
+def phase_mamba(dev) -> dict:
+    """Full width, 4 layers, float32: the model on the ssm_scan kernel
+    (``scan="auto"``) against the same weights on its plain version
+    (``scan="reference"``), and decode-after-prefill against forward."""
+    from repro_torch.models import Model
+    cfg = mamba_config(MAMBA_DEPTH, "float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, device=dev, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (MAMBA_BATCH, MAMBA_SEQ),
+                           generator=gen, device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (MAMBA_DECODE, MAMBA_BATCH, 1),
+                          generator=gen, device=dev)
+
+    def run(scan):
+        model.scan = scan
+        out, counts = {}, {}
+        (out["forward"], _), counts["forward"] = counted_call(
+            lambda: model(tokens))
+        (out["prefill"], cache), counts["prefill"] = counted_call(
+            lambda: model.prefill(tokens))
+        out["conv"] = torch.stack([c["conv"] for c in cache["groups"]])
+        out["h"] = torch.stack([c["h"] for c in cache["groups"]])
+
+        def decode_all():
+            c, logits = cache, []
+            for tok in steps:
+                step, c = model.decode(c, tok)
+                logits.append(step)
+            return torch.cat(logits, 1)
+
+        out["decode"], counts["decode"] = counted_call(decode_all)
+        return out, counts
+
+    got, counts = run("auto")
+    want, counts_ref = run("reference")
+    for tag, n in (("forward", MAMBA_DEPTH), ("prefill", MAMBA_DEPTH),
+                   ("decode", 0)):
+        check_counts(f"mamba {tag}", counts[tag], dict(ssm_scan=n))
+        check_counts(f"mamba {tag} (reference)", counts_ref[tag], {})
+    rels = {k: rel_err(got[k], want[k]) for k in got}
+    model.scan = "auto"
+    ext = torch.cat([tokens, steps[:, :, 0].T], 1)
+    rels["decode_vs_forward"] = rel_err(
+        got["decode"], model(ext)[0][:, MAMBA_SEQ:])
+    rels["prefill_vs_forward"] = rel_err(got["prefill"][:, 0],
+                                         got["forward"][:, -1])
+    bad = {k: v for k, v in rels.items() if not v <= MAMBA_TOL}
+    emit("mamba", layers=MAMBA_DEPTH, d_model=cfg.d_model,
+         d_inner=cfg.d_inner, state=cfg.ssm_state, batch=MAMBA_BATCH,
+         seq=MAMBA_SEQ, decode_steps=MAMBA_DECODE, dtype="float32",
+         rel_err=rels, tol=MAMBA_TOL, launches=counts)
+    if bad:
+        raise AssertionError(f"mamba: kernel path disagrees: {bad}")
+    return counts
+
+
+def gemm_like(name: str) -> bool:
+    return any(k in name.lower() for k in ("gemm", "nvjet", "xmma",
+                                            "cutlass", "splitk"))
+
+
+def phase_serve(dev) -> dict:
+    """Falcon-Mamba-7B as published (bf16, 64 layers): 4 prompts of 2048
+    tokens prefilled, 32 greedy decode steps, a forward over the extended
+    sequences; launch counts per path, walls, memory; then one profiled
+    prefill."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(MAMBA_ARCH)
+    n_layers = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+
+    def decode_loop(cache, first):
+        toks, logits = [first], []
+        for _ in range(SERVE_DECODE):
+            step, cache = model.decode(cache, toks[-1])
+            logits.append(step)
+            toks.append(step[:, -1].argmax(-1, keepdim=True))
+        return torch.cat(logits, 1), torch.cat(toks[:-1], 1)
+
+    counts = {}
+    (logits_p, cache), counts["mamba_prefill"] = counted_call(
+        lambda: model.prefill(prompts))
+    first = logits_p[:, -1].argmax(-1, keepdim=True)
+    (logits_d, gen_toks), counts["mamba_decode"] = counted_call(
+        lambda: decode_loop(cache, first))
+    ext = torch.cat([prompts, gen_toks], 1)
+    (logits_f, _), counts["mamba_forward"] = counted_call(lambda: model(ext))
+    check_counts("serve prefill", counts["mamba_prefill"],
+                 dict(ssm_scan=n_layers))
+    check_counts("serve forward", counts["mamba_forward"],
+                 dict(ssm_scan=n_layers))
+    check_counts("serve decode", counts["mamba_decode"], {})
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (logits_p, logits_d, logits_f))
+    pos = logits_f[:, SERVE_PROMPT - 1:]              # prefill, then decodes
+    mine = torch.cat([logits_p, logits_d], 1)
+    per_pos = [float((mine[:, j] - pos[:, j]).abs().max()
+                     / pos[:, j].abs().max()) for j in range(pos.shape[1])]
+    agree = float((mine.argmax(-1) == pos.argmax(-1)).float().mean())
+    del logits_f, pos, mine
+    walls = dict(prefill_ms=[], decode_ms_per_step=[])
+    for _ in range(SERVE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, c = model.prefill(prompts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode_loop(c, first)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        walls["prefill_ms"].append((t1 - t0) * 1e3)
+        walls["decode_ms_per_step"].append((t2 - t1) * 1e3 / SERVE_DECODE)
+        del c
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    out = dict(
+        layers=n_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
+        state=cfg.ssm_state, vocab=cfg.vocab_size, dtype=cfg.dtype,
+        batch=SERVE_BATCH, prompt=SERVE_PROMPT, decode_steps=SERVE_DECODE,
+        init_s=init_s, weight_bytes=weight_bytes, finite=finite,
+        decode_vs_forward_last=per_pos[-1],
+        decode_vs_forward_max=max(per_pos),
+        prefill_vs_forward=per_pos[0], greedy_agreement=agree,
+        tol=SERVE_TOL, walls=walls, median=med,
+        prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT
+        / (med["prefill_ms"] / 1e3),
+        decode_tokens_per_s=SERVE_BATCH / (med["decode_ms_per_step"] / 1e3),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts)
+    emit("serve", **out)
+    if not finite or per_pos[-1] > SERVE_TOL:
+        raise AssertionError(f"serve: finite={finite}, decode vs forward at "
+                             f"the last position {per_pos[-1]} > {SERVE_TOL}")
+
+    traces = {}
+    for tag, fn in (("mamba_prefill", lambda: model.prefill(prompts)),
+                    ("mamba_decode", lambda: model.decode(cache, first))):
+        trace, by_name = profiled(fn)
+        busy = trace["device_busy_ms"]
+        scan_ms = sum(ms for n, (ms, _) in by_name.items()
+                      if "ssm_scan" in n)
+        gemm_ms = sum(ms for n, (ms, _) in by_name.items() if gemm_like(n))
+        traces[tag] = dict(
+            trace, ssm_scan_ms=scan_ms, gemm_ms=gemm_ms,
+            other_ms=sum(ms for ms, _ in by_name.values()) - scan_ms
+            - gemm_ms, ssm_scan_share=scan_ms / busy,
+            gemm_share=gemm_ms / busy)
+    emit("trace", **traces)
+    return counts
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -730,6 +1060,10 @@ def main() -> None:
     launches["packed"] = phase_packed(dev, folds, lams)
     launches["gauss_newton"] = phase_gauss_newton(dev, folds)
     phase_table4(dev)
+    del folds, lams
+    phase_mamba_fixture(dev)
+    phase_mamba(dev)
+    launches.update(phase_serve(dev))
     rows = []
     for name in REPLACES:
         r = kern[name]

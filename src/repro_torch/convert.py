@@ -2,29 +2,36 @@
 
 Each function takes the reference's objects — or anything with the same
 fields holding array-likes (``numpy.asarray`` is applied to every field) —
-and builds the port's counterpart on ``device``.  This is what lets both
-packages compute on the same numbers; it imports neither ``jax`` nor
-``repro``.
+and builds the port's counterpart on ``device``: ``None`` means the CUDA
+device, as for every entry point (``RuntimeError`` without one); pass
+``device="cpu"`` for the CPU.  This is what lets both packages compute on
+the same numbers; it imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .core.folds import FoldData
 from .core.packing import PackedFactor
 from .core.picholesky import PiCholesky
+from .models.config import ModelConfig
+from .models.model import Model
+from .models.params import flatten
 from .optim.gauss_newton import GNState
 
 __all__ = ["folds_from_numpy", "picholesky_from_numpy",
-           "packed_factor_from_numpy", "gn_state_from_numpy"]
+           "packed_factor_from_numpy", "gn_state_from_numpy",
+           "model_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(
+        resolve_device(device))
 
 
-def folds_from_numpy(folds, device="cpu") -> FoldData:
+def folds_from_numpy(folds, device=None) -> FoldData:
     """A reference ``FoldData`` (hess, grad, fold_hess, fold_grad, x_folds,
     y_folds) as the port's."""
     return FoldData(*(_tensor(getattr(folds, name), device)
@@ -32,21 +39,44 @@ def folds_from_numpy(folds, device="cpu") -> FoldData:
                                    "x_folds", "y_folds")))
 
 
-def picholesky_from_numpy(model, device="cpu") -> PiCholesky:
+def picholesky_from_numpy(model, device=None) -> PiCholesky:
     """A fitted reference ``PiCholesky`` (theta, center, h, block)."""
     return PiCholesky(theta=_tensor(model.theta, device),
                       center=_tensor(model.center, device),
                       h=int(model.h), block=int(model.block))
 
 
-def packed_factor_from_numpy(pf, device="cpu") -> PackedFactor:
+def packed_factor_from_numpy(pf, device=None) -> PackedFactor:
     """A reference ``PackedFactor`` (vec, h, block)."""
     return PackedFactor(_tensor(pf.vec, device), int(pf.h),
                         int(pf.block))
 
 
-def gn_state_from_numpy(state, device="cpu") -> GNState:
+def gn_state_from_numpy(state, device=None) -> GNState:
     """A reference Gauss–Newton ``GNState`` (model, lam, lo, hi)."""
     return GNState(model=picholesky_from_numpy(state.model, device),
                    lam=_tensor(state.lam, device), lo=_tensor(state.lo, device),
                    hi=_tensor(state.hi, device))
+
+
+def model_from_numpy(cfg: ModelConfig, params, device=None,
+                     scan: str = "auto") -> Model:
+    """A reference ``Model(cfg).init`` tree (nested dicts of arrays) as the
+    port's :class:`~repro_torch.models.Model`.  The leading layer axis of
+    ``groups`` is unstacked into one module per layer; every leaf keeps its
+    name, layout and values (``groups.mamba.wx`` (L, d, di) becomes
+    ``groups.<i>.mamba.wx`` (d, di))."""
+    dev = resolve_device(device)
+    flat = {}
+    for name, leaf in flatten(params):
+        head, _, rest = name.partition(".")
+        if head == "groups":
+            stacked = np.asarray(leaf)
+            if stacked.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: {stacked.shape[0]} layers, the "
+                                 f"configuration has {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                flat[f"groups.{i}.{rest}"] = _tensor(stacked[i], dev)
+        else:
+            flat[name] = _tensor(leaf, dev)
+    return Model(cfg, device=dev, scan=scan, params=flat)

@@ -1,12 +1,12 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 Each wrapper module (``tri_pack``, ``chol_blocked``, ``trsm``,
-``poly_interp``, ``packed_trsm``) replaces the Pallas kernels of the module
-of the same name in ``src/repro/kernels``.  A wrapper given CPU tensors
-runs its plain version (:mod:`.ref` or :mod:`repro_torch.core.packing`);
-given CUDA
-tensors it launches its kernel, built from ``csrc/`` at first use, or
-raises.  :data:`LAUNCHES` counts the CUDA kernel launches per wrapper.
+``poly_interp``, ``packed_trsm``, ``ssm_scan``) replaces the Pallas kernels
+of the module of the same name in ``src/repro/kernels``.  A wrapper given
+CPU tensors runs its plain version (:mod:`.ref` or
+:mod:`repro_torch.core.packing`); given CUDA tensors it launches its
+kernel, built from ``csrc/`` at first use, or raises.  :data:`LAUNCHES`
+counts the CUDA kernel launches per wrapper.
 """
 from ._build import LAUNCHES, build_all, reset_launches
 

@@ -33,7 +33,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "LAUNCHES", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp", "packed_trsm")
+SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp", "packed_trsm",
+           "ssm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,7 +42,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("pack_tril", "cholesky_blocked",
                              "solve_lower_blocked", "interp_solve",
                              "unpack_tril", "interp_factors",
-                             "solve_lower_packed")}
+                             "solve_lower_packed", "ssm_scan")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -24,7 +24,7 @@ from repro_torch.core import packing
 
 __all__ = ["cholesky_blocked", "solve_lower_blocked", "interp_solve",
            "interp_factors", "dense_diag_inverses", "packed_diag_inverses",
-           "interp_diag_inverses"]
+           "interp_diag_inverses", "ssm_scan"]
 
 
 def _identity_padded(a: torch.Tensor, block: int) -> torch.Tensor:
@@ -203,3 +203,27 @@ def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
             acc = acc + tile(int(pmap[t, i])).mT @ w[..., t * block:(t + 1) * block, :]
         w[..., lo:hi, :] = inv_diag[:, :, i].mT @ (w[..., lo:hi, :] - acc)
     return w
+
+
+def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+             c_mat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan, one time step at a time, in float32.
+
+    xc, dt: (B, S, di); b_mat, c_mat: (B, S, N); a: (di, N), negative;
+    d_skip: (di,).  ``h_t = exp(dt_t·a)⊙h_{t-1} + (dt_t·x_t)⊗B_t``,
+    ``y_t = h_t·C_t + d_skip⊙x_t``; returns (y (B, S, di), h_S (B, di, N)).
+    Holds one (B, di, N) state, never the (B, S, di, N) decay tensor.
+    """
+    f32 = torch.float32
+    xc, dt, b_mat, c_mat, a, d_skip = (
+        t.to(f32) for t in (xc, dt, b_mat, c_mat, a, d_skip))
+    bsz, s, di = xc.shape
+    h = xc.new_zeros(bsz, di, a.shape[-1])
+    ys = []
+    for t in range(s):
+        a_bar = torch.exp(dt[:, t, :, None] * a)
+        h = a_bar * h + (dt[:, t] * xc[:, t])[..., None] * b_mat[:, t, None, :]
+        ys.append((h * c_mat[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) if ys else xc.new_zeros(bsz, 0, di)
+    return y + d_skip * xc, h

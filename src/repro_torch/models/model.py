@@ -1,0 +1,198 @@
+"""Model assembly for the ``ssm`` (Mamba-1) family: embedding, one module per
+layer, head; from the JAX package's ``models/model.py``.
+
+The JAX package scans over parameter trees with a leading layer axis; here
+the layers are an ``nn.ModuleList``, one module per layer, and
+:func:`repro_torch.convert.model_from_numpy` unstacks that axis.  One card,
+no sharding.  Entry points, as in the JAX package: ``forward`` (logits),
+``loss`` (forward only), ``init_cache``, ``prefill`` and ``decode``.  Each
+runs under ``torch.no_grad``: the ``ssm_scan`` kernel has no backward yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from repro_torch._device import resolve_device
+from repro_torch.kernels.ssm_scan import resolve_scan
+
+from . import blocks
+from .config import ModelConfig
+from .params import Spec, flatten, init_params
+
+__all__ = ["Model"]
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _placeholder(shape) -> nn.Parameter:
+    """A parameter without storage, until :meth:`Model.load_params`."""
+    return _param(torch.empty(shape, device="meta"))
+
+
+class _Leaves(nn.Module):
+    """A group of named parameters (a norm, a Mamba mixer)."""
+
+    def __init__(self, specs: Dict[str, Spec]):
+        super().__init__()
+        for name, spec in specs.items():
+            setattr(self, name, _placeholder(spec.shape))
+
+
+class _Layer(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.ln = _Leaves(blocks.norm_spec(cfg))
+        self.mamba = _Leaves(blocks.mamba_spec(cfg))
+
+
+class Model(nn.Module):
+    """A Mamba-1 language model on one device.
+
+    ``device=None`` is the CUDA device (``RuntimeError`` without one).
+    ``scan`` picks the mixer's recurrence: ``"auto"`` the ``ssm_scan``
+    kernel for CUDA tensors and its plain version for CPU ones,
+    ``"reference"`` the plain version anywhere, ``"cuda"`` the kernel
+    (``ValueError`` off the card).  The weights are ``params`` (dotted
+    name → tensor, see :meth:`load_params`) when given, else drawn by
+    :func:`~repro_torch.models.params.init_params` from ``generator``
+    (default: a generator on the device seeded with 0), on the device.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None, scan: str = "auto",
+                 generator: Optional[torch.Generator] = None,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the port runs the 'ssm' family only; "
+                "the others are queued in ROADMAP.md (queue 1 item 13)")
+        dev = resolve_device(device)
+        resolve_scan(scan, dev)
+        self.cfg, self.scan, self._device = cfg, scan, dev
+        v, d = cfg.vocab_size, cfg.d_model
+        self.embed = _placeholder((v, d))
+        self.final_norm = _Leaves(blocks.norm_spec(cfg))
+        self.lm_head = _placeholder((d, v))
+        self.groups = nn.ModuleList(_Layer(cfg) for _ in range(cfg.n_layers))
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            params = init_params(self.param_specs(), generator,
+                                 cfg.parameter_dtype, dev)
+        self.load_params(params)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The spec tree; its dotted names are ``named_parameters``'s."""
+        cfg = self.cfg
+        v, d = cfg.vocab_size, cfg.d_model
+        return {
+            "embed": Spec((v, d)),
+            "final_norm": blocks.norm_spec(cfg),
+            "lm_head": Spec((d, v)),
+            "groups": [{"ln": blocks.norm_spec(cfg),
+                        "mamba": blocks.mamba_spec(cfg)}
+                       for _ in range(cfg.n_layers)],
+        }
+
+    @torch.no_grad()
+    def load_params(self, params: Dict[str, torch.Tensor]) -> "Model":
+        """Take every parameter from ``params`` (dotted name → tensor of the
+        spec's shape); tensors on the model's device become its parameters
+        as they are, others are copied there."""
+        specs = dict(flatten(self.param_specs()))
+        if set(params) != set(specs):
+            raise ValueError(f"parameters {sorted(set(params) ^ set(specs))} "
+                             "missing or unknown")
+        for name, t in params.items():
+            if tuple(t.shape) != specs[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{specs[name].shape}")
+            mod_name, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(mod_name) if mod_name else self
+            setattr(mod, leaf, _param(t.to(self._device)))
+        return self
+
+    # ---- forward ----
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, np.ndarray):
+            tokens = torch.from_numpy(tokens)
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _embed(self, tokens) -> torch.Tensor:
+        return self.embed[self._tokens(tokens)].to(self.cfg.activation_dtype)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        x = blocks.norm_apply(self.final_norm, x, self.cfg)
+        return (x @ self.lm_head.to(x.dtype)).float()
+
+    @torch.no_grad()
+    def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens: (B, S) -> (logits (B, S, V) float32, aux loss 0)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        for layer in self.groups:
+            h = blocks.norm_apply(layer.ln, x, cfg)
+            x = x + blocks.mamba_apply(layer.mamba, h, cfg, self.scan)
+        return self._head(x), torch.zeros((), device=x.device)
+
+    @torch.no_grad()
+    def loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token NLL of ``batch["labels"]`` (forward only)."""
+        logits, aux = self.forward(batch["tokens"])
+        labels = self._tokens(batch["labels"])
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = (logz - gold).mean()
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+    # ---- serving ----
+
+    def init_cache(self, batch: int) -> Dict[str, Any]:
+        """An empty cache: per layer the conv tail and the scan state (their
+        size does not depend on a sequence length), and the position 0."""
+        cfg = self.cfg
+        return {"pos": 0, "groups": [
+            blocks.mamba_init_cache(cfg, batch, cfg.activation_dtype,
+                                    self.device)
+            for _ in range(cfg.n_layers)]}
+
+    @torch.no_grad()
+    def prefill(self, tokens) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Full-sequence forward that also returns the serving cache.
+        Returns (last-position logits (B, 1, V) float32, cache)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        caches = []
+        for layer in self.groups:
+            h = blocks.norm_apply(layer.ln, x, cfg)
+            y, cache = blocks.mamba_prefill(layer.mamba, h, cfg, self.scan)
+            x = x + y
+            caches.append(cache)
+        return self._head(x[:, -1:]), {"groups": caches, "pos": x.shape[1]}
+
+    @torch.no_grad()
+    def decode(self, cache: Dict[str, Any], tokens
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One-token step.  tokens: (B, 1).  Returns (logits (B, 1, V)
+        float32, the next cache); ``cache`` is not modified."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        new = []
+        for layer, c in zip(self.groups, cache["groups"]):
+            h = blocks.norm_apply(layer.ln, x, cfg)
+            y, c = blocks.mamba_decode(layer.mamba, h, c, cfg)
+            x = x + y
+            new.append(c)
+        return self._head(x), {"groups": new, "pos": cache["pos"] + 1}
+

@@ -1,0 +1,72 @@
+"""Parameter specs and their initialisation on a ``torch.Generator``.
+
+A model describes its parameters as a nested tree (dicts and lists) of
+:class:`Spec` (shape + initializer), as the JAX package's
+``models/params.py`` does; :func:`init_params` materialises the tree on a
+device.  The numbers differ from ``jax.random``'s for the same seed:
+parity with the JAX package comes from carrying its weights across
+(:func:`repro_torch.convert.model_from_numpy`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterator, Tuple
+
+import torch
+
+__all__ = ["Spec", "init_params", "flatten"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    init: str = "normal"     # normal | zeros | ones | mamba_a | dt_bias
+    scale: float = 0.02
+
+
+def _init_leaf(spec: Spec, generator: torch.Generator, dtype: torch.dtype,
+              device) -> torch.Tensor:
+    """One parameter, drawn in float32 on ``device`` and cast to ``dtype``."""
+    f32 = torch.float32
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "mamba_a":
+        # Mamba-1 A init: A = -(1..N) over every channel, stored as log.
+        n = spec.shape[-1]
+        a = torch.arange(1, n + 1, dtype=f32, device=device)
+        return torch.log(a).expand(spec.shape).to(dtype).contiguous()
+    if spec.init == "dt_bias":
+        # softplus⁻¹ of dt log-uniform in [1e-3, 1e-1]
+        u = torch.empty(spec.shape, dtype=f32, device=device).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=generator)
+        dt = torch.exp(u)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if spec.init != "normal":
+        raise ValueError(f"unknown init {spec.init!r}")
+    return (spec.scale * torch.randn(spec.shape, generator=generator,
+                                     dtype=f32, device=device)).to(dtype)
+
+
+def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted name, leaf) pairs of a tree of dicts and lists, in order;
+    the names are those of ``nn.Module.named_parameters``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for key, sub in items:
+        yield from flatten(sub, f"{prefix}.{key}" if prefix else str(key))
+
+
+def init_params(tree: Any, generator: torch.Generator, dtype: torch.dtype,
+                device) -> Dict[str, torch.Tensor]:
+    """Every :class:`Spec` of ``tree`` materialised on ``device``, keyed by
+    its dotted name, drawn from ``generator`` in the tree's order."""
+    return {name: _init_leaf(spec, generator, dtype, device)
+            for name, spec in flatten(tree)}

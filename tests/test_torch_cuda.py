@@ -5,7 +5,8 @@ same check ``chip_smoke.py`` makes at the main path's shapes), for blocks
 16, 32, 64 and 128, for h below, between and above the blocks (ragged
 everywhere), in float64 and float32; then the engine drivers, the host-loop
 drivers, the packed solve and the Gauss–Newton head on the kernel backend
-against the reference backend.  Skipped without a CUDA device.  On the
+against the reference backend; the ``ssm_scan`` kernel at N 8, 16 and 32 on
+ragged shapes, and the reduced Mamba model against the JAX fixture.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -77,7 +78,7 @@ def test_launch_counts_are_kernel_launches(dev, h, block):
     assert LAUNCHES == dict(cholesky_blocked=3 * nt - 2, pack_tril=1,
                             solve_lower_blocked=0, interp_solve=0,
                             unpack_tril=0, interp_factors=0,
-                            solve_lower_packed=0)
+                            solve_lower_packed=0, ssm_scan=0)
 
 
 @pytest.mark.parametrize("h, block", [(40, 16), (200, 64), (1000, 128)])
@@ -143,3 +144,36 @@ def test_host_drivers_packed_solve_and_gauss_newton_match_reference(
         assert float(state.lam) == 10.0
     assert float((steps[0] - steps[1]).abs().max()) <= \
         1e-8 * float(steps[1].abs().max())
+
+
+@pytest.mark.parametrize("b, s, di, n", [
+    (1, 37, 20, 8), (2, 100, 130, 16), (1, 65, 64, 32), (3, 1, 8, 5),
+    (2, 0, 16, 16)])
+def test_ssm_scan_kernel_matches_plain_version(dev, b, s, di, n):
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches, ssm_scan
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + s)
+    xc, dt = (torch.randn(b, s, di, generator=gen, device=dev)
+              for _ in range(2))
+    dt = torch.nn.functional.softplus(dt)
+    bm, cm = (torch.randn(b, s, n, generator=gen, device=dev)
+              for _ in range(2))
+    a = -torch.exp(0.3 * torch.randn(di, n, generator=gen, device=dev))
+    d = torch.randn(di, generator=gen, device=dev)
+    reset_launches()
+    y, h = ssm_scan.ssm_scan(xc, dt, bm, cm, a, d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == 1
+    y_p, h_p = ref.ssm_scan(xc, dt, bm, cm, a, d)
+    assert y.shape == y_p.shape and h.shape == h_p.shape
+    for got, want in ((y, y_p), (h, h_p)):
+        assert torch.isfinite(got).all()
+        if want.numel():                     # S = 0: y is empty, h zero
+            assert float((got - want).abs().max()) <= \
+                1e-4 * max(float(want.abs().max()), 1.0)
+
+
+def test_reduced_mamba_matches_jax_fixture(dev, smoke):
+    """The reduced model's forward, prefill and decode on the kernel
+    reproduce the JAX outputs of tests/data/torch_mamba.npz (1e-4)."""
+    out = smoke.phase_mamba_fixture(dev)
+    assert all(r["ok"] for r in out.values()), out

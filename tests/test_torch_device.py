@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import convert  # noqa: E402
 from repro_torch.core import backends, cv, engine, precision  # noqa: E402
 from repro_torch.data import make_regression_dataset  # noqa: E402
 
@@ -37,6 +38,34 @@ def _folds():
 ], ids=["make_folds", "CVEngine", "cv_picholesky", "cv_exact_cholesky",
         "make_regression_dataset"])
 def test_default_device_is_cuda_and_raises_without_it(entry):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+class _Carried:
+    """Any object with the fields ``convert`` reads, holding numpy arrays."""
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+
+_ARR = np.ones((2, 2))
+_PI = _Carried(theta=_ARR, center=np.float64(0.0), h=2, block=2)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: convert.folds_from_numpy(_Carried(
+        hess=_ARR, grad=_ARR, fold_hess=_ARR, fold_grad=_ARR, x_folds=_ARR,
+        y_folds=_ARR)),
+    lambda: convert.picholesky_from_numpy(_PI),
+    lambda: convert.packed_factor_from_numpy(_Carried(vec=_ARR, h=2,
+                                                      block=2)),
+    lambda: convert.gn_state_from_numpy(_Carried(
+        model=_PI, lam=np.float64(1.0), lo=np.float64(0.1),
+        hi=np.float64(10.0))),
+], ids=["folds", "picholesky", "packed_factor", "gn_state"])
+def test_convert_defaults_to_cuda_and_raises_without_it(entry):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
@@ -88,7 +117,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.tri_pack, repro_torch.kernels.chol_blocked, "
             "repro_torch.kernels.trsm, repro_torch.kernels.poly_interp, "
             "repro_torch.kernels.packed_trsm, repro_torch.core.cv_host, "
-            "repro_torch.optim; "
+            "repro_torch.optim, repro_torch.kernels.ssm_scan, "
+            "repro_torch.models, repro_torch.configs; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,

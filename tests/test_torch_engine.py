@@ -38,7 +38,7 @@ def problem():
             jcv.make_strategy("picholesky", g=4, block=BLOCK),
             backend="reference", lam_chunk=None).run(jf, jnp.asarray(lams)),
     }
-    return convert.folds_from_numpy(jf), lams, ref
+    return convert.folds_from_numpy(jf, device="cpu"), lams, ref
 
 
 def _strategy(name):

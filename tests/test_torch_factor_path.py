@@ -97,7 +97,7 @@ def test_interp_factors(h, block):
     grid that leaves the sample range on both sides."""
     models = [jpi.fit(jnp.asarray(_spd(h, s)), jnp.asarray(SAMPLES), 2,
                       block=block, basis="centered") for s in (h, h + 2)]
-    theta = torch.stack([convert.picholesky_from_numpy(m).theta
+    theta = torch.stack([convert.picholesky_from_numpy(m, device="cpu").theta
                          for m in models])
     center = float(models[0].center)
     lams = np.array([1e-4, 0.02, 3.0, 250.0])
@@ -169,7 +169,7 @@ def test_solve_packed_batched_factors_share_one_rhs(backend):
     jpf = jpack.PackedFactor(vec=jpack.pack_tril(jnp.asarray(ls), block),
                              h=h, block=block)
     want = np.asarray(jsolvers.solve_packed(jpf, jnp.asarray(g)))
-    pf = convert.packed_factor_from_numpy(jpf)
+    pf = convert.packed_factor_from_numpy(jpf, device="cpu")
     got = solvers.solve_packed(pf, torch.from_numpy(g), backend=backend)
     assert got.shape == (q, h)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
@@ -278,8 +278,8 @@ def table4():
     data = np.load(FIXTURE)
     k = int(data["k"])
     jf = jcv.make_folds(jnp.asarray(data["x"]), jnp.asarray(data["y"]), k)
-    return (jf, convert.folds_from_numpy(jf), np.asarray(data["lams"]),
-            int(data["g"]), int(data["block"]))
+    return (jf, convert.folds_from_numpy(jf, device="cpu"),
+            np.asarray(data["lams"]), int(data["g"]), int(data["block"]))
 
 
 def _host_runs(name, g, block):
@@ -336,7 +336,7 @@ def test_host_drivers_ragged_tiles():
     rng = np.random.default_rng(21)
     x, y = rng.standard_normal((150, 37)), rng.standard_normal(150)
     jf = jcv.make_folds(jnp.asarray(x), jnp.asarray(y), 3)
-    tf = convert.folds_from_numpy(jf)
+    tf = convert.folds_from_numpy(jf, device="cpu")
     lams = np.logspace(-2, 2, 9)
     want = jhost.host_cv_picholesky(jf, jnp.asarray(lams), 4, block=16)
     for backend in ("reference", "cuda"):
@@ -367,7 +367,7 @@ def test_gauss_newton_steps_match_reference(backend):
     assert _rel(tstate.model.theta.numpy(), jstate.model.theta) <= RTOL
     assert float(tstate.lam) == pytest.approx(float(jstate.lam), rel=1e-15)
     # carried across, the reference's own state steps the same way
-    carried = convert.gn_state_from_numpy(jstate)
+    carried = convert.gn_state_from_numpy(jstate, device="cpu")
     for lam in (0.013, 0.2, 0.9, 1e3, 1e-5):
         jd, jstate = jstep(jstate, jnp.asarray(b), jnp.asarray(lam))
         td, tstate = tstep(tstate, torch.from_numpy(b), lam)

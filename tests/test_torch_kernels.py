@@ -98,7 +98,7 @@ def test_interp_solve(h, block, basis):
                       basis=basis) for s in (5, 6)]
     lams = np.array([1e-3, 0.3, 7.0, 7.0])
     g = np.random.default_rng(7).standard_normal((2, h))
-    theta = torch.stack([convert.picholesky_from_numpy(m).theta
+    theta = torch.stack([convert.picholesky_from_numpy(m, device="cpu").theta
                          for m in models])
     got = poly_interp.interp_solve(theta, torch.from_numpy(lams),
                                    torch.from_numpy(g), h, block,
@@ -115,7 +115,7 @@ def test_interp_solve_rhs_per_lam_and_multi_column():
     h, block = 40, 16
     model = jpi.fit(jnp.asarray(_spd(h, 8)), jnp.logspace(-3, 2, 4), 2,
                     block=block)
-    theta = convert.picholesky_from_numpy(model).theta
+    theta = convert.picholesky_from_numpy(model, device="cpu").theta
     lams = np.array([0.01, 1.0, 30.0])
     g = np.random.default_rng(9).standard_normal((3, h, 2))
     got = poly_interp.interp_solve(theta, torch.from_numpy(lams),

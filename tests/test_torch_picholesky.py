@@ -79,7 +79,7 @@ def test_carried_theta_gives_reference_solutions(problem, backend):
     h, block, a, samples = problem
     jm = jpi.fit(jnp.asarray(a), jnp.asarray(samples), 2, block=block,
                  basis="centered")
-    tm = convert.picholesky_from_numpy(jm)
+    tm = convert.picholesky_from_numpy(jm, device="cpu")
     lams = np.array([0.01, 3.0])
     g = np.random.default_rng(2).standard_normal(h)
     want = np.asarray(jm.solve(jnp.asarray(lams), jnp.asarray(g)))
@@ -108,7 +108,7 @@ def test_fit_from_packed_factors_and_batched_folds(problem):
                              block=block)
     jm = jpi.fit(None, jnp.asarray(samples), 2, block=block, factors=jpf)
     assert _rel(refit.theta[0].numpy(), jm.theta) <= RTOL
-    carried = convert.packed_factor_from_numpy(jpf)
+    carried = convert.packed_factor_from_numpy(jpf, device="cpu")
     np.testing.assert_array_equal(carried.vec.numpy(), pf.vec[0].numpy())
     assert (carried.h, carried.block) == (h, block)
 

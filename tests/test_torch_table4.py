@@ -58,7 +58,7 @@ def reference():
 @pytest.fixture(scope="module", params=["reference", "cuda"])
 def port(request, reference):
     ref, jfolds = reference
-    folds = convert.folds_from_numpy(jfolds)
+    folds = convert.folds_from_numpy(jfolds, device="cpu")
     r_exact = tcv.cv_exact_cholesky(folds, ref["lams"], backend=request.param,
                                     device="cpu")
     r_pi = tcv.cv_picholesky(folds, ref["lams"], g=G, block=BLOCK,
