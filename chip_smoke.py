@@ -8,11 +8,15 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
 1. device   — the card's name; then the raw ``nvidia-smi`` name and power
               limit line.
 2. build    — ``nvcc`` builds every kernel of ``src/repro_torch/kernels/csrc``
-              into ``build/repro_torch_kernels/`` (one process per source).
+              into ``build/repro_torch_kernels/`` (one process per source);
+              then one ``ptxas`` line per compiled kernel (registers, shared
+              memory, spills).
 3. kernels  — each hand-written kernel against its plain PyTorch version on
-              the card: at the main path's shapes (float64), at a ragged
-              shape (h % B ≠ 0) and in float32, with times of the kernel,
-              the plain version and one library call (CUDA events).
+              the card: at the main path's shapes (float64), at ragged
+              shapes (h = 1000 and odd h = 999) and in float32, with times of
+              the kernel, the plain version and one library call (CUDA
+              events); the Cholesky's time split by its three kernels from
+              one profiled call, with the diagonal step per tile column.
 4. main     — ``cv_picholesky`` and ``cv_exact_cholesky`` at the repo's
               configuration (h=1024, n=4096, k=5, q=31 over [1e-3, 1], g=4,
               r=2, block=128, float64) on the ``cuda`` backend, held against
@@ -21,8 +25,8 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               kernel of that sweep must have launched, and no other; wall
               times of both (in turns, repeated).
 5. trace    — one profiled run of each sweep and each host driver: device
-              busy time, its share of the wall time, and the kernels that
-              take the most time.
+              busy time, its share of the wall time, the kernels that take
+              the most time, and the Cholesky's three kernels.
 6. host     — the host-loop drivers (``host_cv_picholesky``,
               ``host_cv_exact_cholesky``, ``host_cv_pinrmse``: folds one at
               a time, dense interpolated factors) at the main configuration
@@ -195,6 +199,22 @@ def phase_device() -> dict:
     return dict(name=name, smi=smi, peaks=peaks_for(name))
 
 
+def ptxas_lines(log: str) -> list:
+    """``-Xptxas -v`` of one library: per compiled kernel its (mangled)
+    name, its registers and shared memory, and its stack and spills."""
+    out, cur = [], None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            cur = dict(kernel=line.split("'")[1])
+            out.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spills"] = line
+        elif cur is not None and "registers" in line:
+            cur["used"] = line.split("info    : ")[-1]
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -202,11 +222,13 @@ def phase_build() -> None:
     regs = {}
     for name in _build.SOURCES:
         log = _build._target(name).with_suffix(".log")
-        regs[name] = [line.split("info    : ")[-1] for line in
-                      log.read_text().splitlines() if "registers" in line] \
-            if log.exists() else []
+        regs[name] = ptxas_lines(log.read_text()) if log.exists() else []
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
-         ptxas=regs)
+         ptxas={k: [r.get("used", "") for r in v] for k, v in regs.items()})
+    for name in _build.SOURCES:
+        for r in regs[name]:
+            print(f"ptxas {name}: {r['kernel']}: {r.get('used', '')}; "
+                  f"{r.get('spills', '')}", flush=True)
 
 
 def main_inputs(dev):
@@ -406,6 +428,13 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             work_bytes=w["bytes"], work_flops=w["flops"])
+    # the Cholesky's three kernels at this shape, from one profiled call
+    _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(anchors,
+                                                                block))
+    split = chol_split(by_name)
+    res["cholesky_blocked"].update(
+        by_kernel=split,
+        diag_ms_per_tile_column=split["diag_kernel"]["ms_per_launch"])
     return res
 
 
@@ -470,6 +499,9 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     ragged = check_kernels(dev, 1000, BLOCK, 4, 3, torch.float64)
     emit("kernels", shape="ragged", h=1000, block=BLOCK, dtype="float64",
          results=ragged)
+    odd = check_kernels(dev, 999, BLOCK, 4, 3, torch.float64)
+    emit("kernels", shape="ragged_odd", h=999, block=BLOCK, dtype="float64",
+         results=odd)
     f32 = check_kernels(dev, H, BLOCK, 4, 3, torch.float32)
     emit("kernels", shape="float32", h=H, block=BLOCK, dtype="float32",
          results=f32)
@@ -482,7 +514,8 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
              results=res)
     main.update(scan)
     bad = [(case, name) for case, res in
-           (("main", main), ("ragged", ragged), ("float32", f32),
+           (("main", main), ("ragged", ragged), ("ragged_odd", odd),
+            ("float32", f32),
             ("ssm_scan_ragged", scan_ragged))
            for name, r in res.items() if not r["ok"]]
     if bad:
@@ -615,12 +648,30 @@ def profiled(fn) -> tuple[dict, dict]:
                      for n, (ms, c) in top]), by_name
 
 
+CHOL_KERNELS = ("diag_kernel", "panel_kernel", "syrk_kernel")
+
+
+def chol_split(by_name: dict) -> dict:
+    """Device ms and launches of the Cholesky's three kernels in a
+    profile's by-name table (the diagonal step launches once per tile
+    column)."""
+    out = {}
+    for k in CHOL_KERNELS:
+        rows = [v for n, v in by_name.items() if k in n]
+        ms, n = sum(r[0] for r in rows), sum(r[1] for r in rows)
+        out[k] = dict(ms=ms, launches=n, ms_per_launch=ms / n if n else None)
+    return out
+
+
 def phase_trace(dev, folds, lams) -> None:
     """One profiled run of each sweep and each host driver on the cuda
-    backend (after a warm run)."""
+    backend (after a warm run), with the Cholesky's kernels split out."""
     paths = {**runners(dev, folds, lams), **host_drivers(folds, lams)}
-    emit("trace", **{tag: profiled(lambda: run("cuda"))[0]
-                     for tag, run in paths.items()})
+    out = {}
+    for tag, run in paths.items():
+        trace, by_name = profiled(lambda: run("cuda"))
+        out[tag] = dict(trace, cholesky=chol_split(by_name))
+    emit("trace", **out)
 
 
 def chol_launches(h: int, block: int) -> int:

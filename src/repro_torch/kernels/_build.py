@@ -27,8 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "LAUNCHES", "build_all", "load",
-           "check", "check_tensor", "c_function", "count_launch",
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BLOCKS", "LAUNCHES", "build_all",
+           "load", "check", "check_tensor", "c_function", "count_launch",
            "reset_launches", "ptr", "stream_ptr", "suffix"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,6 +37,9 @@ SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp", "packed_trsm",
            "ssm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: the tile sizes the Cholesky and ``pack_tril`` kernels are compiled for
+BLOCKS = (16, 32, 64, 128)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("pack_tril", "cholesky_blocked",

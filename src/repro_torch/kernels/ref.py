@@ -22,9 +22,9 @@ import torch
 
 from repro_torch.core import packing
 
-__all__ = ["cholesky_blocked", "solve_lower_blocked", "interp_solve",
-           "interp_factors", "dense_diag_inverses", "packed_diag_inverses",
-           "interp_diag_inverses", "ssm_scan"]
+__all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
+           "interp_solve", "interp_factors", "dense_diag_inverses",
+           "packed_diag_inverses", "interp_diag_inverses", "ssm_scan"]
 
 
 def _identity_padded(a: torch.Tensor, block: int) -> torch.Tensor:
@@ -61,6 +61,43 @@ def _inv_lower(l: torch.Tensor) -> torch.Tensor:
         e[k] = 1
         x[..., k, :] = (e - s) / l[..., k, k, None]
     return x
+
+
+def factor_diag_tile(a: torch.Tensor, nb: int = 16
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The diagonal step of ``csrc/chol_blocked.cu`` in the kernel's order:
+    SPD tiles (…, B, B) (lower triangle read) → (L, X = L⁻¹), both lower.
+
+    Per ``nb``-column sub-block p: potf2 of A_pp and its inverse X_pp, the
+    rows below as L_ip = A_ip X_ppᵀ, then A_ij −= L_ip L_jpᵀ.  Then the
+    inverse block row by block row, X_ij = −X_ii Σ_{k=j}^{i−1} L_ik X_kj.
+    Same result as :func:`_potf2` and :func:`_inv_lower` on the whole tile
+    up to rounding; used by the tests to hold the kernel's algebra to them.
+    """
+    b = a.shape[-1]
+    if b % nb:
+        raise ValueError(f"factor_diag_tile: tile {b} is not a multiple of "
+                         f"nb={nb}")
+    ns = b // nb
+    sub = [slice(p * nb, (p + 1) * nb) for p in range(ns)]
+    l = a.clone()
+    xd = []
+    for p in range(ns):
+        lpp = _potf2(l[..., sub[p], sub[p]])
+        xd.append(_inv_lower(lpp))
+        l[..., sub[p], sub[p]] = lpp
+        below = slice((p + 1) * nb, b)
+        lip = l[..., below, sub[p]] @ xd[p].mT
+        l[..., below, sub[p]] = lip
+        l[..., below, below] -= lip @ lip.mT
+    l = torch.tril(l)
+    x = torch.zeros_like(l)
+    for i in range(ns):
+        x[..., sub[i], sub[i]] = xd[i]
+        for j in range(i):
+            t = l[..., sub[i], j * nb:i * nb] @ x[..., j * nb:i * nb, sub[j]]
+            x[..., sub[i], sub[j]] = -xd[i] @ t
+    return l, x
 
 
 def cholesky_blocked(a: torch.Tensor, block: int) -> torch.Tensor:

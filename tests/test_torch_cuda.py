@@ -47,6 +47,57 @@ def test_kernels_match_plain_versions(dev, smoke, block, h, dtype):
     assert all(r["ok"] for r in res.values()), res
 
 
+@pytest.mark.parametrize("h", [1024, 1000])
+def test_cholesky_ill_conditioned_matches_plain_version(dev, h):
+    """κ(A) = 1e8, float64, B = 128 (h = 1000 ragged).  Two backward-stable
+    factorizations of one matrix differ in the factor by up to
+    κ(A)·h·u relative (the factor's sensitivity times the backward error
+    c·h·u), so that is the limit against the plain version.  The
+    reconstruction L Lᵀ − A is held to h·u·κ(A)^½: the panel is a product
+    with the explicit inverse of the diagonal factor, whose condition is at
+    most κ(A)^½, so the usual h·u gains that factor."""
+    from repro_torch.kernels import chol_blocked, ref
+    kappa, u = 1e8, torch.finfo(torch.float64).eps
+    gen = torch.Generator(device=dev).manual_seed(h)
+    q, _ = torch.linalg.qr(torch.randn(2, h, h, generator=gen, device=dev,
+                                       dtype=torch.float64))
+    eig = torch.logspace(0, -8, h, dtype=torch.float64, device=dev)
+    a = (q * eig) @ q.mT
+    a = ((a + a.mT) / 2).contiguous()
+    a0 = a.clone()
+    l = chol_blocked.cholesky_blocked(a, 128)
+    l_p = ref.cholesky_blocked(a, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a0), "the input was modified"
+    assert torch.isfinite(l).all() and torch.equal(l, torch.tril(l))
+    assert float((l - l_p).abs().max()) <= \
+        kappa * h * u * float(l_p.abs().max())
+    assert float((l @ l.mT - a).abs().max()) <= \
+        h * u * kappa ** 0.5 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("h, dtype, offset", [
+    (999, torch.float64, 0), (1001, torch.float32, 0),
+    (1022, torch.float32, 0), (1024, torch.float64, 1),
+    (256, torch.float32, 1)], ids=["odd-f64", "odd-f32", "h%4=2-f32",
+                                   "base+8B-f64", "base+4B-f32"])
+def test_pack_tril_bit_exact_on_misaligned_rows(dev, block, h, dtype,
+                                                offset):
+    """Rows that are not 16-byte aligned (odd h in float64, h % 4 ≠ 0 in
+    float32, or a base pointer off by one element) take the scalar path
+    and still equal the plain version bit for bit."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import tri_pack
+    gen = torch.Generator(device=dev).manual_seed(h + block)
+    buf = torch.randn(3 * h * h + offset, generator=gen, device=dev,
+                      dtype=dtype)
+    m = buf[offset:].view(3, h, h)
+    got = tri_pack.pack_tril(m, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, packing.pack_tril(m, block))
+
+
 @pytest.mark.parametrize("block", [16, 64])
 def test_drivers_match_reference_backend(dev, block):
     from repro_torch.core import cv

@@ -136,6 +136,20 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         chol_blocked.cholesky_blocked(m, 16)
 
 
+@pytest.mark.parametrize("block", [8, 48, 96, 256])
+def test_kernel_blocks_are_the_compiled_ones(block):
+    """The Cholesky and pack kernels are compiled for blocks 16, 32, 64 and
+    128; any other block is refused before a launch, naming that set (the
+    plain versions on the CPU take any block)."""
+    m = torch.empty(2, 32, 32, device="meta", dtype=torch.float64)
+    for fn in (chol_blocked.cholesky_blocked, tri_pack.pack_tril):
+        with pytest.raises(ValueError, match=r"one of \(16, 32, 64, 128\)"):
+            fn(m, block)
+    cpu = torch.eye(32, dtype=torch.float64) * 4
+    torch.testing.assert_close(chol_blocked.cholesky_blocked(cpu, 8),
+                               torch.eye(32, dtype=torch.float64) * 2)
+
+
 def test_build_module_imports_without_nvcc(tmp_path):
     code = ("import repro_torch.kernels._build as b, shutil; "
             "assert shutil.which('nvcc') is None; "
