@@ -16,7 +16,14 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               shapes (h = 1000 and odd h = 999) and in float32, with times of
               the kernel, the plain version and one library call (CUDA
               events); the Cholesky's time split by its three kernels from
-              one profiled call, with the diagonal step per tile column.
+              one profiled call, with the diagonal step per tile column;
+              the two cluster solves (the dense trsm and ``interp_solve``,
+              ``csrc/tri_solve.cuh``) split by one profiled call into their
+              kernel's device time and the time outside it, with their
+              launch plan (cluster size, ``cudaOccupancyMaxActiveClusters``,
+              rows per block, where the diagonal inverses live) and their
+              ``ptxas`` lines at B = 128; the trsm also with the caller's
+              inverses (checked and timed).
 4. main     — ``cv_picholesky`` and ``cv_exact_cholesky`` at the repo's
               configuration (h=1024, n=4096, k=5, q=31 over [1e-3, 1], g=4,
               r=2, block=128, float64) on the ``cuda`` backend, held against
@@ -26,7 +33,11 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               times of both (in turns, repeated).
 5. trace    — one profiled run of each sweep and each host driver: device
               busy time, its share of the wall time, the kernels that take
-              the most time, and the Cholesky's three kernels.
+              the most time, the Cholesky's three kernels, the cluster
+              solves' device time, the library (cuBLAS) trsm kernels that
+              ran and the PyTorch triangular-solve calls (none may run on
+              the two sweeps of the main path: the kernels invert their
+              diagonal tiles themselves).
 6. host     — the host-loop drivers (``host_cv_picholesky``,
               ``host_cv_exact_cholesky``, ``host_cv_pinrmse``: folds one at
               a time, dense interpolated factors) at the main configuration
@@ -64,7 +75,11 @@ The ``kernels`` phase also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one.  Then one ``{"kernels": [...]}`` line, and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
-one CUDA card; imports nothing of JAX.
+one CUDA card; imports nothing of JAX.  The ``kernels`` line carries, for
+the dense trsm and ``interp_solve``, also ``kernel_ms`` (device time of the
+cluster kernel per launch), ``outside_kernel_ms`` (wrapper time less the
+kernel's), ``other_device_ms``, ``plan`` and ``ptxas``; the trsm's
+``ms_given_inverses`` is its time with the caller's inverses.
 """
 from __future__ import annotations
 
@@ -134,6 +149,9 @@ REPLACES = {
     "solve_lower_packed": "src/repro/kernels/packed_trsm.py:166",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:83",
 }
+# what the kernels line adds for the two cluster solves (tri_solve.cuh)
+CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
+                "ptxas", "ms_given_inverses")
 # kernels that only move values: they must equal their plain versions
 EXACT_KERNELS = ("pack_tril", "unpack_tril")
 # The kernels each sweep of the main path launches; it launches no other.
@@ -286,23 +304,26 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
     v_p = packing.pack_tril(l_p, block)
     res["pack_tril"] = dict(zip(("max_abs_err", "max_rel_err"),
                                 errors(v_k, v_p)))
-    # solve_lower_blocked: forward then transposed solve of one exact chunk
+    # solve_lower_blocked: forward then transposed solve of one exact chunk,
+    # as the exact sweep runs it (the kernel inverts the diagonal tiles),
+    # and with the inverses given by the caller
     l_e = torch.linalg.cholesky(exact).contiguous()
     inv = ref.dense_diag_inverses(l_e, block)
 
-    def trsm_kernel():
-        w = trsm.solve_lower_blocked(l_e, rhs, block, inv_diag=inv)
+    def trsm_kernel(inv_diag=None):
+        w = trsm.solve_lower_blocked(l_e, rhs, block, inv_diag=inv_diag)
         return trsm.solve_lower_blocked(l_e, w, block, transpose=True,
-                                        inv_diag=inv)
+                                        inv_diag=inv_diag)
 
     def trsm_plain():
-        w = ref.solve_lower_blocked(l_e, rhs, block, inv_diag=inv)
-        return ref.solve_lower_blocked(l_e, w, block, transpose=True,
-                                       inv_diag=inv)
+        w = ref.solve_lower_blocked(l_e, rhs, block)
+        return ref.solve_lower_blocked(l_e, w, block, transpose=True)
 
+    want = trsm_plain()
     res["solve_lower_blocked"] = dict(zip(("max_abs_err", "max_rel_err"),
-                                          errors(trsm_kernel(),
-                                                 trsm_plain())))
+                                          errors(trsm_kernel(), want)))
+    res["solve_lower_blocked"]["max_rel_err_given_inverses"] = errors(
+        trsm_kernel(inv), want)[1]
     # interp_solve: Θ fitted on the anchors, one λ chunk, every fold
     n_fold = h_tr.shape[0]
     targets = v_p.reshape(-1, G_SAMPLES, v_p.shape[-1])[:n_fold] \
@@ -360,7 +381,8 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
                                                 psolve_plain())))
     for name, r in res.items():
         r["tol_rel"] = 0.0 if name in EXACT_KERNELS else tol
-        r["ok"] = r["max_rel_err"] <= r["tol_rel"]
+        r["ok"] = max(r["max_rel_err"],
+                      r.get("max_rel_err_given_inverses", 0.0)) <= r["tol_rel"]
     if timing is None:
         return res
 
@@ -428,6 +450,11 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             work_bytes=w["bytes"], work_flops=w["flops"])
+    res["solve_lower_blocked"]["ms_given_inverses"] = timed_ms(
+        lambda: trsm_kernel(inv), 5)
+    for name, fn in (("solve_lower_blocked", trsm_kernel),
+                     ("interp_solve", interp_kernel)):
+        res[name].update(cluster_split(name, fn, res[name]["ms"]))
     # the Cholesky's three kernels at this shape, from one profiled call
     _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(anchors,
                                                                 block))
@@ -641,9 +668,11 @@ def profiled(fn) -> tuple[dict, dict]:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    tri_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+                  and e.name in TRIANGULAR_SOLVE_OPS)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
-                n_kernels=len(kern),
+                n_kernels=len(kern), triangular_solve_ops=tri_ops,
                 top=[dict(name=n, ms=ms, count=c)
                      for n, (ms, c) in top]), by_name
 
@@ -663,6 +692,50 @@ def chol_split(by_name: dict) -> dict:
     return out
 
 
+SOLVE_KERNEL = "tri_solve_kernel"      # both cluster solves' kernel
+
+
+def solve_kind(name: str) -> str | None:
+    """Which wrapper a profiled kernel name belongs to: the cluster solve
+    instantiated for ``interp_solve`` (Interp = true) or the dense trsm."""
+    if SOLVE_KERNEL not in name:
+        return None
+    return "interp_solve" if "true>" in name else "solve_lower_blocked"
+
+
+# the PyTorch calls that inverted diagonal tiles outside the kernels
+# (``packing.invert_diag_tiles``)
+TRIANGULAR_SOLVE_OPS = ("aten::linalg_solve_triangular",
+                        "aten::triangular_solve")
+
+
+def is_library_trsm(name: str) -> bool:
+    """A cuBLAS/cuSOLVER triangular solve (of a ``torch.linalg`` call), not
+    one of the port's kernels."""
+    return ("trsm" in name.lower() and SOLVE_KERNEL not in name
+            and "packed_trsm_kernel" not in name)
+
+
+def cluster_split(name: str, fn, ms: float) -> dict:
+    """One profiled call of a cluster-solve wrapper: its kernel's device
+    time, the rest of the call's device time, the time outside the kernel
+    (wrapper ms − kernel ms), the launch plan and the kernel's ptxas
+    lines at B = 128."""
+    from repro_torch.kernels import _build
+    _, by_name = profiled(fn)
+    kern = sum(v[0] for n, v in by_name.items() if solve_kind(n) == name)
+    n_kern = sum(v[1] for n, v in by_name.items() if solve_kind(n) == name)
+    other = sum(v[0] for n, v in by_name.items() if solve_kind(n) != name)
+    lib = {"interp_solve": "poly_interp", "solve_lower_blocked": "trsm"}[name]
+    log = _build._target(lib).with_suffix(".log")
+    ptx = [f"{r['kernel']}: {r.get('used', '')}; {r.get('spills', '')}"
+           for r in (ptxas_lines(log.read_text()) if log.exists() else [])
+           if SOLVE_KERNEL in r["kernel"] and "Li128E" in r["kernel"]]
+    return dict(kernel_ms=kern / max(n_kern, 1), kernel_launches=n_kern,
+                other_device_ms=other, outside_kernel_ms=ms - kern,
+                plan=dict(_build.PLANS.get(name, {})), ptxas=ptx)
+
+
 def phase_trace(dev, folds, lams) -> None:
     """One profiled run of each sweep and each host driver on the cuda
     backend (after a warm run), with the Cholesky's kernels split out."""
@@ -670,8 +743,22 @@ def phase_trace(dev, folds, lams) -> None:
     out = {}
     for tag, run in paths.items():
         trace, by_name = profiled(lambda: run("cuda"))
-        out[tag] = dict(trace, cholesky=chol_split(by_name))
+        solves = {k: dict(ms=sum(v[0] for n, v in by_name.items()
+                                 if solve_kind(n) == k),
+                          launches=sum(v[1] for n, v in by_name.items()
+                                       if solve_kind(n) == k))
+                  for k in ("interp_solve", "solve_lower_blocked")}
+        lib_trsm = {n: v for n, v in by_name.items() if is_library_trsm(n)}
+        out[tag] = dict(trace, cholesky=chol_split(by_name),
+                        cluster_solves=solves, library_trsm=lib_trsm)
     emit("trace", **out)
+    bad = {tag: dict(calls=out[tag]["triangular_solve_ops"],
+                     kernels=out[tag]["library_trsm"])
+           for tag in runners(dev, folds, lams)
+           if out[tag]["triangular_solve_ops"] or out[tag]["library_trsm"]}
+    if bad:
+        raise AssertionError(f"a library triangular solve ran on the main "
+                             f"path: {bad}")
 
 
 def chol_launches(h: int, block: int) -> int:
@@ -1126,7 +1213,8 @@ def main() -> None:
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
-                         library_ms=r["library_ms"]))
+                         library_ms=r["library_ms"],
+                         **{k: r[k] for k in CLUSTER_KEYS if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")

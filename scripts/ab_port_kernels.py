@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's ``cholesky_blocked`` and ``pack_tril`` in this checkout
-against another checkout of the repo, in turns, on one CUDA card.
+"""Time the port's two CV engine sweeps, ``cholesky_blocked``,
+``pack_tril``, dense trsm and ``interp_solve`` in this checkout against
+another checkout of the repo, in turns, on one CUDA card.
 
     python3 scripts/ab_port_kernels.py OTHER_CHECKOUT [--rounds 2]
 
@@ -8,10 +9,19 @@ Each run is its own process importing one checkout's ``src`` (so each side
 uses its own kernels, built into its own ``build/``).  Runs alternate
 other, this, this, other, … for ``--rounds`` rounds.  Inputs: 20 SPD
 matrices of 1024² in float64 from a seeded generator (the main path's
-anchor batch, ``chip_smoke.py``'s timed shape), block 128.  Each run
-prints one JSON line: the card's name and power limit, the mean ms of
-each wrapper over 10 calls after a warm-up (CUDA events), and the
-kernel's launches per call; the last line gives the median per side.
+anchor batch, ``chip_smoke.py``'s timed shape), block 128.  The trsm: the
+forward and the transposed solve of 15 of their factors, one right-hand
+side, as the exact sweep runs them (``CudaBackend.solve_from_factor``) and
+with the diagonal inverses given (``inv_diag=``).  ``interp_solve``: Θ
+(5, 3, P) from the packed factors, 3 λ, g (5, 1024), the main path's λ
+chunk.  The engines: ``cv_picholesky`` and ``cv_exact_cholesky`` on the
+``cuda`` backend at the repo's configuration (h=1024, n=4096, k=5, q=31
+over [1e-3, 1], g=4, r=2, block=128, float64, ``chip_smoke.py``'s phase
+``main``), host clock to a synchronize, median of 5 after a warm run.
+Each run prints one JSON line: the card's name and power limit, the two
+engines' wall ms, the mean ms of each wrapper over 10 calls after a
+warm-up (CUDA events), and the Cholesky's launches per call; the last
+line gives the median per side.
 """
 from __future__ import annotations
 
@@ -25,15 +35,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = r"""
-import json, subprocess, sys
+import json, statistics, subprocess, sys, time
 sys.path.insert(0, "src")
 import torch
-from repro_torch.kernels import LAUNCHES, chol_blocked, reset_launches, tri_pack
+from repro_torch.core import packing
+from repro_torch.core.backends import CudaBackend
+from repro_torch.kernels import (LAUNCHES, chol_blocked, poly_interp, ref,
+                                 reset_launches, tri_pack, trsm)
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 x = torch.randn(20, 2048, 1024, generator=gen, device=dev, dtype=torch.float64)
 a = (x.mT @ x / 1024 + torch.eye(1024, device=dev, dtype=torch.float64)).contiguous()
 l = torch.linalg.cholesky(a).contiguous()
+l15 = l[:15].contiguous()
+g15 = torch.randn(15, 1024, generator=gen, device=dev, dtype=torch.float64)
+inv15 = ref.dense_diag_inverses(l15, 128)
+v = packing.pack_tril(l, 128)
+theta = torch.stack([v[:5], 0.1 * v[5:10], 0.01 * v[10:15]], 1).contiguous()
+lams = torch.tensor([1e-3, 3.2e-3, 1e-2], device=dev, dtype=torch.float64)
+g5 = torch.randn(5, 1024, generator=gen, device=dev, dtype=torch.float64)
+bk = CudaBackend()
+
+
+def pair_given():
+    w = trsm.solve_lower_blocked(l15, g15, 128, inv_diag=inv15)
+    return trsm.solve_lower_blocked(l15, w, 128, transpose=True, inv_diag=inv15)
+
 
 def timed(fn, reps=10):
     fn()
@@ -53,11 +80,49 @@ launches = LAUNCHES["cholesky_blocked"]
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip().splitlines()[0]
+
+# the main path's two sweeps at the repo's configuration (chip_smoke.py's
+# phase main): host clock to a synchronize, median of 5 after a warm run
+from repro_torch.core import cv
+from repro_torch.data import make_regression_dataset
+del x
+xs, ys = make_regression_dataset(4096, 1024, seed=0, dtype=torch.float64,
+                                 device=dev)
+folds = cv.make_folds(xs, ys, 5, device=dev)
+grid = torch.logspace(-3, 0, 31, dtype=torch.float64, device=dev)
+
+
+def wall(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+engines = dict(
+    picholesky_engine_ms=wall(lambda: cv.cv_picholesky(
+        folds, grid, g=4, degree=2, block=128, backend="cuda", device=dev)),
+    exact_engine_ms=wall(lambda: cv.cv_exact_cholesky(
+        folds, grid, backend="cuda", device=dev)))
 print(json.dumps(dict(
-    card=smi, cholesky_blocked_ms=timed(lambda: chol_blocked.cholesky_blocked(a, 128)),
+    card=smi, **engines,
+    cholesky_blocked_ms=timed(lambda: chol_blocked.cholesky_blocked(a, 128)),
     pack_tril_ms=timed(lambda: tri_pack.pack_tril(l, 128)),
+    trsm_pair_ms=timed(lambda: bk.solve_from_factor(l15, g15)),
+    trsm_pair_given_inverses_ms=timed(pair_given),
+    interp_solve_ms=timed(lambda: poly_interp.interp_solve(theta, lams, g5, 1024, 128)),
     cholesky_launches=launches)))
 """
+
+
+TIMED = ("picholesky_engine_ms", "exact_engine_ms", "cholesky_blocked_ms",
+         "pack_tril_ms", "trsm_pair_ms", "trsm_pair_given_inverses_ms",
+         "interp_solve_ms")
 
 
 def run(side: str, root: Path) -> dict:
@@ -81,7 +146,7 @@ def main() -> None:
             recs.append(run(side, ROOT if side == "this" else args.other))
     summary = {side: {k: statistics.median(r[k] for r in recs
                                            if r["side"] == side)
-                      for k in ("cholesky_blocked_ms", "pack_tril_ms")}
+                      for k in TIMED}
                for side in ("other", "this")}
     print(json.dumps(dict(median=summary)), flush=True)
 

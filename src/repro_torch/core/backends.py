@@ -191,22 +191,11 @@ class CudaBackend(LinalgBackend):
         from repro_torch.kernels.chol_blocked import cholesky_blocked
         return cholesky_blocked(self._accum(a), self.chol_block)
 
-    def solve_lower(self, l, b, *, transpose=False, inv_diag=None):
+    def solve_lower(self, l, b, *, transpose=False):
         from repro_torch.kernels.trsm import solve_lower_blocked
         l = self._accum(l)
         return solve_lower_blocked(l, b.to(l.dtype).contiguous(),
-                                   self.trsm_block, transpose=transpose,
-                                   inv_diag=inv_diag)
-
-    def solve_from_factor(self, l, g):
-        from .packing import PackedFactor
-        from repro_torch.kernels.ref import dense_diag_inverses
-        if isinstance(l, PackedFactor):
-            return self.solve_packed(l, g)
-        l = self._accum(l)
-        inv = dense_diag_inverses(l, self.trsm_block)   # for both sweeps
-        w = self.solve_lower(l, g, inv_diag=inv)
-        return self.solve_lower(l, w, transpose=True, inv_diag=inv)
+                                   self.trsm_block, transpose=transpose)
 
     def pack_tril(self, mat, block):
         from repro_torch.kernels.tri_pack import pack_tril

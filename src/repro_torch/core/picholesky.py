@@ -159,12 +159,14 @@ def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
               else sample_lams.new_zeros(()))
     fit_dtype = bk.precision.fit_dtype(targets.dtype)
     store_dtype = bk.precision.store_dtype(targets.dtype)
-    v = vandermonde(sample_lams, degree, center).to(fit_dtype)
-    v = v.to(targets.device)
     # Θ = (VᵀV)⁻¹ (Vᵀ T), with the (r+1)×(r+1) solve applied to Vᵀ (g
     # columns) before the product with T: a batched LU solve against the
     # P ≈ 6·10⁵ columns of VᵀT spends most of its time swapping rows.
-    proj = torch.linalg.solve(v.T @ v, v.T)                 # (r+1, g)
+    # That solve runs on the host: on the card torch.linalg.solve launches
+    # cuBLAS trsm kernels and reads its status back to the host all the
+    # same, and elementwise tensor operations cost more launches than it.
+    v = vandermonde(sample_lams.cpu(), degree, center.cpu()).to(fit_dtype)
+    proj = torch.linalg.solve(v.T @ v, v.T).to(targets.device)  # (r+1, g)
     theta = proj @ targets.to(fit_dtype)                    # (…, r+1, P)
     return PiCholesky(theta=theta.to(store_dtype),
                       center=center.to(fit_dtype).to(targets.device),

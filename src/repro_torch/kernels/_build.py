@@ -27,9 +27,10 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BLOCKS", "LAUNCHES", "build_all",
-           "load", "check", "check_tensor", "c_function", "count_launch",
-           "reset_launches", "ptr", "stream_ptr", "suffix"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BLOCKS", "LAUNCHES", "PLANS",
+           "PLAN_KEYS", "build_all", "load", "check", "check_block",
+           "check_tensor", "c_function", "count_launch", "reset_launches",
+           "launch_solve", "ptr", "stream_ptr", "suffix"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -38,8 +39,19 @@ SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp", "packed_trsm",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: the tile sizes the Cholesky and ``pack_tril`` kernels are compiled for
+#: the tile sizes the kernels with a compile-time block are compiled for
+#: (the Cholesky, ``pack_tril``, the dense trsm and ``interp_solve``)
 BLOCKS = (16, 32, 64, 128)
+
+#: the launch plan of a cluster solve (``csrc/tri_solve.cuh``), in the
+#: order its launch reports it
+PLAN_KEYS = ("cluster", "max_active_clusters", "rows_per_block",
+             "inv_in_smem", "smem_bytes", "stages", "chunk_rows")
+#: per wrapper, the plan of its last cluster launch (for reports only)
+PLANS: Dict[str, dict] = {}
+#: ``kNeedsScratch`` of ``csrc/tri_solve.cuh``: a cluster launch that needs
+#: room for its diagonal inverses and was given none (nothing launched)
+_NEEDS_SCRATCH = -1
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("pack_tril", "cholesky_blocked",
@@ -121,6 +133,36 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def check_block(block: int, what: str) -> None:
+    """Raise unless ``block`` is one the kernels are compiled for."""
+    if block not in BLOCKS:
+        raise ValueError(f"{what}: block must be one of {BLOCKS}, got "
+                         f"{block}")
+
+
+def launch_solve(name: str, fn, head, tail, inverses, device) -> None:
+    """Launch a cluster solve: ``fn(*head, scratch, *tail, plan, stream)``.
+
+    The first try passes no scratch; when the launch answers that its
+    kernel needs room for the diagonal inverses it forms (``inverses``:
+    (n_sys, nt, B, B + 16 bytes), ``inv_ld`` of ``csrc/tri_solve.cuh``),
+    that room is allocated and the launch made again.  Records the plan in
+    :data:`PLANS` and counts the launch."""
+    import torch
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    stream = stream_ptr(device)
+    rc = fn(*head, None, *tail, plan, stream)
+    if rc == _NEEDS_SCRATCH:
+        n_sys, nt, block, dtype = inverses
+        pad = 16 // torch.empty((), dtype=dtype).element_size()
+        scratch = torch.empty((n_sys, nt, block, block + pad), dtype=dtype,
+                              device=device)
+        rc = fn(*head, ptr(scratch), *tail, plan, stream)
+    check(rc, name)
+    PLANS[name] = dict(zip(PLAN_KEYS, plan))
+    count_launch(name)
 
 
 def check(rc: int, what: str) -> None:

@@ -75,165 +75,13 @@
 #include <cstdint>
 #include <mutex>
 
-#include "common.cuh"
+#include "tri_solve.cuh"   // the warp products, cp.async, warp_potf2_inv
 
 namespace {
 
-constexpr int kNb = 16;                 // sub-block width of the diagonal step
-constexpr int kLdSub = kNb + 4;         // stride of a stored sub-block inverse
 constexpr int kWarps = kThreads / 32;
 constexpr int kKc = 16;                 // depth of one staged slice in (b), (c)
 constexpr int kLdStage = kKc + 4;
-
-// ---------------------------------------------------------------------------
-// One warp's product of an (MI*8) x (NI*8) block over depth K:
-//   acc += A B,  A(r, k) = a[r * lda + k],  B(k, n) = b[k * bk + n * bn].
-// Lane (g, t) = (lane / 4, lane % 4) owns C[i*8 + g][j*8 + 2t + e], e = 0, 1.
-// In float64 each pair of 8-row blocks is one mma.m16n8k4.f64 (A fragment
-// rows g and g + 8 at column t, B fragment row t column g, accumulator rows
-// g and g + 8 at columns 2t, 2t + 1): the 16 x 8 shapes run at the FP64
-// tensor-core peak, the older m8n8k4 at half of it on this card.
-__device__ __forceinline__ void dmma16(double (&lo)[2], double (&hi)[2],
-                                       double a0, double a1, double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(lo[0]), "+d"(lo[1]), "+d"(hi[0]), "+d"(hi[1])
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
-template <int MI, int NI>
-__device__ __forceinline__ void warp_mma(double (&acc)[MI][NI][2],
-                                         const double* a, int lda,
-                                         const double* b, int bk, int bn,
-                                         int K) {
-  static_assert(MI % 2 == 0, "float64 products take 16-row blocks");
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 4
-  for (int k0 = 0; k0 < K; k0 += 4) {
-    double af[MI], bf[NI];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) af[i] = a[(i * 8 + g) * lda + k0 + t];
-#pragma unroll
-    for (int j = 0; j < NI; ++j) bf[j] = b[(k0 + t) * bk + (j * 8 + g) * bn];
-#pragma unroll
-    for (int i = 0; i < MI; i += 2)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-        dmma16(acc[i][j], acc[i + 1][j], af[i], af[i + 1], bf[j]);
-  }
-}
-
-template <int MI, int NI>
-__device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][2],
-                                         const float* a, int lda,
-                                         const float* b, int bk, int bn,
-                                         int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    float af[MI], bf[NI][2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) af[i] = a[(i * 8 + g) * lda + k];
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) bf[j][e] = b[k * bk + (j * 8 + 2 * t + e) * bn];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) acc[i][j][e] += af[i] * bf[j][e];
-  }
-}
-
-template <typename T, int MI, int NI>
-__device__ __forceinline__ void zero(T (&acc)[MI][NI][2]) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = T(0);
-}
-
-// f(r, c, value) for every element of the block this lane owns
-template <typename T, int MI, int NI, typename F>
-__device__ __forceinline__ void for_each_acc(const T (&acc)[MI][NI][2], F f) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) f(i * 8 + g, j * 8 + 2 * t + e, acc[i][j][e]);
-}
-
-// ---------------------------------------------------------------------------
-// cp.async: 16 bytes from global to shared memory without registers
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// One warp factors the symmetric 16 x 16 block whose lower triangle is at s
-// (stride LD) and forms the inverse of the factor, all in registers: lane
-// holds column c = lane % 16 and rows r = lane / 16 + 2q, q = 0..7, of the
-// whole symmetric block (v) and of the forward-substitution residual of
-// L X = I (w).  Step k broadcasts the pivot, column k of L and row k of X by
-// shuffles.  Writes L (zeros above) back to s and X (zeros above) to x.
-template <typename T, int LD>
-__device__ void warp_potf2_inv(T* s, T* x) {
-  const int lane = threadIdx.x & 31, c = lane & 15, half = lane >> 4;
-  T v[8], w[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int r = half + 2 * q;
-    v[q] = r >= c ? s[r * LD + c] : s[c * LD + r];
-    w[q] = r == c ? T(1) : T(0);
-  }
-#pragma unroll
-  for (int k = 0; k < kNb; ++k) {
-    const int owner = c + 16 * (k & 1);         // holds row k, column c
-    // every shuffle first, so only one of them is on the pivot chain
-    const T d = __shfl_sync(0xffffffffu, v[k >> 1], k + 16 * (k & 1));
-    const T lc0 = __shfl_sync(0xffffffffu, v[k >> 1], owner);
-    const T xk0 = __shfl_sync(0xffffffffu, w[k >> 1], owner);
-    T lr[8];
-#pragma unroll
-    for (int q = k / 2; q < 8; ++q)     // rows r = half + 2q below k - 1
-      lr[q] = __shfl_sync(0xffffffffu, v[q], k + 16 * half);
-    const T rp = rsqrt(d), piv = d * rp;       // no divide on the chain
-    const T lc = lc0 * rp, xk = xk0 * rp;      // L[c][k], X[k][c]
-#pragma unroll
-    for (int q = k / 2; q < 8; ++q) lr[q] *= rp;                    // L[r][k]
-#pragma unroll
-    for (int q = k / 2; q < 8; ++q) {
-      const int r = half + 2 * q;
-      if (r > k) {
-        if (c > k) v[q] -= lr[q] * lc;
-        else if (c == k) v[q] = lr[q];
-        w[q] -= lr[q] * xk;
-      } else if (r == k) {
-        if (c == k) v[q] = piv;
-        else if (c > k) v[q] = lc;
-        w[q] = xk;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int r = half + 2 * q;
-    s[r * LD + c] = r >= c ? v[q] : T(0);
-    x[r * kLdSub + c] = w[q];
-  }
-}
 
 // (a) the diagonal step: factor and inverse of one B x B tile per matrix
 template <typename T, int B>

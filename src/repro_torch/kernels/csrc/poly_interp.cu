@@ -19,114 +19,28 @@
 //
 // interp_solve replaces the Pallas kernel of src/repro/kernels/poly_interp.py:195
 // (_interp_sweep, body _make_solve_kernel :109), the λ sweep of the
-// piCholesky path: for each λ solve L(λ) L(λ)^T θ = g where every
-// off-diagonal tile of L(λ) is Horner-evaluated from the (r+1) packed
-// coefficient tiles of Θ on the fly.  Nothing of L(λ) is written to device
-// memory.  The diagonal tiles are Horner-evaluated and inverted outside the
-// kernel, as at poly_interp.py:247-255.
+// piCholesky path: for each λ solve L(λ) L(λ)^T θ = g where every tile of
+// L(λ) is Horner-evaluated from the (r+1) packed coefficient tiles of Θ as
+// it is read.  Nothing of L(λ) is written to device memory.
 //
 // The TPU version walks a sequential (λ, row, column) grid and revisits its
-// output ref as solved state; CUDA blocks run in no order, so here one block
-// per (λ, fold, RHS column) runs both sweeps in one loop and keeps the whole
-// solution vector in shared memory: the forward sweep L w = g writes w, the
-// reverse sweep L^T θ = w overwrites it in place tile by tile (tile i of w
-// is read before θ_i replaces it; θ_t for t > i is final when read).  The
-// reverse sweep reads column i of packed L as row i of L^T.  The
-// (row, column) -> packed tile map is passed in as an int32 tensor.
+// output ref as solved state, with the diagonal tiles Horner-evaluated and
+// inverted outside the kernel (poly_interp.py:247-255).  Here the cluster
+// solve of tri_solve.cuh runs both sweeps in one launch: a cluster of up to
+// 8 blocks per (fold, λ, RHS column), each block owning every C-th tile row,
+// right-looking updates, the solved segments passed between the blocks
+// through distributed shared memory, the coefficient tiles staged by
+// cp.async ahead of the barriers, and the diagonal tiles Horner-evaluated,
+// identity-padded past h and inverted in the kernel's prologue.  λ - center
+// arrives cast to Θ's dtype.
 //
-// Bound on this card: bytes (Θ is read once per λ per sweep; L2 shares
-// the reads of the λs of one fold that run together) against about 2r+2
-// flops per coefficient value.  Reads are coalesced: a warp walks a tile
-// row in the forward sweep, consecutive threads walk consecutive columns in
-// the reverse sweep.
+// Bound on this card: bytes (Θ is read once per λ per sweep; L2 shares the
+// reads of the λs of one fold that run together) against about 2r+2 flops
+// per coefficient value, and the chain of 2 nt dependent solves.
 
-#include "common.cuh"
+#include <cstdint>
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-interp_solve_kernel(const T* __restrict__ theta, const T* __restrict__ x,
-                    const T* __restrict__ inv, const T* __restrict__ g,
-                    const int* __restrict__ pmap, T* __restrict__ out,
-                    int n_lam, int degree, int nt, int B, long long P,
-                    int nrhs, int g_per_lam) {
-  extern __shared__ unsigned char smem_raw[];
-  const int hp = nt * B;
-  T* w = reinterpret_cast<T*>(smem_raw);   // (hp,) solution in progress
-  T* rhs = w + hp;                         // (B,)
-  T* red = rhs + B;                        // (kThreads,)
-  const int lam = blockIdx.x;
-  const long long fold = blockIdx.y;
-  const int col = blockIdx.z;
-  const T xv = x[lam];
-  const T* TH = theta + fold * (degree + 1) * P;
-  const long long tile = (long long)B * B;
-  const T* INV = inv + (fold * n_lam + lam) * nt * tile;
-  const T* G = g + (g_per_lam ? (fold * n_lam + lam) : fold) * hp * nrhs;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  constexpr int kWarps = kThreads / 32;
-  const int nph = kThreads / B;
-  const int rr = tid % B, ph = tid / B;
-
-  auto horner = [&](long long off) {
-    T v = TH[degree * P + off];
-    for (int k = degree - 1; k >= 0; --k) v = v * xv + TH[k * P + off];
-    return v;
-  };
-
-  // forward sweep: L w = g
-  for (int i = 0; i < nt; ++i) {
-    for (int r = warp; r < B; r += kWarps) {
-      T s = T(0);
-      for (int t = 0; t < i; ++t) {
-        const long long base = (long long)pmap[i * nt + t] * tile + (long long)r * B;
-        for (int c = lane; c < B; c += 32) s += horner(base + c) * w[t * B + c];
-      }
-      s = warp_sum(s);
-      if (lane == 0) rhs[r] = G[(long long)(i * B + r) * nrhs + col] - s;
-    }
-    __syncthreads();
-    for (int r = warp; r < B; r += kWarps) {
-      const T* iv = INV + (long long)i * tile + (long long)r * B;
-      T s = T(0);
-      for (int c = lane; c < B; c += 32) s += iv[c] * rhs[c];
-      s = warp_sum(s);
-      if (lane == 0) w[i * B + r] = s;
-    }
-    __syncthreads();
-  }
-
-  // reverse sweep: L^T θ = w, in place
-  for (int i = nt - 1; i >= 0; --i) {
-    T s = T(0);
-    if (ph < nph)
-      for (int t = i + 1; t < nt; ++t) {
-        const long long base = (long long)pmap[t * nt + i] * tile + rr;
-        for (int c = ph; c < B; c += nph) s += horner(base + (long long)c * B) * w[t * B + c];
-      }
-    red[tid] = s;
-    __syncthreads();
-    if (tid < B) {
-      T acc = T(0);
-      for (int q = 0; q < nph; ++q) acc += red[q * B + tid];
-      rhs[tid] = w[i * B + tid] - acc;
-    }
-    __syncthreads();
-    s = T(0);
-    if (ph < nph)
-      for (int q = ph; q < B; q += nph) s += INV[(long long)i * tile + (long long)q * B + rr] * rhs[q];
-    red[tid] = s;
-    __syncthreads();
-    if (tid < B) {
-      T acc = T(0);
-      for (int q = 0; q < nph; ++q) acc += red[q * B + tid];
-      w[i * B + tid] = acc;
-    }
-    __syncthreads();
-  }
-
-  T* O = out + ((fold * n_lam + lam) * hp) * nrhs;
-  for (int r = tid; r < hp; r += kThreads) O[(long long)r * nrhs + col] = w[r];
-}
+#include "tri_solve.cuh"
 
 constexpr int kLamChunk = 8;   // λs per interp_factors block
 
@@ -177,43 +91,49 @@ static int interp_factors(const void* theta, const void* x, const void* pmap,
 }
 
 template <typename T>
-static int interp_solve(const void* theta, const void* x, const void* inv,
-                        const void* g, const void* pmap, void* out, int n_fold,
-                        int n_lam, int degree, int nt, int B, long long P,
-                        int nrhs, int g_per_lam, void* stream) {
-  if (B > kThreads || n_fold > 65535 || nrhs > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(nt * B + B + kThreads) * sizeof(T);
-  cudaFuncSetAttribute(interp_solve_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  RT_RETURN_IF_ERROR();
-  interp_solve_kernel<T><<<dim3(n_lam, n_fold, nrhs), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(theta), static_cast<const T*>(x),
-      static_cast<const T*>(inv), static_cast<const T*>(g),
-      static_cast<const int*>(pmap), static_cast<T*>(out), n_lam, degree, nt,
-      B, P, nrhs, g_per_lam);
-  RT_RETURN_IF_ERROR();
-  return 0;
+static int interp_solve(const void* theta, const void* x, const void* g,
+                        void* scratch, void* out, int n_fold, int n_lam,
+                        int degree, int nt, int B, long long P, int nrhs,
+                        int g_per_lam, int h, int* plan, void* stream) {
+  SolveArgs<T> a = {};
+  a.src = static_cast<const T*>(theta);
+  a.x = static_cast<const T*>(x);
+  a.scratch = static_cast<T*>(scratch);
+  a.g = static_cast<const T*>(g);
+  a.out = static_cast<T*>(out);
+  a.P = P;
+  a.h = h;
+  a.nt = nt;
+  a.nc = degree + 1;
+  a.n_lam = n_lam;
+  a.nrhs = nrhs;
+  a.g_per_lam = g_per_lam;
+  a.sweeps = 3;
+  a.vec = reinterpret_cast<uintptr_t>(theta) % 16 == 0 && P % (16 / sizeof(T)) == 0;
+  return tri_solve_launch<T, true>(a, B, (long long)n_fold * n_lam * nrhs,
+                                   plan, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
-// theta: (n_fold, degree+1, P); x: (n_lam,) λ - center; inv: (n_fold, n_lam,
-// nt, B, B) inverted diagonal tiles; g: (n_fold, [n_lam,] hp, nrhs);
-// pmap: (nt, nt) packed tile index; out: (n_fold, n_lam, hp, nrhs).
-int rt_interp_solve_f64(const void* theta, const void* x, const void* inv,
-                        const void* g, const void* pmap, void* out, int n_fold,
-                        int n_lam, int degree, int nt, int B, long long P,
-                        int nrhs, int g_per_lam, void* stream) {
-  return interp_solve<double>(theta, x, inv, g, pmap, out, n_fold, n_lam,
-                              degree, nt, B, P, nrhs, g_per_lam, stream);
+// theta: (n_fold, degree+1, P); x: (n_lam,) λ - center; g: (n_fold,
+// [n_lam,] hp, nrhs) zero-padded past h; scratch: (n_fold * n_lam * nrhs,
+// nt, B, inv_ld) for inverses that do not fit in shared memory, or null
+// (then a launch that needs it returns kNeedsScratch and launches
+// nothing); out: (n_fold, n_lam, hp, nrhs); plan: null, or kPlanInts ints
+// that receive the launch plan (as for rt_trsm_f64).
+int rt_interp_solve_f64(const void* theta, const void* x, const void* g,
+                        void* scratch, void* out, int n_fold, int n_lam,
+                        int degree, int nt, int B, long long P, int nrhs,
+                        int g_per_lam, int h, int* plan, void* stream) {
+  return interp_solve<double>(theta, x, g, scratch, out, n_fold, n_lam, degree,
+                              nt, B, P, nrhs, g_per_lam, h, plan, stream);
 }
-int rt_interp_solve_f32(const void* theta, const void* x, const void* inv,
-                        const void* g, const void* pmap, void* out, int n_fold,
-                        int n_lam, int degree, int nt, int B, long long P,
-                        int nrhs, int g_per_lam, void* stream) {
-  return interp_solve<float>(theta, x, inv, g, pmap, out, n_fold, n_lam,
-                             degree, nt, B, P, nrhs, g_per_lam, stream);
+int rt_interp_solve_f32(const void* theta, const void* x, const void* g,
+                        void* scratch, void* out, int n_fold, int n_lam,
+                        int degree, int nt, int B, long long P, int nrhs,
+                        int g_per_lam, int h, int* plan, void* stream) {
+  return interp_solve<float>(theta, x, g, scratch, out, n_fold, n_lam, degree,
+                             nt, B, P, nrhs, g_per_lam, h, plan, stream);
 }
 // theta: (n_fold, degree+1, P); x: (n_lam,) λ - center at Θ's dtype;
 // pmap: (nt, nt) packed tile index; out: (n_fold, n_lam, h, h).

@@ -1,0 +1,828 @@
+// Device code shared by the port's dense-tile kernels, and the
+// thread-block-cluster triangular solve of the dense trsm (trsm.cu) and
+// the fused interp-solve (poly_interp.cu).
+//
+// Part 1, moved here from chol_blocked.cu unchanged (the Cholesky's
+// diagonal step and the solves' prologue use it): the FP64 tensor-core
+// product of one warp (mma.sync m16n8k4, with a CUDA-core float32
+// overload), cp.async helpers, and the warp-level factor-and-inverse of a
+// 16 x 16 block (warp_potf2_inv), which also inverts a block that is
+// already a lower factor (Factor = false).
+//
+// Part 2, the cluster solve.  One system is L v = g, L^T v = g, or both in
+// turn (L L^T v = g), for one right-hand-side column; L is lower
+// triangular in nt x nt tiles of B x B, read from a tile source: the
+// unpadded dense factor (trsm) or the r+1 packed coefficient tiles of Θ,
+// Horner-evaluated at λ - center as they are read (interp_solve).
+//
+// A cluster of C <= 8 blocks serves one system (C = min(C, nt)); block b
+// owns tile rows b, b + C, b + 2C, ...  Every block keeps the whole
+// solution of each sweep in its own shared memory (a forward slot and a
+// reverse slot, so no slot is ever overwritten), and for its own rows the
+// pending sums acc_j and the inverses of the diagonal tiles.
+//   - Prologue: each block reads (trsm) or Horner-evaluates (interp) its
+//     own diagonal tiles, adds the identity tail past h, and inverts them:
+//     one warp per 16 x 16 sub-block in parallel (warp_potf2_inv<false>),
+//     then X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj block row by block row on
+//     the tensor cores.  The inverse stays in shared memory when the
+//     block's rows fit, otherwise in a scratch tensor of the caller.  A
+//     caller's inverses (trsm, inv_diag=) skip the prologue.
+//   - Right-looking substitution: the owner of row i solves
+//     v_i = X_i (g_i - acc_i) (X_i^T for the transposed sweep) and stores
+//     v_i into every block's slot through distributed shared memory, then
+//     arrives on the cluster barrier (release); every block waits
+//     (acquire) and adds L_ji v_i (forward, rows j > i: a warp per row) or
+//     L_ij^T v_i (reverse, rows j < i: consecutive threads on consecutive
+//     columns) into the sums of the rows it owns.  Look-ahead: the owner
+//     of the next row applies this update to that row first, solves it and
+//     arrives; the others arrive at once and then update, so the next
+//     solve waits only for its own row's update.  2 nt barrier phases for
+//     both sweeps.
+//   - Loads that do not depend on v run ahead: every tile a block will
+//     read, over the whole run, is known at the start, so a ring of
+//     `stages` chunks (chunk_rows x B values of each coefficient plane)
+//     is kept in flight by cp.async, 16 bytes a thread (element-wise where
+//     rows are not 16-byte aligned, zero-filled past h), across the
+//     barriers.
+// At nrhs = 1 the sweep does 2 flops per value read (2r + 2 for Horner):
+// it is bound by bytes and by its 2 nt-step chain, so no tensor core runs
+// in it; the launch spreads each system over C SMs.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "common.cuh"
+
+constexpr int kNb = 16;                 // sub-block width of the diagonal step
+constexpr int kLdSub = kNb + 4;         // stride of a stored sub-block inverse
+
+// ===========================================================================
+// Part 1: moved from chol_blocked.cu
+
+// One warp's product of an (MI*8) x (NI*8) block over depth K:
+//   acc += A B,  A(r, k) = a[r * lda + k],  B(k, n) = b[k * bk + n * bn].
+// Lane (g, t) = (lane / 4, lane % 4) owns C[i*8 + g][j*8 + 2t + e], e = 0, 1.
+// In float64 each pair of 8-row blocks is one mma.m16n8k4.f64 (A fragment
+// rows g and g + 8 at column t, B fragment row t column g, accumulator rows
+// g and g + 8 at columns 2t, 2t + 1): the 16 x 8 shapes run at the FP64
+// tensor-core peak, the older m8n8k4 at half of it on this card.
+__device__ __forceinline__ void dmma16(double (&lo)[2], double (&hi)[2],
+                                       double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(lo[0]), "+d"(lo[1]), "+d"(hi[0]), "+d"(hi[1])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+template <int MI, int NI>
+__device__ __forceinline__ void warp_mma(double (&acc)[MI][NI][2],
+                                         const double* a, int lda,
+                                         const double* b, int bk, int bn,
+                                         int K) {
+  static_assert(MI % 2 == 0, "float64 products take 16-row blocks");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    double af[MI], bf[NI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) af[i] = a[(i * 8 + g) * lda + k0 + t];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) bf[j] = b[(k0 + t) * bk + (j * 8 + g) * bn];
+#pragma unroll
+    for (int i = 0; i < MI; i += 2)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+        dmma16(acc[i][j], acc[i + 1][j], af[i], af[i + 1], bf[j]);
+  }
+}
+
+template <int MI, int NI>
+__device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][2],
+                                         const float* a, int lda,
+                                         const float* b, int bk, int bn,
+                                         int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    float af[MI], bf[NI][2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) af[i] = a[(i * 8 + g) * lda + k];
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) bf[j][e] = b[k * bk + (j * 8 + 2 * t + e) * bn];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[i][j][e] += af[i] * bf[j][e];
+  }
+}
+
+template <typename T, int MI, int NI>
+__device__ __forceinline__ void zero(T (&acc)[MI][NI][2]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = T(0);
+}
+
+// f(r, c, value) for every element of the block this lane owns
+template <typename T, int MI, int NI, typename F>
+__device__ __forceinline__ void for_each_acc(const T (&acc)[MI][NI][2], F f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) f(i * 8 + g, j * 8 + 2 * t + e, acc[i][j][e]);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16 bytes from global to shared memory without registers
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// one element of N bytes (4 or 8), for rows that are not 16-byte aligned
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"(N));
+}
+// cp_async_wait<n> for n known only at run time (0..2, the stages of the
+// cluster solve's ring less two)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<2>(); break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One warp factors the symmetric 16 x 16 block whose lower triangle is at s
+// (stride LD) and forms the inverse of the factor, all in registers: lane
+// holds column c = lane % 16 and rows r = lane / 16 + 2q, q = 0..7, of the
+// whole symmetric block (v) and of the forward-substitution residual of
+// L X = I (w).  Step k broadcasts the pivot, column k of L and row k of X by
+// shuffles.  Writes L (zeros above) back to s and X (zeros above) to x.
+// With Factor = false the block at s is already the lower factor L (only
+// its lower triangle is read): the same loop forms X = L^-1 alone, with
+// a divide by the pivot in place of the reciprocal square root, and s is
+// left as it is.
+template <typename T, int LD, bool Factor = true>
+__device__ void warp_potf2_inv(T* s, T* x) {
+  const int lane = threadIdx.x & 31, c = lane & 15, half = lane >> 4;
+  T v[8], w[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int r = half + 2 * q;
+    if constexpr (Factor)
+      v[q] = r >= c ? s[r * LD + c] : s[c * LD + r];
+    else
+      v[q] = r >= c ? s[r * LD + c] : T(0);
+    w[q] = r == c ? T(1) : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kNb; ++k) {
+    const int owner = c + 16 * (k & 1);         // holds row k, column c
+    // every shuffle first, so only one of them is on the pivot chain
+    const T d = __shfl_sync(0xffffffffu, v[k >> 1], k + 16 * (k & 1));
+    const T lc0 = __shfl_sync(0xffffffffu, v[k >> 1], owner);
+    const T xk0 = __shfl_sync(0xffffffffu, w[k >> 1], owner);
+    T lr[8];
+#pragma unroll
+    for (int q = k / 2; q < 8; ++q)     // rows r = half + 2q below k - 1
+      lr[q] = __shfl_sync(0xffffffffu, v[q], k + 16 * half);
+    if constexpr (Factor) {
+      const T rp = rsqrt(d), piv = d * rp;       // no divide on the chain
+      const T lc = lc0 * rp, xk = xk0 * rp;      // L[c][k], X[k][c]
+#pragma unroll
+      for (int q = k / 2; q < 8; ++q) lr[q] *= rp;                  // L[r][k]
+#pragma unroll
+      for (int q = k / 2; q < 8; ++q) {
+        const int r = half + 2 * q;
+        if (r > k) {
+          if (c > k) v[q] -= lr[q] * lc;
+          else if (c == k) v[q] = lr[q];
+          w[q] -= lr[q] * xk;
+        } else if (r == k) {
+          if (c == k) v[q] = piv;
+          else if (c > k) v[q] = lc;
+          w[q] = xk;
+        }
+      }
+    } else {
+      const T xk = xk0 / d;                      // X[k][c]
+#pragma unroll
+      for (int q = k / 2; q < 8; ++q) {
+        const int r = half + 2 * q;
+        if (r > k) w[q] -= lr[q] * xk;
+        else if (r == k) w[q] = xk;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int r = half + 2 * q;
+    if constexpr (Factor) s[r * LD + c] = r >= c ? v[q] : T(0);
+    x[r * kLdSub + c] = w[q];
+  }
+}
+
+// ===========================================================================
+// Part 2: the cluster triangular solve
+
+namespace cg = cooperative_groups;
+
+// A clock stamp of one phase of the kernel (tag: which): empty, unless a
+// probe build defines it first (scripts/probe_tri_solve.py stamps).
+#ifndef TRI_SOLVE_STAMP
+#define TRI_SOLVE_STAMP(tag) ((void)0)
+#endif
+
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kMaxStages = 4;       // chunks of the staging ring
+constexpr int kStageBytes = 32768;  // aimed-at bytes of one staged chunk
+
+// The launch plan of one call, chosen on the host by solve_plan; a launch
+// reports it as kPlanInts ints in this order.
+struct SolvePlan {
+  int cluster;          // C, blocks per system
+  int max_active;       // cudaOccupancyMaxActiveClusters at this C
+  int rows_per_block;   // ceil(nt / C)
+  int inv_in_smem;      // the block's diagonal inverses in shared memory
+  int smem_bytes;       // dynamic shared memory of a block
+  int stages;           // chunks in the staging ring
+  int chunk_rows;       // tile rows of one chunk
+};
+constexpr int kPlanInts = 7;
+// returned by tri_solve_launch when it needs a scratch tensor (nothing
+// was launched)
+constexpr int kNeedsScratch = -1;
+
+template <typename T>
+struct SolveArgs {
+  const T* src;       // trsm: L (batch, h, h); interp: Θ (n_fold, nc, P)
+  const T* x;         // interp: (n_lam,) λ - center at Θ's dtype
+  const T* inv;       // trsm: a caller's (batch, nt, B, B) inverses, or null
+  T* scratch;         // (n_sys, nt, B, inv_ld) inverses kept out of shared
+                      // memory, or null
+  const T* g;         // trsm: (batch, h, nrhs); interp: (n_fold, [n_lam,]
+                      // hp, nrhs), zero-padded to hp
+  T* out;             // trsm: (batch, h, nrhs); interp: (n_fold, n_lam, hp,
+                      // nrhs)
+  long long P;        // interp: values of one packed coefficient plane
+  int h, nt, nc;      // nc: coefficient planes (1 for the trsm)
+  int n_lam, nrhs, g_per_lam;
+  int sweeps;         // 1 forward (L v = g), 2 reverse (L^T v = g), 3 both
+  int inv_in_smem, stages, chunk_rows;
+  int vec;            // every staged row is 16-byte aligned
+};
+
+// Offsets (in values) of a block's shared memory: the forward and reverse
+// solution slots (hp each), the pending sums of its rows, a reduction
+// buffer, the right-hand side of a solve, the inverses of its rows (when
+// in shared memory), then the work area: first the prologue's tile and
+// sub-block inverses, then the staging ring.
+struct SolveSmem {
+  long long wf, wr, acc, red, rhs, inv, work, total;
+};
+
+// Row stride of a diagonal inverse: 16 bytes past B, so that the 16-byte
+// reads of consecutive rows by consecutive threads (the forward solve) fall
+// in distinct banks.
+template <typename T, int B>
+__host__ __device__ constexpr int inv_ld() { return B + 16 / (int)sizeof(T); }
+
+template <typename T, int B>
+__host__ __device__ inline SolveSmem solve_smem(int nt, int C, bool inv_smem,
+                                                bool prologue, int stage_elems,
+                                                int stages) {
+  constexpr int LD = inv_ld<T, B>();
+  const long long hp = (long long)nt * B, R = (nt + C - 1) / C;
+  SolveSmem m;
+  m.wf = 0;
+  m.wr = hp;
+  m.acc = 2 * hp;
+  m.red = m.acc + R * B;
+  m.rhs = m.red + kThreads;
+  m.inv = m.rhs + B;
+  m.work = m.inv + (inv_smem ? R * B * LD : 0);
+  const long long pro =
+      prologue ? (inv_smem ? 0 : (long long)B * LD) + (long long)B * kLdSub : 0;
+  const long long ring = (long long)stages * stage_elems;
+  m.total = m.work + (pro > ring ? pro : ring);
+  return m;
+}
+
+__device__ __forceinline__ void cluster_arrive() {   // release semantics
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {     // acquire semantics
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// In place: the lower B x B tile L at S (stride inv_ld; the upper part zero)
+// becomes X = L^-1.  Xd: B / 16 sub-block inverses at stride kLdSub.  One
+// warp per diagonal sub-block (warp_potf2_inv without the factorization),
+// then X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj block row by block row, warp
+// j on block (i, j), the products on the tensor cores in float64.
+template <typename T, int B>
+__device__ void invert_lower_tile(T* S, T* Xd) {
+  constexpr int LD = inv_ld<T, B>(), NS = B / kNb;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  if (warp < NS)
+    warp_potf2_inv<T, LD, false>(S + warp * kNb * LD + warp * kNb,
+                                 Xd + warp * kNb * kLdSub);
+  __syncthreads();
+  for (int e = tid; e < NS * kNb * kNb; e += kThreads) {   // X_pp on the diagonal
+    const int p = e / (kNb * kNb), r = e / kNb % kNb, c = e % kNb;
+    S[(p * kNb + r) * LD + p * kNb + c] = Xd[p * kNb * kLdSub + r * kLdSub + c];
+  }
+  __syncthreads();
+  for (int i = 1; i < NS; ++i) {
+    const int j = warp;
+    T acc[2][2][2];
+    zero(acc);
+    if (j < i)
+      warp_mma<2, 2>(acc, S + i * kNb * LD + j * kNb, LD,
+                     S + j * kNb * LD + j * kNb, LD, 1, (i - j) * kNb);
+    __syncthreads();                              // row i's L has been read
+    if (j < i) {
+      T* tij = S + i * kNb * LD + j * kNb;
+      for_each_acc(acc, [&](int r, int c, T v) { tij[r * LD + c] = v; });
+      __syncwarp();
+      zero(acc);
+      warp_mma<2, 2>(acc, Xd + i * kNb * kLdSub, kLdSub, tij, LD, 1, kNb);
+      __syncwarp();
+      for_each_acc(acc, [&](int r, int c, T v) { tij[r * LD + c] = -v; });
+    }
+    __syncthreads();
+  }
+}
+
+// One cluster per system: blockIdx.x / C is the system, the block's rank in
+// the cluster its place.  Systems: trsm (matrix, column), interp ((fold,
+// λ), column), column fastest.
+template <typename T, int B, bool Interp>
+__global__ void __launch_bounds__(kThreads, 1)
+tri_solve_kernel(const SolveArgs<T> a) {
+  constexpr int LD = inv_ld<T, B>(), VN = 16 / sizeof(T), NW = kThreads / 32;
+  constexpr int NPH = kThreads / B;              // row phases of a column walk
+  static_assert(B % kNb == 0 && B / kNb <= NW && B <= kThreads / 2,
+                "B in 16..128");
+  using V = typename Vec16<T>::type;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
+  const long long sys = blockIdx.x / C;
+  const int nt = a.nt, hp = nt * B, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  const int cr = a.chunk_rows, nchunk = B / cr, plane = cr * B,
+            stage_elems = a.nc * plane, S = a.stages;
+  const bool prologue = a.inv == nullptr;
+  const SolveSmem m = solve_smem<T, B>(nt, C, a.inv_in_smem, prologue,
+                                    stage_elems, S);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* wf = sm + m.wf;
+  T* wr = sm + m.wr;
+  T* acc = sm + m.acc;
+  T* red = sm + m.red;
+  T* rhs = sm + m.rhs;
+  T* ring = sm + m.work;
+
+  const T* TH;            // the system's factor (trsm) or coefficients (interp)
+  const T* G;             // its right-hand side, column already applied
+  T* O;                   // its output, column already applied
+  const T* INV = nullptr; // a caller's inverses of this factor
+  T xv = T(0);
+  if constexpr (Interp) {
+    const long long col = sys % a.nrhs, fl = sys / a.nrhs, fold = fl / a.n_lam;
+    TH = a.src + fold * a.nc * a.P;
+    xv = a.x[fl % a.n_lam];
+    G = a.g + (a.g_per_lam ? fl : fold) * hp * a.nrhs + col;
+    O = a.out + fl * hp * a.nrhs + col;
+  } else {
+    const long long col = sys % a.nrhs, mat = sys / a.nrhs;
+    TH = a.src + mat * a.h * a.h;
+    G = a.g + mat * a.h * a.nrhs + col;
+    O = a.out + mat * a.h * a.nrhs + col;
+    if (a.inv) INV = a.inv + mat * nt * B * B;
+  }
+  const int nrows = Interp ? hp : a.h;          // rows of g and out
+  const long long ld = Interp ? B : a.h;        // row stride of a tile
+  // tile (ti, tj), ti >= tj, coefficient plane k: its first value, and its
+  // rows (or columns) inside h
+  auto tile_at = [&](int ti, int tj, int k) -> const T* {
+    if constexpr (Interp)
+      return TH + k * a.P + (long long)(tj * nt - tj * (tj - 1) / 2 + ti - tj) * B * B;
+    else
+      return TH + (long long)ti * B * a.h + tj * B;
+  };
+  auto inside = [&](int t) { return Interp ? B : min(B, a.h - t * B); };
+  auto owner = [&](int i) { return i % C; };
+  auto slot = [&](int i) { return (i - me) / C; };     // place among my rows
+  const int s_begin = (a.sweeps & 1) ? 0 : nt, s_end = (a.sweeps & 2) ? 2 * nt : nt;
+  auto row_of = [&](int s) { return s < nt ? s : 2 * nt - 1 - s; };
+
+  cluster.sync();       // every block has started before any remote store
+  TRI_SOLVE_STAMP(1);
+  for (int e = tid; e < (int)(m.red - m.acc); e += kThreads) acc[e] = T(0);
+
+  // prologue: the inverses of my diagonal tiles
+  if (prologue) {
+    T* Xd = ring + (a.inv_in_smem ? 0 : B * LD);
+    for (int i = me; i < nt; i += C) {
+      T* D = a.inv_in_smem ? sm + m.inv + (long long)slot(i) * B * LD : ring;
+      const int lo = i * B;
+      const T* t0 = tile_at(i, i, 0);
+      // D(r, c) = L_ii(r, c) for c <= r, else 0; identity past h
+      auto put = [&](int r, int c, T v) {
+        v = c <= r ? v : T(0);
+        if (r == c && lo + r >= a.h) v = Interp ? v + T(1) : T(1);
+        D[r * LD + c] = v;
+      };
+      if (a.vec) {                        // 16-byte loads, the lower units only
+        for (int e = tid; e < B * B / VN; e += kThreads) {
+          const int r = e / (B / VN), c0 = e % (B / VN) * VN;
+          V q{};
+          T* qv = reinterpret_cast<T*>(&q);
+          if (c0 <= r && lo + r < (Interp ? lo + B : a.h) &&
+              lo + c0 < (Interp ? lo + B : a.h)) {
+            const long long off = (long long)r * ld + c0;
+            q = *reinterpret_cast<const V*>(t0 + (a.nc - 1) * a.P + off);
+            for (int k = a.nc - 2; k >= 0; --k) {
+              const V p = *reinterpret_cast<const V*>(t0 + k * a.P + off);
+              const T* pv = reinterpret_cast<const T*>(&p);
+#pragma unroll
+              for (int u = 0; u < VN; ++u) qv[u] = qv[u] * xv + pv[u];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < VN; ++u) put(r, c0 + u, qv[u]);
+        }
+      } else {
+        for (int e = tid; e < B * B; e += kThreads) {
+          const int r = e / B, c = e % B;
+          T v = T(0);
+          if (c <= r && (Interp || lo + r < a.h)) {
+            const long long off = (long long)r * ld + c;
+            v = t0[(a.nc - 1) * a.P + off];
+            for (int k = a.nc - 2; k >= 0; --k) v = v * xv + t0[k * a.P + off];
+          }
+          put(r, c, v);
+        }
+      }
+      __syncthreads();
+      invert_lower_tile<T, B>(D, Xd);
+      if (!a.inv_in_smem) {
+        T* dst = a.scratch + (sys * nt + i) * B * LD;
+        for (int e = tid; e < B * LD; e += kThreads) dst[e] = D[e];
+        __syncthreads();
+      }
+    }
+  }
+  auto inverse = [&](int i, int& ldx) -> const T* {
+    if (!prologue) {
+      ldx = B;
+      return INV + (long long)i * B * B;
+    }
+    ldx = LD;
+    return a.inv_in_smem ? sm + m.inv + (long long)slot(i) * B * LD
+                         : a.scratch + (sys * nt + i) * B * LD;
+  };
+
+  // The stream of update jobs, in the order they are consumed: after the
+  // solve of step s (forward s < nt - 1: rows j > s, ascending; reverse
+  // s >= nt, row i = 2nt - 1 - s: rows j < i, descending), each of my
+  // rows' tile in nchunk chunks.  The next row, when mine, comes first.
+  struct Cur { int s, j, rc; };
+  auto first_job = [&](int s) -> Cur {
+    for (; s < s_end - 1; ++s) {
+      if (s < nt - 1) {
+        const int j = s + 1 + ((me - (s + 1)) % C + C) % C;
+        if (j < nt) return {s, j, 0};
+      } else if (s >= nt) {
+        const int i = 2 * nt - 1 - s;
+        const int j = i - 1 - ((i - 1 - me) % C + C) % C;
+        if (j >= 0) return {s, j, 0};
+      }
+    }
+    return {s_end, 0, 0};
+  };
+  auto next = [&](Cur c) -> Cur {
+    if (++c.rc < nchunk) return c;
+    c.rc = 0;
+    if (c.s < nt) {
+      c.j += C;
+      if (c.j < nt) return c;
+    } else {
+      c.j -= C;
+      if (c.j >= 0) return c;
+    }
+    return first_job(c.s + 1);
+  };
+  // tile of a job: forward (j, i), reverse (i, j)
+  auto issue = [&](Cur c, int stage) {
+    if (c.s < s_end) {
+      const int i = row_of(c.s);
+      const int ti = c.s < nt ? c.j : i, tj = c.s < nt ? i : c.j;
+      const int r0 = c.rc * cr, vr = inside(ti) - r0, vc = inside(tj);
+      T* dst = ring + stage * stage_elems;
+      for (int k = 0; k < a.nc; ++k) {
+        const T* src = tile_at(ti, tj, k) + r0 * ld;
+        T* d = dst + k * plane;
+        if (a.vec) {
+          for (int e = tid; e < plane / VN; e += kThreads) {
+            const int r = e / (B / VN), cc = e % (B / VN) * VN;
+            if (r < vr && cc < vc)
+              cp_async16(d + r * B + cc, src + r * ld + cc);
+            else
+              *reinterpret_cast<V*>(d + r * B + cc) = V{};
+          }
+        } else {
+          for (int e = tid; e < plane; e += kThreads) {
+            const int r = e / B, cc = e % B;
+            if (r < vr && cc < vc)
+              cp_async_elem<sizeof(T)>(d + r * B + cc, src + r * ld + cc);
+            else
+              d[r * B + cc] = T(0);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto value = [&](const T* st, int off) -> T {     // Horner in registers
+    if constexpr (Interp) {
+      T v = st[(a.nc - 1) * plane + off];
+      for (int k = a.nc - 2; k >= 0; --k) v = v * xv + st[k * plane + off];
+      return v;
+    } else {
+      return st[off];
+    }
+  };
+
+  TRI_SOLVE_STAMP(2);                            // the prologue's end
+  Cur pc = first_job(s_begin), cc = pc;          // producer, consumer
+  int issued = 0, consumed = 0;
+  for (int q = 0; q < S - 1; ++q) {
+    issue(pc, issued++ % S);
+    if (pc.s < s_end) pc = next(pc);
+  }
+  T part = T(0);        // reverse: this thread's column sum over a tile
+  auto consume_tile = [&]() {
+    const int i = row_of(cc.s), j = cc.j;
+    const bool fwd = cc.s < nt;
+    const T* v = (fwd ? wf : wr) + i * B;
+    T* aj = acc + slot(j) * B;
+    for (int rc = 0; rc < nchunk; ++rc) {
+      cp_async_wait_n(S - 2);
+      __syncthreads();
+      issue(pc, issued++ % S);
+      if (pc.s < s_end) pc = next(pc);
+      const T* st = ring + (consumed++ % S) * stage_elems;
+      const int r0 = rc * cr;
+      if (fwd) {                      // aj[r] += L_ji[r, :] . v  (a warp a row)
+        for (int rr = warp; rr < cr; rr += NW) {
+          T sum = T(0);
+          for (int c = lane; c < B; c += 32) sum += value(st, rr * B + c) * v[c];
+          sum = warp_sum(sum);
+          if (lane == 0) aj[r0 + rr] += sum;
+        }
+      } else {                        // aj[c] += L_ij[:, c] . v  (a thread a column)
+        const int c = tid % B;
+        for (int rr = tid / B; rr < cr; rr += NPH)
+          part += value(st, rr * B + c) * v[r0 + rr];
+      }
+    }
+    if (!fwd) {
+      red[tid] = part;
+      part = T(0);
+      __syncthreads();
+      if (tid < B) {
+        T s = T(0);
+        for (int p = 0; p < NPH; ++p) s += red[p * B + tid];
+        aj[tid] += s;
+      }
+    }
+    Cur t = cc;
+    t.rc = nchunk - 1;
+    cc = next(t);
+  };
+  // v_i = X_i (rhs_i - acc_i) (X_i^T for the reverse sweep), stored into
+  // every block's slot; the last sweep's values also to the output
+  auto solve = [&](int s) {
+    const int i = row_of(s);
+    const bool fwd = s < nt, last_sweep = !fwd || !(a.sweeps & 2);
+    T* ai = acc + slot(i) * B;
+    __syncthreads();
+    for (int r = tid; r < B; r += kThreads) {
+      const int row = i * B + r;
+      const T gv = !fwd && (a.sweeps & 1) ? wf[row]
+                   : row < nrows ? G[(long long)row * a.nrhs] : T(0);
+      rhs[r] = gv - ai[r];
+      ai[r] = T(0);
+    }
+    __syncthreads();
+    int ldx;
+    const T* X = inverse(i, ldx);
+    T* dst = (fwd ? wf : wr) + i * B;
+    T sum = T(0);
+    if (fwd) {            // a thread a row of X_i, 16 bytes at a time
+      const int r = tid % B;
+      const T* xr = X + (long long)r * ldx;
+      if (reinterpret_cast<uintptr_t>(X) % 16 == 0 && ldx % VN == 0) {
+        for (int c = tid / B * VN; c < B; c += NPH * VN) {
+          const V q = *reinterpret_cast<const V*>(xr + c);
+          const T* qv = reinterpret_cast<const T*>(&q);
+#pragma unroll
+          for (int u = 0; u < VN; ++u) sum += qv[u] * rhs[c + u];
+        }
+      } else {
+        for (int c = tid / B; c < B; c += NPH) sum += xr[c] * rhs[c];
+      }
+    } else {              // a thread a column of X_i
+      const int c = tid % B;
+      for (int r = tid / B; r < B; r += NPH) sum += X[(long long)r * ldx + c] * rhs[r];
+    }
+    red[tid] = sum;
+    __syncthreads();
+    if (tid < B) {
+      T v = T(0);
+      for (int p = 0; p < NPH; ++p) v += red[p * B + tid];
+      for (int b = 0; b < C; ++b) *cluster.map_shared_rank(dst + tid, b) = v;
+      if (last_sweep && i * B + tid < nrows) O[(long long)(i * B + tid) * a.nrhs] = v;
+    }
+  };
+
+  if (owner(row_of(s_begin)) == me) solve(s_begin);
+  cluster_arrive();
+  for (int s = s_begin; s < s_end; ++s) {
+    TRI_SOLVE_STAMP(100 + s);
+    cluster_wait();                               // v of step s everywhere
+    TRI_SOLVE_STAMP(200 + s);
+    const bool last = s + 1 == s_end;
+    if (!last && owner(row_of(s + 1)) == me) {    // look-ahead
+      if (s != nt - 1) consume_tile();            // the next row's update
+      TRI_SOLVE_STAMP(300 + s);
+      solve(s + 1);
+      TRI_SOLVE_STAMP(400 + s);
+    }
+    if (!last) cluster_arrive();
+    while (cc.s == s) consume_tile();
+    TRI_SOLVE_STAMP(500 + s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side: the plan (cluster size by occupancy, shared-memory layout),
+// chosen once per device and shape, and the cluster launch.
+
+template <typename T, int B>
+bool solve_layout(int nt, int nc, int C, bool prologue, int max_smem,
+                  SolvePlan* p) {
+  int cr0 = 8;
+  while (cr0 * 2 <= B && (long long)cr0 * 2 * nc * B * sizeof(T) <= kStageBytes)
+    cr0 *= 2;
+  if (cr0 > B) cr0 = B;
+  for (int cr = cr0; cr >= 1; cr /= 2)
+    for (int in_smem = prologue ? 1 : 0; in_smem >= 0; --in_smem)
+      for (int st = kMaxStages; st >= 2; --st) {
+        const SolveSmem m = solve_smem<T, B>(nt, C, in_smem, prologue, nc * cr * B, st);
+        const long long bytes = m.total * (long long)sizeof(T);
+        if (bytes <= max_smem) {
+          *p = SolvePlan{C, 0, (nt + C - 1) / C, in_smem, (int)bytes, st, cr};
+          return true;
+        }
+      }
+  return false;
+}
+
+template <typename T, int B, bool Interp>
+int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, long long, int>, SolvePlan> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const auto key = std::make_tuple(dev, nt, nc, n_sys, (int)prologue);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *best = hit->second;
+    return 0;
+  }
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  auto kern = tri_solve_kernel<T, B, Interp>;
+  bool found = false;
+  long long best_score = 0;
+  for (int C = kMaxCluster; C >= 1; C /= 2) {
+    if (C > nt && C > 1) continue;
+    SolvePlan p;
+    if (!solve_layout<T, B>(nt, nc, C, prologue, max_smem, &p)) continue;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = p.smem_bytes;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) continue;
+    p.max_active = n;
+    // time ~ waves of clusters x the time of one system, ~ 1 / C
+    const long long score = (n_sys + n - 1) / n * (kMaxCluster / C);
+    if (!found || score < best_score) {
+      *best = p;
+      best_score = score;
+      found = true;
+    }
+  }
+  if (!found) return (int)cudaErrorInvalidConfiguration;
+  cache.emplace(key, *best);
+  return 0;
+}
+
+template <typename T, int B, bool Interp>
+int solve_launch(SolveArgs<T> a, long long n_sys, int* plan_out,
+                 cudaStream_t stream) {
+  SolvePlan p;
+  int rc = solve_plan<T, B, Interp>(a.nt, a.nc, n_sys, a.inv == nullptr, &p);
+  if (rc) return rc;
+  if (plan_out) {
+    const int v[kPlanInts] = {p.cluster, p.max_active, p.rows_per_block,
+                              p.inv_in_smem, p.smem_bytes, p.stages, p.chunk_rows};
+    for (int k = 0; k < kPlanInts; ++k) plan_out[k] = v[k];
+  }
+  if (a.inv == nullptr && !p.inv_in_smem && a.scratch == nullptr)
+    return kNeedsScratch;
+  if (n_sys * p.cluster > 2147483647LL) return (int)cudaErrorInvalidValue;
+  a.inv_in_smem = p.inv_in_smem;
+  a.stages = p.stages;
+  a.chunk_rows = p.chunk_rows;
+  auto kern = tri_solve_kernel<T, B, Interp>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_sys * p.cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = p.smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The launch of one call, B at run time (one of 16, 32, 64, 128).  The
+// plan (cached per device and shape) goes to plan_out, when given, as
+// kPlanInts ints in SolvePlan's order.  Returns kNeedsScratch, launching
+// nothing, when the kernel is to form inverses that do not fit in shared
+// memory and a.scratch is null.
+template <typename T, bool Interp>
+int tri_solve_launch(const SolveArgs<T>& a, int B, long long n_sys,
+                     int* plan_out, cudaStream_t stream) {
+  switch (B) {
+    case 16: return solve_launch<T, 16, Interp>(a, n_sys, plan_out, stream);
+    case 32: return solve_launch<T, 32, Interp>(a, n_sys, plan_out, stream);
+    case 64: return solve_launch<T, 64, Interp>(a, n_sys, plan_out, stream);
+    case 128: return solve_launch<T, 128, Interp>(a, n_sys, plan_out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

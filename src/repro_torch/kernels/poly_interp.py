@@ -13,11 +13,11 @@ tiles as zeros.  Bound by bytes (the dense outputs).
 ``_make_solve_kernel`` ``:109``): for every λ of a chunk and every fold,
 solve ``L(λ) L(λ)ᵀ θ = g`` with the off-diagonal tiles of L(λ)
 Horner-evaluated from Θ inside the substitution walk, so no L(λ) is ever
-written to device memory.  One block per
-(λ, fold, RHS column) runs the forward and the reverse sweep; the diagonal
-tiles are Horner-evaluated and inverted outside the kernel, as at
-``poly_interp.py:247-255``.  Bound by bytes (Θ); see
-``csrc/poly_interp.cu``.
+written to device memory.  One launch runs both sweeps: a cluster of up to
+8 blocks per (fold, λ, RHS column), right-looking, with the diagonal tiles
+Horner-evaluated and inverted in the kernel (``csrc/tri_solve.cuh``); the
+block B is a compile-time parameter, one of :data:`_build.BLOCKS`.  Bound
+by bytes (Θ); see ``csrc/poly_interp.cu``.
 
 In both, λ is cast to Θ's dtype before ``center`` is subtracted, as at
 ``poly_interp.py:84``.
@@ -35,16 +35,18 @@ from . import _build, ref
 
 __all__ = ["interp_factors", "interp_solve"]
 
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+         + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _FACTOR_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def _shifted(lams: torch.Tensor, center, dtype, device) -> torch.Tensor:
-    """(q,) λ − center: λ cast to Θ's dtype first, as the reference does."""
-    return (lams.reshape(-1).to(device=device, dtype=dtype)
-            - torch.as_tensor(center, dtype=dtype, device=device))
+    """(q,) λ − center: λ cast to Θ's dtype first, as the reference does.
+    A number or CPU scalar ``center`` stays on the host (no copy to the
+    device, which would wait for the stream)."""
+    c = torch.as_tensor(center, dtype=dtype)
+    return lams.reshape(-1).to(device=device, dtype=dtype) - c
 
 
 def interp_factors(theta: torch.Tensor, lams: torch.Tensor, h: int,
@@ -93,7 +95,8 @@ def interp_solve(theta: torch.Tensor, lams: torch.Tensor, g: torch.Tensor,
     ``rhs_per_lam``, (…, q, h) / (…, q, h, m).  Returns (…, q, h) (or
     (…, q, h, m)) at Θ's dtype.  λ − center is cast to Θ's dtype before
     Horner.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel.
+    the kernel (one cluster launch), and ``block`` must then be one of
+    :data:`_build.BLOCKS`.
     """
     lead = theta.shape[:-2]
     r1, p_size = theta.shape[-2:]
@@ -112,29 +115,26 @@ def interp_solve(theta: torch.Tensor, lams: torch.Tensor, g: torch.Tensor,
     g2 = g2.reshape(n, q, hp, -1) if rhs_per_lam else g2.reshape(n, hp, -1)
     th = theta.reshape(n, r1, p_size)
     x = _shifted(lams, center, dt, theta.device)
-    inv = ref.interp_diag_inverses(th, x, h, block)
 
     if theta.device.type == "cpu":
+        inv = ref.interp_diag_inverses(th, x, h, block)
         out = ref.interp_solve(th, x, inv, g2, h, block)
     else:
-        for t, what in ((th, "theta"), (x, "lams"), (inv, "inverses"),
-                        (g2, "rhs")):
+        _build.check_block(block, "interp_solve")
+        g2 = g2.contiguous()
+        for t, what in ((th, "theta"), (x, "lams"), (g2, "rhs")):
             _build.check_tensor(t, f"interp_solve {what}", dt)
-        if block > 256:
-            raise ValueError(f"interp_solve: block {block} > 256")
         nrhs = g2.shape[-1]
-        pmap = torch.as_tensor(packing.tile_pos_map(h, block),
-                               device=theta.device)
         out = torch.empty((n, q, hp, nrhs), dtype=dt, device=theta.device)
         if n and q and nrhs:
             fn = _build.c_function("poly_interp",
                                    f"rt_interp_solve_{_build.suffix(dt)}",
                                    _ARGS)
-            rc = fn(_build.ptr(th), _build.ptr(x), _build.ptr(inv),
-                    _build.ptr(g2), _build.ptr(pmap), _build.ptr(out), n, q,
-                    r1 - 1, nt, block, p_size, nrhs, int(rhs_per_lam),
-                    _build.stream_ptr(theta.device))
-            _build.check(rc, "interp_solve")
-            _build.count_launch("interp_solve")
+            _build.launch_solve(
+                "interp_solve", fn,
+                (_build.ptr(th), _build.ptr(x), _build.ptr(g2)),
+                (_build.ptr(out), n, q, r1 - 1, nt, block, p_size, nrhs,
+                 int(rhs_per_lam), h),
+                (n * q * nrhs, nt, block, dt), theta.device)
     out = out[:, :, :h].reshape(*lead, q, h, -1)
     return out[..., 0] if squeeze else out

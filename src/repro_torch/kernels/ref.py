@@ -12,9 +12,12 @@ each kernel against its plain version on the card.  They are oracles, not
 yardsticks of speed.
 
 The diagonal-tile helpers (:func:`dense_diag_inverses`,
-:func:`packed_diag_inverses`, :func:`interp_diag_inverses`) are shared
-with the wrappers: the diagonal inverses are computed outside the kernels,
-as the JAX package computes them outside Pallas.
+:func:`packed_diag_inverses`, :func:`interp_diag_inverses`) serve the
+plain versions and the packed trsm's wrapper, as the JAX package computes
+the inverses outside Pallas.  The dense trsm and ``interp_solve`` kernels
+form theirs in their prologue; :func:`invert_lower_tile` is that
+inversion, and :func:`solve_right_looking` (with :func:`cluster_plan`) the
+kernels' cluster order of the substitution, for the tests.
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ from repro_torch.core import packing
 
 __all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
            "interp_solve", "interp_factors", "dense_diag_inverses",
-           "packed_diag_inverses", "interp_diag_inverses", "ssm_scan"]
+           "packed_diag_inverses", "interp_diag_inverses",
+           "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
+           "solve_right_looking",
+           "ssm_scan"]
 
 
 def _identity_padded(a: torch.Tensor, block: int) -> torch.Tensor:
@@ -240,6 +246,107 @@ def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
             acc = acc + tile(int(pmap[t, i])).mT @ w[..., t * block:(t + 1) * block, :]
         w[..., lo:hi, :] = inv_diag[:, :, i].mT @ (w[..., lo:hi, :] - acc)
     return w
+
+
+def invert_lower_tile(l: torch.Tensor, nb: int = 16) -> torch.Tensor:
+    """The prologue's inversion in ``csrc/tri_solve.cuh``, in its sub-block
+    order: lower tiles (…, B, B) (the upper part is not read) → X = L⁻¹.
+    Each ``nb`` × ``nb`` diagonal sub-block by forward substitution (one
+    warp each in the kernel), then X_ij = −X_ii Σ_{k=j}^{i−1} L_ik X_kj
+    block row by block row."""
+    b = l.shape[-1]
+    if b % nb:
+        raise ValueError(f"invert_lower_tile: tile {b} is not a multiple of "
+                         f"nb={nb}")
+    l = torch.tril(l)
+    sub = [slice(p * nb, (p + 1) * nb) for p in range(b // nb)]
+    xd = [_inv_lower(l[..., s, s]) for s in sub]
+    x = torch.zeros_like(l)
+    for i, si in enumerate(sub):
+        x[..., si, si] = xd[i]
+        for j in range(i):
+            t = l[..., si, j * nb:i * nb] @ x[..., j * nb:i * nb, sub[j]]
+            x[..., si, sub[j]] = -xd[i] @ t
+    return x
+
+
+CLUSTER_SIZES = (8, 4, 2, 1)
+
+
+def cluster_plan(nt: int, cluster: int) -> list[list[int]]:
+    """The tile rows each block of one system's cluster owns: block b of
+    C = ``cluster`` blocks owns rows b, b + C, b + 2C, … < nt.  C is one of
+    :data:`CLUSTER_SIZES` and at most ``nt`` (C = 1 for nt = 1), as the C
+    entry points choose it."""
+    if cluster not in CLUSTER_SIZES or (cluster > nt and cluster > 1):
+        raise ValueError(f"cluster_plan: cluster {cluster} for nt={nt}")
+    return [list(range(b, nt, cluster)) for b in range(cluster)]
+
+
+def solve_right_looking(tile, diag, g: torch.Tensor, nt: int, block: int,
+                        cluster: int, sweeps: int = 3) -> torch.Tensor:
+    """The cluster kernels' substitution order (``csrc/tri_solve.cuh``).
+
+    ``tile(a, b)`` → (…, B, B) tile (a, b) of L, a > b; ``diag(i)`` → the
+    identity-padded diagonal tile i (…, B, B); ``g`` (…, nt·B, m).
+    ``sweeps``: 1 solves L v = g, 2 Lᵀ v = g, 3 both in turn (L Lᵀ v = g).
+    Each block of :func:`cluster_plan` inverts its own diagonal tiles
+    (:func:`invert_lower_tile`); the owner of row i solves v_i = X_i (g_i −
+    acc_i) (X_iᵀ for the reverse sweep); then every block adds L_ji v_i
+    (rows j > i) or L_ijᵀ v_i (rows j < i) to the pending sums of its rows,
+    the owner of the next row first, which then solves it before the
+    others finish.  The forward and reverse solutions have slots of their
+    own.  Returns the last sweep's solution (…, nt·B, m)."""
+    owned = cluster_plan(nt, cluster)
+    owner = {i: b for b, rows in enumerate(owned) for i in rows}
+    inv = {i: invert_lower_tile(diag(i)) for i in range(nt)}
+    seg = [slice(i * block, (i + 1) * block) for i in range(nt)]
+    acc = torch.zeros_like(g)
+    slots = {True: torch.zeros_like(g), False: torch.zeros_like(g)}
+    s_begin = 0 if sweeps & 1 else nt
+    s_end = 2 * nt if sweeps & 2 else nt
+
+    def row(s):
+        return s if s < nt else 2 * nt - 1 - s
+
+    def solve(s):
+        i, fwd = row(s), s < nt
+        rhs = (slots[True] if not fwd and sweeps & 1 else g)[..., seg[i], :]
+        rhs = rhs - acc[..., seg[i], :]
+        acc[..., seg[i], :] = 0
+        x = inv[i] if fwd else inv[i].mT
+        slots[fwd][..., seg[i], :] = x @ rhs
+
+    def jobs(s, b):         # the rows block b updates after the solve of s
+        i = row(s)
+        if s < nt - 1:
+            return [j for j in owned[b] if j > i]
+        if s >= nt:
+            return [j for j in reversed(owned[b]) if j < i]
+        return []
+
+    def update(s, j):
+        i, fwd = row(s), s < nt
+        lt = tile(j, i) if fwd else tile(i, j).mT
+        acc[..., seg[j], :] += lt @ slots[fwd][..., seg[i], :]
+
+    solve(s_begin)
+    for s in range(s_begin, s_end):
+        if s + 1 == s_end:
+            break
+        nxt = owner[row(s + 1)]
+        todo = jobs(s, nxt)
+        if s != nt - 1:                       # the next row first
+            assert todo[0] == row(s + 1)
+            update(s, todo.pop(0))
+        solve(s + 1)
+        for j in todo:
+            update(s, j)
+        for b in range(len(owned)):
+            if b != nxt:
+                for j in jobs(s, b):
+                    update(s, j)
+    return slots[sweeps == 1]
 
 
 def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,

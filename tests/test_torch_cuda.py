@@ -5,8 +5,9 @@ same check ``chip_smoke.py`` makes at the main path's shapes), for blocks
 16, 32, 64 and 128, for h below, between and above the blocks (ragged
 everywhere), in float64 and float32; then the engine drivers, the host-loop
 drivers, the packed solve and the Gauss–Newton head on the kernel backend
-against the reference backend; the ``ssm_scan`` kernel at N 8, 16 and 32 on
-ragged shapes, and the reduced Mamba model against the JAX fixture.  Skipped without a CUDA device.  On the
+against the reference backend; the two cluster solves (dense trsm,
+``interp_solve``) at more tile rows than a cluster has blocks and at one
+tile row; the ``ssm_scan`` kernel at N 8, 16 and 32 on ragged shapes, and the reduced Mamba model against the JAX fixture.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -96,6 +97,65 @@ def test_pack_tril_bit_exact_on_misaligned_rows(dev, block, h, dtype,
     got = tri_pack.pack_tril(m, block)
     torch.cuda.synchronize()
     assert torch.equal(got, packing.pack_tril(m, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nrhs", [1, 3])
+@pytest.mark.parametrize("h, block", [(200, 16), (1000, 32), (40, 128),
+                                      (2100, 128)],
+                         ids=["nt13", "nt32", "nt1", "nt17"])
+def test_cluster_solves_match_plain_versions(dev, smoke, h, block, nrhs,
+                                            dtype):
+    """The dense trsm (both sweeps, with and without the caller's diagonal
+    inverses) and interp_solve (g shared over λ and one g per λ) against
+    their plain versions: more tile rows than a cluster has blocks, one
+    tile row, and (nt17) three tile rows a block at B = 128, whose formed
+    inverses do not fit in shared memory and go to the scratch tensor.
+    One cluster launch per call.  Tolerance: smoke.TOL, the plain versions
+    sum in another order."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import (LAUNCHES, _build, poly_interp, ref,
+                                     reset_launches, trsm)
+    tol = smoke.TOL[dtype]
+    scratch = h == 2100
+    gen = torch.Generator(device=dev).manual_seed(h + nrhs)
+    x = torch.randn(4, 2 * h, h, generator=gen, device=dev,
+                    dtype=torch.float64)
+    l = torch.linalg.cholesky(x.mT @ x / h + torch.eye(
+        h, device=dev, dtype=torch.float64)).to(dtype).contiguous()
+    g = torch.randn(4, h, nrhs, generator=gen, device=dev, dtype=dtype)
+    inv = ref.dense_diag_inverses(l, block)
+    for transpose in (False, True):
+        want = ref.solve_lower_blocked(l, g, block, transpose=transpose)
+        for given in (None, inv):
+            reset_launches()
+            got = trsm.solve_lower_blocked(l, g, block, transpose=transpose,
+                                           inv_diag=given)
+            torch.cuda.synchronize()
+            assert LAUNCHES["solve_lower_blocked"] == 1
+            if scratch and given is None:
+                assert not _build.PLANS["solve_lower_blocked"]["inv_in_smem"]
+            assert smoke.errors(got, want)[1] <= tol
+    v = packing.pack_tril(l, block)
+    theta = torch.stack([v[:2], 0.1 * v[2:], 0.01 * v[:2]], 1).contiguous()
+    lams = torch.tensor([0.1, 0.5, 2.0], device=dev, dtype=torch.float64)
+    xs = lams.to(dtype)
+    hp = packing.num_tiles(h, block) * block
+    inv_d = ref.interp_diag_inverses(theta, xs, h, block)
+    for per_lam in (False, True):
+        gi = torch.randn(2, *((3,) if per_lam else ()), h, nrhs,
+                         generator=gen, device=dev, dtype=dtype)
+        reset_launches()
+        got = poly_interp.interp_solve(theta, lams, gi, h, block,
+                                       rhs_per_lam=per_lam)
+        torch.cuda.synchronize()
+        assert LAUNCHES["interp_solve"] == 1
+        if scratch:
+            assert not _build.PLANS["interp_solve"]["inv_in_smem"]
+        gp = torch.nn.functional.pad(gi, (0, 0, 0, hp - h))
+        want = ref.interp_solve(theta, xs, inv_d, gp, h, block)[:, :, :h]
+        assert smoke.errors(got, want)[1] <= tol
 
 
 @pytest.mark.parametrize("block", [16, 64])
