@@ -54,16 +54,27 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
 9. table4   — the λ* indices on ``tests/data/torch_table4.npz`` (made by the
               JAX package) must be reproduced on the ``cuda`` backend, and
               its curves within 1e-9 relative.
-10. mamba_fixture — the reduced Falcon-Mamba model (weights, tokens and
+10. precision — the bf16 policies on the main path at full width:
+              ``cv_picholesky`` under ``fp32``, ``bf16_store`` and
+              ``bf16_refined`` and ``cv_exact_cholesky`` under
+              ``bf16_store`` on the ``cuda`` backend, launches counted
+              (the mixed-precision variants of the Cholesky, the dense trsm
+              and ``interp_solve``, and no other); ``bf16_refined`` must
+              select fp32's λ* with its curve within rtol 2e-2, atol 2e-3
+              of fp32's and closer to it than ``bf16_store``'s; wall
+              medians of 5 in turns; one profiled run of each bf16 sweep
+              (no library trsm or Cholesky may run); the Table-4 fixture
+              under ``bf16_refined`` against ``fp32`` (printed, not held).
+11. mamba_fixture — the reduced Falcon-Mamba model (weights, tokens and
               answers of ``tests/data/torch_mamba.npz``, made by the JAX
               package) on the kernel: forward, prefill and two decode steps
               within 1e-4 relative.
-11. mamba   — Falcon-Mamba-7B at its published widths in float32, 4 layers,
+12. mamba   — Falcon-Mamba-7B at its published widths in float32, 4 layers,
               seeded weights: forward, prefill (logits and cache) and 8
               decode steps with the ``ssm_scan`` kernel against its plain
               version (``scan="reference"``), and decode-after-prefill
               against forward, all within 1e-4 relative.
-12. serve   — Falcon-Mamba-7B as published (bf16, 64 layers): prefill of 4
+13. serve   — Falcon-Mamba-7B as published (bf16, 64 layers): prefill of 4
               prompts of 2048 tokens, 32 greedy decode steps, and a forward
               over the extended sequences; finite logits, decode consistent
               with forward; prefill and decode walls (median of 3 after a
@@ -71,7 +82,12 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               profiled prefill and one profiled decode step (a second
               ``trace`` line).
 
-The ``kernels`` phase also holds ``ssm_scan`` against its plain version at
+The ``kernels`` phase also holds the three mixed-precision variants (bf16
+products on the tensor cores, float32 sums and state, Θ read in bf16)
+against their plain versions in float32 at the main path's bf16 shapes and
+at h = 1000 and 999, with the variant's time beside its bound, its plain
+version's, its one-dtype float32 kernel's and the float32 library call's.
+It also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one.  Then one ``{"kernels": [...]}`` line, and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
@@ -125,18 +141,19 @@ SERVE_TOL = 5e-2           # bf16, 64 layers: decode vs forward logits at the
 SERVE_REPEATS = 3
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, FP64 on tensor
-# cores, FP64 and FP32 outside them.  Chosen by the card's name.  ``sfu``:
+# cores, FP64 and FP32 outside them, bf16 on tensor cores (half the data
+# sheets' with-sparsity figure).  Chosen by the card's name.  ``sfu``:
 # exponentials per second on the special-function units, 16 per clock per
 # SM (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
 # capability 9.0) × SMs × boost clock (SXM 132 × 1.98 GHz, PCIe 114 ×
 # 1.755 GHz, NVL 132 × 1.785 GHz; NVIDIA data sheets).
 PEAKS = {
     "SXM": dict(bw=3.35e12, fp64_tc=67e12, fp64=34e12, fp32=67e12,
-                sfu=16 * 132 * 1.98e9),
+                bf16_tc=989e12, sfu=16 * 132 * 1.98e9),
     "PCIe": dict(bw=2.0e12, fp64_tc=51e12, fp64=26e12, fp32=51e12,
-                 sfu=16 * 114 * 1.755e9),
+                 bf16_tc=756e12, sfu=16 * 114 * 1.755e9),
     "NVL": dict(bw=3.9e12, fp64_tc=60e12, fp64=30e12, fp32=60e12,
-                sfu=16 * 132 * 1.785e9),
+                bf16_tc=835e12, sfu=16 * 132 * 1.785e9),
 }
 
 REPLACES = {
@@ -148,10 +165,34 @@ REPLACES = {
     "interp_factors": "src/repro/kernels/poly_interp.py:97",
     "solve_lower_packed": "src/repro/kernels/packed_trsm.py:166",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:83",
+    # the mixed-precision variants (bf16 products, float32 sums and state)
+    "cholesky_blocked_bf16": "src/repro/kernels/chol_blocked.py:115",
+    "solve_lower_blocked_bf16": "src/repro/kernels/trsm.py:102",
+    "interp_solve_bf16": "src/repro/kernels/poly_interp.py:195",
 }
+# Mixed variant against its plain version in float32, max |Δ| / max |plain|.
+# Their operands are rounded to bf16, and a value whose fp32 sum (or, for
+# the in-kernel diagonal inverses, whose fp32 inversion) ends a few bits
+# apart in another order rounds to the other neighbouring bf16 value
+# (2^-8 relative) now and then.  So kernel and plain are two roundings of
+# one bf16 algorithm, and they differ by about that algorithm's own error:
+# MIXED_TOL sits above it.  What a missing or extra rounding would change
+# is that error against the float64 result, so each variant's error
+# (max |Δ| / max |float64|) must also lie within ERROR_RATIO of its plain
+# version's.
+MIXED_TOL = {"cholesky_blocked_bf16": 2e-3, "solve_lower_blocked_bf16": 2e-2,
+             "interp_solve_bf16": 2e-2}
+ERROR_RATIO = (0.5, 2.0)
+# the precision phase: the reference test's bound on bf16_refined against
+# fp32 (tests/test_precision.py:203)
+PRECISION_RTOL, PRECISION_ATOL = 2e-2, 2e-3
+POLICY_RUNS = (("picholesky", "fp32"), ("picholesky", "bf16_store"),
+               ("picholesky", "bf16_refined"), ("exact", "bf16_store"))
 # what the kernels line adds for the two cluster solves (tri_solve.cuh)
 CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
                 "ptxas", "ms_given_inverses")
+# what the kernels line adds for the mixed variants
+MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape")
 # kernels that only move values: they must equal their plain versions
 EXACT_KERNELS = ("pack_tril", "unpack_tril")
 # The kernels each sweep of the main path launches; it launches no other.
@@ -168,6 +209,9 @@ SOURCES = {
     "interp_factors": "src/repro_torch/kernels/csrc/poly_interp.cu",
     "solve_lower_packed": "src/repro_torch/kernels/csrc/packed_trsm.cu",
     "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+    "cholesky_blocked_bf16": "src/repro_torch/kernels/csrc/chol_blocked.cu",
+    "solve_lower_blocked_bf16": "src/repro_torch/kernels/csrc/trsm.cu",
+    "interp_solve_bf16": "src/repro_torch/kernels/csrc/poly_interp.cu",
 }
 
 
@@ -465,6 +509,165 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
     return res
 
 
+def bf16_chunk() -> int:
+    """The λ chunk the engine's ``'auto'`` takes under a bf16 store at the
+    main configuration (its 16 MiB budget over the bf16 packed factor)."""
+    from repro_torch.core import engine
+    return engine.auto_lam_chunk(H, BLOCK, torch.bfloat16,
+                                 engine.LAM_CHUNK_BUDGET_BYTES)
+
+
+def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
+                n_lam: int, folds=None, lams=None, timing=None) -> dict:
+    """The mixed-precision variants (bf16 products, float32 sums and state)
+    against their plain versions on the card, in float32, on one set of
+    inputs: the Cholesky of ``n_anchor`` matrices, the trsm pair of
+    ``n_exact`` factors, ``interp_solve`` with a bf16 Θ at ``n_lam`` λs.
+    With ``timing`` (a peaks dict), also the times of the variant, its
+    plain version, its one-dtype float32 kernel on the same inputs and the
+    float32 library call, and the bound at the bf16 tensor-core peak."""
+    from repro_torch.core import packing, picholesky
+    from repro_torch.kernels import chol_blocked, poly_interp, ref, trsm
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(3)
+    eye = torch.eye(h, dtype=torch.float64, device=dev)
+    if folds is not None:
+        h_tr = folds.hess[None] - folds.fold_hess
+        g_tr = (folds.grad[None] - folds.fold_grad).to(f32)
+        sample = picholesky.choose_sample_lambdas(
+            float(lams[0]), float(lams[-1]), G_SAMPLES, device=dev)
+        anchors = (h_tr[:, None] + sample[:, None, None] * eye
+                   ).reshape(-1, h, h).to(f32)
+        lam_c = lams[:n_lam]
+        n_rep = -(-n_exact // h_tr.shape[0])
+        exact = (h_tr[:, None] + lams[:n_rep, None, None] * eye
+                 ).reshape(-1, h, h)[:n_exact].to(f32)
+    else:
+        x = torch.randn(n_anchor, 2 * h, h, generator=gen, device=dev,
+                        dtype=torch.float64)
+        anchors = (x.mT @ x / h + eye).to(f32)
+        exact = anchors[:n_exact].contiguous()
+        g_tr = torch.randn(n_exact, h, generator=gen, device=dev, dtype=f32)
+        sample = torch.logspace(-3, 0, G_SAMPLES, dtype=torch.float64,
+                                device=dev)
+        lam_c = torch.logspace(-3, 0, n_lam, dtype=torch.float64, device=dev)
+    rhs = torch.randn(exact.shape[0], h, 1, generator=gen, device=dev,
+                      dtype=f32)
+    res = {}
+
+    def held(name, out, plain, exact):
+        """kernel vs plain, and each against the float64 result"""
+        res[name] = dict(zip(("max_abs_err", "max_rel_err"),
+                             errors(out, plain)))
+        e_k = errors(out.double(), exact)[1]
+        e_p = errors(plain.double(), exact)[1]
+        res[name].update(error_vs_float64=e_k,
+                         error_vs_float64_plain=e_p, error_ratio=e_k / e_p)
+
+    # cholesky_blocked, mixed
+    l_k = chol_blocked.cholesky_blocked(anchors, block, compute_dtype=bf)
+    l_p = ref.cholesky_blocked(anchors, block, bf)
+    held("cholesky_blocked_bf16", l_k, l_p,
+         torch.linalg.cholesky(anchors.double()))
+    # solve_lower_blocked, mixed: forward then transposed solve
+    l_e = torch.linalg.cholesky(exact).contiguous()
+
+    def trsm_pair(**kw):
+        w = trsm.solve_lower_blocked(l_e, rhs, block, **kw)
+        return trsm.solve_lower_blocked(l_e, w, block, transpose=True, **kw)
+
+    def trsm_plain():
+        w = ref.solve_lower_blocked(l_e, rhs, block, compute_dtype=bf)
+        return ref.solve_lower_blocked(l_e, w, block, transpose=True,
+                                       compute_dtype=bf)
+
+    held("solve_lower_blocked_bf16", trsm_pair(compute_dtype=bf),
+         trsm_plain(), torch.cholesky_solve(rhs.double(), l_e.double()))
+    # interp_solve, mixed: Θ fitted at float32 on the packed anchors, kept
+    # in bf16 as the bf16 policies store it
+    n_fold = g_tr.shape[0]
+    v_p = packing.pack_tril(l_p, block)
+    targets = v_p.reshape(-1, G_SAMPLES, v_p.shape[-1])[:n_fold] \
+        if folds is not None else v_p[:n_fold, None].expand(-1, G_SAMPLES,
+                                                              -1)
+    v = picholesky.vandermonde(sample, DEGREE).to(f32)
+    theta32 = torch.linalg.solve(v.T @ v, v.T @ targets).contiguous()
+    theta = theta32.to(bf)
+    hp = packing.num_tiles(h, block) * block
+    x_c = lam_c.to(f32)
+
+    def interp_kernel():
+        return poly_interp.interp_solve(theta, lam_c, g_tr, h, block,
+                                        compute_dtype=bf, accum_dtype=f32)
+
+    def interp_plain():
+        inv_d = ref.interp_diag_inverses(theta, x_c, h, block, f32)
+        gp = torch.nn.functional.pad(g_tr[..., None], (0, 0, 0, hp - h))
+        return ref.interp_solve(theta, x_c, inv_d, gp, h, block,
+                                bf)[:, :, :h, 0]
+
+    # float64 of the same bf16 Θ (the one-dtype kernel)
+    held("interp_solve_bf16", interp_kernel(), interp_plain(),
+         poly_interp.interp_solve(theta.double(), lam_c, g_tr.double(), h,
+                                  block))
+    for name, r in res.items():
+        r["tol_rel"] = MIXED_TOL[name]
+        r["ok"] = (r["max_rel_err"] <= r["tol_rel"]
+                   and ERROR_RATIO[0] <= r["error_ratio"] <= ERROR_RATIO[1])
+    if timing is None:
+        return res
+
+    # times at these shapes, and the least time the card could take
+    bw, peak = timing["bw"], timing["bf16_tc"]
+    p_size = packing.packed_size(h, block)
+    nb_a, nb_e = anchors.shape[0], exact.shape[0]
+    tri = h * (h + 1) // 2
+    work = dict(
+        cholesky_blocked_bf16=dict(
+            kernel=lambda: chol_blocked.cholesky_blocked(anchors, block,
+                                                         compute_dtype=bf),
+            plain=lambda: ref.cholesky_blocked(anchors, block, bf),
+            fp32=lambda: chol_blocked.cholesky_blocked(anchors, block),
+            library=lambda: torch.linalg.cholesky(anchors),
+            bytes=nb_a * (tri + h * h) * 4, flops=nb_a * h ** 3 / 3),
+        solve_lower_blocked_bf16=dict(
+            kernel=lambda: trsm_pair(compute_dtype=bf), plain=trsm_plain,
+            fp32=trsm_pair,
+            library=lambda: torch.cholesky_solve(rhs, l_e),
+            bytes=nb_e * (tri + 2 * h) * 4, flops=nb_e * 2.0 * h * h),
+        interp_solve_bf16=dict(
+            kernel=interp_kernel, plain=interp_plain,
+            fp32=lambda: poly_interp.interp_solve(theta32, lam_c, g_tr, h,
+                                                  block),
+            library=None,
+            bytes=theta.numel() * 2 + (g_tr.numel()
+                                       + n_fold * lam_c.numel() * h) * 4,
+            flops=n_fold * lam_c.numel() * 2.0 * p_size * (2 * DEGREE + 2)),
+    )
+    for name, w in work.items():
+        t_bytes = w["bytes"] / bw * 1e3
+        t_ops = w["flops"] / peak * 1e3
+        res[name].update(
+            ms=timed_ms(w["kernel"], 5), plain_ms=timed_ms(w["plain"], 2),
+            fp32_kernel_ms=timed_ms(w["fp32"], 5),
+            library_ms=None if w["library"] is None
+            else timed_ms(w["library"], 5),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            work_bytes=w["bytes"], work_flops=w["flops"],
+            peak="bf16_tc", shape=dict(h=h, block=block, anchors=nb_a,
+                                       exact=nb_e, folds=n_fold,
+                                       lams=lam_c.numel()))
+    for name, fn in (("solve_lower_blocked_bf16",
+                      lambda: trsm_pair(compute_dtype=bf)),
+                     ("interp_solve_bf16", interp_kernel)):
+        res[name].update(cluster_split(name, fn, res[name]["ms"]))
+    _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(
+        anchors, block, compute_dtype=bf))
+    res["cholesky_blocked_bf16"]["by_kernel"] = chol_split(by_name)
+    return res
+
+
 def scan_inputs(dev, b: int, s: int, di: int, n: int, seed: int = 2):
     """Selective-scan inputs as the model makes them: dt = softplus(·) of
     order 0.05, A = -(1..N) (the ``mamba_a`` init), normal x, B, C, D."""
@@ -532,6 +735,18 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     f32 = check_kernels(dev, H, BLOCK, 4, 3, torch.float32)
     emit("kernels", shape="float32", h=H, block=BLOCK, dtype="float32",
          results=f32)
+    chunk = bf16_chunk()
+    mixed = check_mixed(dev, H, BLOCK, K_FOLDS * G_SAMPLES, K_FOLDS * chunk,
+                        chunk, folds, lams, timing=peaks)
+    emit("kernels", shape="mixed", h=H, block=BLOCK, dtype="float32",
+         compute="bfloat16", anchor_batch=K_FOLDS * G_SAMPLES,
+         exact_batch=K_FOLDS * chunk, lam_chunk=chunk, results=mixed)
+    mixed_ragged = check_mixed(dev, 1000, BLOCK, 4, 3, 3)
+    emit("kernels", shape="mixed_ragged", h=1000, block=BLOCK,
+         dtype="float32", compute="bfloat16", results=mixed_ragged)
+    mixed_odd = check_mixed(dev, 999, BLOCK, 4, 3, 3)
+    emit("kernels", shape="mixed_ragged_odd", h=999, block=BLOCK,
+         dtype="float32", compute="bfloat16", results=mixed_odd)
     scan = {"ssm_scan": check_ssm_scan(dev, SCAN_SHAPE, timing=peaks)}
     scan_ragged = {"ssm_scan": check_ssm_scan(dev, SCAN_RAGGED)}
     for tag, shape, res in (("ssm_scan", SCAN_SHAPE, scan),
@@ -542,12 +757,14 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     main.update(scan)
     bad = [(case, name) for case, res in
            (("main", main), ("ragged", ragged), ("ragged_odd", odd),
-            ("float32", f32),
+            ("float32", f32), ("mixed", mixed),
+            ("mixed_ragged", mixed_ragged), ("mixed_ragged_odd", mixed_odd),
             ("ssm_scan_ragged", scan_ragged))
            for name, r in res.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
+    main.update(mixed)
     return main
 
 
@@ -697,10 +914,14 @@ SOLVE_KERNEL = "tri_solve_kernel"      # both cluster solves' kernel
 
 def solve_kind(name: str) -> str | None:
     """Which wrapper a profiled kernel name belongs to: the cluster solve
-    instantiated for ``interp_solve`` (Interp = true) or the dense trsm."""
+    ``tri_solve_kernel<T, B, Interp, CT>`` instantiated for
+    ``interp_solve`` (Interp = true) or the dense trsm, with ``_bf16`` for
+    the mixed variants (CT = bf16)."""
     if SOLVE_KERNEL not in name:
         return None
-    return "interp_solve" if "true>" in name else "solve_lower_blocked"
+    args = name.split(SOLVE_KERNEL, 1)[1].split(">", 1)[0]
+    kind = "interp_solve" if "true" in args else "solve_lower_blocked"
+    return kind + "_bf16" if "bfloat16" in args else kind
 
 
 # the PyTorch calls that inverted diagonal tiles outside the kernels
@@ -726,11 +947,13 @@ def cluster_split(name: str, fn, ms: float) -> dict:
     kern = sum(v[0] for n, v in by_name.items() if solve_kind(n) == name)
     n_kern = sum(v[1] for n, v in by_name.items() if solve_kind(n) == name)
     other = sum(v[0] for n, v in by_name.items() if solve_kind(n) != name)
-    lib = {"interp_solve": "poly_interp", "solve_lower_blocked": "trsm"}[name]
+    lib = "poly_interp" if name.startswith("interp") else "trsm"
+    mixed = name.endswith("_bf16")
     log = _build._target(lib).with_suffix(".log")
     ptx = [f"{r['kernel']}: {r.get('used', '')}; {r.get('spills', '')}"
            for r in (ptxas_lines(log.read_text()) if log.exists() else [])
-           if SOLVE_KERNEL in r["kernel"] and "Li128E" in r["kernel"]]
+           if SOLVE_KERNEL in r["kernel"] and "Li128E" in r["kernel"]
+           and ("bfloat16" in r["kernel"]) == mixed]
     return dict(kernel_ms=kern / max(n_kern, 1), kernel_launches=n_kern,
                 other_device_ms=other, outside_kernel_ms=ms - kern,
                 plan=dict(_build.PLANS.get(name, {})), ptxas=ptx)
@@ -957,6 +1180,137 @@ def phase_table4(dev) -> None:
                                  f"reference by more than {TABLE4_TOL}: "
                                  f"{out[tag]}")
     emit("table4", **out)
+
+
+def is_library_factorization(name: str) -> bool:
+    """A cuSOLVER Cholesky kernel (of a ``torch.linalg.cholesky`` call)."""
+    return "potrf" in name.lower()
+
+
+def phase_precision(dev, folds, lams) -> dict:
+    """The bf16 policies on the main path at full width (the main
+    configuration, float64 data): the sweeps of POLICY_RUNS on the cuda
+    backend, each counted, held to ``fp32``, timed in turns and traced;
+    then the Table-4 fixture under ``bf16_refined`` against ``fp32``."""
+    from repro_torch.core import cv, engine, packing
+    from repro_torch.core.precision import resolve_precision
+    from repro_torch.kernels import MIXED_NAMES
+
+    def sweep(strategy, policy, folds=folds, lams=lams, g=G_SAMPLES,
+              block=BLOCK):
+        if strategy == "exact":
+            return lambda bk: cv.cv_exact_cholesky(
+                folds, lams, backend=bk, precision=policy, device=dev)
+        return lambda bk: cv.cv_picholesky(
+            folds, lams, g=g, degree=DEGREE, block=block, backend=bk,
+            precision=policy, device=dev)
+
+    def predicted(strategy, policy) -> dict:
+        """Launches from the engine's chunking: one Cholesky call per
+        chunk (exact) or one for the anchors (picholesky), one pack, one
+        interp_solve per chunk and refinement, two trsm per chunk."""
+        pol = resolve_precision(policy)
+        mixed = pol.compute_dtype(torch.float64) != pol.accum_dtype(
+            torch.float64)
+        name = {k: MIXED_NAMES[k] if mixed else k for k in MIXED_NAMES}
+        chunk = engine.auto_lam_chunk(H, BLOCK, pol.store_dtype(
+            torch.float64), engine.LAM_CHUNK_BUDGET_BYTES)
+        n_chunks = -(-N_LAMBDAS // chunk)
+        chol = chol_launches(H, BLOCK)
+        if strategy == "exact":
+            return {name["cholesky_blocked"]: n_chunks * chol,
+                    name["solve_lower_blocked"]: 2 * n_chunks}
+        return {name["cholesky_blocked"]: chol, "pack_tril": 1,
+                name["interp_solve"]: n_chunks * (1 + pol.refine_iters)}
+
+    runs = {f"{st}_{pol}": sweep(st, pol) for st, pol in POLICY_RUNS}
+    results, launches, out = {}, {}, {}
+    for (st, pol), (tag, run) in zip(POLICY_RUNS, runs.items()):
+        results[tag], launches[tag] = counted(run)
+        check_counts(f"precision {tag}", launches[tag], predicted(st, pol))
+        r = results[tag]
+        if r.errors.shape != (N_LAMBDAS,) or not np.isfinite(r.errors).all():
+            raise AssertionError(f"precision {tag}: curve is not {N_LAMBDAS} "
+                                 "finite values")
+        if r.extras["engine"]["precision"] != pol:
+            raise AssertionError(f"precision {tag}: engine reports "
+                                 f"{r.extras['engine']['precision']}")
+    base = results["picholesky_fp32"].errors
+    for tag, r in results.items():
+        d = np.abs(r.errors - base)
+        out[tag] = dict(argmin=int(np.argmin(r.errors)),
+                        best_lam=r.best_lam, max_abs_dev_vs_fp32=float(d.max()),
+                        within_fp32_bound=bool(np.all(
+                            d <= PRECISION_ATOL + PRECISION_RTOL
+                            * np.abs(base))))
+    ref, store = out["picholesky_bf16_refined"], out["picholesky_bf16_store"]
+    checks = dict(
+        refined_argmin_is_fp32=ref["argmin"] == out["picholesky_fp32"][
+            "argmin"],
+        refined_within_bound=ref["within_fp32_bound"],
+        refined_closer_than_store=ref["max_abs_dev_vs_fp32"]
+        < store["max_abs_dev_vs_fp32"])
+    walls = {tag: [] for tag in runs}
+    for _ in range(WALL_REPEATS):           # in turns, after the warm runs
+        for tag, run in runs.items():
+            walls[tag].append(_wall(lambda: run("cuda")))
+    traces = {}
+    for tag in ("picholesky_bf16_store", "picholesky_bf16_refined",
+                "exact_bf16_store"):
+        trace, by_name = profiled(lambda: runs[tag]("cuda"))
+        solves = {}
+        for n, (ms, c) in by_name.items():
+            k = solve_kind(n)
+            if k:
+                rec = solves.setdefault(k, dict(ms=0.0, launches=0))
+                rec["ms"] += ms
+                rec["launches"] += c
+        traces[tag] = dict(
+            trace, cholesky=chol_split(by_name), cluster_solves=solves,
+            gemm={n: v for n, v in by_name.items() if gemm_like(n)},
+            library_trsm={n: v for n, v in by_name.items()
+                          if is_library_trsm(n)},
+            library_cholesky={n: v for n, v in by_name.items()
+                              if is_library_factorization(n)})
+    # the Table-4 fixture (h=144, block=32) under bf16_refined against fp32
+    data = np.load(ROOT / "tests" / "data" / "torch_table4.npz")
+    t4_folds = cv.make_folds(data["x"], data["y"], int(data["k"]), device=dev)
+    t4_lams = torch.as_tensor(data["lams"], device=dev)
+    t4 = {pol: sweep("picholesky", pol, t4_folds, t4_lams, int(data["g"]),
+                     int(data["block"]))("cuda")
+          for pol in ("fp32", "bf16_refined")}
+    table4 = dict(argmin_fp32=int(np.argmin(t4["fp32"].errors)),
+                  argmin_bf16_refined=int(np.argmin(
+                      t4["bf16_refined"].errors)),
+                  max_abs_dev=float(np.max(np.abs(
+                      t4["bf16_refined"].errors - t4["fp32"].errors))))
+    table4["same_lam_star"] = table4["argmin_fp32"] == table4[
+        "argmin_bf16_refined"]
+    emit("precision", h=H, n=N_TRAIN, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES,
+         r=DEGREE, block=BLOCK, data_dtype="float64",
+         lam_chunk={tag: engine.auto_lam_chunk(
+             H, BLOCK, resolve_precision(pol).store_dtype(
+                 torch.float64), engine.LAM_CHUNK_BUDGET_BYTES)
+             for (_, pol), tag in zip(POLICY_RUNS, runs)},
+         theta_bytes={pol: packing.packed_nbytes(
+                          H, BLOCK, resolve_precision(pol).store_dtype(
+                              torch.float64))
+                      * (DEGREE + 1) * K_FOLDS
+                      for pol in ("fp32", "bf16_store")},
+         launches=launches, curves=out, checks=checks,
+         bound=dict(rtol=PRECISION_RTOL, atol=PRECISION_ATOL),
+         wall_s=walls, wall_s_median={k: float(np.median(v))
+                                      for k, v in walls.items()},
+         trace=traces, table4_bf16_refined=table4)
+    if not all(checks.values()):
+        raise AssertionError(f"precision: {checks}: {out}")
+    lib = {tag: (t["library_trsm"], t["library_cholesky"])
+           for tag, t in traces.items()
+           if t["library_trsm"] or t["library_cholesky"]}
+    if lib:
+        raise AssertionError(f"precision: a library trsm or Cholesky ran on "
+                             f"a bf16 sweep: {lib}")
+    return launches
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1198,6 +1552,7 @@ def main() -> None:
     launches["packed"] = phase_packed(dev, folds, lams)
     launches["gauss_newton"] = phase_gauss_newton(dev, folds)
     phase_table4(dev)
+    launches.update(phase_precision(dev, folds, lams))
     del folds, lams
     phase_mamba_fixture(dev)
     phase_mamba(dev)
@@ -1214,7 +1569,8 @@ def main() -> None:
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
-                         **{k: r[k] for k in CLUSTER_KEYS if k in r}))
+                         **{k: r[k] for k in CLUSTER_KEYS + MIXED_KEYS
+                            if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")

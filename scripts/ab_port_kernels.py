@@ -20,8 +20,10 @@ over [1e-3, 1], g=4, r=2, block=128, float64, ``chip_smoke.py``'s phase
 ``main``), host clock to a synchronize, median of 5 after a warm run.
 Each run prints one JSON line: the card's name and power limit, the two
 engines' wall ms, the mean ms of each wrapper over 10 calls after a
-warm-up (CUDA events), and the Cholesky's launches per call; the last
-line gives the median per side.
+warm-up (CUDA events), the Cholesky's launches per call, and a SHA-256
+digest of the wrappers' outputs in float64 and float32 and of both
+engines' curves; the last line gives the median per side and whether
+every run of both sides gave one digest (the same bits).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = r"""
-import json, statistics, subprocess, sys, time
+import hashlib, json, statistics, subprocess, sys, time
 sys.path.insert(0, "src")
 import torch
 from repro_torch.core import packing
@@ -109,6 +111,20 @@ engines = dict(
         folds, grid, g=4, degree=2, block=128, backend="cuda", device=dev)),
     exact_engine_ms=wall(lambda: cv.cv_exact_cholesky(
         folds, grid, backend="cuda", device=dev)))
+
+# the bits of every output, float64 and float32, and of both curves
+digest = hashlib.sha256()
+for dt in (torch.float64, torch.float32):
+    outs = (chol_blocked.cholesky_blocked(a.to(dt), 128),
+            tri_pack.pack_tril(l.to(dt), 128),
+            bk.solve_from_factor(l15.to(dt), g15.to(dt)),
+            poly_interp.interp_solve(theta.to(dt), lams, g5.to(dt), 1024, 128))
+    for t in outs:
+        digest.update(t.cpu().numpy().tobytes())
+for run in (cv.cv_picholesky(folds, grid, g=4, degree=2, block=128,
+                             backend="cuda", device=dev),
+            cv.cv_exact_cholesky(folds, grid, backend="cuda", device=dev)):
+    digest.update(run.errors.tobytes())
 print(json.dumps(dict(
     card=smi, **engines,
     cholesky_blocked_ms=timed(lambda: chol_blocked.cholesky_blocked(a, 128)),
@@ -116,7 +132,7 @@ print(json.dumps(dict(
     trsm_pair_ms=timed(lambda: bk.solve_from_factor(l15, g15)),
     trsm_pair_given_inverses_ms=timed(pair_given),
     interp_solve_ms=timed(lambda: poly_interp.interp_solve(theta, lams, g5, 1024, 128)),
-    cholesky_launches=launches)))
+    cholesky_launches=launches, digest=digest.hexdigest())))
 """
 
 
@@ -148,7 +164,8 @@ def main() -> None:
                                            if r["side"] == side)
                       for k in TIMED}
                for side in ("other", "this")}
-    print(json.dumps(dict(median=summary)), flush=True)
+    print(json.dumps(dict(median=summary, same_outputs=len(
+        {r["digest"] for r in recs}) == 1)), flush=True)
 
 
 if __name__ == "__main__":

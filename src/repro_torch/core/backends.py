@@ -165,8 +165,12 @@ class CudaBackend(LinalgBackend):
     and Horner into dense factors.
 
     ``chol_block`` / ``trsm_block`` are the kernel tile sizes; the packed
-    layout block is carried by the data.  Runs the policies whose compute
-    dtype is the accumulation dtype (``native``, ``fp32``, ``fp64``).
+    layout block is carried by the data.  Every policy runs: a policy
+    whose compute dtype differs from its accumulation dtype (``bf16_store``,
+    ``bf16_refined``) takes the mixed-precision variants of the Cholesky,
+    the dense trsm and ``interp_solve``, as ``PallasBackend._dtypes``
+    routes them (``src/repro/core/backends.py:203-210``); the packed trsm
+    and ``interp_factors`` have none yet and raise under it.
     """
 
     name: str = "cuda"
@@ -174,28 +178,39 @@ class CudaBackend(LinalgBackend):
     trsm_block: int = 128
     precision: PrecisionPolicy = PRESETS["native"]
 
-    def __post_init__(self):
+    def _dtypes(self, input_dtype):
+        """(compute, accum) kernel dtypes, None when the policy is native
+        (every dtype inherited from the input)."""
         p = self.precision
-        if p.refine_iters or any(
-                d in ("bfloat16", "float16")
-                for d in (p.store, p.compute, p.accum, p.fit)):
+        if p.is_native:
+            return None, None
+        return p.compute_dtype(input_dtype), p.accum_dtype(input_dtype)
+
+    def _one_dtype(self, input_dtype, what: str) -> None:
+        """Raise for a kernel with no mixed variant under a policy whose
+        compute dtype is not its accumulation dtype."""
+        cd, ad = self._dtypes(input_dtype)
+        if cd != ad:
             raise NotImplementedError(
-                f"the cuda backend runs the native, fp32 and fp64 policies; "
-                f"{p.name!r} (16-bit storage/compute, refinement) is queued "
-                "in ROADMAP.md queue 1 item 7")
+                f"{what} on the cuda backend has no {cd} / {ad} variant "
+                f"(policy {self.precision.name!r}); it is queued in "
+                "ROADMAP.md (queue 2 item 1)")
 
     def _accum(self, t):
         return t.to(self.precision.accum_dtype(t.dtype)).contiguous()
 
     def cholesky(self, a):
         from repro_torch.kernels.chol_blocked import cholesky_blocked
-        return cholesky_blocked(self._accum(a), self.chol_block)
+        cd, ad = self._dtypes(a.dtype)
+        return cholesky_blocked(a.contiguous(), self.chol_block,
+                                compute_dtype=cd, accum_dtype=ad)
 
     def solve_lower(self, l, b, *, transpose=False):
         from repro_torch.kernels.trsm import solve_lower_blocked
-        l = self._accum(l)
-        return solve_lower_blocked(l, b.to(l.dtype).contiguous(),
-                                   self.trsm_block, transpose=transpose)
+        cd, ad = self._dtypes(l.dtype)
+        return solve_lower_blocked(l.contiguous(), b.contiguous(),
+                                   self.trsm_block, transpose=transpose,
+                                   compute_dtype=cd, accum_dtype=ad)
 
     def pack_tril(self, mat, block):
         from repro_torch.kernels.tri_pack import pack_tril
@@ -207,6 +222,7 @@ class CudaBackend(LinalgBackend):
 
     def solve_packed(self, pf, g):
         from repro_torch.kernels.packed_trsm import solve_packed
+        self._one_dtype(pf.vec.dtype, "solve_packed")
         vec = self._accum(pf.vec)
         return solve_packed(vec, shared_rhs(pf, g).to(vec.dtype), pf.h,
                             pf.block)
@@ -214,13 +230,17 @@ class CudaBackend(LinalgBackend):
     def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
                      rhs_per_lam=False):
         from repro_torch.kernels.poly_interp import interp_solve
-        ad = self.precision.accum_dtype(theta.dtype)
-        return interp_solve(theta.to(ad).contiguous(), lams, g, h, block,
-                            center=center, rhs_per_lam=rhs_per_lam)
+        cd, ad = self._dtypes(theta.dtype)
+        # Θ goes at its store dtype: a bf16 Θ is read in bf16, half the
+        # bytes of the sweep
+        return interp_solve(theta.contiguous(), lams, g, h, block,
+                            center=center, rhs_per_lam=rhs_per_lam,
+                            compute_dtype=cd, accum_dtype=ad)
 
     def interp_factors(self, theta, lams, *, h, block, center=0.0):
         from repro_torch.kernels.poly_interp import interp_factors
         from . import picholesky
+        self._one_dtype(theta.dtype, "interp_factors")
         lams = picholesky.lam_tensor(lams, theta.device)
         return interp_factors(theta.contiguous(), lams, h, block,
                               center=center)

@@ -95,7 +95,9 @@ class ExactCholesky(StrategyBase):
 class PiCholeskyStrategy(StrategyBase):
     """Algorithm 1 per fold: g exact factorizations + a polynomial fit;
     the dense sweep reads the interpolant only (fused Horner + packed
-    substitution, no factor of the sweep is materialized)."""
+    substitution, no factor of the sweep is materialized).  Under a
+    refining policy (``bf16_refined``) each chunk's solves are corrected
+    by :func:`~repro_torch.core.picholesky.refine_solutions`."""
 
     g: int = 4
     degree: int = 2
@@ -115,6 +117,9 @@ class PiCholeskyStrategy(StrategyBase):
 
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         thetas = state.solve(lams, g_tr, backend=bk)        # (k, c, h)
+        if bk.precision.refine_iters:   # bf16_refined: fp32 residual sweep
+            thetas = picholesky.refine_solutions(state, h_tr, g_tr, lams,
+                                                 thetas, backend=bk)
         return _errors_from_thetas(thetas, x_f, y_f)
 
 

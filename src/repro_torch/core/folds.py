@@ -53,8 +53,11 @@ def holdout_nrmse(theta: torch.Tensor, x_hold: torch.Tensor,
                   y_hold: torch.Tensor) -> torch.Tensor:
     """Normalized RMSE on held-out rows: theta (…, h), x_hold (…, n_f, h),
     y_hold (…, n_f), leading dims broadcast.  The normalizer is the
-    population standard deviation (``correction=0``)."""
-    pred = (x_hold @ theta[..., None])[..., 0]
+    population standard deviation (``correction=0``).  θ and the rows are
+    promoted to one dtype (float32 solutions of a mixed policy on float64
+    data score at float64), as ``jnp`` promotes."""
+    dt = torch.promote_types(theta.dtype, x_hold.dtype)
+    pred = (x_hold.to(dt) @ theta.to(dt)[..., None])[..., 0]
     mse = torch.mean((pred - y_hold) ** 2, dim=-1)
     denom = torch.std(y_hold, dim=-1, correction=0) + 1e-30
     return torch.sqrt(mse) / denom

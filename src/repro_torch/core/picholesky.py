@@ -21,7 +21,7 @@ from . import packing
 from .backends import BackendLike, resolve_backend
 
 __all__ = ["PiCholesky", "fit", "vandermonde", "choose_sample_lambdas",
-           "evaluate", "evaluate_packed", "lam_tensor"]
+           "evaluate", "evaluate_packed", "lam_tensor", "refine_solutions"]
 
 
 def lam_tensor(lam, device) -> torch.Tensor:
@@ -182,3 +182,40 @@ def evaluate(model: PiCholesky, lams) -> torch.Tensor:
     """Dense interpolated factors (…, q, h, h); the sweep path consumes
     :func:`evaluate_packed` / :meth:`PiCholesky.solve` instead."""
     return model.eval_factor(lams)
+
+
+def refine_solutions(model: PiCholesky, hessian: torch.Tensor,
+                     g: torch.Tensor, lams, thetas: torch.Tensor,
+                     backend: BackendLike = "reference",
+                     iters: int | None = None) -> torch.Tensor:
+    """Iterative refinement of ``interp_solve`` solutions, the accuracy half
+    of the ``bf16_refined`` policy (``src/repro/core/picholesky.py:298``).
+
+    Each sweep forms the residual ``r(λ) = g − (H + λI) θ(λ)`` at the
+    policy's accumulation dtype (exact λ, not the bf16 one Horner used) and
+    corrects θ by one more fused interpolant solve with the per-λ residuals
+    as right-hand sides.  Batched over folds: ``hessian`` (…, h, h), ``g``
+    (…, h), ``lams`` (q,), ``thetas`` (…, q, h) — or (…, h) for a scalar
+    λ.  Returns ``thetas`` itself when the iteration count is 0; ``iters``
+    overrides the policy's ``refine_iters``.
+    """
+    bk = resolve_backend(backend)
+    iters = bk.precision.refine_iters if iters is None else int(iters)
+    if iters <= 0:
+        return thetas
+    ad = bk.precision.accum_dtype(model.theta.dtype)
+    lam = lam_tensor(lams, model.theta.device)
+    single = lam.ndim == 0
+    lam = lam.reshape(-1)
+    hs = hessian.to(ad)
+    gs = g.to(ad)[..., None, :]
+    lam_col = lam.to(ad)[:, None]
+    th = (thetas[..., None, :] if single else thetas).to(ad)   # (…, q, h)
+    for _ in range(iters):
+        # H is symmetric: θ H is (H θᵀ)ᵀ, one batched product per fold
+        resid = gs - (th @ hs + lam_col * th)
+        delta = bk.interp_solve(model.theta, lam, resid, h=model.h,
+                                block=model.block, center=model.center,
+                                rhs_per_lam=True)
+        th = th + delta.to(ad)
+    return th[..., 0, :] if single else th

@@ -8,10 +8,12 @@ The same four dtype roles and presets as the JAX package, on torch dtypes:
              factorizations run in (never 16-bit);
 ``fit``      the polynomial fit and the λ values (floored at float32).
 
-``None`` for a role means *inherit the input's dtype*.  The kernel backend
-of this port runs only the policies whose compute dtype equals the accum
-dtype (``native``, ``fp32``, ``fp64``); the bf16 presets are defined so a
-policy can be named and resolved, and the ``cuda`` backend refuses them.
+``None`` for a role means *inherit the input's dtype*.  Both backends run
+every preset.  Under ``bf16_store`` and ``bf16_refined`` the ``cuda``
+backend runs the mixed-precision variants of the blocked Cholesky, the
+dense trsm and ``interp_solve``: bf16 operands on the tensor cores, fp32
+sums and state, Θ read in bf16.  The packed trsm and ``interp_factors``
+have no mixed variant yet and raise under those two (``ROADMAP.md``).
 
 The environment variable ``REPRO_TEST_PRECISION`` overrides the default
 policy, as in the reference.
@@ -88,6 +90,28 @@ class PrecisionPolicy:
         if self.fit:
             return as_dtype(self.fit)
         return torch.promote_types(as_dtype(input_dtype), torch.float32)
+
+    @property
+    def is_native(self) -> bool:
+        return (self.store is None and self.compute is None
+                and self.accum is None and self.fit is None
+                and self.refine_iters == 0)
+
+    def bytes_ratio(self, input_dtype) -> float:
+        """Storage shrink factor vs the input dtype (2.0 for bf16 ÷ fp32)."""
+        return (as_dtype(input_dtype).itemsize
+                / self.store_dtype(input_dtype).itemsize)
+
+    def descriptor(self) -> str:
+        """Canonical content string for cache fingerprints: derived from
+        the dtype roles, never the preset name."""
+        if self.is_native:
+            return "native"
+        return (f"store={self.store or 'inherit'},"
+                f"compute={self.compute or 'inherit'},"
+                f"accum={self.accum or 'auto'},"
+                f"fit={self.fit or 'auto'},"
+                f"refine={self.refine_iters}")
 
 
 PRESETS = {

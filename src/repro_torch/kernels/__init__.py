@@ -6,8 +6,9 @@ of the module of the same name in ``src/repro/kernels``.  A wrapper given
 CPU tensors runs its plain version (:mod:`.ref` or
 :mod:`repro_torch.core.packing`); given CUDA tensors it launches its
 kernel, built from ``csrc/`` at first use, or raises.  :data:`LAUNCHES`
-counts the CUDA kernel launches per wrapper.
+counts the CUDA kernel launches per wrapper, the mixed-precision variants
+under the names of :data:`MIXED_NAMES`.
 """
-from ._build import LAUNCHES, build_all, reset_launches
+from ._build import LAUNCHES, MIXED_NAMES, build_all, reset_launches
 
-__all__ = ["LAUNCHES", "build_all", "reset_launches"]
+__all__ = ["LAUNCHES", "MIXED_NAMES", "build_all", "reset_launches"]

@@ -14,7 +14,9 @@ Every C entry point takes its pointers and the CUDA stream as ``void *``
 and returns the ``cudaError_t`` of its launches; :func:`check` raises on a
 non-zero code.  :data:`LAUNCHES` counts, per wrapper, the CUDA kernel
 launches it made (a call that launches several kernels adds each of them;
-a call that failed or took the plain CPU path adds nothing).
+a call that failed or took the plain CPU path adds nothing); the
+mixed-precision variants count under names of their own
+(:data:`MIXED_NAMES`).
 """
 from __future__ import annotations
 
@@ -28,9 +30,11 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BLOCKS", "LAUNCHES", "PLANS",
+           "MIXED_NAMES",
            "PLAN_KEYS", "build_all", "load", "check", "check_block",
            "check_tensor", "c_function", "count_launch", "reset_launches",
-           "launch_solve", "ptr", "stream_ptr", "suffix"]
+           "launch_solve", "ptr", "stream_ptr", "suffix", "entry",
+           "resolve_dtypes", "check_mixed"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -53,11 +57,18 @@ PLANS: Dict[str, dict] = {}
 #: room for its diagonal inverses and was given none (nothing launched)
 _NEEDS_SCRATCH = -1
 
+#: the mixed-precision variants (bf16 products, float32 sums and state)
+#: count apart from their one-dtype kernels, under these names
+MIXED_NAMES = {"cholesky_blocked": "cholesky_blocked_bf16",
+               "solve_lower_blocked": "solve_lower_blocked_bf16",
+               "interp_solve": "interp_solve_bf16"}
+
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("pack_tril", "cholesky_blocked",
                              "solve_lower_blocked", "interp_solve",
                              "unpack_tril", "interp_factors",
-                             "solve_lower_packed", "ssm_scan")}
+                             "solve_lower_packed", "ssm_scan",
+                             *MIXED_NAMES.values())}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -181,12 +192,13 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 
 def check_tensor(t, what: str, dtype=None) -> None:
-    """The checks every wrapper makes before a launch: a contiguous float32
-    or float64 CUDA tensor (of ``dtype`` when given)."""
+    """The checks every wrapper makes before a launch: a contiguous CUDA
+    tensor of ``dtype`` (a bf16 Θ of the mixed ``interp_solve``), or of
+    float32 or float64 when ``dtype`` is not given."""
     import torch
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype not in (torch.float32, torch.float64):
+    if dtype is None and t.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{what}: kernels take float32 or float64, got "
                         f"{t.dtype}")
     if dtype is not None and t.dtype != dtype:
@@ -195,9 +207,52 @@ def check_tensor(t, what: str, dtype=None) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
+_SUFFIX = {"torch.float64": "f64", "torch.float32": "f32",
+           "torch.bfloat16": "bf16"}
+
+
 def suffix(dtype) -> str:
+    """The name of ``dtype`` in the C entry points."""
+    try:
+        return _SUFFIX[str(dtype)]
+    except KeyError:
+        raise TypeError(f"no kernel takes {dtype}") from None
+
+
+def entry(name: str, dtype, compute_dtype=None) -> str:
+    """The C entry point of ``name`` for state ``dtype``: ``rt_<name>_f64``
+    or ``_f32``, or the mixed variant's ``rt_<name>_f32_bf16`` when
+    ``compute_dtype`` differs from ``dtype``."""
+    fn = f"rt_{name}_{suffix(dtype)}"
+    if compute_dtype is not None and compute_dtype != dtype:
+        fn += f"_{suffix(compute_dtype)}"
+    return fn
+
+
+def resolve_dtypes(ref_dtype, compute_dtype=None, accum_dtype=None):
+    """(compute, accum) torch dtypes, the rule of the JAX kernels
+    (``src/repro/kernels/packed_trsm.py:99``): compute inherits
+    ``ref_dtype``; accum is float32 for a 16-bit compute dtype and the
+    compute dtype otherwise."""
+    from repro_torch.core.precision import as_dtype, default_accum_dtype
+    cd = ref_dtype if compute_dtype is None else as_dtype(compute_dtype)
+    ad = default_accum_dtype(cd) if accum_dtype is None \
+        else as_dtype(accum_dtype)
+    return cd, ad
+
+
+def check_mixed(compute_dtype, accum_dtype, what: str) -> None:
+    """Raise unless (compute, accum) is one the kernels are compiled for:
+    one dtype throughout (float32, float64), or bf16 products with float32
+    sums and state (the mixed variants)."""
     import torch
-    return "f64" if dtype == torch.float64 else "f32"
+    pair = (compute_dtype, accum_dtype)
+    if pair not in ((torch.float32,) * 2, (torch.float64,) * 2,
+                    (torch.bfloat16, torch.float32)):
+        raise NotImplementedError(
+            f"{what}: the kernels run float32 or float64 throughout, or "
+            f"bfloat16 products with float32 sums; got compute "
+            f"{compute_dtype}, accum {accum_dtype}")
 
 
 def c_function(lib_name: str, fn_name: str, argtypes):

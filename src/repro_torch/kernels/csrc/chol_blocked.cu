@@ -66,6 +66,19 @@
 // Float32 runs the same code with CUDA-core FMAs in place of the mma (TF32
 // would not hold the float32 tolerance).
 //
+// The mixed-precision variant (rt_chol_blocked_f32_bf16; the Pallas kernels
+// under a bf16 compute dtype, chol_blocked.py:80-82 and :98-100): the
+// state (src, a, inv, w) stays float32, and the operands of (b) (A_i1 and
+// X) and of (c) (W), and of the look-ahead update of (a) (W0, since the
+// Pallas syrk covers the diagonal tile too), are rounded to bf16 as their
+// fragments are formed and multiplied on the bf16 tensor cores
+// (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, warp_mma_bf16)
+// into float32 sums; one kKc = 16 slice is one k16 step.  The diagonal
+// factor and its inverse stay float32 (CUDA-core products).  At the bf16
+// tensor-core rate the variant's bound is bytes (the float32 matrices read
+// and the factors written), and the diagonal step's serial chain, which
+// stays float32, holds it as it holds the float64 kernel.
+//
 // Bound on this card: operations (h^3/3 per matrix, mostly in (c), on the
 // FP64 tensor cores).  What holds it back: the diagonal step's serial chain
 // (128 pivots per tile, each a shuffle, a reciprocal square root and a
@@ -83,8 +96,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKc = 16;                 // depth of one staged slice in (b), (c)
 constexpr int kLdStage = kKc + 4;
 
-// (a) the diagonal step: factor and inverse of one B x B tile per matrix
-template <typename T, int B>
+// (a) the diagonal step: factor and inverse of one B x B tile per matrix;
+// CT the compute type of the look-ahead update
+template <typename T, int B, typename CT>
 __global__ void __launch_bounds__(kThreads)
 diag_kernel(const T* src, T* a, T* __restrict__ inv,
             const T* __restrict__ w, int hp, int lo) {
@@ -166,8 +180,8 @@ diag_kernel(const T* src, T* a, T* __restrict__ inv,
       const T* R = Xd + (kt & 1) * B * kLdStage;
 #pragma unroll
       for (int q = 0; q < PW; ++q)
-        warp_mma<2, 2>(acc[q], R + pi[q] * kNb * kLdStage, kLdStage,
-                       R + pj[q] * kNb * kLdStage, 1, kLdStage, kKc);
+        warp_product<CT, 2, 2>(acc[q], R + pi[q] * kNb * kLdStage, kLdStage,
+                               R + pj[q] * kNb * kLdStage, 1, kLdStage, kKc);
       __syncthreads();
     }
 #pragma unroll
@@ -262,7 +276,7 @@ template <> struct GemmShape<64> { static constexpr int WR = 2, WC = 4, MI = 4, 
 template <> struct GemmShape<32> { static constexpr int WR = 2, WC = 4, MI = 2, NI = 1; };
 template <> struct GemmShape<16> { static constexpr int WR = 1, WC = 2, MI = 2, NI = 1; };
 
-template <typename T, int TS>
+template <typename T, int TS, typename CT>
 __device__ void gemm_tile(const T* __restrict__ P, int ldp,
                           const T* __restrict__ Q, int ldq, int K,
                           const T* C_in, T* C, int ldc, T alpha) {
@@ -296,9 +310,9 @@ __device__ void gemm_tile(const T* __restrict__ P, int ldp,
     }
     __syncthreads();
     if (active)
-      warp_mma<G::MI, G::NI>(acc, &sP[kt & 1][wr * G::MI * 8 * kLdStage],
-                             kLdStage, &sQ[kt & 1][wc * G::NI * 8 * kLdStage],
-                             1, kLdStage, kKc);
+      warp_product<CT, G::MI, G::NI>(
+          acc, &sP[kt & 1][wr * G::MI * 8 * kLdStage], kLdStage,
+          &sQ[kt & 1][wc * G::NI * 8 * kLdStage], 1, kLdStage, kKc);
     __syncthreads();
   }
   if (!active) return;
@@ -311,7 +325,7 @@ __device__ void gemm_tile(const T* __restrict__ P, int ldp,
 
 // (b) W[i] = A[lo + B + i*B :, lo : lo + B] . X^T for the m sub-diagonal
 // tiles; columns n < (sc + 1) TS of X^T are zero below depth (sc + 1) TS
-template <typename T, int B, int TS>
+template <typename T, int B, int TS, typename CT>
 __global__ void __launch_bounds__(kThreads)
 panel_kernel(const T* __restrict__ src, const T* __restrict__ inv,
              T* __restrict__ w, int hp, int lo) {
@@ -323,7 +337,7 @@ panel_kernel(const T* __restrict__ src, const T* __restrict__ inv,
   const T* P = src + mat * hp * hp + (long long)(lo + B + i * B + sr * TS) * hp + lo;
   const T* Q = inv + mat * B * B + (long long)(sc * TS) * B;
   T* C = w + mat * hp * B + (long long)(i * B + sr * TS) * B + sc * TS;
-  gemm_tile<T, TS>(P, hp, Q, B, (sc + 1) * TS, nullptr, C, B, T(1));
+  gemm_tile<T, TS, CT>(P, hp, Q, B, (sc + 1) * TS, nullptr, C, B, T(1));
 }
 
 // (c) A22 -= W W^T over the lower tile pairs but the first (row-major
@@ -331,7 +345,7 @@ panel_kernel(const T* __restrict__ src, const T* __restrict__ inv,
 // updated by the next diagonal step), then write-back jobs copying W into
 // the factor's column below the diagonal tile and zeroing the mirrored tile
 // above it.  A22 is read from src and written to a.
-template <typename T, int B, int TS>
+template <typename T, int B, int TS, typename CT>
 __global__ void __launch_bounds__(kThreads)
 syrk_kernel(const T* src, T* a, const T* __restrict__ w, int hp, int lo,
             int m) {
@@ -353,7 +367,7 @@ syrk_kernel(const T* src, T* a, const T* __restrict__ w, int hp, int lo,
     const T* Q = W + (long long)(tj * B + sc * TS) * B;
     const long long at = mat * hp * hp + (long long)(lo + B + ti * B + sr * TS) * hp
                          + (lo + B + tj * B + sc * TS);
-    gemm_tile<T, TS>(P, B, Q, B, B, src + at, a + at, hp, T(-1));
+    gemm_tile<T, TS, CT>(P, B, Q, B, B, src + at, a + at, hp, T(-1));
   } else {
     const int ti = p - n_pairs;
     const int r0 = ti * B + sr * TS, c0 = sc * TS;
@@ -412,39 +426,39 @@ int look_ahead(LookAhead** out) {
 // matrix on s; s waits for diag(j+1) before panel(j+1).  Tile column 0
 // (diag 0, panel 0, syrk 0) and diag 1 read the input from src; every
 // kernel writes a.
-template <typename T, int B>
+template <typename T, int B, typename CT>
 int run_columns(const T* src, T* a, T* inv, T* w, int batch, int hp,
                 int* launches, cudaStream_t s) {
   constexpr int TS = B < 64 ? B : 64, S = B / TS;
   const int nt = hp / B;
   const size_t smem = (size_t)(B * (B + 4) + 2 * B * kLdStage) * sizeof(T);
   RT_RETURN_IF(cudaFuncSetAttribute(
-      diag_kernel<T, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      diag_kernel<T, B, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem));
   LookAhead* la = nullptr;
   if (nt > 1) {
     const int rc = look_ahead(&la);
     if (rc) return rc;
   }
-  diag_kernel<T, B><<<batch, kThreads, smem, s>>>(src, a, inv, nullptr, hp, 0);
+  diag_kernel<T, B, CT><<<batch, kThreads, smem, s>>>(src, a, inv, nullptr, hp, 0);
   RT_RETURN_IF_ERROR();
   ++*launches;
   for (int j = 0; j + 1 < nt; ++j) {
     const int lo = j * B, m = nt - 1 - j;
     const T* in = j == 0 ? src : a;
-    panel_kernel<T, B, TS><<<dim3(m * S * S, batch), kThreads, 0, s>>>(
+    panel_kernel<T, B, TS, CT><<<dim3(m * S * S, batch), kThreads, 0, s>>>(
         in, inv, w, hp, lo);
     RT_RETURN_IF_ERROR();
     ++*launches;
     RT_RETURN_IF(cudaEventRecord(la->panel_done, s));
     RT_RETURN_IF(cudaStreamWaitEvent(la->side, la->panel_done, 0));
-    diag_kernel<T, B><<<batch, kThreads, smem, la->side>>>(
+    diag_kernel<T, B, CT><<<batch, kThreads, smem, la->side>>>(
         j == 0 ? src : a, a, inv, w, hp, lo + B);
     RT_RETURN_IF_ERROR();
     ++*launches;
     RT_RETURN_IF(cudaEventRecord(la->diag_done, la->side));
-    syrk_kernel<T, B, TS><<<dim3((m * (m + 1) / 2 - 1 + m) * S * S, batch),
-                            kThreads, 0, s>>>(in, a, w, hp, lo, m);
+    syrk_kernel<T, B, TS, CT><<<dim3((m * (m + 1) / 2 - 1 + m) * S * S, batch),
+                                kThreads, 0, s>>>(in, a, w, hp, lo, m);
     RT_RETURN_IF_ERROR();
     ++*launches;
     RT_RETURN_IF(cudaStreamWaitEvent(s, la->diag_done, 0));
@@ -452,7 +466,7 @@ int run_columns(const T* src, T* a, T* inv, T* w, int batch, int hp,
   return 0;
 }
 
-template <typename T>
+template <typename T, typename CT = T>
 int chol_blocked(const void* src, void* a, void* inv, void* w, int batch,
                  int hp, int B, int* launches, void* stream) {
   const T* In = static_cast<const T*>(src);
@@ -465,10 +479,10 @@ int chol_blocked(const void* src, void* a, void* inv, void* w, int batch,
        reinterpret_cast<uintptr_t>(inv) | reinterpret_cast<uintptr_t>(w)) % 16)
     return (int)cudaErrorMisalignedAddress;
   switch (B) {
-    case 16: return run_columns<T, 16>(In, A, X, W, batch, hp, launches, s);
-    case 32: return run_columns<T, 32>(In, A, X, W, batch, hp, launches, s);
-    case 64: return run_columns<T, 64>(In, A, X, W, batch, hp, launches, s);
-    case 128: return run_columns<T, 128>(In, A, X, W, batch, hp, launches, s);
+    case 16: return run_columns<T, 16, CT>(In, A, X, W, batch, hp, launches, s);
+    case 32: return run_columns<T, 32, CT>(In, A, X, W, batch, hp, launches, s);
+    case 64: return run_columns<T, 64, CT>(In, A, X, W, batch, hp, launches, s);
+    case 128: return run_columns<T, 128, CT>(In, A, X, W, batch, hp, launches, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -492,5 +506,12 @@ int rt_chol_blocked_f32(const void* src, void* a, void* inv, void* w,
                         int batch, int hp, int B, int* launches,
                         void* stream) {
   return chol_blocked<float>(src, a, inv, w, batch, hp, B, launches, stream);
+}
+// the same arguments, float32 state; the products in bf16
+int rt_chol_blocked_f32_bf16(const void* src, void* a, void* inv, void* w,
+                             int batch, int hp, int B, int* launches,
+                             void* stream) {
+  return chol_blocked<float, __nv_bfloat16>(src, a, inv, w, batch, hp, B,
+                                            launches, stream);
 }
 }

@@ -37,6 +37,15 @@
 // Bound on this card: bytes (Θ is read once per λ per sweep; L2 shares the
 // reads of the λs of one fold that run together) against about 2r+2 flops
 // per coefficient value, and the chain of 2 nt dependent solves.
+//
+// rt_interp_solve_f32_bf16 is the mixed-precision variant (poly_interp.py
+// under a bf16 compute dtype): Θ stays bf16 in device memory and is staged
+// as bf16, half the bytes of the sweep; each off-diagonal tile is
+// Horner-evaluated in bf16 as it streams (x rounded to bf16, every step
+// rounded, :128-131), the diagonal tiles at float32 from Θ and inverted
+// there (:245-255); λ - center, g, the sums and the solutions are float32,
+// and every product runs on the bf16 tensor cores (tri_solve.cuh, CT =
+// bf16).
 
 #include <cstdint>
 
@@ -90,13 +99,14 @@ static int interp_factors(const void* theta, const void* x, const void* pmap,
   return 0;
 }
 
-template <typename T>
+template <typename T, typename CT = T>
 static int interp_solve(const void* theta, const void* x, const void* g,
                         void* scratch, void* out, int n_fold, int n_lam,
                         int degree, int nt, int B, long long P, int nrhs,
                         int g_per_lam, int h, int* plan, void* stream) {
-  SolveArgs<T> a = {};
-  a.src = static_cast<const T*>(theta);
+  using Src = SrcT<T, true, CT>;      // Θ's type
+  SolveArgs<T, Src> a = {};
+  a.src = static_cast<const Src*>(theta);
   a.x = static_cast<const T*>(x);
   a.scratch = static_cast<T*>(scratch);
   a.g = static_cast<const T*>(g);
@@ -109,9 +119,10 @@ static int interp_solve(const void* theta, const void* x, const void* g,
   a.nrhs = nrhs;
   a.g_per_lam = g_per_lam;
   a.sweeps = 3;
-  a.vec = reinterpret_cast<uintptr_t>(theta) % 16 == 0 && P % (16 / sizeof(T)) == 0;
-  return tri_solve_launch<T, true>(a, B, (long long)n_fold * n_lam * nrhs,
-                                   plan, static_cast<cudaStream_t>(stream));
+  a.vec = reinterpret_cast<uintptr_t>(theta) % 16 == 0 && P % (16 / sizeof(Src)) == 0;
+  if (sizeof(Src) < 4 && !a.vec) return (int)cudaErrorMisalignedAddress;
+  return tri_solve_launch<T, true, CT>(a, B, (long long)n_fold * n_lam * nrhs,
+                                       plan, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
@@ -134,6 +145,15 @@ int rt_interp_solve_f32(const void* theta, const void* x, const void* g,
                         int g_per_lam, int h, int* plan, void* stream) {
   return interp_solve<float>(theta, x, g, scratch, out, n_fold, n_lam, degree,
                              nt, B, P, nrhs, g_per_lam, h, plan, stream);
+}
+// theta in bf16 (16-byte aligned); x, g, scratch, out float32
+int rt_interp_solve_f32_bf16(const void* theta, const void* x, const void* g,
+                             void* scratch, void* out, int n_fold, int n_lam,
+                             int degree, int nt, int B, long long P, int nrhs,
+                             int g_per_lam, int h, int* plan, void* stream) {
+  return interp_solve<float, __nv_bfloat16>(theta, x, g, scratch, out, n_fold,
+                                            n_lam, degree, nt, B, P, nrhs,
+                                            g_per_lam, h, plan, stream);
 }
 // theta: (n_fold, degree+1, P); x: (n_lam,) λ - center at Θ's dtype;
 // pmap: (nt, nt) packed tile index; out: (n_fold, n_lam, h, h).

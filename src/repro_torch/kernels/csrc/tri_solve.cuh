@@ -2,12 +2,14 @@
 // thread-block-cluster triangular solve of the dense trsm (trsm.cu) and
 // the fused interp-solve (poly_interp.cu).
 //
-// Part 1, moved here from chol_blocked.cu unchanged (the Cholesky's
-// diagonal step and the solves' prologue use it): the FP64 tensor-core
-// product of one warp (mma.sync m16n8k4, with a CUDA-core float32
-// overload), cp.async helpers, and the warp-level factor-and-inverse of a
-// 16 x 16 block (warp_potf2_inv), which also inverts a block that is
-// already a lower factor (Factor = false).
+// Part 1, moved here from chol_blocked.cu (the Cholesky's diagonal step
+// and the solves' prologue use it): the FP64 tensor-core product of one
+// warp (mma.sync m16n8k4, with a CUDA-core float32 overload), its bf16
+// tensor-core form for the mixed-precision variants (warp_mma_bf16,
+// mma.sync m16n8k16 with fp32 sums, and the one-column warp_mv_bf16),
+// cp.async helpers, and the warp-level factor-and-inverse of a 16 x 16
+// block (warp_potf2_inv), which also inverts a block that is already a
+// lower factor (Factor = false).
 //
 // Part 2, the cluster solve.  One system is L v = g, L^T v = g, or both in
 // turn (L L^T v = g), for one right-hand-side column; L is lower
@@ -45,18 +47,35 @@
 //     rows are not 16-byte aligned, zero-filled past h), across the
 //     barriers.
 // At nrhs = 1 the sweep does 2 flops per value read (2r + 2 for Horner):
-// it is bound by bytes and by its 2 nt-step chain, so no tensor core runs
-// in it; the launch spreads each system over C SMs.
+// it is bound by bytes and by its 2 nt-step chain, so in float64 and
+// float32 no tensor core runs in it; the launch spreads each system over C
+// SMs.
+//
+// The compute type CT of the kernel template is the state type T (float64,
+// float32) or, for the mixed-precision variants (T = float), bf16: then
+// every product of the sweep (the updates L_ji v_i, L_ij^T v_i and the
+// solves X_i (g_i - acc_i)) runs on the bf16 tensor cores, one 16-row strip
+// a warp, the vector in column 0 of an m16n8k16 B fragment, its operands
+// rounded to bf16 as the fragments are formed and summed in fp32, as the
+// Pallas kernels cast them (trsm.py:42-51, poly_interp.py:128-150).  The
+// inverses are formed at fp32.  interp_solve's Θ is then read in bf16:
+// the diagonal tiles are Horner-evaluated at fp32 from it, the
+// off-diagonal ones in bf16 as they stream (x and every step rounded).
+// A chunk then holds at least 16 rows (one strip).
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <cstdint>
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 #include "common.cuh"
+
+template <> struct Vec16<__nv_bfloat16> { using type = uint4; };
 
 constexpr int kNb = 16;                 // sub-block width of the diagonal step
 constexpr int kLdSub = kNb + 4;         // stride of a stored sub-block inverse
@@ -122,6 +141,112 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][2],
       for (int j = 0; j < NI; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) acc[i][j][e] += af[i] * bf[j][e];
+  }
+}
+
+// bf16 with fp32 sums (the mixed-precision variants): two values rounded
+// to bf16 (to nearest even) in one register, the first in the low half
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <typename T>
+__device__ __forceinline__ T as_value(T v) { return v; }
+__device__ __forceinline__ float as_value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One m16n8k16 product with bf16 operands and fp32 sums: A fragment rows g
+// and g + 8 at columns 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3), B
+// fragment rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) at column g,
+// accumulator rows g (lo) and g + 8 (hi) at columns 2t, 2t + 1.  A product
+// of two bf16 values is exact in fp32.
+__device__ __forceinline__ void bmma16(float (&lo)[2], float (&hi)[2],
+                                       unsigned a0, unsigned a1, unsigned a2,
+                                       unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(lo[0]), "+f"(lo[1]), "+f"(hi[0]), "+f"(hi[1])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The float warp_mma's product and accumulator layout with the operands
+// rounded to bf16 as the fragments are formed, on the bf16 tensor cores;
+// K a multiple of 16.
+template <int MI, int NI>
+__device__ __forceinline__ void warp_mma_bf16(float (&acc)[MI][NI][2],
+                                              const float* a, int lda,
+                                              const float* b, int bk, int bn,
+                                              int K) {
+  static_assert(MI % 2 == 0, "bf16 products take 16-row blocks");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int k = k0 + 2 * t;
+    unsigned af[MI / 2][4], bf[NI][2];
+#pragma unroll
+    for (int i = 0; i < MI / 2; ++i) {
+      const float* r0 = a + (i * 16 + g) * lda + k;
+      const float* r1 = r0 + 8 * lda;
+      af[i][0] = bf16x2(r0[0], r0[1]);
+      af[i][1] = bf16x2(r1[0], r1[1]);
+      af[i][2] = bf16x2(r0[8], r0[9]);
+      af[i][3] = bf16x2(r1[8], r1[9]);
+    }
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const float* c = b + k * bk + (j * 8 + g) * bn;
+      bf[j][0] = bf16x2(c[0], c[bk]);
+      bf[j][1] = bf16x2(c[8 * bk], c[9 * bk]);
+    }
+#pragma unroll
+    for (int i = 0; i < MI / 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+        bmma16(acc[2 * i][j], acc[2 * i + 1][j], af[i][0], af[i][1], af[i][2],
+               af[i][3], bf[j][0], bf[j][1]);
+  }
+}
+
+// The product of compute type CT: warp_mma when CT is the state type T,
+// warp_mma_bf16 when it is bf16 (T = float)
+template <typename CT, int MI, int NI, typename T>
+__device__ __forceinline__ void warp_product(T (&acc)[MI][NI][2], const T* a,
+                                             int lda, const T* b, int bk,
+                                             int bn, int K) {
+  if constexpr (std::is_same<CT, T>::value)
+    warp_mma<MI, NI>(acc, a, lda, b, bk, bn, K);
+  else
+    warp_mma_bf16<MI, NI>(acc, a, lda, b, bk, bn, K);
+}
+
+// One warp: mv += A v over the 16 rows of a strip and the depth
+// [k0, k0 + 16), bf16 operands, fp32 sums.  A(r, k) = a(r, k) and v(k) =
+// v(k) (floats, rounded to bf16 here); v fills column 0 of the B fragment
+// (lanes with g = 0; the other columns are zero).  Row r's sum: mv[0][0]
+// of lane 4r for r < 8, mv[1][0] of lane 4(r - 8) for r >= 8
+// (warp_mv_store).
+template <typename FA, typename FV>
+__device__ __forceinline__ void warp_mv_bf16(float (&mv)[2][2], FA a, FV v,
+                                             int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int k = k0 + 2 * t;
+  const unsigned b0 = g == 0 ? bf16x2(v(k), v(k + 1)) : 0u;
+  const unsigned b1 = g == 0 ? bf16x2(v(k + 8), v(k + 9)) : 0u;
+  bmma16(mv[0], mv[1], bf16x2(a(g, k), a(g, k + 1)),
+         bf16x2(a(g + 8, k), a(g + 8, k + 1)),
+         bf16x2(a(g, k + 8), a(g, k + 9)),
+         bf16x2(a(g + 8, k + 8), a(g + 8, k + 9)), b0, b1);
+}
+template <typename T>
+__device__ __forceinline__ void warp_mv_store(const float (&mv)[2][2], T* dst) {
+  const int lane = threadIdx.x & 31;
+  if ((lane & 3) == 0) {
+    dst[lane >> 2] = mv[0][0];
+    dst[(lane >> 2) + 8] = mv[1][0];
   }
 }
 
@@ -277,10 +402,16 @@ constexpr int kPlanInts = 7;
 // was launched)
 constexpr int kNeedsScratch = -1;
 
-template <typename T>
+// The type the tiles are read in: Θ's storage (bf16) in the mixed
+// interp_solve, else the state type T
+template <typename T, bool Interp, typename CT>
+using SrcT = typename std::conditional<Interp && !std::is_same<CT, T>::value,
+                                       CT, T>::type;
+
+template <typename T, typename S = T>
 struct SolveArgs {
-  const T* src;       // trsm: L (batch, h, h); interp: Θ (n_fold, nc, P)
-  const T* x;         // interp: (n_lam,) λ - center at Θ's dtype
+  const S* src;       // trsm: L (batch, h, h); interp: Θ (n_fold, nc, P)
+  const T* x;         // interp: (n_lam,) λ - center at T
   const T* inv;       // trsm: a caller's (batch, nt, B, B) inverses, or null
   T* scratch;         // (n_sys, nt, B, inv_ld) inverses kept out of shared
                       // memory, or null
@@ -380,15 +511,22 @@ __device__ void invert_lower_tile(T* S, T* Xd) {
 
 // One cluster per system: blockIdx.x / C is the system, the block's rank in
 // the cluster its place.  Systems: trsm (matrix, column), interp ((fold,
-// λ), column), column fastest.
-template <typename T, int B, bool Interp>
+// λ), column), column fastest.  CT: the compute type (T, or bf16 for the
+// mixed variants, T = float).
+template <typename T, int B, bool Interp, typename CT>
 __global__ void __launch_bounds__(kThreads, 1)
-tri_solve_kernel(const SolveArgs<T> a) {
-  constexpr int LD = inv_ld<T, B>(), VN = 16 / sizeof(T), NW = kThreads / 32;
+tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
+  constexpr bool kMixed = !std::is_same<CT, T>::value;
+  using Src = SrcT<T, Interp, CT>;
+  constexpr int LD = inv_ld<T, B>(), VN = 16 / sizeof(Src), NW = kThreads / 32;
   constexpr int NPH = kThreads / B;              // row phases of a column walk
+  // warps that split the depth of a mixed product over a B-row result
+  constexpr int KQ = NW / (B / 16);
   static_assert(B % kNb == 0 && B / kNb <= NW && B <= kThreads / 2,
                 "B in 16..128");
-  using V = typename Vec16<T>::type;
+  static_assert(!kMixed || std::is_same<T, float>::value,
+                "bf16 products have float sums");
+  using V = typename Vec16<Src>::type;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
   const long long sys = blockIdx.x / C;
@@ -397,8 +535,9 @@ tri_solve_kernel(const SolveArgs<T> a) {
   const int cr = a.chunk_rows, nchunk = B / cr, plane = cr * B,
             stage_elems = a.nc * plane, S = a.stages;
   const bool prologue = a.inv == nullptr;
-  const SolveSmem m = solve_smem<T, B>(nt, C, a.inv_in_smem, prologue,
-                                    stage_elems, S);
+  const SolveSmem m = solve_smem<T, B>(
+      nt, C, a.inv_in_smem, prologue,
+      (int)(stage_elems * sizeof(Src) / sizeof(T)), S);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   T* wf = sm + m.wf;
@@ -406,9 +545,10 @@ tri_solve_kernel(const SolveArgs<T> a) {
   T* acc = sm + m.acc;
   T* red = sm + m.red;
   T* rhs = sm + m.rhs;
-  T* ring = sm + m.work;
+  T* work = sm + m.work;                  // the prologue's tile and inverses
+  Src* ring = reinterpret_cast<Src*>(work);   // then the staging ring
 
-  const T* TH;            // the system's factor (trsm) or coefficients (interp)
+  const Src* TH;          // the system's factor (trsm) or coefficients (interp)
   const T* G;             // its right-hand side, column already applied
   T* O;                   // its output, column already applied
   const T* INV = nullptr; // a caller's inverses of this factor
@@ -430,7 +570,7 @@ tri_solve_kernel(const SolveArgs<T> a) {
   const long long ld = Interp ? B : a.h;        // row stride of a tile
   // tile (ti, tj), ti >= tj, coefficient plane k: its first value, and its
   // rows (or columns) inside h
-  auto tile_at = [&](int ti, int tj, int k) -> const T* {
+  auto tile_at = [&](int ti, int tj, int k) -> const Src* {
     if constexpr (Interp)
       return TH + k * a.P + (long long)(tj * nt - tj * (tj - 1) / 2 + ti - tj) * B * B;
     else
@@ -448,31 +588,36 @@ tri_solve_kernel(const SolveArgs<T> a) {
 
   // prologue: the inverses of my diagonal tiles
   if (prologue) {
-    T* Xd = ring + (a.inv_in_smem ? 0 : B * LD);
+    T* Xd = work + (a.inv_in_smem ? 0 : B * LD);
     for (int i = me; i < nt; i += C) {
-      T* D = a.inv_in_smem ? sm + m.inv + (long long)slot(i) * B * LD : ring;
+      T* D = a.inv_in_smem ? sm + m.inv + (long long)slot(i) * B * LD : work;
       const int lo = i * B;
-      const T* t0 = tile_at(i, i, 0);
+      const Src* t0 = tile_at(i, i, 0);
       // D(r, c) = L_ii(r, c) for c <= r, else 0; identity past h
       auto put = [&](int r, int c, T v) {
         v = c <= r ? v : T(0);
         if (r == c && lo + r >= a.h) v = Interp ? v + T(1) : T(1);
         D[r * LD + c] = v;
       };
+      // Horner at T (a bf16 Θ upcast), x unrounded
       if (a.vec) {                        // 16-byte loads, the lower units only
         for (int e = tid; e < B * B / VN; e += kThreads) {
           const int r = e / (B / VN), c0 = e % (B / VN) * VN;
-          V q{};
-          T* qv = reinterpret_cast<T*>(&q);
+          T qv[VN];
+#pragma unroll
+          for (int u = 0; u < VN; ++u) qv[u] = T(0);
           if (c0 <= r && lo + r < (Interp ? lo + B : a.h) &&
               lo + c0 < (Interp ? lo + B : a.h)) {
             const long long off = (long long)r * ld + c0;
-            q = *reinterpret_cast<const V*>(t0 + (a.nc - 1) * a.P + off);
+            const V q = *reinterpret_cast<const V*>(t0 + (a.nc - 1) * a.P + off);
+            const Src* qs = reinterpret_cast<const Src*>(&q);
+#pragma unroll
+            for (int u = 0; u < VN; ++u) qv[u] = as_value(qs[u]);
             for (int k = a.nc - 2; k >= 0; --k) {
               const V p = *reinterpret_cast<const V*>(t0 + k * a.P + off);
-              const T* pv = reinterpret_cast<const T*>(&p);
+              const Src* pv = reinterpret_cast<const Src*>(&p);
 #pragma unroll
-              for (int u = 0; u < VN; ++u) qv[u] = qv[u] * xv + pv[u];
+              for (int u = 0; u < VN; ++u) qv[u] = qv[u] * xv + as_value(pv[u]);
             }
           }
 #pragma unroll
@@ -484,8 +629,9 @@ tri_solve_kernel(const SolveArgs<T> a) {
           T v = T(0);
           if (c <= r && (Interp || lo + r < a.h)) {
             const long long off = (long long)r * ld + c;
-            v = t0[(a.nc - 1) * a.P + off];
-            for (int k = a.nc - 2; k >= 0; --k) v = v * xv + t0[k * a.P + off];
+            v = as_value(t0[(a.nc - 1) * a.P + off]);
+            for (int k = a.nc - 2; k >= 0; --k)
+              v = v * xv + as_value(t0[k * a.P + off]);
           }
           put(r, c, v);
         }
@@ -545,10 +691,10 @@ tri_solve_kernel(const SolveArgs<T> a) {
       const int i = row_of(c.s);
       const int ti = c.s < nt ? c.j : i, tj = c.s < nt ? i : c.j;
       const int r0 = c.rc * cr, vr = inside(ti) - r0, vc = inside(tj);
-      T* dst = ring + stage * stage_elems;
+      Src* dst = ring + stage * stage_elems;
       for (int k = 0; k < a.nc; ++k) {
-        const T* src = tile_at(ti, tj, k) + r0 * ld;
-        T* d = dst + k * plane;
+        const Src* src = tile_at(ti, tj, k) + r0 * ld;
+        Src* d = dst + k * plane;
         if (a.vec) {
           for (int e = tid; e < plane / VN; e += kThreads) {
             const int r = e / (B / VN), cc = e % (B / VN) * VN;
@@ -557,21 +703,29 @@ tri_solve_kernel(const SolveArgs<T> a) {
             else
               *reinterpret_cast<V*>(d + r * B + cc) = V{};
           }
-        } else {
+        } else if constexpr (sizeof(Src) >= 4) {   // a bf16 Θ is always aligned
           for (int e = tid; e < plane; e += kThreads) {
             const int r = e / B, cc = e % B;
             if (r < vr && cc < vc)
-              cp_async_elem<sizeof(T)>(d + r * B + cc, src + r * ld + cc);
+              cp_async_elem<sizeof(Src)>(d + r * B + cc, src + r * ld + cc);
             else
-              d[r * B + cc] = T(0);
+              d[r * B + cc] = Src(0);
           }
         }
       }
     }
     cp_async_commit();
   };
-  auto value = [&](const T* st, int off) -> T {     // Horner in registers
-    if constexpr (Interp) {
+  T xb = xv;              // x as the off-diagonal Horner takes it
+  if constexpr (kMixed) xb = bf16_round(xv);
+  auto value = [&](const Src* st, int off) -> T {   // Horner in registers
+    if constexpr (Interp && kMixed) {   // in bf16: every step rounded, as
+      float v = as_value(st[(a.nc - 1) * plane + off]);   // torch rounds it
+      for (int k = a.nc - 2; k >= 0; --k)
+        v = bf16_round(__fadd_rn(bf16_round(__fmul_rn(v, xb)),
+                                 as_value(st[k * plane + off])));
+      return v;
+    } else if constexpr (Interp) {
       T v = st[(a.nc - 1) * plane + off];
       for (int k = a.nc - 2; k >= 0; --k) v = v * xv + st[k * plane + off];
       return v;
@@ -593,14 +747,43 @@ tri_solve_kernel(const SolveArgs<T> a) {
     const bool fwd = cc.s < nt;
     const T* v = (fwd ? wf : wr) + i * B;
     T* aj = acc + slot(j) * B;
+    float racc[2][2] = {};          // mixed reverse: a warp's column sums
     for (int rc = 0; rc < nchunk; ++rc) {
       cp_async_wait_n(S - 2);
       __syncthreads();
       issue(pc, issued++ % S);
       if (pc.s < s_end) pc = next(pc);
-      const T* st = ring + (consumed++ % S) * stage_elems;
+      const Src* st = ring + (consumed++ % S) * stage_elems;
       const int r0 = rc * cr;
-      if (fwd) {                      // aj[r] += L_ji[r, :] . v  (a warp a row)
+      if constexpr (kMixed) {
+        if (fwd) {      // aj[r] += L_ji[r, :] . v: a 16-row strip of the
+                        // chunk a warp, the depth split over KF warps
+          const int ns = cr / 16, kf = min(NW / ns, B / 16);
+          const int strip = warp % ns, kp = warp / ns;
+          if (kp < kf) {
+            float mv[2][2] = {};
+            for (int ks = kp; ks < B / 16; ks += kf)
+              warp_mv_bf16(
+                  mv, [&](int r, int k) { return value(st, (strip * 16 + r) * B + k); },
+                  [&](int k) { return v[k]; }, ks * 16);
+            warp_mv_store(mv, red + kp * cr + strip * 16);
+          }
+          __syncthreads();
+          if (tid < cr) {
+            T s = T(0);
+            for (int p = 0; p < kf; ++p) s += red[p * cr + tid];
+            aj[r0 + tid] += s;
+          }
+        } else {        // aj[c] += L_ij[:, c] . v: a 16-column strip a warp,
+                        // the tile's 16-row steps dealt over KQ warps
+          const int strip = warp % (B / 16), kp = warp / (B / 16);
+          for (int ks = 0; ks < cr / 16; ++ks)
+            if ((r0 / 16 + ks) % KQ == kp)
+              warp_mv_bf16(
+                  racc, [&](int r, int k) { return value(st, k * B + strip * 16 + r); },
+                  [&](int k) { return v[r0 + k]; }, ks * 16);
+        }
+      } else if (fwd) {               // aj[r] += L_ji[r, :] . v  (a warp a row)
         for (int rr = warp; rr < cr; rr += NW) {
           T sum = T(0);
           for (int c = lane; c < B; c += 32) sum += value(st, rr * B + c) * v[c];
@@ -614,12 +797,15 @@ tri_solve_kernel(const SolveArgs<T> a) {
       }
     }
     if (!fwd) {
-      red[tid] = part;
+      if constexpr (kMixed)
+        warp_mv_store(racc, red + warp / (B / 16) * B + warp % (B / 16) * 16);
+      else
+        red[tid] = part;
       part = T(0);
       __syncthreads();
       if (tid < B) {
         T s = T(0);
-        for (int p = 0; p < NPH; ++p) s += red[p * B + tid];
+        for (int p = 0; p < (kMixed ? KQ : NPH); ++p) s += red[p * B + tid];
         aj[tid] += s;
       }
     }
@@ -646,7 +832,19 @@ tri_solve_kernel(const SolveArgs<T> a) {
     const T* X = inverse(i, ldx);
     T* dst = (fwd ? wf : wr) + i * B;
     T sum = T(0);
-    if (fwd) {            // a thread a row of X_i, 16 bytes at a time
+    if constexpr (kMixed) {   // a 16-row strip a warp, the depth over KQ warps
+      const int strip = warp % (B / 16), kp = warp / (B / 16), r0 = strip * 16;
+      float mv[2][2] = {};
+      for (int ks = kp; ks < B / 16; ks += KQ) {
+        if (fwd)
+          warp_mv_bf16(mv, [&](int r, int k) { return X[(long long)(r0 + r) * ldx + k]; },
+                       [&](int k) { return rhs[k]; }, ks * 16);
+        else
+          warp_mv_bf16(mv, [&](int r, int k) { return X[(long long)k * ldx + r0 + r]; },
+                       [&](int k) { return rhs[k]; }, ks * 16);
+      }
+      warp_mv_store(mv, red + kp * B + r0);
+    } else if (fwd) {     // a thread a row of X_i, 16 bytes at a time
       const int r = tid % B;
       const T* xr = X + (long long)r * ldx;
       if (reinterpret_cast<uintptr_t>(X) % 16 == 0 && ldx % VN == 0) {
@@ -663,11 +861,11 @@ tri_solve_kernel(const SolveArgs<T> a) {
       const int c = tid % B;
       for (int r = tid / B; r < B; r += NPH) sum += X[(long long)r * ldx + c] * rhs[r];
     }
-    red[tid] = sum;
+    if constexpr (!kMixed) red[tid] = sum;
     __syncthreads();
     if (tid < B) {
       T v = T(0);
-      for (int p = 0; p < NPH; ++p) v += red[p * B + tid];
+      for (int p = 0; p < (kMixed ? KQ : NPH); ++p) v += red[p * B + tid];
       for (int b = 0; b < C; ++b) *cluster.map_shared_rank(dst + tid, b) = v;
       if (last_sweep && i * B + tid < nrows) O[(long long)(i * B + tid) * a.nrhs] = v;
     }
@@ -696,17 +894,21 @@ tri_solve_kernel(const SolveArgs<T> a) {
 // Host side: the plan (cluster size by occupancy, shared-memory layout),
 // chosen once per device and shape, and the cluster launch.
 
-template <typename T, int B>
+// Src: the type the tiles are staged in; min_rows: the fewest rows of a
+// chunk (16, one strip of a bf16 product, for the mixed variants)
+template <typename T, typename Src, int B>
 bool solve_layout(int nt, int nc, int C, bool prologue, int max_smem,
-                  SolvePlan* p) {
-  int cr0 = 8;
-  while (cr0 * 2 <= B && (long long)cr0 * 2 * nc * B * sizeof(T) <= kStageBytes)
+                  int min_rows, SolvePlan* p) {
+  int cr0 = min_rows > 8 ? min_rows : 8;
+  while (cr0 * 2 <= B && (long long)cr0 * 2 * nc * B * sizeof(Src) <= kStageBytes)
     cr0 *= 2;
   if (cr0 > B) cr0 = B;
-  for (int cr = cr0; cr >= 1; cr /= 2)
+  for (int cr = cr0; cr >= min_rows; cr /= 2)
     for (int in_smem = prologue ? 1 : 0; in_smem >= 0; --in_smem)
       for (int st = kMaxStages; st >= 2; --st) {
-        const SolveSmem m = solve_smem<T, B>(nt, C, in_smem, prologue, nc * cr * B, st);
+        const SolveSmem m = solve_smem<T, B>(
+            nt, C, in_smem, prologue,
+            (int)(nc * cr * B * sizeof(Src) / sizeof(T)), st);
         const long long bytes = m.total * (long long)sizeof(T);
         if (bytes <= max_smem) {
           *p = SolvePlan{C, 0, (nt + C - 1) / C, in_smem, (int)bytes, st, cr};
@@ -716,8 +918,9 @@ bool solve_layout(int nt, int nc, int C, bool prologue, int max_smem,
   return false;
 }
 
-template <typename T, int B, bool Interp>
+template <typename T, int B, bool Interp, typename CT>
 int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) {
+  constexpr bool kMixed = !std::is_same<CT, T>::value;
   static std::mutex mu;
   static std::map<std::tuple<int, int, int, long long, int>, SolvePlan> cache;
   int dev = 0;
@@ -733,13 +936,15 @@ int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) 
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  auto kern = tri_solve_kernel<T, B, Interp>;
+  auto kern = tri_solve_kernel<T, B, Interp, CT>;
   bool found = false;
   long long best_score = 0;
   for (int C = kMaxCluster; C >= 1; C /= 2) {
     if (C > nt && C > 1) continue;
     SolvePlan p;
-    if (!solve_layout<T, B>(nt, nc, C, prologue, max_smem, &p)) continue;
+    if (!solve_layout<T, SrcT<T, Interp, CT>, B>(nt, nc, C, prologue, max_smem,
+                                                 kMixed ? 16 : 1, &p))
+      continue;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                p.smem_bytes);
     if (err != cudaSuccess) return (int)err;
@@ -772,11 +977,11 @@ int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) 
   return 0;
 }
 
-template <typename T, int B, bool Interp>
-int solve_launch(SolveArgs<T> a, long long n_sys, int* plan_out,
-                 cudaStream_t stream) {
+template <typename T, int B, bool Interp, typename CT>
+int solve_launch(SolveArgs<T, SrcT<T, Interp, CT>> a, long long n_sys,
+                 int* plan_out, cudaStream_t stream) {
   SolvePlan p;
-  int rc = solve_plan<T, B, Interp>(a.nt, a.nc, n_sys, a.inv == nullptr, &p);
+  int rc = solve_plan<T, B, Interp, CT>(a.nt, a.nc, n_sys, a.inv == nullptr, &p);
   if (rc) return rc;
   if (plan_out) {
     const int v[kPlanInts] = {p.cluster, p.max_active, p.rows_per_block,
@@ -789,7 +994,7 @@ int solve_launch(SolveArgs<T> a, long long n_sys, int* plan_out,
   a.inv_in_smem = p.inv_in_smem;
   a.stages = p.stages;
   a.chunk_rows = p.chunk_rows;
-  auto kern = tri_solve_kernel<T, B, Interp>;
+  auto kern = tri_solve_kernel<T, B, Interp, CT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -814,15 +1019,16 @@ int solve_launch(SolveArgs<T> a, long long n_sys, int* plan_out,
 // plan (cached per device and shape) goes to plan_out, when given, as
 // kPlanInts ints in SolvePlan's order.  Returns kNeedsScratch, launching
 // nothing, when the kernel is to form inverses that do not fit in shared
-// memory and a.scratch is null.
-template <typename T, bool Interp>
-int tri_solve_launch(const SolveArgs<T>& a, int B, long long n_sys,
-                     int* plan_out, cudaStream_t stream) {
+// memory and a.scratch is null.  CT: the compute type (T, or bf16 with T =
+// float for the mixed variants).
+template <typename T, bool Interp, typename CT = T>
+int tri_solve_launch(const SolveArgs<T, SrcT<T, Interp, CT>>& a, int B,
+                     long long n_sys, int* plan_out, cudaStream_t stream) {
   switch (B) {
-    case 16: return solve_launch<T, 16, Interp>(a, n_sys, plan_out, stream);
-    case 32: return solve_launch<T, 32, Interp>(a, n_sys, plan_out, stream);
-    case 64: return solve_launch<T, 64, Interp>(a, n_sys, plan_out, stream);
-    case 128: return solve_launch<T, 128, Interp>(a, n_sys, plan_out, stream);
+    case 16: return solve_launch<T, 16, Interp, CT>(a, n_sys, plan_out, stream);
+    case 32: return solve_launch<T, 32, Interp, CT>(a, n_sys, plan_out, stream);
+    case 64: return solve_launch<T, 64, Interp, CT>(a, n_sys, plan_out, stream);
+    case 128: return solve_launch<T, 128, Interp, CT>(a, n_sys, plan_out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

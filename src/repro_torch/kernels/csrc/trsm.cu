@@ -20,12 +20,20 @@
 //
 // Bound on this card: bytes (the lower triangle of each factor read once
 // per sweep; 2 flops per value read), and the chain of nt dependent solves.
+//
+// rt_trsm_f32_bf16 is the mixed-precision variant (trsm.py:42-51 under a
+// bf16 compute dtype): L, the inverses (formed at fp32) and the solution
+// are float32, and every product runs on the bf16 tensor cores with fp32
+// sums, L_ji and the solved w_i, the inverse and g_i - acc_i rounded to
+// bf16 (tri_solve.cuh, CT = bf16).  It reads the float32 factor as the
+// float32 kernel does, so its bound (bytes) and its chain are that
+// kernel's.
 
 #include <cstdint>
 
 #include "tri_solve.cuh"
 
-template <typename T>
+template <typename T, typename CT = T>
 static int trsm(const void* l, const void* g, const void* inv, void* scratch,
                 void* out, int batch, int h, int B, int nrhs, int transpose,
                 int* plan, void* stream) {
@@ -42,8 +50,8 @@ static int trsm(const void* l, const void* g, const void* inv, void* scratch,
   a.nrhs = nrhs;
   a.sweeps = transpose ? 2 : 1;
   a.vec = reinterpret_cast<uintptr_t>(l) % 16 == 0 && h % (16 / sizeof(T)) == 0;
-  return tri_solve_launch<T, false>(a, B, (long long)batch * nrhs, plan,
-                                    static_cast<cudaStream_t>(stream));
+  return tri_solve_launch<T, false, CT>(a, B, (long long)batch * nrhs, plan,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
@@ -66,5 +74,12 @@ int rt_trsm_f32(const void* l, const void* g, const void* inv, void* scratch,
                 int* plan, void* stream) {
   return trsm<float>(l, g, inv, scratch, out, batch, h, B, nrhs, transpose,
                      plan, stream);
+}
+// the same arguments, float32 throughout; the products in bf16
+int rt_trsm_f32_bf16(const void* l, const void* g, const void* inv,
+                     void* scratch, void* out, int batch, int h, int B,
+                     int nrhs, int transpose, int* plan, void* stream) {
+  return trsm<float, __nv_bfloat16>(l, g, inv, scratch, out, batch, h, B, nrhs,
+                                    transpose, plan, stream);
 }
 }

@@ -11,6 +11,13 @@ CPU tests hold them against the JAX package, and ``chip_smoke.py`` holds
 each kernel against its plain version on the card.  They are oracles, not
 yardsticks of speed.
 
+``compute_dtype`` (bf16 under the mixed policies) gives the plain versions
+of the mixed-precision variants: the operands of every product the kernel
+runs on the tensor cores are rounded to it (:func:`_rounded`) and
+multiplied at the state's dtype, where a product of two bf16 values is
+exact, so plain and kernel differ only in the order of the fp32 sums.
+Factorizations and inversions stay at the state's dtype.
+
 The diagonal-tile helpers (:func:`dense_diag_inverses`,
 :func:`packed_diag_inverses`, :func:`interp_diag_inverses`) serve the
 plain versions and the packed trsm's wrapper, as the JAX package computes
@@ -31,6 +38,13 @@ __all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
            "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
            "solve_right_looking",
            "ssm_scan"]
+
+
+def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``t`` rounded to ``compute_dtype`` (to nearest even) and back to its
+    own dtype: an operand as the tensor cores read it.  ``t`` itself when
+    ``compute_dtype`` is None."""
+    return t if compute_dtype is None else t.to(compute_dtype).to(t.dtype)
 
 
 def _identity_padded(a: torch.Tensor, block: int) -> torch.Tensor:
@@ -106,10 +120,15 @@ def factor_diag_tile(a: torch.Tensor, nb: int = 16
     return l, x
 
 
-def cholesky_blocked(a: torch.Tensor, block: int) -> torch.Tensor:
+def cholesky_blocked(a: torch.Tensor, block: int,
+                     compute_dtype=None) -> torch.Tensor:
     """Blocked right-looking Cholesky of SPD (…, h, h) → lower (…, h, h):
     per tile column, potf2 and inversion of the diagonal tile, the panel as
-    a product with the inverse, then the trailing update."""
+    a product with the inverse, then the trailing update.  With
+    ``compute_dtype`` the panel's operands (A_i1 and the inverse) and the
+    trailing update's (the panel W) are rounded to it, as at
+    ``src/repro/kernels/chol_blocked.py:80-82, 98-100``; the diagonal
+    factor and its inverse stay at ``a``'s dtype."""
     h = a.shape[-1]
     nt = packing.num_tiles(h, block)
     out = _identity_padded(a, block)
@@ -118,9 +137,11 @@ def cholesky_blocked(a: torch.Tensor, block: int) -> torch.Tensor:
         l11 = _potf2(out[..., lo:hi, lo:hi])
         out[..., lo:hi, lo:hi] = l11
         if j + 1 < nt:
-            sub = out[..., hi:, lo:hi] @ _inv_lower(l11).mT
+            sub = (_rounded(out[..., hi:, lo:hi], compute_dtype)
+                   @ _rounded(_inv_lower(l11), compute_dtype).mT)
             out[..., hi:, lo:hi] = sub
-            out[..., hi:, hi:] -= sub @ sub.mT
+            w = _rounded(sub, compute_dtype)
+            out[..., hi:, hi:] -= w @ w.mT
     return torch.tril(out[..., :h, :h])
 
 
@@ -150,10 +171,16 @@ def packed_diag_inverses(vec: torch.Tensor, h: int,
 
 def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
                         transpose: bool = False,
-                        inv_diag: torch.Tensor | None = None) -> torch.Tensor:
+                        inv_diag: torch.Tensor | None = None,
+                        compute_dtype=None) -> torch.Tensor:
     """Blocked ``L w = g`` (or ``Lᵀ w = g``): l (…, h, h), g (…, h, q) →
     (…, h, q).  Per tile row, the row panel over the solved columns times
-    the solved segment, then the pre-inverted diagonal tile."""
+    the solved segment, then the pre-inverted diagonal tile.  With
+    ``compute_dtype`` the panel, the solved segment, the inverse and the
+    right-hand side g_i − s are rounded to it before their products
+    (``src/repro/kernels/trsm.py:42-51``); the inverses are formed and the
+    sums kept at ``l``'s dtype."""
+    cd = compute_dtype
     h = l.shape[-1]
     nt = packing.num_tiles(h, block)
     hp = nt * block
@@ -166,27 +193,32 @@ def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
         i = nt - 1 - step if transpose else step
         lo, hi = i * block, (i + 1) * block
         if transpose:
-            s = lp[..., hi:, lo:hi].mT @ w[..., hi:, :]
+            s = _rounded(lp[..., hi:, lo:hi].mT, cd) @ _rounded(w[..., hi:, :],
+                                                                 cd)
             inv = inv_diag[..., i, :, :].mT
         else:
-            s = lp[..., lo:hi, :lo] @ w[..., :lo, :]
+            s = _rounded(lp[..., lo:hi, :lo], cd) @ _rounded(w[..., :lo, :],
+                                                             cd)
             inv = inv_diag[..., i, :, :]
-        w[..., lo:hi, :] = inv @ (gp[..., lo:hi, :] - s)
+        w[..., lo:hi, :] = _rounded(inv, cd) @ _rounded(
+            gp[..., lo:hi, :] - s, cd)
     return w[..., :h, :]
 
 
 def interp_diag_inverses(theta: torch.Tensor, x: torch.Tensor, h: int,
-                         block: int) -> torch.Tensor:
+                         block: int, accum_dtype=None) -> torch.Tensor:
     """Horner-evaluated, identity-padded and inverted diagonal tiles of the
     interpolated factors: theta (n, r+1, P), x (q,) → (n, q, nt, B, B), at
-    Θ's dtype."""
+    ``accum_dtype`` (default Θ's dtype): a bf16 Θ is upcast first, as at
+    ``src/repro/kernels/poly_interp.py:247-255``."""
+    dt = theta.dtype if accum_dtype is None else accum_dtype
     degree = theta.shape[-2] - 1
     nt = packing.num_tiles(h, block)
     starts = torch.as_tensor(packing.column_starts(h, block).astype("int64"),
                              device=theta.device)
     coeff = theta.reshape(theta.shape[0], degree + 1, -1, block, block
-                          ).index_select(2, starts)      # (n, r+1, nt, B, B)
-    xs = x.to(theta.dtype)[None, :, None, None, None]
+                          ).index_select(2, starts).to(dt)  # (n, r+1, nt, B, B)
+    xs = x.to(dt)[None, :, None, None, None]
     diag = coeff[:, degree, None].expand(-1, x.shape[0], -1, -1, -1)
     for k in range(degree - 1, -1, -1):
         diag = diag * xs + coeff[:, k, None]
@@ -212,11 +244,17 @@ def interp_factors(theta: torch.Tensor, x: torch.Tensor, h: int,
 
 
 def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
-                 g: torch.Tensor, h: int, block: int) -> torch.Tensor:
+                 g: torch.Tensor, h: int, block: int,
+                 compute_dtype=None) -> torch.Tensor:
     """The fused sweep: theta (n, r+1, P), x (q,) λ−center, inv_diag
     (n, q, nt, B, B), g (n, hp, m) shared or (n, q, hp, m) per λ →
-    (n, q, hp, m).  Each off-diagonal tile is Horner-evaluated as the walk
-    needs it; the forward sweep is followed by the reverse (Lᵀ) sweep."""
+    (n, q, hp, m) at g's dtype.  Each off-diagonal tile is Horner-evaluated
+    at Θ's dtype as the walk needs it, x cast to it (a bf16 Θ: each step
+    rounded to bf16); the forward sweep is followed by the reverse (Lᵀ)
+    sweep.  With ``compute_dtype`` the solved segments, the inverses and
+    the right-hand sides g_i − acc_i are rounded to it before their
+    products (``src/repro/kernels/poly_interp.py:128-150``)."""
+    cd = compute_dtype
     n, r1, _ = theta.shape
     degree = r1 - 1
     nt = packing.num_tiles(h, block)
@@ -228,7 +266,10 @@ def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
         v = tiles[:, degree, p, None]
         for k in range(degree - 1, -1, -1):
             v = v * xs + tiles[:, k, p, None]
-        return v
+        return v.to(g.dtype)
+
+    def seg(v, t):                                 # solved segment t
+        return _rounded(v[..., t * block:(t + 1) * block, :], cd)
 
     q = x.shape[0]
     g = g if g.ndim == 4 else g[:, None].expand(-1, q, -1, -1)
@@ -237,14 +278,16 @@ def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
         lo, hi = i * block, (i + 1) * block
         acc = torch.zeros_like(g[..., lo:hi, :])
         for t in range(i):
-            acc = acc + tile(int(pmap[i, t])) @ w[..., t * block:(t + 1) * block, :]
-        w[..., lo:hi, :] = inv_diag[:, :, i] @ (g[..., lo:hi, :] - acc)
+            acc = acc + tile(int(pmap[i, t])) @ seg(w, t)
+        w[..., lo:hi, :] = _rounded(inv_diag[:, :, i], cd) @ _rounded(
+            g[..., lo:hi, :] - acc, cd)
     for i in range(nt - 1, -1, -1):
         lo, hi = i * block, (i + 1) * block
         acc = torch.zeros_like(g[..., lo:hi, :])
         for t in range(i + 1, nt):
-            acc = acc + tile(int(pmap[t, i])).mT @ w[..., t * block:(t + 1) * block, :]
-        w[..., lo:hi, :] = inv_diag[:, :, i].mT @ (w[..., lo:hi, :] - acc)
+            acc = acc + tile(int(pmap[t, i])).mT @ seg(w, t)
+        w[..., lo:hi, :] = _rounded(inv_diag[:, :, i].mT, cd) @ _rounded(
+            w[..., lo:hi, :] - acc, cd)
     return w
 
 

@@ -8,6 +8,13 @@ diagonal tiles read and inverted in the kernel unless the caller gives
 their inverses (``csrc/tri_solve.cuh``).  The block B is a compile-time
 parameter, one of :data:`_build.BLOCKS`.  Bound by bytes; see
 ``csrc/trsm.cu``.
+
+With ``compute_dtype=bfloat16`` (the mixed variant; L, the inverses and
+the solution float32) every product runs on the bf16 tensor cores
+(``mma.sync`` m16n8k16) with float32 sums: the update rounds L_ji and the
+solved segment, the solve the inverse (formed at float32) and
+g_i − acc_i, as the Pallas kernel casts them (``trsm.py:42-51``).  It
+counts under ``solve_lower_blocked_bf16``.
 """
 from __future__ import annotations
 
@@ -28,9 +35,15 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 
 def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int = 128,
                         *, transpose: bool = False,
-                        inv_diag: torch.Tensor | None = None) -> torch.Tensor:
+                        inv_diag: torch.Tensor | None = None,
+                        compute_dtype=None,
+                        accum_dtype=None) -> torch.Tensor:
     """Solve ``L w = g`` (or ``Lᵀ w = g``) for lower-triangular ``l``
     (…, h, h); ``g`` is (…, h) or (…, h, q) with the same leading dims.
+    ``compute_dtype`` / ``accum_dtype`` resolve as in
+    :func:`~repro_torch.kernels.chol_blocked.cholesky_blocked`: ``l``,
+    ``g`` and ``inv_diag`` are cast to the accumulation dtype, which the
+    solution comes back in.
 
     ``inv_diag`` (…, nt, B, B), from
     :func:`~repro_torch.kernels.ref.dense_diag_inverses`, gives the
@@ -40,12 +53,19 @@ def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int = 128,
     (one cluster launch), and ``block`` must then be one of
     :data:`_build.BLOCKS`.
     """
+    cd, ad = _build.resolve_dtypes(l.dtype, compute_dtype, accum_dtype)
+    mixed = cd != ad
+    l = l.to(ad)
+    if inv_diag is not None:
+        inv_diag = inv_diag.to(ad)
     squeeze = g.ndim == l.ndim - 1
-    g2 = g[..., None] if squeeze else g
+    g2 = (g[..., None] if squeeze else g).to(ad)
     if l.device.type == "cpu":
-        w = ref.solve_lower_blocked(l, g2.to(l.dtype), block,
-                                    transpose=transpose, inv_diag=inv_diag)
+        w = ref.solve_lower_blocked(l, g2, block,
+                                    transpose=transpose, inv_diag=inv_diag,
+                                    compute_dtype=cd if mixed else None)
         return w[..., 0] if squeeze else w
+    _build.check_mixed(cd, ad, "solve_lower_blocked")
     _build.check_block(block, "solve_lower_blocked")
     given = () if inv_diag is None else ((inv_diag, "inverses"),)
     for t, what in ((l, "factor"), (g2, "rhs"), *given):
@@ -63,10 +83,10 @@ def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int = 128,
     batch, nrhs = math.prod(lead), g2.shape[-1]
     out = torch.empty_like(g2)
     if batch and nrhs and h:
-        fn = _build.c_function("trsm", f"rt_trsm_{_build.suffix(l.dtype)}",
-                               _ARGS)
+        fn = _build.c_function("trsm", _build.entry("trsm", ad, cd), _ARGS)
         _build.launch_solve(
-            "solve_lower_blocked", fn,
+            _build.MIXED_NAMES["solve_lower_blocked"] if mixed
+            else "solve_lower_blocked", fn,
             (_build.ptr(l), _build.ptr(g2),
              None if inv_diag is None else _build.ptr(inv_diag)),
             (_build.ptr(out), batch, h, block, nrhs, int(transpose)),

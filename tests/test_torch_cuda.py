@@ -7,7 +7,10 @@ everywhere), in float64 and float32; then the engine drivers, the host-loop
 drivers, the packed solve and the Gauss–Newton head on the kernel backend
 against the reference backend; the two cluster solves (dense trsm,
 ``interp_solve``) at more tile rows than a cluster has blocks and at one
-tile row; the ``ssm_scan`` kernel at N 8, 16 and 32 on ragged shapes, and the reduced Mamba model against the JAX fixture.  Skipped without a CUDA device.  On the
+tile row; the mixed-precision variants (bf16 products, float32 sums)
+against their plain versions, nt = 17 too; the ``ssm_scan`` kernel at N 8,
+16 and 32 on ragged shapes, and the reduced Mamba model against the JAX
+fixture.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -46,6 +49,28 @@ def test_kernels_match_plain_versions(dev, smoke, block, h, dtype):
     res = smoke.check_kernels(dev, h, block, 4, 3, dtype)
     torch.cuda.synchronize()
     assert all(r["ok"] for r in res.values()), res
+
+
+@pytest.mark.parametrize("h", [40, 200, 999])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_mixed_variants_match_plain_versions(dev, smoke, block, h):
+    """The mixed-precision Cholesky, dense trsm and interp_solve (bf16
+    products, float32 sums, Θ in bf16) against their plain versions in
+    float32, within ``chip_smoke.MIXED_TOL`` (its comment gives the
+    reasons)."""
+    res = smoke.check_mixed(dev, h, block, 4, 3, 3)
+    torch.cuda.synchronize()
+    assert all(r["ok"] for r in res.values()), res
+
+
+def test_mixed_cluster_solves_at_17_tile_rows(dev, smoke):
+    """nt = 17 at B = 128 (h = 2100, ragged): more tile rows than a cluster
+    has blocks, and the formed inverses in the scratch tensor."""
+    from repro_torch.kernels import _build
+    res = smoke.check_mixed(dev, 2100, 128, 2, 2, 2)
+    torch.cuda.synchronize()
+    assert all(r["ok"] for r in res.values()), res
+    assert _build.PLANS["interp_solve_bf16"]["inv_in_smem"] == 0
 
 
 @pytest.mark.parametrize("h", [1024, 1000])
@@ -189,7 +214,9 @@ def test_launch_counts_are_kernel_launches(dev, h, block):
     assert LAUNCHES == dict(cholesky_blocked=3 * nt - 2, pack_tril=1,
                             solve_lower_blocked=0, interp_solve=0,
                             unpack_tril=0, interp_factors=0,
-                            solve_lower_packed=0, ssm_scan=0)
+                            solve_lower_packed=0, ssm_scan=0,
+                            cholesky_blocked_bf16=0,
+                            solve_lower_blocked_bf16=0, interp_solve_bf16=0)
 
 
 @pytest.mark.parametrize("h, block", [(40, 16), (200, 64), (1000, 128)])

@@ -94,8 +94,26 @@ def test_auto_backend_follows_device():
 
 @pytest.mark.parametrize("policy", ["bf16_store", "bf16_refined"])
 def test_cuda_backend_refuses_16_bit_policies(policy):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        backends.resolve_backend("cuda", precision=policy)
+    """The cuda backend runs both bf16 policies through the mixed variants
+    (bf16 products, float32 sums), and refuses them, naming ROADMAP.md,
+    only in the two kernels that have no mixed variant yet: the packed
+    trsm and ``interp_factors``."""
+    from repro_torch.core import packing
+    bk = backends.resolve_backend("cuda", precision=policy)
+    assert bk.precision.name == policy
+    assert bk._dtypes(torch.float64) == (torch.bfloat16, torch.float32)
+    assert bk._dtypes(torch.float32) == (torch.bfloat16, torch.float32)
+    h, block = 16, 8
+    vec = torch.ones(2, packing.packed_size(h, block), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        bk.solve_packed(packing.PackedFactor(vec, h, block),
+                        torch.ones(h, dtype=torch.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        bk.interp_factors(vec[None], torch.ones(3), h=h, block=block)
+    for one in ("native", "fp32", "fp64"):      # one dtype: no refusal
+        pol = backends.resolve_backend("cuda", precision=one)
+        cd, ad = pol._dtypes(torch.float64)
+        assert cd == ad
 
 
 def test_precision_presets_match_reference():
