@@ -17,13 +17,12 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               the kernel, the plain version and one library call (CUDA
               events); the Cholesky's time split by its three kernels from
               one profiled call, with the diagonal step per tile column;
-              the two cluster solves (the dense trsm and ``interp_solve``,
-              ``csrc/tri_solve.cuh``) split by one profiled call into their
-              kernel's device time and the time outside it, with their
-              launch plan (cluster size, ``cudaOccupancyMaxActiveClusters``,
-              rows per block, where the diagonal inverses live) and their
-              ``ptxas`` lines at B = 128; the trsm also with the caller's
-              inverses (checked and timed).
+              the three cluster solves (the dense trsm, ``interp_solve``
+              and the packed trsm, ``csrc/tri_solve.cuh``) split by one
+              profiled call into their kernel's device time and the time
+              outside it, with their launch plan (cluster size,
+              ``cudaOccupancyMaxActiveClusters``, rows per block, where the
+              diagonal inverses live) and their ``ptxas`` lines at B = 128.
 4. main     — ``cv_picholesky`` and ``cv_exact_cholesky`` at the repo's
               configuration (h=1024, n=4096, k=5, q=31 over [1e-3, 1], g=4,
               r=2, block=128, float64) on the ``cuda`` backend, held against
@@ -31,12 +30,13 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               set to 0 just before each sweep and read just after it: each
               kernel of that sweep must have launched, and no other; wall
               times of both (in turns, repeated).
-5. trace    — one profiled run of each sweep and each host driver: device
-              busy time, its share of the wall time, the kernels that take
-              the most time, the Cholesky's three kernels, the cluster
-              solves' device time, the library (cuBLAS) trsm kernels that
-              ran and the PyTorch triangular-solve calls (none may run on
-              the two sweeps of the main path: the kernels invert their
+5. trace    — one profiled run of each sweep, each host driver and each
+              factor route of phase 7: device busy time, its share of the
+              wall time, the kernels that take the most time, the
+              Cholesky's three kernels, the cluster solves' device time,
+              the library (cuBLAS) trsm kernels that ran and the PyTorch
+              triangular-solve calls (none may run on the two sweeps of the
+              main path or on the factor routes: the kernels invert their
               diagonal tiles themselves).
 6. host     — the host-loop drivers (``host_cv_picholesky``,
               ``host_cv_exact_cholesky``, ``host_cv_pinrmse``: folds one at
@@ -44,10 +44,17 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               on ``cuda``, against ``reference`` and against the engine;
               launch counts as predicted from the loop structure; wall
               medians of host vs engine.
-7. packed   — the packed anchors unpacked (== the dense anchors exactly),
-              and per fold the interpolated factors kept packed and solved
-              by the packed trsm, against the fused ``interp_solve`` and
-              ``reference`` (1e-10); unpack and the packed trsm counted.
+7. packed   — the factor routes.  Float64: the packed anchors unpacked
+              (== the dense anchors exactly), and per fold the interpolated
+              factors kept packed and solved by the packed trsm (one launch
+              a fold), against the fused ``interp_solve`` and ``reference``
+              (1e-10).  Under ``bf16_store``: ``picholesky.fit`` then the
+              packed route of its bf16 factors (the mixed packed trsm), and
+              ``eval_factor`` of every fold at the whole grid (bf16 dense
+              factors, 325 MB) then ``solve_from_factor`` (the mixed dense
+              trsm), each counted and held against ``reference`` under the
+              same policy on the same Θ (5e-2 of the norm, the JAX
+              package's bound for a bf16 solve); wall times.
 8. gauss_newton — the damped Gauss–Newton head on the full Hessian: steps
               inside the fitted damping range and one outside it (clipped),
               against ``reference`` and a dense solve.
@@ -82,20 +89,22 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               profiled prefill and one profiled decode step (a second
               ``trace`` line).
 
-The ``kernels`` phase also holds the three mixed-precision variants (bf16
-products on the tensor cores, float32 sums and state, Θ read in bf16)
-against their plain versions in float32 at the main path's bf16 shapes and
-at h = 1000 and 999, with the variant's time beside its bound, its plain
-version's, its one-dtype float32 kernel's and the float32 library call's.
+The ``kernels`` phase also holds the mixed-precision variants (bf16
+products on the tensor cores, float32 sums and state, Θ and packed factors
+read in bf16: the Cholesky, the dense trsm, ``interp_solve`` and the
+packed trsm, the last also on float32 factors) and ``interp_factors`` on
+a bf16 Θ (bit for bit) against their plain versions at the main path's
+bf16 shapes and at h = 1000 and 999, with the variant's time beside its
+bound, its plain version's, its one-dtype float32 kernel's and the float32
+library call's.
 It also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one.  Then one ``{"kernels": [...]}`` line, and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
 one CUDA card; imports nothing of JAX.  The ``kernels`` line carries, for
-the dense trsm and ``interp_solve``, also ``kernel_ms`` (device time of the
-cluster kernel per launch), ``outside_kernel_ms`` (wrapper time less the
-kernel's), ``other_device_ms``, ``plan`` and ``ptxas``; the trsm's
-``ms_given_inverses`` is its time with the caller's inverses.
+the three cluster solves also ``kernel_ms`` (device time of the cluster
+kernel per launch), ``outside_kernel_ms`` (wrapper time less the
+kernel's), ``other_device_ms``, ``plan`` and ``ptxas``.
 """
 from __future__ import annotations
 
@@ -125,6 +134,12 @@ TABLE4_TOL = 1e-9          # curve on the card vs the JAX fixture, as the
 WALL_REPEATS = 5           # timed sweeps per (strategy, backend)
 HOST_REPEATS = 3           # timed runs per host driver / engine sweep
 PACKED_TOL = 1e-10         # packed route vs fused interp_solve / reference
+# the bf16_store factor routes vs the reference backend under the same
+# policy on the same Θ, max over systems of ‖Δ‖ / ‖reference‖: the JAX
+# package's bound for a bf16 solve against the float32 one
+# (tests/test_precision.py:126-136; the reference backend solves the bf16
+# factors at float32, the kernels round their products' operands to bf16)
+BF16_ROUTE_TOL = 5e-2
 GN_TOL = 1e-2              # Gauss–Newton step vs a dense solve, as
                            # tests/test_optim.py holds the reference
 
@@ -169,6 +184,8 @@ REPLACES = {
     "cholesky_blocked_bf16": "src/repro/kernels/chol_blocked.py:115",
     "solve_lower_blocked_bf16": "src/repro/kernels/trsm.py:102",
     "interp_solve_bf16": "src/repro/kernels/poly_interp.py:195",
+    "interp_factors_bf16": "src/repro/kernels/poly_interp.py:97",
+    "solve_lower_packed_bf16": "src/repro/kernels/packed_trsm.py:166",
 }
 # Mixed variant against its plain version in float32, max |Δ| / max |plain|.
 # Their operands are rounded to bf16, and a value whose fp32 sum (or, for
@@ -181,16 +198,19 @@ REPLACES = {
 # (max |Δ| / max |float64|) must also lie within ERROR_RATIO of its plain
 # version's.
 MIXED_TOL = {"cholesky_blocked_bf16": 2e-3, "solve_lower_blocked_bf16": 2e-2,
-             "interp_solve_bf16": 2e-2}
+             "interp_solve_bf16": 2e-2, "solve_lower_packed_bf16": 2e-2,
+             "solve_lower_packed_bf16_f32_factor": 2e-2,
+             # the same bf16 operation after bf16 operation on both sides
+             "interp_factors_bf16": 0.0}
 ERROR_RATIO = (0.5, 2.0)
 # the precision phase: the reference test's bound on bf16_refined against
 # fp32 (tests/test_precision.py:203)
 PRECISION_RTOL, PRECISION_ATOL = 2e-2, 2e-3
 POLICY_RUNS = (("picholesky", "fp32"), ("picholesky", "bf16_store"),
                ("picholesky", "bf16_refined"), ("exact", "bf16_store"))
-# what the kernels line adds for the two cluster solves (tri_solve.cuh)
+# what the kernels line adds for the three cluster solves (tri_solve.cuh)
 CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
-                "ptxas", "ms_given_inverses")
+                "ptxas")
 # what the kernels line adds for the mixed variants
 MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape")
 # kernels that only move values: they must equal their plain versions
@@ -212,6 +232,8 @@ SOURCES = {
     "cholesky_blocked_bf16": "src/repro_torch/kernels/csrc/chol_blocked.cu",
     "solve_lower_blocked_bf16": "src/repro_torch/kernels/csrc/trsm.cu",
     "interp_solve_bf16": "src/repro_torch/kernels/csrc/poly_interp.cu",
+    "interp_factors_bf16": "src/repro_torch/kernels/csrc/poly_interp.cu",
+    "solve_lower_packed_bf16": "src/repro_torch/kernels/csrc/packed_trsm.cu",
 }
 
 
@@ -349,15 +371,12 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
     res["pack_tril"] = dict(zip(("max_abs_err", "max_rel_err"),
                                 errors(v_k, v_p)))
     # solve_lower_blocked: forward then transposed solve of one exact chunk,
-    # as the exact sweep runs it (the kernel inverts the diagonal tiles),
-    # and with the inverses given by the caller
+    # as the exact sweep runs it (the kernel inverts the diagonal tiles)
     l_e = torch.linalg.cholesky(exact).contiguous()
-    inv = ref.dense_diag_inverses(l_e, block)
 
-    def trsm_kernel(inv_diag=None):
-        w = trsm.solve_lower_blocked(l_e, rhs, block, inv_diag=inv_diag)
-        return trsm.solve_lower_blocked(l_e, w, block, transpose=True,
-                                        inv_diag=inv_diag)
+    def trsm_kernel():
+        w = trsm.solve_lower_blocked(l_e, rhs, block)
+        return trsm.solve_lower_blocked(l_e, w, block, transpose=True)
 
     def trsm_plain():
         w = ref.solve_lower_blocked(l_e, rhs, block)
@@ -366,8 +385,6 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
     want = trsm_plain()
     res["solve_lower_blocked"] = dict(zip(("max_abs_err", "max_rel_err"),
                                           errors(trsm_kernel(), want)))
-    res["solve_lower_blocked"]["max_rel_err_given_inverses"] = errors(
-        trsm_kernel(inv), want)[1]
     # interp_solve: Θ fitted on the anchors, one λ chunk, every fold
     n_fold = h_tr.shape[0]
     targets = v_p.reshape(-1, G_SAMPLES, v_p.shape[-1])[:n_fold] \
@@ -409,24 +426,23 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
                                      errors(factors_kernel(),
                                             factors_plain())))
     # packed solve: fold 0's interpolated packed factors at the whole grid,
-    # one shared right-hand side, forward then transposed sweep
+    # one shared right-hand side, both sweeps (one launch)
     vecs = picholesky.PiCholesky(theta=theta[0], center=x_f.new_zeros(()),
                                  h=h, block=block).eval_packed(x_f)
-    g_0 = g_tr[0].expand(vecs.shape[0], h).contiguous()
+    g_0 = g_tr[0].expand(vecs.shape[0], h)
 
     def psolve_kernel():
         return packed_trsm.solve_packed(vecs, g_0, h, block)
 
     def psolve_plain():
-        return packing.solve_packed_ref(vecs, g_0, h, block)
+        return ref.solve_packed(vecs, g_0[..., None], h, block)[..., 0]
 
     res["solve_lower_packed"] = dict(zip(("max_abs_err", "max_rel_err"),
                                          errors(psolve_kernel(),
                                                 psolve_plain())))
     for name, r in res.items():
         r["tol_rel"] = 0.0 if name in EXACT_KERNELS else tol
-        r["ok"] = max(r["max_rel_err"],
-                      r.get("max_rel_err_given_inverses", 0.0)) <= r["tol_rel"]
+        r["ok"] = r["max_rel_err"] <= r["tol_rel"]
     if timing is None:
         return res
 
@@ -494,10 +510,9 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             work_bytes=w["bytes"], work_flops=w["flops"])
-    res["solve_lower_blocked"]["ms_given_inverses"] = timed_ms(
-        lambda: trsm_kernel(inv), 5)
     for name, fn in (("solve_lower_blocked", trsm_kernel),
-                     ("interp_solve", interp_kernel)):
+                     ("interp_solve", interp_kernel),
+                     ("solve_lower_packed", psolve_kernel)):
         res[name].update(cluster_split(name, fn, res[name]["ms"]))
     # the Cholesky's three kernels at this shape, from one profiled call
     _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(anchors,
@@ -522,12 +537,18 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
     """The mixed-precision variants (bf16 products, float32 sums and state)
     against their plain versions on the card, in float32, on one set of
     inputs: the Cholesky of ``n_anchor`` matrices, the trsm pair of
-    ``n_exact`` factors, ``interp_solve`` with a bf16 Θ at ``n_lam`` λs.
-    With ``timing`` (a peaks dict), also the times of the variant, its
-    plain version, its one-dtype float32 kernel on the same inputs and the
-    float32 library call, and the bound at the bf16 tensor-core peak."""
+    ``n_exact`` factors, ``interp_solve`` with a bf16 Θ at ``n_lam`` λs;
+    ``interp_factors`` of that bf16 Θ and the packed solve (both sweeps)
+    of fold 0's bf16 packed factors, both at the whole grid (``lams``, or
+    the ``n_lam`` λs), and the packed solve of float32 factors under bf16
+    products.  With ``timing`` (a peaks dict), also the times of the
+    variant, its plain version, its one-dtype float32 kernel on the same
+    inputs and the float32 library call, and the bound at the bf16
+    tensor-core peak (``interp_factors``: at the float32 peak, its Horner
+    runs on the CUDA cores)."""
     from repro_torch.core import packing, picholesky
-    from repro_torch.kernels import chol_blocked, poly_interp, ref, trsm
+    from repro_torch.kernels import (chol_blocked, packed_trsm, poly_interp,
+                                     ref, trsm)
     bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(3)
     eye = torch.eye(h, dtype=torch.float64, device=dev)
@@ -610,6 +631,43 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
     held("interp_solve_bf16", interp_kernel(), interp_plain(),
          poly_interp.interp_solve(theta.double(), lam_c, g_tr.double(), h,
                                   block))
+    # interp_factors on the bf16 Θ at the whole grid: every Horner step
+    # rounded to bf16 on both sides (torch rounds each bf16 operation)
+    lam_f = lams if lams is not None else lam_c
+    x_f = lam_f.to(bf)
+
+    def factors_kernel():
+        return poly_interp.interp_factors(theta, lam_f, h, block)
+
+    def factors_plain():
+        return ref.interp_factors(theta, x_f, h, block)
+
+    held("interp_factors_bf16", factors_kernel(), factors_plain(),
+         poly_interp.interp_factors(theta.double(), lam_f, h, block))
+    # the packed solve of fold 0's bf16 packed factors at the whole grid, as
+    # the packed route evaluates them (Horner in bf16), one shared g
+    vecs = picholesky.PiCholesky(theta=theta[0], center=x_f.new_zeros(()),
+                                 h=h, block=block).eval_packed(lam_f)
+    g_0 = g_tr[0].expand(vecs.shape[0], h)
+
+    def psolve_kernel(v=vecs, **kw):
+        return packed_trsm.solve_packed(v, g_0, h, block, **kw)
+
+    def psolve_plain(v=vecs):
+        return ref.solve_packed(v, g_0[..., None], h, block, bf)[..., 0]
+
+    def psolve_f64(v):
+        return packed_trsm.solve_packed(v.double(), g_0.double(), h, block)
+
+    held("solve_lower_packed_bf16", psolve_kernel(), psolve_plain(),
+         psolve_f64(vecs))
+    # float32 factors (fold 0's at float32) under bf16 products: rounded
+    # as the fragments are formed
+    vecs32 = picholesky.PiCholesky(theta=theta32[0], center=x_c.new_zeros(()),
+                                   h=h, block=block).eval_packed(lam_f.to(f32))
+    held("solve_lower_packed_bf16_f32_factor",
+         psolve_kernel(vecs32, compute_dtype=bf), psolve_plain(vecs32),
+         psolve_f64(vecs32))
     for name, r in res.items():
         r["tol_rel"] = MIXED_TOL[name]
         r["ok"] = (r["max_rel_err"] <= r["tol_rel"]
@@ -618,7 +676,7 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
         return res
 
     # times at these shapes, and the least time the card could take
-    bw, peak = timing["bw"], timing["bf16_tc"]
+    bw = timing["bw"]
     p_size = packing.packed_size(h, block)
     nb_a, nb_e = anchors.shape[0], exact.shape[0]
     tri = h * (h + 1) // 2
@@ -643,10 +701,23 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
             bytes=theta.numel() * 2 + (g_tr.numel()
                                        + n_fold * lam_c.numel() * h) * 4,
             flops=n_fold * lam_c.numel() * 2.0 * p_size * (2 * DEGREE + 2)),
+        interp_factors_bf16=dict(
+            kernel=factors_kernel, plain=factors_plain,
+            fp32=lambda: poly_interp.interp_factors(theta32, lam_f, h, block),
+            library=None,
+            bytes=(theta.numel() + n_fold * lam_f.numel() * h * h) * 2,
+            flops=n_fold * lam_f.numel() * tri * 2.0 * DEGREE,
+            peak="fp32"),
+        solve_lower_packed_bf16=dict(
+            kernel=psolve_kernel, plain=psolve_plain,
+            fp32=lambda: psolve_kernel(vecs.float()), library=None,
+            bytes=vecs.numel() * 2 + (h + vecs.shape[0] * h) * 4,
+            flops=vecs.shape[0] * 2 * 2.0 * tri),
     )
     for name, w in work.items():
+        peak = w.get("peak", "bf16_tc")
         t_bytes = w["bytes"] / bw * 1e3
-        t_ops = w["flops"] / peak * 1e3
+        t_ops = w["flops"] / timing[peak] * 1e3
         res[name].update(
             ms=timed_ms(w["kernel"], 5), plain_ms=timed_ms(w["plain"], 2),
             fp32_kernel_ms=timed_ms(w["fp32"], 5),
@@ -655,12 +726,14 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             work_bytes=w["bytes"], work_flops=w["flops"],
-            peak="bf16_tc", shape=dict(h=h, block=block, anchors=nb_a,
-                                       exact=nb_e, folds=n_fold,
-                                       lams=lam_c.numel()))
+            peak=peak, shape=dict(h=h, block=block, anchors=nb_a,
+                                  exact=nb_e, folds=n_fold,
+                                  lams=lam_c.numel(),
+                                  grid=lam_f.numel()))
     for name, fn in (("solve_lower_blocked_bf16",
                       lambda: trsm_pair(compute_dtype=bf)),
-                     ("interp_solve_bf16", interp_kernel)):
+                     ("interp_solve_bf16", interp_kernel),
+                     ("solve_lower_packed_bf16", psolve_kernel)):
         res[name].update(cluster_split(name, fn, res[name]["ms"]))
     _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(
         anchors, block, compute_dtype=bf))
@@ -909,19 +982,27 @@ def chol_split(by_name: dict) -> dict:
     return out
 
 
-SOLVE_KERNEL = "tri_solve_kernel"      # both cluster solves' kernel
+SOLVE_KERNEL = "tri_solve_kernel"      # the three cluster solves' kernel
+# its Source template argument (csrc/tri_solve.cuh: kDense, kInterp,
+# kPacked) → the wrapper
+SOLVE_SOURCES = {"0": "solve_lower_blocked", "1": "interp_solve",
+                 "2": "solve_lower_packed"}
+# the library of each cluster-solve wrapper
+SOLVE_LIBS = {"solve_lower_blocked": "trsm", "interp_solve": "poly_interp",
+              "solve_lower_packed": "packed_trsm"}
 
 
 def solve_kind(name: str) -> str | None:
     """Which wrapper a profiled kernel name belongs to: the cluster solve
-    ``tri_solve_kernel<T, B, Interp, CT>`` instantiated for
-    ``interp_solve`` (Interp = true) or the dense trsm, with ``_bf16`` for
-    the mixed variants (CT = bf16)."""
+    ``tri_solve_kernel<T, B, Source, CT, Src>`` instantiated for the dense
+    trsm, ``interp_solve`` or the packed trsm (Source 0, 1, 2), with
+    ``_bf16`` for the mixed variants (CT = bf16)."""
     if SOLVE_KERNEL not in name:
         return None
-    args = name.split(SOLVE_KERNEL, 1)[1].split(">", 1)[0]
-    kind = "interp_solve" if "true" in args else "solve_lower_blocked"
-    return kind + "_bf16" if "bfloat16" in args else kind
+    args = name.split(SOLVE_KERNEL, 1)[1].split(">", 1)[0].lstrip("<")
+    parts = [a.strip() for a in args.split(",")]
+    kind = SOLVE_SOURCES[parts[2]]
+    return kind + "_bf16" if "bfloat16" in parts[3] else kind
 
 
 # the PyTorch calls that inverted diagonal tiles outside the kernels
@@ -933,8 +1014,7 @@ TRIANGULAR_SOLVE_OPS = ("aten::linalg_solve_triangular",
 def is_library_trsm(name: str) -> bool:
     """A cuBLAS/cuSOLVER triangular solve (of a ``torch.linalg`` call), not
     one of the port's kernels."""
-    return ("trsm" in name.lower() and SOLVE_KERNEL not in name
-            and "packed_trsm_kernel" not in name)
+    return "trsm" in name.lower() and SOLVE_KERNEL not in name
 
 
 def cluster_split(name: str, fn, ms: float) -> dict:
@@ -947,8 +1027,8 @@ def cluster_split(name: str, fn, ms: float) -> dict:
     kern = sum(v[0] for n, v in by_name.items() if solve_kind(n) == name)
     n_kern = sum(v[1] for n, v in by_name.items() if solve_kind(n) == name)
     other = sum(v[0] for n, v in by_name.items() if solve_kind(n) != name)
-    lib = "poly_interp" if name.startswith("interp") else "trsm"
     mixed = name.endswith("_bf16")
+    lib = SOLVE_LIBS[name[:-len("_bf16")] if mixed else name]
     log = _build._target(lib).with_suffix(".log")
     ptx = [f"{r['kernel']}: {r.get('used', '')}; {r.get('spills', '')}"
            for r in (ptxas_lines(log.read_text()) if log.exists() else [])
@@ -959,29 +1039,39 @@ def cluster_split(name: str, fn, ms: float) -> dict:
                 plan=dict(_build.PLANS.get(name, {})), ptxas=ptx)
 
 
+# the factor routes the trace phase profiles (and holds to no library trsm)
+TRACED_ROUTES = ("packed", "packed_bf16_store", "eval_factor_bf16_store")
+
+
 def phase_trace(dev, folds, lams) -> None:
-    """One profiled run of each sweep and each host driver on the cuda
-    backend (after a warm run), with the Cholesky's kernels split out."""
-    paths = {**runners(dev, folds, lams), **host_drivers(folds, lams)}
+    """One profiled run of each sweep, each host driver and each factor
+    route on the cuda backend (after a warm run), with the Cholesky's
+    kernels and the cluster solves split out."""
+    routes = factor_routes(dev, folds, lams)
+    paths = {**runners(dev, folds, lams), **host_drivers(folds, lams),
+             **{tag: routes[tag] for tag in TRACED_ROUTES}}
+    del routes
     out = {}
     for tag, run in paths.items():
         trace, by_name = profiled(lambda: run("cuda"))
-        solves = {k: dict(ms=sum(v[0] for n, v in by_name.items()
-                                 if solve_kind(n) == k),
-                          launches=sum(v[1] for n, v in by_name.items()
-                                       if solve_kind(n) == k))
-                  for k in ("interp_solve", "solve_lower_blocked")}
+        solves = {}
+        for n, (ms, c) in by_name.items():
+            k = solve_kind(n)
+            if k:
+                rec = solves.setdefault(k, dict(ms=0.0, launches=0))
+                rec["ms"] += ms
+                rec["launches"] += c
         lib_trsm = {n: v for n, v in by_name.items() if is_library_trsm(n)}
         out[tag] = dict(trace, cholesky=chol_split(by_name),
                         cluster_solves=solves, library_trsm=lib_trsm)
     emit("trace", **out)
     bad = {tag: dict(calls=out[tag]["triangular_solve_ops"],
                      kernels=out[tag]["library_trsm"])
-           for tag in runners(dev, folds, lams)
+           for tag in (*runners(dev, folds, lams), *TRACED_ROUTES)
            if out[tag]["triangular_solve_ops"] or out[tag]["library_trsm"]}
     if bad:
         raise AssertionError(f"a library triangular solve ran on the main "
-                             f"path: {bad}")
+                             f"path or a factor route: {bad}")
 
 
 def chol_launches(h: int, block: int) -> int:
@@ -1055,12 +1145,19 @@ def phase_host(dev, folds, lams) -> dict:
     return launches
 
 
-def phase_packed(dev, folds, lams) -> dict:
-    """The packed-factor route: the packed anchors brought back dense by
-    unpack (they must equal the dense anchors exactly) and, per fold, the
-    interpolated factors at the whole grid kept packed and solved by the
-    packed trsm, against the fused interp_solve and the reference
-    backend."""
+def factor_routes(dev, folds, lams) -> dict:
+    """The factor routes beside the engine at the main configuration, each
+    a function of a backend name (and, for the bf16 ones, optionally a
+    fitted model).  ``packed`` (float64): the packed anchors (factored and
+    packed on the cuda backend, Θ fitted from them once) brought back dense
+    by unpack, and per fold the interpolated factors at the whole grid kept
+    packed and solved by ``solvers.solve_packed``.  Under ``bf16_store``:
+    ``packed_bf16_store``, ``picholesky.fit`` under the policy (the mixed
+    Cholesky, pack, Θ stored in bf16), then the packed route of its bf16
+    factors; ``eval_factor_bf16_store``, the dense route of such a Θ:
+    ``eval_factor`` of every fold at the whole grid (bf16 factors), then
+    ``solvers.solve_from_factor``.  Also the float64 model and the bf16
+    model fitted on the cuda backend, for the comparisons."""
     import dataclasses
     from repro_torch.core import backends, packing, picholesky, solvers
     bk = backends.CudaBackend()
@@ -1074,27 +1171,69 @@ def phase_packed(dev, folds, lams) -> dict:
     model = picholesky.fit(None, sample, DEGREE, block=BLOCK, backend=bk,
                            factors=packing.PackedFactor(packed_anchors, H,
                                                         BLOCK))
-    folds_models = [dataclasses.replace(model, theta=model.theta[f])
-                    for f in range(K_FOLDS)]
 
-    def solve(backend):
+    def policy(backend, name):
+        return backends.resolve_backend(backend, precision=name)
+
+    def solve_packed(m, backend):
         return torch.stack([
-            solvers.solve_packed(m.eval_packed_factor(lams), g_tr[f],
-                                 backend=backend)
-            for f, m in enumerate(folds_models)])
+            solvers.solve_packed(dataclasses.replace(
+                m, theta=m.theta[f]).eval_packed_factor(lams), g_tr[f],
+                backend=backend) for f in range(K_FOLDS)])
 
-    def packed_route(backend):
+    def packed(backend):
         dense = backends.resolve_backend(backend).unpack_tril(
             packed_anchors, H, BLOCK)
-        return dense, solve(backend)
+        return dense, solve_packed(model, backend)
 
-    (dense, got), counts = counted(packed_route)
+    def fit16(backend):
+        return picholesky.fit(h_tr, sample, DEGREE, block=BLOCK,
+                              backend=policy(backend, "bf16_store"))
+
+    def packed16(backend, m=None):
+        m = fit16(backend) if m is None else m
+        return m, solve_packed(m, policy(backend, "bf16_store"))
+
+    model16 = fit16("cuda")
+
+    def dense16(backend, m=model16):
+        bk16 = policy(backend, "bf16_store")
+        l = m.eval_factor(lams, backend=bk16)            # (k, q, h, h) bf16
+        return solvers.solve_from_factor(
+            l, g_tr[:, None].expand(-1, lams.numel(), -1), bk16)
+
+    return dict(packed=packed, packed_bf16_store=packed16,
+                eval_factor_bf16_store=dense16, model=model, model16=model16,
+                anchors=anchors, g_tr=g_tr)
+
+
+def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over systems of ‖got − want‖ / ‖want‖ (the last dim a system),
+    failing on a non-finite value."""
+    if not torch.isfinite(got).all():
+        raise AssertionError("output is not finite")
+    return float(((got.double() - want.double()).norm(dim=-1)
+                  / want.double().norm(dim=-1)).max())
+
+
+def phase_packed(dev, folds, lams) -> dict:
+    """The factor routes (``factor_routes``): the float64 packed route
+    (unpack exact; the packed solves against the fused interp_solve and
+    the reference backend), and under ``bf16_store`` the packed route (the
+    fit included) and the dense route of the fitted bf16 Θ, each counted
+    and held against the reference backend under the same policy on the
+    same Θ; wall times of each route on the cuda backend."""
+    from repro_torch.core import backends
+    routes = factor_routes(dev, folds, lams)
+    model, model16, g_tr = routes["model"], routes["model16"], routes["g_tr"]
+    chol = chol_launches(H, backends.CudaBackend().chol_block)
+    (dense, got), counts = counted(routes["packed"])
     check_counts("packed", counts, dict(unpack_tril=1,
-                                        solve_lower_packed=2 * K_FOLDS))
-    if not torch.equal(dense, anchors):
+                                        solve_lower_packed=K_FOLDS))
+    if not torch.equal(dense, routes["anchors"]):
         raise AssertionError("packed: unpack(pack(L)) differs from L")
     fused = model.solve(lams, g_tr, backend="cuda")
-    plain = solve("reference")
+    plain = routes["packed"]("reference")[1]
     out = {}
     for other, want in (("interp_solve", fused), ("reference", plain)):
         err = errors(got, want)
@@ -1102,13 +1241,55 @@ def phase_packed(dev, folds, lams) -> dict:
                           tol=PACKED_TOL)
         if err[1] > PACKED_TOL:
             raise AssertionError(f"packed route vs {other}: {out[other]}")
-    ms = dict(packed=timed_ms(lambda: solve("cuda"), 3),
+    launches = {"packed": counts}
+    # bf16_store: the packed route with its fit, then the dense route of
+    # the cuda-fitted Θ; each against the reference backend on the same Θ
+    (m16, got16), launches["packed_bf16_store"] = counted(
+        routes["packed_bf16_store"])
+    check_counts("packed_bf16_store", launches["packed_bf16_store"], dict(
+        cholesky_blocked_bf16=chol, pack_tril=1,
+        solve_lower_packed_bf16=K_FOLDS))
+    dense16, launches["eval_factor_bf16_store"] = counted(
+        routes["eval_factor_bf16_store"])
+    check_counts("eval_factor_bf16_store",
+                 launches["eval_factor_bf16_store"],
+                 dict(interp_factors_bf16=1, solve_lower_blocked_bf16=2))
+    if m16.theta.dtype != torch.bfloat16 or got16.dtype != torch.float32:
+        raise AssertionError(f"packed_bf16_store: Θ {m16.theta.dtype}, "
+                             f"solutions {got16.dtype}")
+    same16 = routes["packed_bf16_store"]("cuda", model16)[1]
+    bf16 = dict(
+        packed_vs_reference=norm_err(
+            got16, routes["packed_bf16_store"]("reference", m16)[1]),
+        eval_factor_vs_reference=norm_err(
+            dense16, routes["eval_factor_bf16_store"]("reference")),
+        eval_factor_vs_packed=norm_err(dense16, same16),
+        fused_vs_packed=norm_err(
+            model16.solve(lams, g_tr, backend=backends.resolve_backend(
+                "cuda", precision="bf16_store")), same16),
+        fit_on_reference_vs_cuda=norm_err(
+            routes["packed_bf16_store"]("reference")[1], got16),
+        packed_vs_float64=norm_err(got16, got), tol=BF16_ROUTE_TOL,
+        held=("packed_vs_reference", "eval_factor_vs_reference"))
+    out["bf16_store"] = bf16
+    bad = {k: bf16[k] for k in bf16["held"] if not bf16[k] <= BF16_ROUTE_TOL}
+    bk16 = backends.resolve_backend("cuda", precision="bf16_store")
+    ms = dict(packed=timed_ms(lambda: routes["packed"]("cuda"), 3),
               interp_solve=timed_ms(
-                  lambda: model.solve(lams, g_tr, backend="cuda"), 3))
+                  lambda: model.solve(lams, g_tr, backend="cuda"), 3),
+              packed_bf16_store_solves=timed_ms(
+                  lambda: routes["packed_bf16_store"]("cuda", model16), 3),
+              eval_factor_bf16_store=timed_ms(
+                  lambda: routes["eval_factor_bf16_store"]("cuda"), 3),
+              interp_solve_bf16_store=timed_ms(
+                  lambda: model16.solve(lams, g_tr, backend=bk16), 3))
     emit("packed", h=H, k=K_FOLDS, q=N_LAMBDAS, block=BLOCK,
-         dtype="float64", launches=counts, unpack_roundtrip_exact=True,
+         dtype="float64", launches=launches, unpack_roundtrip_exact=True,
          **out, ms=ms)
-    return counts
+    if bad:
+        raise AssertionError(f"packed bf16_store routes disagree with the "
+                             f"reference backend: {bad}")
+    return launches
 
 
 def phase_gauss_newton(dev, folds) -> dict:
@@ -1549,7 +1730,7 @@ def main() -> None:
     launches = phase_main(dev, folds, lams)
     phase_trace(dev, folds, lams)
     launches.update(phase_host(dev, folds, lams))
-    launches["packed"] = phase_packed(dev, folds, lams)
+    launches.update(phase_packed(dev, folds, lams))
     launches["gauss_newton"] = phase_gauss_newton(dev, folds)
     phase_table4(dev)
     launches.update(phase_precision(dev, folds, lams))

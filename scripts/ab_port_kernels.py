@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's two CV engine sweeps, ``cholesky_blocked``,
-``pack_tril``, dense trsm and ``interp_solve`` in this checkout against
-another checkout of the repo, in turns, on one CUDA card.
+``pack_tril``, dense trsm, ``interp_solve`` and the packed trsm in this
+checkout against another checkout of the repo, in turns, on one CUDA
+card.
 
     python3 scripts/ab_port_kernels.py OTHER_CHECKOUT [--rounds 2]
 
@@ -11,10 +12,12 @@ other, this, this, other, … for ``--rounds`` rounds.  Inputs: 20 SPD
 matrices of 1024² in float64 from a seeded generator (the main path's
 anchor batch, ``chip_smoke.py``'s timed shape), block 128.  The trsm: the
 forward and the transposed solve of 15 of their factors, one right-hand
-side, as the exact sweep runs them (``CudaBackend.solve_from_factor``) and
-with the diagonal inverses given (``inv_diag=``).  ``interp_solve``: Θ
-(5, 3, P) from the packed factors, 3 λ, g (5, 1024), the main path's λ
-chunk.  The engines: ``cv_picholesky`` and ``cv_exact_cholesky`` on the
+side, as the exact sweep runs them (``CudaBackend.solve_from_factor``).
+``interp_solve``: Θ (5, 3, P) from the packed factors, 3 λ, g (5, 1024),
+the main path's λ chunk; also in float32 at 14 λ (the chunk under a bf16
+store).  The packed trsm: ``solve_packed`` (both sweeps)
+of the 20 packed factors, one right-hand side each (its output is not in
+the digest: it may change between checkouts).  The engines: ``cv_picholesky`` and ``cv_exact_cholesky`` on the
 ``cuda`` backend at the repo's configuration (h=1024, n=4096, k=5, q=31
 over [1e-3, 1], g=4, r=2, block=128, float64, ``chip_smoke.py``'s phase
 ``main``), host clock to a synchronize, median of 5 after a warm run.
@@ -42,8 +45,8 @@ sys.path.insert(0, "src")
 import torch
 from repro_torch.core import packing
 from repro_torch.core.backends import CudaBackend
-from repro_torch.kernels import (LAUNCHES, chol_blocked, poly_interp, ref,
-                                 reset_launches, tri_pack, trsm)
+from repro_torch.kernels import (LAUNCHES, chol_blocked, packed_trsm,
+                                 poly_interp, reset_launches, tri_pack)
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 x = torch.randn(20, 2048, 1024, generator=gen, device=dev, dtype=torch.float64)
@@ -51,17 +54,14 @@ a = (x.mT @ x / 1024 + torch.eye(1024, device=dev, dtype=torch.float64)).contigu
 l = torch.linalg.cholesky(a).contiguous()
 l15 = l[:15].contiguous()
 g15 = torch.randn(15, 1024, generator=gen, device=dev, dtype=torch.float64)
-inv15 = ref.dense_diag_inverses(l15, 128)
 v = packing.pack_tril(l, 128)
+g20 = torch.randn(20, 1024, generator=gen, device=dev, dtype=torch.float64)
 theta = torch.stack([v[:5], 0.1 * v[5:10], 0.01 * v[10:15]], 1).contiguous()
 lams = torch.tensor([1e-3, 3.2e-3, 1e-2], device=dev, dtype=torch.float64)
 g5 = torch.randn(5, 1024, generator=gen, device=dev, dtype=torch.float64)
+theta32, g5_32 = theta.float(), g5.float()
+lams14 = torch.logspace(-3, -1, 14, device=dev, dtype=torch.float64)
 bk = CudaBackend()
-
-
-def pair_given():
-    w = trsm.solve_lower_blocked(l15, g15, 128, inv_diag=inv15)
-    return trsm.solve_lower_blocked(l15, w, 128, transpose=True, inv_diag=inv15)
 
 
 def timed(fn, reps=10):
@@ -130,15 +130,16 @@ print(json.dumps(dict(
     cholesky_blocked_ms=timed(lambda: chol_blocked.cholesky_blocked(a, 128)),
     pack_tril_ms=timed(lambda: tri_pack.pack_tril(l, 128)),
     trsm_pair_ms=timed(lambda: bk.solve_from_factor(l15, g15)),
-    trsm_pair_given_inverses_ms=timed(pair_given),
+    packed_solve_ms=timed(lambda: packed_trsm.solve_packed(v, g20, 1024, 128)),
     interp_solve_ms=timed(lambda: poly_interp.interp_solve(theta, lams, g5, 1024, 128)),
+    interp_solve_f32_ms=timed(lambda: poly_interp.interp_solve(theta32, lams14, g5_32, 1024, 128)),
     cholesky_launches=launches, digest=digest.hexdigest())))
 """
 
 
 TIMED = ("picholesky_engine_ms", "exact_engine_ms", "cholesky_blocked_ms",
-         "pack_tril_ms", "trsm_pair_ms", "trsm_pair_given_inverses_ms",
-         "interp_solve_ms")
+         "pack_tril_ms", "trsm_pair_ms", "interp_solve_ms",
+         "interp_solve_f32_ms", "packed_solve_ms")
 
 
 def run(side: str, root: Path) -> dict:

@@ -15,10 +15,10 @@ CUDA card.
             prologue, and per step s before and after the cluster wait,
             after the look-ahead update, after the look-ahead solve and
             after the step's other updates; for the dense trsm (forward,
-            15 × 1024², the kernel inverting the diagonal tiles, and with
-            the caller's inverses) and ``interp_solve`` (Θ (5, 3, P), 3 λ),
-            float64, B = 128: ns since the first stamp, per block, and the
-            per-step summary (the owner's wait, update and solve).
+            15 × 1024², the kernel inverting the diagonal tiles) and
+            ``interp_solve`` (Θ (5, 3, P), 3 λ), float64, B = 128: ns since
+            the first stamp, per block, and the per-step summary (the
+            owner's wait, update and solve).
 
 Each probe compiles its source with the port's nvcc flags and headers into
 ``build/probe/`` (``stamps``: the kernels' own sources with the kernel's
@@ -39,7 +39,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import packing  # noqa: E402
-from repro_torch.kernels import _build, poly_interp, ref, trsm  # noqa: E402
+from repro_torch.kernels import _build, poly_interp, trsm  # noqa: E402
 
 OUT = ROOT / "build" / "probe"
 
@@ -182,7 +182,6 @@ def probe_stamps() -> None:
                                                       dtype=torch.float64))
     del x
     g = torch.randn(15, h, 1, generator=gen, device=dev, dtype=torch.float64)
-    inv = ref.dense_diag_inverses(l, block)
     v = packing.pack_tril(l, block)
     theta = torch.stack([v[:5], 0.1 * v[5:10], 0.01 * v[10:15]], 1).contiguous()
     lams = torch.tensor([1e-3, 3.2e-3, 1e-2], device=dev, dtype=torch.float64)
@@ -206,12 +205,11 @@ def probe_stamps() -> None:
             raise SystemExit(f"stamps: CUDA error {rc}")
         return dict(zip(_build.PLAN_KEYS, plan)), call
 
-    def trsm_call(given):
+    def trsm_call():
         fn = libs["trsm"].rt_trsm_f64
         fn.argtypes = trsm._ARGS
         out = torch.empty_like(g)
         return launcher(fn, (_build.ptr(l), _build.ptr(g),
-                             _build.ptr(inv) if given else None,
                              _build.ptr(scratch), _build.ptr(out), 15, h,
                              block, 1, 0), out)
 
@@ -225,9 +223,7 @@ def probe_stamps() -> None:
                              theta.shape[-1], 1, 0, h), out)
 
     for tag, lib, (plan, call), steps in (
-            ("trsm_forward", libs["trsm"], trsm_call(False), range(nt)),
-            ("trsm_forward_given_inverses", libs["trsm"], trsm_call(True),
-             range(nt)),
+            ("trsm_forward", libs["trsm"], trsm_call(), range(nt)),
             ("interp_solve", libs["poly_interp"], interp_call(),
              range(2 * nt))):
         for _ in range(2):                       # warm, then stamped

@@ -168,9 +168,12 @@ class CudaBackend(LinalgBackend):
     layout block is carried by the data.  Every policy runs: a policy
     whose compute dtype differs from its accumulation dtype (``bf16_store``,
     ``bf16_refined``) takes the mixed-precision variants of the Cholesky,
-    the dense trsm and ``interp_solve``, as ``PallasBackend._dtypes``
-    routes them (``src/repro/core/backends.py:203-210``); the packed trsm
-    and ``interp_factors`` have none yet and raise under it.
+    the dense trsm, ``interp_solve`` and the packed trsm, as
+    ``PallasBackend._dtypes`` routes them
+    (``src/repro/core/backends.py:203-210``); under the native policy the
+    kernels take their dtypes from the data, so a bf16 packed factor also
+    runs the mixed packed trsm.  ``interp_factors`` runs at Θ's dtype
+    whatever the policy, bf16 included (``:264-267``).
     """
 
     name: str = "cuda"
@@ -185,19 +188,6 @@ class CudaBackend(LinalgBackend):
         if p.is_native:
             return None, None
         return p.compute_dtype(input_dtype), p.accum_dtype(input_dtype)
-
-    def _one_dtype(self, input_dtype, what: str) -> None:
-        """Raise for a kernel with no mixed variant under a policy whose
-        compute dtype is not its accumulation dtype."""
-        cd, ad = self._dtypes(input_dtype)
-        if cd != ad:
-            raise NotImplementedError(
-                f"{what} on the cuda backend has no {cd} / {ad} variant "
-                f"(policy {self.precision.name!r}); it is queued in "
-                "ROADMAP.md (queue 2 item 1)")
-
-    def _accum(self, t):
-        return t.to(self.precision.accum_dtype(t.dtype)).contiguous()
 
     def cholesky(self, a):
         from repro_torch.kernels.chol_blocked import cholesky_blocked
@@ -222,10 +212,10 @@ class CudaBackend(LinalgBackend):
 
     def solve_packed(self, pf, g):
         from repro_torch.kernels.packed_trsm import solve_packed
-        self._one_dtype(pf.vec.dtype, "solve_packed")
-        vec = self._accum(pf.vec)
-        return solve_packed(vec, shared_rhs(pf, g).to(vec.dtype), pf.h,
-                            pf.block)
+        cd, ad = self._dtypes(pf.vec.dtype)
+        # the factor goes at its own dtype: a bf16 factor is read in bf16
+        return solve_packed(pf.vec.contiguous(), shared_rhs(pf, g), pf.h,
+                            pf.block, compute_dtype=cd, accum_dtype=ad)
 
     def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
                      rhs_per_lam=False):
@@ -240,7 +230,6 @@ class CudaBackend(LinalgBackend):
     def interp_factors(self, theta, lams, *, h, block, center=0.0):
         from repro_torch.kernels.poly_interp import interp_factors
         from . import picholesky
-        self._one_dtype(theta.dtype, "interp_factors")
         lams = picholesky.lam_tensor(lams, theta.device)
         return interp_factors(theta.contiguous(), lams, h, block,
                               center=center)

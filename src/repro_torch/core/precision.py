@@ -11,9 +11,9 @@ The same four dtype roles and presets as the JAX package, on torch dtypes:
 ``None`` for a role means *inherit the input's dtype*.  Both backends run
 every preset.  Under ``bf16_store`` and ``bf16_refined`` the ``cuda``
 backend runs the mixed-precision variants of the blocked Cholesky, the
-dense trsm and ``interp_solve``: bf16 operands on the tensor cores, fp32
-sums and state, Θ read in bf16.  The packed trsm and ``interp_factors``
-have no mixed variant yet and raise under those two (``ROADMAP.md``).
+dense trsm, ``interp_solve`` and the packed trsm: bf16 operands on the
+tensor cores, fp32 sums and state, Θ and packed factors read in bf16;
+``interp_factors`` evaluates a bf16 Θ in bf16.
 
 The environment variable ``REPRO_TEST_PRECISION`` overrides the default
 policy, as in the reference.

@@ -44,7 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: the tile sizes the kernels with a compile-time block are compiled for
-#: (the Cholesky, ``pack_tril``, the dense trsm and ``interp_solve``)
+#: (the Cholesky, ``pack_tril`` and the three cluster solves: the dense
+#: trsm, ``interp_solve`` and the packed trsm)
 BLOCKS = (16, 32, 64, 128)
 
 #: the launch plan of a cluster solve (``csrc/tri_solve.cuh``), in the
@@ -58,10 +59,13 @@ PLANS: Dict[str, dict] = {}
 _NEEDS_SCRATCH = -1
 
 #: the mixed-precision variants (bf16 products, float32 sums and state)
-#: count apart from their one-dtype kernels, under these names
+#: and ``interp_factors`` on a bf16 Θ count apart from their one-dtype
+#: kernels, under these names
 MIXED_NAMES = {"cholesky_blocked": "cholesky_blocked_bf16",
                "solve_lower_blocked": "solve_lower_blocked_bf16",
-               "interp_solve": "interp_solve_bf16"}
+               "interp_solve": "interp_solve_bf16",
+               "interp_factors": "interp_factors_bf16",
+               "solve_lower_packed": "solve_lower_packed_bf16"}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("pack_tril", "cholesky_blocked",
@@ -193,8 +197,8 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def check_tensor(t, what: str, dtype=None) -> None:
     """The checks every wrapper makes before a launch: a contiguous CUDA
-    tensor of ``dtype`` (a bf16 Θ of the mixed ``interp_solve``), or of
-    float32 or float64 when ``dtype`` is not given."""
+    tensor of ``dtype`` (a bf16 Θ or packed factor of a mixed variant), or
+    of float32 or float64 when ``dtype`` is not given."""
     import torch
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
@@ -220,9 +224,10 @@ def suffix(dtype) -> str:
 
 
 def entry(name: str, dtype, compute_dtype=None) -> str:
-    """The C entry point of ``name`` for state ``dtype``: ``rt_<name>_f64``
-    or ``_f32``, or the mixed variant's ``rt_<name>_f32_bf16`` when
-    ``compute_dtype`` differs from ``dtype``."""
+    """The C entry point of ``name`` for ``dtype`` (the state's, or the
+    stored tiles'): ``rt_<name>_f64``, ``_f32`` or ``_bf16``, with
+    ``_bf16`` appended for a mixed variant whose ``compute_dtype``
+    differs from ``dtype`` (``rt_<name>_f32_bf16``)."""
     fn = f"rt_{name}_{suffix(dtype)}"
     if compute_dtype is not None and compute_dtype != dtype:
         fn += f"_{suffix(compute_dtype)}"

@@ -1,143 +1,100 @@
-// Triangular solve L w = g / L^T w = g read directly from tile-packed
-// factors, batched over factors, for Hopper.
+// Triangular solves L w = g, L^T w = g and L L^T w = g read directly from
+// tile-packed factors, batched over factors, for Hopper.
 //
 // Replaces the Pallas kernel of src/repro/kernels/packed_trsm.py:166
 // (solve_lower_packed, body _make_kernel :42, tile map _step_tile_indices
-// :83).  The TPU version walks a sequential (nt, nt) grid: the outer step is
-// the tile row being solved, the inner step streams that row's tiles through
-// a scalar-prefetched (s, u) -> packed-tile map, and solved rows are read
-// back from the revisited output ref.  CUDA blocks run in no order, so here
-// one block per (factor, RHS column) walks every tile row in a loop and
-// keeps the whole solution in shared memory, as csrc/trsm.cu does for dense
-// factors.  The (i, t) -> packed tile map is passed in as an int32 tensor
-// (nt, nt); the forward sweep reads tile (i, t) for t < i, the transposed
-// sweep walks the tile rows in reverse and reads column i of packed L as row
-// i of L^T: tile (t, i) for t > i, element (c, r) for row r of L^T.  Each
-// step ends with the pre-inverted diagonal tile (inverted once outside the
-// kernel, identity on the padding of a ragged last tile, as at
-// packed_trsm.py:112), used as is forward and transposed in reverse.
+// :83) and solve_packed (:176, the forward call followed by the transposed
+// one).  The TPU version walks a sequential (nt, nt) grid: the outer step is
+// the tile row being solved, the inner step streams that row's tiles
+// through a scalar-prefetched (s, u) -> packed-tile map, solved rows are
+// read back from the revisited output ref, and the diagonal tiles are
+// inverted outside the kernel (:112).  A packed factor is a degree-0
+// interpolant (one coefficient plane, no λ), so here it is the cluster
+// solve of tri_solve.cuh with the packed tile source (kPacked): a cluster
+// of up to 8 blocks per (factor, RHS column), right-looking, tile (i, j)
+// found at (j nt - j (j - 1) / 2 + i - j) B^2 of the factor (no map), the
+// solved segments passed between the blocks through distributed shared
+// memory, the tiles staged by cp.async ahead of the barriers, and the
+// diagonal tiles read, identity-padded past h and inverted in the kernel's
+// prologue.  solve_packed is one launch for both sweeps (sweeps = 3).
 //
 // The packed factor is zero on its padding, g is zero-padded to the tile
 // multiple, and the identity tail keeps the padded solution rows at 0.
 //
 // Bound on this card: bytes (each packed value read once per sweep; 2 flops
-// per value read).  Reads are coalesced: a warp walks a tile row in the
-// forward sweep, consecutive threads walk consecutive tile columns in the
-// transposed one.
+// per value read), and the chain of nt dependent solves per sweep.
+//
+// The mixed-precision variants (packed_trsm.py under a bf16 compute dtype,
+// :17-24, :61-80, :112-123): every product runs on the bf16 tensor cores
+// with fp32 sums, the tiles, the solved segments, the inverses and
+// g_i - acc_i rounded to bf16; the inverses (formed at fp32 from the
+// factor's own values), g, the sums and the solution are float32.
+// rt_packed_trsm_bf16 reads a bf16-stored factor (staged in bf16, half the
+// bytes); rt_packed_trsm_f32_bf16 a float32 factor, rounded to bf16 as the
+// fragments are formed.
 
-#include "common.cuh"
+#include <cstdint>
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-packed_trsm_kernel(const T* __restrict__ vec, const T* __restrict__ g,
-                   const T* __restrict__ inv, const int* __restrict__ pmap,
-                   T* __restrict__ out, int nt, int B, long long P, int nrhs,
-                   int transpose) {
-  extern __shared__ unsigned char smem_raw[];
-  const int hp = nt * B;
-  T* w = reinterpret_cast<T*>(smem_raw);   // (hp,) solved segment
-  T* rhs = w + hp;                         // (B,)
-  T* red = rhs + B;                        // (kThreads,)
-  const long long mat = blockIdx.x;
-  const int col = blockIdx.y;
-  const long long tile = (long long)B * B;
-  const T* V = vec + mat * P;
-  const T* G = g + mat * hp * nrhs;
-  const T* INV = inv + mat * nt * tile;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  constexpr int kWarps = kThreads / 32;
-  const int nph = kThreads / B;            // column-pattern phases
-  const int rr = tid % B, ph = tid / B;
+#include "tri_solve.cuh"
 
-  for (int step = 0; step < nt; ++step) {
-    const int i = transpose ? nt - 1 - step : step;
-    if (!transpose) {
-      // rhs = g_i - sum_{t<i} L(i, t) w_t  (a warp per row)
-      for (int r = warp; r < B; r += kWarps) {
-        T s = T(0);
-        for (int t = 0; t < i; ++t) {
-          const long long base = (long long)pmap[i * nt + t] * tile + (long long)r * B;
-          for (int c = lane; c < B; c += 32) s += V[base + c] * w[t * B + c];
-        }
-        s = warp_sum(s);
-        if (lane == 0) rhs[r] = G[(long long)(i * B + r) * nrhs + col] - s;
-      }
-      __syncthreads();
-      // w_i = inv_i rhs
-      for (int r = warp; r < B; r += kWarps) {
-        const T* iv = INV + (long long)i * tile + (long long)r * B;
-        T s = T(0);
-        for (int c = lane; c < B; c += 32) s += iv[c] * rhs[c];
-        s = warp_sum(s);
-        if (lane == 0) w[i * B + r] = s;
-      }
-      __syncthreads();
-    } else {
-      // rhs = g_i - sum_{t>i} L(t, i)^T w_t  (a thread per column of L(t, i))
-      T s = T(0);
-      if (ph < nph)
-        for (int t = i + 1; t < nt; ++t) {
-          const long long base = (long long)pmap[t * nt + i] * tile + rr;
-          for (int c = ph; c < B; c += nph) s += V[base + (long long)c * B] * w[t * B + c];
-        }
-      red[tid] = s;
-      __syncthreads();
-      if (tid < B) {
-        T acc = T(0);
-        for (int q = 0; q < nph; ++q) acc += red[q * B + tid];
-        rhs[tid] = G[(long long)(i * B + tid) * nrhs + col] - acc;
-      }
-      __syncthreads();
-      // w_i = inv_i^T rhs
-      s = T(0);
-      if (ph < nph)
-        for (int q = ph; q < B; q += nph) s += INV[(long long)i * tile + (long long)q * B + rr] * rhs[q];
-      red[tid] = s;
-      __syncthreads();
-      if (tid < B) {
-        T acc = T(0);
-        for (int q = 0; q < nph; ++q) acc += red[q * B + tid];
-        w[i * B + tid] = acc;
-      }
-      __syncthreads();
-    }
-  }
-  for (int r = tid; r < hp; r += kThreads)
-    out[(mat * hp + r) * nrhs + col] = w[r];
-}
-
-template <typename T>
-static int packed_trsm(const void* vec, const void* g, const void* inv,
-                       const void* pmap, void* out, int batch, int nt, int B,
-                       long long P, int nrhs, int transpose, void* stream) {
-  if (B > kThreads || nrhs > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(nt * B + B + kThreads) * sizeof(T);
-  cudaFuncSetAttribute(packed_trsm_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  RT_RETURN_IF_ERROR();
-  packed_trsm_kernel<T><<<dim3(batch, nrhs), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vec), static_cast<const T*>(g),
-      static_cast<const T*>(inv), static_cast<const int*>(pmap),
-      static_cast<T*>(out), nt, B, P, nrhs, transpose);
-  RT_RETURN_IF_ERROR();
-  return 0;
+template <typename T, typename CT = T, typename Src = T>
+static int packed_trsm(const void* vec, const void* g, void* scratch,
+                       void* out, int batch, int h, int B, int nrhs,
+                       int sweeps, int* plan, void* stream) {
+  if (sweeps < 1 || sweeps > 3) return (int)cudaErrorInvalidValue;
+  SolveArgs<T, Src> a = {};
+  a.src = static_cast<const Src*>(vec);
+  a.scratch = static_cast<T*>(scratch);
+  a.g = static_cast<const T*>(g);
+  a.out = static_cast<T*>(out);
+  a.h = h;
+  a.nt = (h + B - 1) / B;
+  a.P = (long long)a.nt * (a.nt + 1) / 2 * B * B;
+  a.nc = 1;
+  a.n_lam = 1;
+  a.nrhs = nrhs;
+  a.g_per_lam = 0;
+  a.sweeps = sweeps;
+  a.vec = reinterpret_cast<uintptr_t>(vec) % 16 == 0;   // P % 8 == 0
+  if (sizeof(Src) < 4 && !a.vec) return (int)cudaErrorMisalignedAddress;
+  return tri_solve_launch<T, kPacked, CT, Src>(a, B, (long long)batch * nrhs,
+                                               plan,
+                                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
 // vec: (batch, P) packed factors; g, out: (batch, nt * B, nrhs), g
-// zero-padded past h; inv: (batch, nt, B, B) inverses of the identity-padded
-// diagonal tiles; pmap: (nt, nt) packed tile index.
-int rt_packed_trsm_f64(const void* vec, const void* g, const void* inv,
-                       const void* pmap, void* out, int batch, int nt, int B,
-                       long long P, int nrhs, int transpose, void* stream) {
-  return packed_trsm<double>(vec, g, inv, pmap, out, batch, nt, B, P, nrhs,
-                             transpose, stream);
+// zero-padded past h; sweeps: 1 L w = g, 2 L^T w = g, 3 both in turn
+// (L L^T w = g); scratch: (batch * nrhs, nt, B, inv_ld) for the formed
+// inverses of the diagonal tiles when they do not fit in shared memory, or
+// null (then a launch that needs it returns kNeedsScratch and launches
+// nothing); plan: null, or kPlanInts ints that receive the launch plan (as
+// for rt_trsm_f64).
+int rt_packed_trsm_f64(const void* vec, const void* g, void* scratch,
+                       void* out, int batch, int h, int B, int nrhs,
+                       int sweeps, int* plan, void* stream) {
+  return packed_trsm<double>(vec, g, scratch, out, batch, h, B, nrhs, sweeps,
+                             plan, stream);
 }
-int rt_packed_trsm_f32(const void* vec, const void* g, const void* inv,
-                       const void* pmap, void* out, int batch, int nt, int B,
-                       long long P, int nrhs, int transpose, void* stream) {
-  return packed_trsm<float>(vec, g, inv, pmap, out, batch, nt, B, P, nrhs,
-                            transpose, stream);
+int rt_packed_trsm_f32(const void* vec, const void* g, void* scratch,
+                       void* out, int batch, int h, int B, int nrhs,
+                       int sweeps, int* plan, void* stream) {
+  return packed_trsm<float>(vec, g, scratch, out, batch, h, B, nrhs, sweeps,
+                            plan, stream);
+}
+// a float32 factor, the products in bf16; g, scratch, out float32
+int rt_packed_trsm_f32_bf16(const void* vec, const void* g, void* scratch,
+                            void* out, int batch, int h, int B, int nrhs,
+                            int sweeps, int* plan, void* stream) {
+  return packed_trsm<float, __nv_bfloat16>(vec, g, scratch, out, batch, h, B,
+                                           nrhs, sweeps, plan, stream);
+}
+// a bf16 factor (16-byte aligned), the products in bf16; g, scratch, out
+// float32
+int rt_packed_trsm_bf16(const void* vec, const void* g, void* scratch,
+                        void* out, int batch, int h, int B, int nrhs,
+                        int sweeps, int* plan, void* stream) {
+  return packed_trsm<float, __nv_bfloat16, __nv_bfloat16>(
+      vec, g, scratch, out, batch, h, B, nrhs, sweeps, plan, stream);
 }
 }

@@ -5,17 +5,26 @@
 // interp_factors replaces the Pallas kernel of
 // src/repro/kernels/poly_interp.py:97 (body _make_kernel :48): Horner of Θ
 // at every λ written straight into the dense L(λ), upper tiles zeroed.  The
-// TPU version runs a (λ, i, j) grid of output tiles into a padded
-// (q, hp, hp) buffer that is then cropped.  Here one block per (output tile,
-// fold, chunk of kLamChunk λs) writes its tile of the unpadded (…, q, h, h)
-// output directly: each thread takes one element of the tile, reads its
-// r+1 coefficients from the packed tile of Θ (through the int32 (nt, nt)
-// map) and writes its Horner value at each λ of the chunk.  Upper tiles and
-// the upper half of diagonal tiles are written as zeros; nothing past h is
-// written.  λ - center arrives cast to Θ's dtype, as at poly_interp.py:84.
-// Bound on this card: bytes (the q dense outputs dominate the r+1
-// coefficient reads, which the λ chunk shares); 2r flops per output.
-// Consecutive threads write consecutive columns, so stores are coalesced.
+// TPU version runs a (λ, i, j) grid of output tiles, reading each lower
+// tile of Θ through a scalar-prefetched map, into a padded (q, hp, hp)
+// buffer that is then cropped.  Here one block per (output tile, fold,
+// chunk of kLamChunk λs) writes its tile of the unpadded (…, q, h, h)
+// output directly, finding lower tile (i, j) of Θ at (j nt - j (j - 1) / 2
+// + i - j) B^2 (no map): each thread takes 16 bytes of a tile row (one
+// element where output rows are not 16-byte aligned), reads its r+1
+// coefficients from the packed tile and writes its Horner values at each λ
+// of the chunk.  Upper tiles and the upper half of diagonal tiles are
+// written as zeros; nothing past h is written.  λ - center arrives cast to
+// Θ's dtype, as at poly_interp.py:84.  Bound on this card: bytes (the q
+// dense outputs dominate the r+1 coefficient reads, which the λ chunk
+// shares); 2r flops per output.  Consecutive threads write consecutive
+// columns, so stores are coalesced.
+//
+// rt_interp_factors_bf16 takes a bf16 Θ and writes bf16 factors, half the
+// bytes: each Horner step runs in fp32 (__fmul_rn, __fadd_rn: never
+// contracted into an FMA) and is rounded to nearest-even bf16 after the
+// product and after the sum, as torch rounds each bf16 operation (and as
+// the Pallas kernel computes at Θ's dtype).
 //
 // interp_solve replaces the Pallas kernel of src/repro/kernels/poly_interp.py:195
 // (_interp_sweep, body _make_solve_kernel :109), the λ sweep of the
@@ -53,48 +62,122 @@
 
 constexpr int kLamChunk = 8;   // λs per interp_factors block
 
-template <typename T>
+// The type a Horner step of Θ's dtype S is computed in (bf16: fp32)
+template <typename S> struct HornerT { using type = S; };
+template <> struct HornerT<__nv_bfloat16> { using type = float; };
+
+// One Horner step v x + c at Θ's dtype: float64 and float32 as written,
+// bf16 (held in fp32) rounded after the product and after the sum
+template <typename S>
+__device__ __forceinline__ typename HornerT<S>::type horner_step(
+    typename HornerT<S>::type v, typename HornerT<S>::type x,
+    typename HornerT<S>::type c) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value)
+    return bf16_round(__fadd_rn(bf16_round(__fmul_rn(v, x)), c));
+  else
+    return v * x + c;
+}
+
+// VN values at p (16 bytes, aligned, when VN > 1)
+template <typename S, int VN>
+__device__ __forceinline__ void load_units(S (&d)[VN], const S* p) {
+  if constexpr (VN > 1) {
+    using V = typename Vec16<S>::type;
+    static_assert(sizeof(V) == VN * sizeof(S), "16 bytes");
+    *reinterpret_cast<V*>(d) = *reinterpret_cast<const V*>(p);
+  } else {
+    d[0] = p[0];
+  }
+}
+template <typename S, int VN>
+__device__ __forceinline__ void store_units(S* p, const S (&d)[VN]) {
+  if constexpr (VN > 1) {
+    using V = typename Vec16<S>::type;
+    *reinterpret_cast<V*>(p) = *reinterpret_cast<const V*>(d);
+  } else {
+    p[0] = d[0];
+  }
+}
+
+// VN: output values a thread writes at once (16 bytes, or 1 where output
+// rows are not 16-byte aligned)
+template <typename S, int VN>
 __global__ void __launch_bounds__(kThreads)
-interp_factors_kernel(const T* __restrict__ theta, const T* __restrict__ x,
-                      const int* __restrict__ pmap, T* __restrict__ out,
-                      int n_lam, int degree, int nt, int B, long long P, int h) {
+interp_factors_kernel(const S* __restrict__ theta, const S* __restrict__ x,
+                      S* __restrict__ out, int n_lam, int degree, int nt,
+                      int B, long long P, int h) {
+  using F = typename HornerT<S>::type;
   const int i = blockIdx.x / nt, j = blockIdx.x % nt;
   const long long fold = blockIdx.y;
   const int lam0 = blockIdx.z * kLamChunk;
   const int n_here = min(kLamChunk, n_lam - lam0);
   const long long hh = (long long)h * h;
-  T* O = out + (fold * n_lam + lam0) * hh;
-  const T* TH = theta + fold * (degree + 1) * P
-                + (long long)pmap[i * nt + j] * B * B;
+  S* O = out + (fold * n_lam + lam0) * hh;
+  const bool lower = i >= j;
+  const S* TH = theta + fold * (degree + 1) * P
+                + (lower ? (long long)(j * nt - j * (j - 1) / 2 + i - j) * B * B : 0);
+  F xs[kLamChunk];
+#pragma unroll
+  for (int t = 0; t < kLamChunk; ++t) xs[t] = t < n_here ? as_value(x[lam0 + t]) : F(0);
   const int rows = min(B, h - i * B), cols = min(B, h - j * B);
-  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-    const int r = e / cols, c = e % cols;
-    const long long dst = (long long)(i * B + r) * h + j * B + c;
-    if (i < j || (i == j && c > r)) {
-      for (int t = 0; t < n_here; ++t) O[t * hh + dst] = T(0);
+  const int units = (cols + VN - 1) / VN;       // VN divides cols when VN > 1
+  for (int e = threadIdx.x; e < rows * units; e += kThreads) {
+    const int r = e / units, c0 = e % units * VN;
+    const long long dst = (long long)(i * B + r) * h + j * B + c0;
+    if (!lower || (i == j && c0 > r)) {
+      alignas(16) S w[VN];
+#pragma unroll
+      for (int u = 0; u < VN; ++u) w[u] = S(0.0f);
+      for (int t = 0; t < n_here; ++t) store_units<S, VN>(O + t * hh + dst, w);
       continue;
     }
-    const int off = r * B + c;
-    for (int t = 0; t < n_here; ++t) {
-      const T xv = x[lam0 + t];
-      T v = TH[degree * P + off];
-      for (int k = degree - 1; k >= 0; --k) v = v * xv + TH[k * P + off];
-      O[t * hh + dst] = v;
+    const int off = r * B + c0;
+    F v[kLamChunk][VN];
+    alignas(16) S c[VN];
+    load_units<S, VN>(c, TH + degree * P + off);
+#pragma unroll
+    for (int u = 0; u < VN; ++u)
+#pragma unroll
+      for (int t = 0; t < kLamChunk; ++t) v[t][u] = as_value(c[u]);
+    for (int k = degree - 1; k >= 0; --k) {
+      load_units<S, VN>(c, TH + k * P + off);
+#pragma unroll
+      for (int u = 0; u < VN; ++u)
+#pragma unroll
+        for (int t = 0; t < kLamChunk; ++t)
+          v[t][u] = horner_step<S>(v[t][u], xs[t], as_value(c[u]));
+    }
+#pragma unroll
+    for (int t = 0; t < kLamChunk; ++t) {
+      if (t >= n_here) break;
+      alignas(16) S w[VN];
+#pragma unroll
+      for (int u = 0; u < VN; ++u)
+        w[u] = (i == j && c0 + u > r) ? S(0.0f) : S(v[t][u]);
+      store_units<S, VN>(O + t * hh + dst, w);
     }
   }
 }
 
-template <typename T>
-static int interp_factors(const void* theta, const void* x, const void* pmap,
-                          void* out, int n_fold, int n_lam, int degree, int nt,
-                          int B, long long P, int h, void* stream) {
+template <typename S>
+static int interp_factors(const void* theta, const void* x, void* out,
+                          int n_fold, int n_lam, int degree, int nt, int B,
+                          long long P, int h, void* stream) {
+  constexpr int VN = 16 / sizeof(S);
   const int n_chunk = (n_lam + kLamChunk - 1) / kLamChunk;
   if (n_fold > 65535 || n_chunk > 65535) return (int)cudaErrorInvalidValue;
-  interp_factors_kernel<T><<<dim3(nt * nt, n_fold, n_chunk), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(theta), static_cast<const T*>(x),
-      static_cast<const int*>(pmap), static_cast<T*>(out), n_lam, degree, nt,
-      B, P, h);
+  const dim3 grid(nt * nt, n_fold, n_chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const S* th = static_cast<const S*>(theta);
+  S* o = static_cast<S*>(out);
+  const bool vec = h % VN == 0 && (reinterpret_cast<uintptr_t>(theta) |
+                                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (vec)
+    interp_factors_kernel<S, VN><<<grid, kThreads, 0, s>>>(
+        th, static_cast<const S*>(x), o, n_lam, degree, nt, B, P, h);
+  else
+    interp_factors_kernel<S, 1><<<grid, kThreads, 0, s>>>(
+        th, static_cast<const S*>(x), o, n_lam, degree, nt, B, P, h);
   RT_RETURN_IF_ERROR();
   return 0;
 }
@@ -104,7 +187,7 @@ static int interp_solve(const void* theta, const void* x, const void* g,
                         void* scratch, void* out, int n_fold, int n_lam,
                         int degree, int nt, int B, long long P, int nrhs,
                         int g_per_lam, int h, int* plan, void* stream) {
-  using Src = SrcT<T, true, CT>;      // Θ's type
+  using Src = CT;      // Θ's type: bf16 for the mixed variant, else T
   SolveArgs<T, Src> a = {};
   a.src = static_cast<const Src*>(theta);
   a.x = static_cast<const T*>(x);
@@ -121,8 +204,9 @@ static int interp_solve(const void* theta, const void* x, const void* g,
   a.sweeps = 3;
   a.vec = reinterpret_cast<uintptr_t>(theta) % 16 == 0 && P % (16 / sizeof(Src)) == 0;
   if (sizeof(Src) < 4 && !a.vec) return (int)cudaErrorMisalignedAddress;
-  return tri_solve_launch<T, true, CT>(a, B, (long long)n_fold * n_lam * nrhs,
-                                       plan, static_cast<cudaStream_t>(stream));
+  return tri_solve_launch<T, kInterp, CT, Src>(
+      a, B, (long long)n_fold * n_lam * nrhs, plan,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
@@ -156,17 +240,24 @@ int rt_interp_solve_f32_bf16(const void* theta, const void* x, const void* g,
                                             g_per_lam, h, plan, stream);
 }
 // theta: (n_fold, degree+1, P); x: (n_lam,) λ - center at Θ's dtype;
-// pmap: (nt, nt) packed tile index; out: (n_fold, n_lam, h, h).
-int rt_interp_factors_f64(const void* theta, const void* x, const void* pmap,
-                          void* out, int n_fold, int n_lam, int degree, int nt,
-                          int B, long long P, int h, void* stream) {
-  return interp_factors<double>(theta, x, pmap, out, n_fold, n_lam, degree,
-                                nt, B, P, h, stream);
+// out: (n_fold, n_lam, h, h), at Θ's dtype.
+int rt_interp_factors_f64(const void* theta, const void* x, void* out,
+                          int n_fold, int n_lam, int degree, int nt, int B,
+                          long long P, int h, void* stream) {
+  return interp_factors<double>(theta, x, out, n_fold, n_lam, degree, nt, B,
+                                P, h, stream);
 }
-int rt_interp_factors_f32(const void* theta, const void* x, const void* pmap,
-                          void* out, int n_fold, int n_lam, int degree, int nt,
-                          int B, long long P, int h, void* stream) {
-  return interp_factors<float>(theta, x, pmap, out, n_fold, n_lam, degree, nt,
-                               B, P, h, stream);
+int rt_interp_factors_f32(const void* theta, const void* x, void* out,
+                          int n_fold, int n_lam, int degree, int nt, int B,
+                          long long P, int h, void* stream) {
+  return interp_factors<float>(theta, x, out, n_fold, n_lam, degree, nt, B, P,
+                               h, stream);
+}
+// theta, x and out in bf16; each Horner step rounded to bf16
+int rt_interp_factors_bf16(const void* theta, const void* x, void* out,
+                           int n_fold, int n_lam, int degree, int nt, int B,
+                           long long P, int h, void* stream) {
+  return interp_factors<__nv_bfloat16>(theta, x, out, n_fold, n_lam, degree,
+                                       nt, B, P, h, stream);
 }
 }

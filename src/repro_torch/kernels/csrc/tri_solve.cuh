@@ -1,6 +1,6 @@
 // Device code shared by the port's dense-tile kernels, and the
-// thread-block-cluster triangular solve of the dense trsm (trsm.cu) and
-// the fused interp-solve (poly_interp.cu).
+// thread-block-cluster triangular solve of the dense trsm (trsm.cu), the
+// fused interp-solve (poly_interp.cu) and the packed trsm (packed_trsm.cu).
 //
 // Part 1, moved here from chol_blocked.cu (the Cholesky's diagonal step
 // and the solves' prologue use it): the FP64 tensor-core product of one
@@ -13,22 +13,24 @@
 //
 // Part 2, the cluster solve.  One system is L v = g, L^T v = g, or both in
 // turn (L L^T v = g), for one right-hand-side column; L is lower
-// triangular in nt x nt tiles of B x B, read from a tile source: the
-// unpadded dense factor (trsm) or the r+1 packed coefficient tiles of Θ,
-// Horner-evaluated at λ - center as they are read (interp_solve).
+// triangular in nt x nt tiles of B x B, read from one of three tile
+// sources: the unpadded dense factor (kDense, trsm), the r+1 packed
+// coefficient tiles of Θ, Horner-evaluated at λ - center as they are read
+// (kInterp, interp_solve), or a tile-packed factor, which is a degree-0
+// interpolant: one coefficient plane, no λ (kPacked, the packed trsm).
 //
 // A cluster of C <= 8 blocks serves one system (C = min(C, nt)); block b
 // owns tile rows b, b + C, b + 2C, ...  Every block keeps the whole
 // solution of each sweep in its own shared memory (a forward slot and a
 // reverse slot, so no slot is ever overwritten), and for its own rows the
 // pending sums acc_j and the inverses of the diagonal tiles.
-//   - Prologue: each block reads (trsm) or Horner-evaluates (interp) its
-//     own diagonal tiles, adds the identity tail past h, and inverts them:
-//     one warp per 16 x 16 sub-block in parallel (warp_potf2_inv<false>),
-//     then X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj block row by block row on
-//     the tensor cores.  The inverse stays in shared memory when the
-//     block's rows fit, otherwise in a scratch tensor of the caller.  A
-//     caller's inverses (trsm, inv_diag=) skip the prologue.
+//   - Prologue: each block reads (trsm, packed) or Horner-evaluates
+//     (interp) its own diagonal tiles, adds the identity tail past h, and
+//     inverts them: one warp per 16 x 16 sub-block in parallel
+//     (warp_potf2_inv<false>), then X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj
+//     block row by block row on the tensor cores.  The inverse stays in
+//     shared memory when the block's rows fit, otherwise in a scratch
+//     tensor of the caller.
 //   - Right-looking substitution: the owner of row i solves
 //     v_i = X_i (g_i - acc_i) (X_i^T for the transposed sweep) and stores
 //     v_i into every block's slot through distributed shared memory, then
@@ -57,8 +59,13 @@
 // solves X_i (g_i - acc_i)) runs on the bf16 tensor cores, one 16-row strip
 // a warp, the vector in column 0 of an m16n8k16 B fragment, its operands
 // rounded to bf16 as the fragments are formed and summed in fp32, as the
-// Pallas kernels cast them (trsm.py:42-51, poly_interp.py:128-150).  The
-// inverses are formed at fp32.  interp_solve's Θ is then read in bf16:
+// Pallas kernels cast them (trsm.py:42-51, poly_interp.py:128-150,
+// packed_trsm.py:61-80).  The inverses are formed at fp32 from the tile
+// source's own values.  The staged type Src is the type the tiles are
+// stored in: T for the dense factor, Θ's (bf16 in the mixed interp_solve),
+// and the packed factor's (bf16 for a bf16-stored factor, whose values
+// are then exact in fp32; float32 for a float32 factor under bf16
+// products, rounded as the fragments are formed).  interp_solve's bf16 Θ:
 // the diagonal tiles are Horner-evaluated at fp32 from it, the
 // off-diagonal ones in bf16 as they stream (x and every step rounded).
 // A chunk then holds at least 16 rows (one strip).
@@ -402,26 +409,26 @@ constexpr int kPlanInts = 7;
 // was launched)
 constexpr int kNeedsScratch = -1;
 
-// The type the tiles are read in: Θ's storage (bf16) in the mixed
-// interp_solve, else the state type T
-template <typename T, bool Interp, typename CT>
-using SrcT = typename std::conditional<Interp && !std::is_same<CT, T>::value,
-                                       CT, T>::type;
+// The tile source of a solve (the Source parameter of the templates)
+constexpr int kDense = 0;    // the unpadded dense factor (trsm)
+constexpr int kInterp = 1;   // Θ's packed coefficient planes, Horner at λ
+constexpr int kPacked = 2;   // a tile-packed factor: one plane, no λ
 
+// S: the type the tiles are stored and staged in
 template <typename T, typename S = T>
 struct SolveArgs {
-  const S* src;       // trsm: L (batch, h, h); interp: Θ (n_fold, nc, P)
+  const S* src;       // dense: L (batch, h, h); interp: Θ (n_fold, nc, P);
+                      // packed: the factors (n_fold, P)
   const T* x;         // interp: (n_lam,) λ - center at T
-  const T* inv;       // trsm: a caller's (batch, nt, B, B) inverses, or null
   T* scratch;         // (n_sys, nt, B, inv_ld) inverses kept out of shared
                       // memory, or null
-  const T* g;         // trsm: (batch, h, nrhs); interp: (n_fold, [n_lam,]
-                      // hp, nrhs), zero-padded to hp
-  T* out;             // trsm: (batch, h, nrhs); interp: (n_fold, n_lam, hp,
-                      // nrhs)
-  long long P;        // interp: values of one packed coefficient plane
-  int h, nt, nc;      // nc: coefficient planes (1 for the trsm)
-  int n_lam, nrhs, g_per_lam;
+  const T* g;         // dense: (batch, h, nrhs); interp, packed: (n_fold,
+                      // [n_lam,] hp, nrhs), zero-padded to hp
+  T* out;             // dense: (batch, h, nrhs); interp, packed: (n_fold,
+                      // n_lam, hp, nrhs)
+  long long P;        // interp, packed: values of one packed plane
+  int h, nt, nc;      // nc: coefficient planes (1 for dense and packed)
+  int n_lam, nrhs, g_per_lam;   // packed: n_lam 1, g_per_lam 0
   int sweeps;         // 1 forward (L v = g), 2 reverse (L^T v = g), 3 both
   int inv_in_smem, stages, chunk_rows;
   int vec;            // every staged row is 16-byte aligned
@@ -444,8 +451,7 @@ __host__ __device__ constexpr int inv_ld() { return B + 16 / (int)sizeof(T); }
 
 template <typename T, int B>
 __host__ __device__ inline SolveSmem solve_smem(int nt, int C, bool inv_smem,
-                                                bool prologue, int stage_elems,
-                                                int stages) {
+                                                int stage_elems, int stages) {
   constexpr int LD = inv_ld<T, B>();
   const long long hp = (long long)nt * B, R = (nt + C - 1) / C;
   SolveSmem m;
@@ -456,8 +462,7 @@ __host__ __device__ inline SolveSmem solve_smem(int nt, int C, bool inv_smem,
   m.rhs = m.red + kThreads;
   m.inv = m.rhs + B;
   m.work = m.inv + (inv_smem ? R * B * LD : 0);
-  const long long pro =
-      prologue ? (inv_smem ? 0 : (long long)B * LD) + (long long)B * kLdSub : 0;
+  const long long pro = (inv_smem ? 0 : (long long)B * LD) + (long long)B * kLdSub;
   const long long ring = (long long)stages * stage_elems;
   m.total = m.work + (pro > ring ? pro : ring);
   return m;
@@ -510,14 +515,15 @@ __device__ void invert_lower_tile(T* S, T* Xd) {
 }
 
 // One cluster per system: blockIdx.x / C is the system, the block's rank in
-// the cluster its place.  Systems: trsm (matrix, column), interp ((fold,
-// λ), column), column fastest.  CT: the compute type (T, or bf16 for the
-// mixed variants, T = float).
-template <typename T, int B, bool Interp, typename CT>
+// the cluster its place.  Systems: dense (matrix, column), interp ((fold,
+// λ), column), packed (factor, column), column fastest.  CT: the compute
+// type (T, or bf16 for the mixed variants, T = float); Src: the type the
+// tiles are stored in.
+template <typename T, int B, int Source, typename CT, typename Src>
 __global__ void __launch_bounds__(kThreads, 1)
-tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
+tri_solve_kernel(const SolveArgs<T, Src> a) {
   constexpr bool kMixed = !std::is_same<CT, T>::value;
-  using Src = SrcT<T, Interp, CT>;
+  constexpr bool kTiles = Source != kDense;   // tiles of the packed layout
   constexpr int LD = inv_ld<T, B>(), VN = 16 / sizeof(Src), NW = kThreads / 32;
   constexpr int NPH = kThreads / B;              // row phases of a column walk
   // warps that split the depth of a mixed product over a B-row result
@@ -526,6 +532,9 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
                 "B in 16..128");
   static_assert(!kMixed || std::is_same<T, float>::value,
                 "bf16 products have float sums");
+  static_assert(std::is_same<Src, T>::value ||
+                    (kMixed && Source != kDense && std::is_same<Src, CT>::value),
+                "tiles are stored at T, or in bf16 under bf16 products");
   using V = typename Vec16<Src>::type;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
@@ -534,10 +543,8 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
             warp = tid >> 5;
   const int cr = a.chunk_rows, nchunk = B / cr, plane = cr * B,
             stage_elems = a.nc * plane, S = a.stages;
-  const bool prologue = a.inv == nullptr;
   const SolveSmem m = solve_smem<T, B>(
-      nt, C, a.inv_in_smem, prologue,
-      (int)(stage_elems * sizeof(Src) / sizeof(T)), S);
+      nt, C, a.inv_in_smem, (int)(stage_elems * sizeof(Src) / sizeof(T)), S);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   T* wf = sm + m.wf;
@@ -548,15 +555,15 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
   T* work = sm + m.work;                  // the prologue's tile and inverses
   Src* ring = reinterpret_cast<Src*>(work);   // then the staging ring
 
-  const Src* TH;          // the system's factor (trsm) or coefficients (interp)
+  const Src* TH;          // the system's factor (dense, packed) or
+                          // coefficients (interp)
   const T* G;             // its right-hand side, column already applied
   T* O;                   // its output, column already applied
-  const T* INV = nullptr; // a caller's inverses of this factor
-  T xv = T(0);
-  if constexpr (Interp) {
+  T xv = T(0);            // λ - center (interp)
+  if constexpr (kTiles) {   // packed: n_lam = 1, the factor in the fold slot
     const long long col = sys % a.nrhs, fl = sys / a.nrhs, fold = fl / a.n_lam;
     TH = a.src + fold * a.nc * a.P;
-    xv = a.x[fl % a.n_lam];
+    if constexpr (Source == kInterp) xv = a.x[fl % a.n_lam];
     G = a.g + (a.g_per_lam ? fl : fold) * hp * a.nrhs + col;
     O = a.out + fl * hp * a.nrhs + col;
   } else {
@@ -564,19 +571,18 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
     TH = a.src + mat * a.h * a.h;
     G = a.g + mat * a.h * a.nrhs + col;
     O = a.out + mat * a.h * a.nrhs + col;
-    if (a.inv) INV = a.inv + mat * nt * B * B;
   }
-  const int nrows = Interp ? hp : a.h;          // rows of g and out
-  const long long ld = Interp ? B : a.h;        // row stride of a tile
+  const int nrows = kTiles ? hp : a.h;          // rows of g and out
+  const long long ld = kTiles ? B : a.h;        // row stride of a tile
   // tile (ti, tj), ti >= tj, coefficient plane k: its first value, and its
   // rows (or columns) inside h
   auto tile_at = [&](int ti, int tj, int k) -> const Src* {
-    if constexpr (Interp)
+    if constexpr (kTiles)
       return TH + k * a.P + (long long)(tj * nt - tj * (tj - 1) / 2 + ti - tj) * B * B;
     else
       return TH + (long long)ti * B * a.h + tj * B;
   };
-  auto inside = [&](int t) { return Interp ? B : min(B, a.h - t * B); };
+  auto inside = [&](int t) { return kTiles ? B : min(B, a.h - t * B); };
   auto owner = [&](int i) { return i % C; };
   auto slot = [&](int i) { return (i - me) / C; };     // place among my rows
   const int s_begin = (a.sweeps & 1) ? 0 : nt, s_end = (a.sweeps & 2) ? 2 * nt : nt;
@@ -587,7 +593,7 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
   for (int e = tid; e < (int)(m.red - m.acc); e += kThreads) acc[e] = T(0);
 
   // prologue: the inverses of my diagonal tiles
-  if (prologue) {
+  {
     T* Xd = work + (a.inv_in_smem ? 0 : B * LD);
     for (int i = me; i < nt; i += C) {
       T* D = a.inv_in_smem ? sm + m.inv + (long long)slot(i) * B * LD : work;
@@ -596,18 +602,18 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
       // D(r, c) = L_ii(r, c) for c <= r, else 0; identity past h
       auto put = [&](int r, int c, T v) {
         v = c <= r ? v : T(0);
-        if (r == c && lo + r >= a.h) v = Interp ? v + T(1) : T(1);
+        if (r == c && lo + r >= a.h) v = kTiles ? v + T(1) : T(1);
         D[r * LD + c] = v;
       };
-      // Horner at T (a bf16 Θ upcast), x unrounded
+      // Horner at T (bf16 tiles upcast), x unrounded; one plane: the value
       if (a.vec) {                        // 16-byte loads, the lower units only
         for (int e = tid; e < B * B / VN; e += kThreads) {
           const int r = e / (B / VN), c0 = e % (B / VN) * VN;
           T qv[VN];
 #pragma unroll
           for (int u = 0; u < VN; ++u) qv[u] = T(0);
-          if (c0 <= r && lo + r < (Interp ? lo + B : a.h) &&
-              lo + c0 < (Interp ? lo + B : a.h)) {
+          if (c0 <= r && lo + r < (kTiles ? lo + B : a.h) &&
+              lo + c0 < (kTiles ? lo + B : a.h)) {
             const long long off = (long long)r * ld + c0;
             const V q = *reinterpret_cast<const V*>(t0 + (a.nc - 1) * a.P + off);
             const Src* qs = reinterpret_cast<const Src*>(&q);
@@ -627,7 +633,7 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
         for (int e = tid; e < B * B; e += kThreads) {
           const int r = e / B, c = e % B;
           T v = T(0);
-          if (c <= r && (Interp || lo + r < a.h)) {
+          if (c <= r && (kTiles || lo + r < a.h)) {
             const long long off = (long long)r * ld + c;
             v = as_value(t0[(a.nc - 1) * a.P + off]);
             for (int k = a.nc - 2; k >= 0; --k)
@@ -645,12 +651,7 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
       }
     }
   }
-  auto inverse = [&](int i, int& ldx) -> const T* {
-    if (!prologue) {
-      ldx = B;
-      return INV + (long long)i * B * B;
-    }
-    ldx = LD;
+  auto inverse = [&](int i) -> const T* {
     return a.inv_in_smem ? sm + m.inv + (long long)slot(i) * B * LD
                          : a.scratch + (sys * nt + i) * B * LD;
   };
@@ -703,7 +704,7 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
             else
               *reinterpret_cast<V*>(d + r * B + cc) = V{};
           }
-        } else if constexpr (sizeof(Src) >= 4) {   // a bf16 Θ is always aligned
+        } else if constexpr (sizeof(Src) >= 4) {   // bf16 tiles are always aligned
           for (int e = tid; e < plane; e += kThreads) {
             const int r = e / B, cc = e % B;
             if (r < vr && cc < vc)
@@ -719,18 +720,18 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
   T xb = xv;              // x as the off-diagonal Horner takes it
   if constexpr (kMixed) xb = bf16_round(xv);
   auto value = [&](const Src* st, int off) -> T {   // Horner in registers
-    if constexpr (Interp && kMixed) {   // in bf16: every step rounded, as
-      float v = as_value(st[(a.nc - 1) * plane + off]);   // torch rounds it
-      for (int k = a.nc - 2; k >= 0; --k)
+    if constexpr (Source == kInterp && kMixed) {   // in bf16: every step
+      float v = as_value(st[(a.nc - 1) * plane + off]);   // rounded, as torch
+      for (int k = a.nc - 2; k >= 0; --k)                 // rounds it
         v = bf16_round(__fadd_rn(bf16_round(__fmul_rn(v, xb)),
                                  as_value(st[k * plane + off])));
       return v;
-    } else if constexpr (Interp) {
+    } else if constexpr (Source == kInterp) {
       T v = st[(a.nc - 1) * plane + off];
       for (int k = a.nc - 2; k >= 0; --k) v = v * xv + st[k * plane + off];
       return v;
-    } else {
-      return st[off];
+    } else {            // the tile's own value (bf16 tiles exact at T)
+      return as_value(st[off]);
     }
   };
 
@@ -828,8 +829,7 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
       ai[r] = T(0);
     }
     __syncthreads();
-    int ldx;
-    const T* X = inverse(i, ldx);
+    const T* X = inverse(i);
     T* dst = (fwd ? wf : wr) + i * B;
     T sum = T(0);
     if constexpr (kMixed) {   // a 16-row strip a warp, the depth over KQ warps
@@ -837,17 +837,17 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
       float mv[2][2] = {};
       for (int ks = kp; ks < B / 16; ks += KQ) {
         if (fwd)
-          warp_mv_bf16(mv, [&](int r, int k) { return X[(long long)(r0 + r) * ldx + k]; },
+          warp_mv_bf16(mv, [&](int r, int k) { return X[(long long)(r0 + r) * LD + k]; },
                        [&](int k) { return rhs[k]; }, ks * 16);
         else
-          warp_mv_bf16(mv, [&](int r, int k) { return X[(long long)k * ldx + r0 + r]; },
+          warp_mv_bf16(mv, [&](int r, int k) { return X[(long long)k * LD + r0 + r]; },
                        [&](int k) { return rhs[k]; }, ks * 16);
       }
       warp_mv_store(mv, red + kp * B + r0);
     } else if (fwd) {     // a thread a row of X_i, 16 bytes at a time
       const int r = tid % B;
-      const T* xr = X + (long long)r * ldx;
-      if (reinterpret_cast<uintptr_t>(X) % 16 == 0 && ldx % VN == 0) {
+      const T* xr = X + (long long)r * LD;
+      if (reinterpret_cast<uintptr_t>(X) % 16 == 0 && LD % VN == 0) {
         for (int c = tid / B * VN; c < B; c += NPH * VN) {
           const V q = *reinterpret_cast<const V*>(xr + c);
           const T* qv = reinterpret_cast<const T*>(&q);
@@ -859,7 +859,7 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
       }
     } else {              // a thread a column of X_i
       const int c = tid % B;
-      for (int r = tid / B; r < B; r += NPH) sum += X[(long long)r * ldx + c] * rhs[r];
+      for (int r = tid / B; r < B; r += NPH) sum += X[(long long)r * LD + c] * rhs[r];
     }
     if constexpr (!kMixed) red[tid] = sum;
     __syncthreads();
@@ -897,18 +897,17 @@ tri_solve_kernel(const SolveArgs<T, SrcT<T, Interp, CT>> a) {
 // Src: the type the tiles are staged in; min_rows: the fewest rows of a
 // chunk (16, one strip of a bf16 product, for the mixed variants)
 template <typename T, typename Src, int B>
-bool solve_layout(int nt, int nc, int C, bool prologue, int max_smem,
-                  int min_rows, SolvePlan* p) {
+bool solve_layout(int nt, int nc, int C, int max_smem, int min_rows,
+                  SolvePlan* p) {
   int cr0 = min_rows > 8 ? min_rows : 8;
   while (cr0 * 2 <= B && (long long)cr0 * 2 * nc * B * sizeof(Src) <= kStageBytes)
     cr0 *= 2;
   if (cr0 > B) cr0 = B;
   for (int cr = cr0; cr >= min_rows; cr /= 2)
-    for (int in_smem = prologue ? 1 : 0; in_smem >= 0; --in_smem)
+    for (int in_smem = 1; in_smem >= 0; --in_smem)
       for (int st = kMaxStages; st >= 2; --st) {
         const SolveSmem m = solve_smem<T, B>(
-            nt, C, in_smem, prologue,
-            (int)(nc * cr * B * sizeof(Src) / sizeof(T)), st);
+            nt, C, in_smem, (int)(nc * cr * B * sizeof(Src) / sizeof(T)), st);
         const long long bytes = m.total * (long long)sizeof(T);
         if (bytes <= max_smem) {
           *p = SolvePlan{C, 0, (nt + C - 1) / C, in_smem, (int)bytes, st, cr};
@@ -918,15 +917,18 @@ bool solve_layout(int nt, int nc, int C, bool prologue, int max_smem,
   return false;
 }
 
-template <typename T, int B, bool Interp, typename CT>
-int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) {
+// The plan of one instantiation (each has a cache of its own, so the three
+// tile sources, the compute types and the staged types never share one),
+// per device and shape.
+template <typename T, int B, int Source, typename CT, typename Src>
+int solve_plan(int nt, int nc, long long n_sys, SolvePlan* best) {
   constexpr bool kMixed = !std::is_same<CT, T>::value;
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, long long, int>, SolvePlan> cache;
+  static std::map<std::tuple<int, int, int, long long>, SolvePlan> cache;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const auto key = std::make_tuple(dev, nt, nc, n_sys, (int)prologue);
+  const auto key = std::make_tuple(dev, nt, nc, n_sys);
   std::lock_guard<std::mutex> lock(mu);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
@@ -936,14 +938,13 @@ int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) 
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  auto kern = tri_solve_kernel<T, B, Interp, CT>;
+  auto kern = tri_solve_kernel<T, B, Source, CT, Src>;
   bool found = false;
   long long best_score = 0;
   for (int C = kMaxCluster; C >= 1; C /= 2) {
     if (C > nt && C > 1) continue;
     SolvePlan p;
-    if (!solve_layout<T, SrcT<T, Interp, CT>, B>(nt, nc, C, prologue, max_smem,
-                                                 kMixed ? 16 : 1, &p))
+    if (!solve_layout<T, Src, B>(nt, nc, C, max_smem, kMixed ? 16 : 1, &p))
       continue;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                p.smem_bytes);
@@ -977,24 +978,23 @@ int solve_plan(int nt, int nc, long long n_sys, bool prologue, SolvePlan* best) 
   return 0;
 }
 
-template <typename T, int B, bool Interp, typename CT>
-int solve_launch(SolveArgs<T, SrcT<T, Interp, CT>> a, long long n_sys,
-                 int* plan_out, cudaStream_t stream) {
+template <typename T, int B, int Source, typename CT, typename Src>
+int solve_launch(SolveArgs<T, Src> a, long long n_sys, int* plan_out,
+                 cudaStream_t stream) {
   SolvePlan p;
-  int rc = solve_plan<T, B, Interp, CT>(a.nt, a.nc, n_sys, a.inv == nullptr, &p);
+  int rc = solve_plan<T, B, Source, CT, Src>(a.nt, a.nc, n_sys, &p);
   if (rc) return rc;
   if (plan_out) {
     const int v[kPlanInts] = {p.cluster, p.max_active, p.rows_per_block,
                               p.inv_in_smem, p.smem_bytes, p.stages, p.chunk_rows};
     for (int k = 0; k < kPlanInts; ++k) plan_out[k] = v[k];
   }
-  if (a.inv == nullptr && !p.inv_in_smem && a.scratch == nullptr)
-    return kNeedsScratch;
+  if (!p.inv_in_smem && a.scratch == nullptr) return kNeedsScratch;
   if (n_sys * p.cluster > 2147483647LL) return (int)cudaErrorInvalidValue;
   a.inv_in_smem = p.inv_in_smem;
   a.stages = p.stages;
   a.chunk_rows = p.chunk_rows;
-  auto kern = tri_solve_kernel<T, B, Interp, CT>;
+  auto kern = tri_solve_kernel<T, B, Source, CT, Src>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1018,17 +1018,19 @@ int solve_launch(SolveArgs<T, SrcT<T, Interp, CT>> a, long long n_sys,
 // The launch of one call, B at run time (one of 16, 32, 64, 128).  The
 // plan (cached per device and shape) goes to plan_out, when given, as
 // kPlanInts ints in SolvePlan's order.  Returns kNeedsScratch, launching
-// nothing, when the kernel is to form inverses that do not fit in shared
-// memory and a.scratch is null.  CT: the compute type (T, or bf16 with T =
-// float for the mixed variants).
-template <typename T, bool Interp, typename CT = T>
-int tri_solve_launch(const SolveArgs<T, SrcT<T, Interp, CT>>& a, int B,
-                     long long n_sys, int* plan_out, cudaStream_t stream) {
+// nothing, when the inverses the kernel forms do not fit in shared memory
+// and a.scratch is null.  Source: kDense, kInterp or kPacked; CT: the
+// compute type (T, or bf16 with T = float for the mixed variants); Src:
+// the type the tiles are stored in (T, or bf16 for Θ or a packed factor
+// under bf16 products).
+template <typename T, int Source, typename CT = T, typename Src = T>
+int tri_solve_launch(const SolveArgs<T, Src>& a, int B, long long n_sys,
+                     int* plan_out, cudaStream_t stream) {
   switch (B) {
-    case 16: return solve_launch<T, 16, Interp, CT>(a, n_sys, plan_out, stream);
-    case 32: return solve_launch<T, 32, Interp, CT>(a, n_sys, plan_out, stream);
-    case 64: return solve_launch<T, 64, Interp, CT>(a, n_sys, plan_out, stream);
-    case 128: return solve_launch<T, 128, Interp, CT>(a, n_sys, plan_out, stream);
+    case 16: return solve_launch<T, 16, Source, CT, Src>(a, n_sys, plan_out, stream);
+    case 32: return solve_launch<T, 32, Source, CT, Src>(a, n_sys, plan_out, stream);
+    case 64: return solve_launch<T, 64, Source, CT, Src>(a, n_sys, plan_out, stream);
+    case 128: return solve_launch<T, 128, Source, CT, Src>(a, n_sys, plan_out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

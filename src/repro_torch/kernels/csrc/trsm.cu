@@ -12,7 +12,7 @@
 // of L for the transposed one), the solved segments passed between the
 // blocks through distributed shared memory, L's tiles staged by cp.async
 // ahead of the barriers, and the diagonal tiles read and inverted in the
-// kernel's prologue unless the caller gives their inverses.
+// kernel's prologue.
 //
 // The factor is read unpadded (h, h); rows and columns past h are
 // zero-filled in shared memory, and the identity tail of the last diagonal
@@ -34,12 +34,11 @@
 #include "tri_solve.cuh"
 
 template <typename T, typename CT = T>
-static int trsm(const void* l, const void* g, const void* inv, void* scratch,
-                void* out, int batch, int h, int B, int nrhs, int transpose,
-                int* plan, void* stream) {
+static int trsm(const void* l, const void* g, void* scratch, void* out,
+                int batch, int h, int B, int nrhs, int transpose, int* plan,
+                void* stream) {
   SolveArgs<T> a = {};
   a.src = static_cast<const T*>(l);
-  a.inv = static_cast<const T*>(inv);
   a.scratch = static_cast<T*>(scratch);
   a.g = static_cast<const T*>(g);
   a.out = static_cast<T*>(out);
@@ -50,36 +49,35 @@ static int trsm(const void* l, const void* g, const void* inv, void* scratch,
   a.nrhs = nrhs;
   a.sweeps = transpose ? 2 : 1;
   a.vec = reinterpret_cast<uintptr_t>(l) % 16 == 0 && h % (16 / sizeof(T)) == 0;
-  return tri_solve_launch<T, false, CT>(a, B, (long long)batch * nrhs, plan,
-                                        static_cast<cudaStream_t>(stream));
+  return tri_solve_launch<T, kDense, CT>(a, B, (long long)batch * nrhs, plan,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
-// l: (batch, h, h) lower factors; g, out: (batch, h, nrhs); inv: (batch, nt,
-// B, B) inverses of the identity-padded diagonal tiles, or null (then the
-// kernel forms them); scratch: (batch * nrhs, nt, B, inv_ld) for formed
-// inverses that do not fit in shared memory, or null (then a launch that
+// l: (batch, h, h) lower factors; g, out: (batch, h, nrhs); scratch:
+// (batch * nrhs, nt, B, inv_ld) for the formed inverses of the diagonal
+// tiles when they do not fit in shared memory, or null (then a launch that
 // needs it returns kNeedsScratch and launches nothing); plan: null, or
 // kPlanInts ints that receive the launch plan (cluster size, the
 // occupancy's active clusters at it, rows per block, inverses in shared
 // memory, shared bytes, ring stages, rows per chunk).
-int rt_trsm_f64(const void* l, const void* g, const void* inv, void* scratch,
-                void* out, int batch, int h, int B, int nrhs, int transpose,
-                int* plan, void* stream) {
-  return trsm<double>(l, g, inv, scratch, out, batch, h, B, nrhs, transpose,
-                      plan, stream);
+int rt_trsm_f64(const void* l, const void* g, void* scratch, void* out,
+                int batch, int h, int B, int nrhs, int transpose, int* plan,
+                void* stream) {
+  return trsm<double>(l, g, scratch, out, batch, h, B, nrhs, transpose, plan,
+                      stream);
 }
-int rt_trsm_f32(const void* l, const void* g, const void* inv, void* scratch,
-                void* out, int batch, int h, int B, int nrhs, int transpose,
-                int* plan, void* stream) {
-  return trsm<float>(l, g, inv, scratch, out, batch, h, B, nrhs, transpose,
-                     plan, stream);
+int rt_trsm_f32(const void* l, const void* g, void* scratch, void* out,
+                int batch, int h, int B, int nrhs, int transpose, int* plan,
+                void* stream) {
+  return trsm<float>(l, g, scratch, out, batch, h, B, nrhs, transpose, plan,
+                     stream);
 }
 // the same arguments, float32 throughout; the products in bf16
-int rt_trsm_f32_bf16(const void* l, const void* g, const void* inv,
-                     void* scratch, void* out, int batch, int h, int B,
-                     int nrhs, int transpose, int* plan, void* stream) {
-  return trsm<float, __nv_bfloat16>(l, g, inv, scratch, out, batch, h, B, nrhs,
+int rt_trsm_f32_bf16(const void* l, const void* g, void* scratch, void* out,
+                     int batch, int h, int B, int nrhs, int transpose,
+                     int* plan, void* stream) {
+  return trsm<float, __nv_bfloat16>(l, g, scratch, out, batch, h, B, nrhs,
                                     transpose, plan, stream);
 }
 }

@@ -4,16 +4,31 @@ CUDA kernel.
 Replaces ``src/repro/kernels/packed_trsm.py`` ``solve_lower_packed`` (the
 Pallas call at ``:166``, body ``_make_kernel`` ``:42``, tile map
 ``_step_tile_indices`` ``:83``) and ``solve_packed`` (``:176``, the forward
-call followed by the transposed one): one block per (factor, RHS column)
-walks the tile rows, forward for ``L w = g`` and in reverse for
-``Lᵀ w = g`` (column i of packed L read as row i of Lᵀ), holding the solved
-segment in shared memory.  The diagonal tiles are inverted outside the
-kernel, once for both sweeps
-(:func:`~repro_torch.kernels.ref.packed_diag_inverses`, as
-``_inv_diag_tiles`` ``:112``).  Bound by bytes; see
-``csrc/packed_trsm.cu``.  The plain versions are
-:func:`repro_torch.core.packing.solve_lower_packed` /
-:func:`~repro_torch.core.packing.solve_packed_ref`.
+call followed by the transposed one).  A packed factor is a degree-0
+interpolant, so the kernel is the cluster solve of ``csrc/tri_solve.cuh``
+with the packed tile source: a cluster of up to 8 blocks per (factor, RHS
+column), right-looking, tile (i, j) found in the factor at its packed
+offset (no map), the diagonal tiles inverted in the kernel's prologue.
+``solve_packed`` is one launch for both sweeps; ``solve_lower_packed`` one
+launch of the forward (``L w = g``) or the reverse (``Lᵀ w = g``, column i
+of packed L read as row i of Lᵀ) sweep.  The block B is a compile-time
+parameter, one of :data:`_build.BLOCKS`.  Bound by bytes; see
+``csrc/packed_trsm.cu``.
+
+``compute_dtype`` / ``accum_dtype`` resolve as the Pallas kernel's
+``_resolve_dtypes`` (``:99``): compute inherits the factor's dtype, accum
+is float32 for a 16-bit compute dtype.  Under bf16 products (the mixed
+variant: a bf16 factor by default, or a policy's bf16 compute dtype) every
+product runs on the bf16 tensor cores with float32 sums: the tiles, the
+solved segments, the inverses and g_i − acc_i rounded to bf16, the
+inverses formed at float32 from the factor's own values, g and the
+solution float32 (``:17-24``, ``:61-80``, ``:112-123``).  A bf16 factor is
+read in bf16; a float32 factor is rounded as the fragments are formed; a
+float64 factor is cast to float32 first (so its tiles round twice, f64 →
+f32 → bf16, where the Pallas kernel rounds once).  It counts under
+``solve_lower_packed_bf16``.  The plain versions are
+:func:`repro_torch.kernels.ref.solve_lower_packed` /
+:func:`~repro_torch.kernels.ref.solve_packed`.
 """
 from __future__ import annotations
 
@@ -28,67 +43,76 @@ from . import _build, ref
 
 __all__ = ["solve_lower_packed", "solve_packed"]
 
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
 
-def solve_lower_packed(vec: torch.Tensor, g: torch.Tensor, h: int,
-                       block: int = 128, *, transpose: bool = False,
-                       inv_diag: torch.Tensor | None = None) -> torch.Tensor:
-    """Solve ``L w = g`` (or ``Lᵀ w = g``) from packed factor(s) ``vec``
-    (…, P); ``g`` is (…, h) or (…, h, m) with the same leading dims.  The
-    solution comes back at ``vec``'s dtype.
-
-    ``inv_diag`` (from :func:`~repro_torch.kernels.ref.packed_diag_inverses`)
-    skips the diagonal inversion; one inversion serves both sweeps.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    """
-    if vec.device.type == "cpu":
-        return packing.solve_lower_packed(vec, g, h, block,
-                                          transpose=transpose)
-    _build.check_tensor(vec, "solve_lower_packed factor")
+def _solve(vec: torch.Tensor, g: torch.Tensor, h: int, block: int,
+           sweeps: int, compute_dtype, accum_dtype) -> torch.Tensor:
+    """``sweeps`` 1 (L w = g), 2 (Lᵀ w = g) or 3 (both in turn) from packed
+    factor(s) ``vec`` (…, P); ``g`` (…, h) or (…, h, m) with the same
+    leading dims → the solution at the accumulation dtype."""
+    cd, ad = _build.resolve_dtypes(vec.dtype, compute_dtype, accum_dtype)
+    mixed = cd != ad
+    # the tiles as the kernel stores them: a bf16 factor in bf16 under bf16
+    # products, any other factor at the accumulation dtype
+    vec = vec.to(cd if cd == vec.dtype and mixed else ad)
     lead = vec.shape[:-1]
     squeeze = g.ndim == vec.ndim
-    g2 = g[..., None] if squeeze else g
-    nt = packing.num_tiles(h, block)
-    p_size = packing.packed_size(h, block)
-    if inv_diag is None:
-        inv_diag = ref.packed_diag_inverses(vec, h, block)
-    if (vec.shape[-1] != p_size or g2.shape[:-1] != (*lead, h)
-            or inv_diag.shape != (*lead, nt, block, block)):
+    g2 = (g[..., None] if squeeze else g).to(ad)
+    if vec.shape[-1] != packing.packed_size(h, block) \
+            or g2.shape[:-1] != (*lead, h):
         raise ValueError(f"solve_lower_packed: shapes {tuple(vec.shape)}, "
-                         f"{tuple(g.shape)}, {tuple(inv_diag.shape)} do not "
-                         f"match h={h}, block={block}")
-    if block > 256:
-        raise ValueError(f"solve_lower_packed: block {block} > 256")
+                         f"{tuple(g.shape)} do not match h={h}, "
+                         f"block={block}")
+    if vec.device.type == "cpu":
+        plain_cd = cd if mixed else None
+        if sweeps == 3:
+            w = ref.solve_packed(vec, g2, h, block, plain_cd)
+        else:
+            w = ref.solve_lower_packed(vec, g2, h, block,
+                                       transpose=sweeps == 2,
+                                       compute_dtype=plain_cd)
+        return w[..., 0] if squeeze else w
+    _build.check_mixed(cd, ad, "solve_lower_packed")
+    _build.check_block(block, "solve_lower_packed")
+    nt = packing.num_tiles(h, block)
     batch, nrhs = math.prod(lead), g2.shape[-1]
-    hp = nt * block
-    g2 = torch.nn.functional.pad(g2.to(vec.dtype), (0, 0, 0, hp - h))
-    g2 = g2.reshape(batch, hp, nrhs)
-    for t, what in ((g2, "rhs"), (inv_diag, "inverses")):
-        _build.check_tensor(t, f"solve_lower_packed {what}", vec.dtype)
-    pmap = torch.as_tensor(packing.tile_pos_map(h, block), device=vec.device)
+    vec = vec.reshape(batch, -1)
+    g2 = torch.nn.functional.pad(g2, (0, 0, 0, nt * block - h))
+    g2 = g2.reshape(batch, nt * block, nrhs).contiguous()
+    _build.check_tensor(vec, "solve_lower_packed factor",
+                        vec.dtype if mixed else None)
+    _build.check_tensor(g2, "solve_lower_packed rhs", ad)
     out = torch.empty_like(g2)
     if batch and nrhs:
         fn = _build.c_function("packed_trsm",
-                               f"rt_packed_trsm_{_build.suffix(vec.dtype)}",
+                               _build.entry("packed_trsm", vec.dtype, cd),
                                _ARGS)
-        rc = fn(_build.ptr(vec), _build.ptr(g2), _build.ptr(inv_diag),
-                _build.ptr(pmap), _build.ptr(out), batch, nt, block, p_size,
-                nrhs, int(transpose), _build.stream_ptr(vec.device))
-        _build.check(rc, "solve_lower_packed")
-        _build.count_launch("solve_lower_packed")
+        _build.launch_solve(
+            _build.MIXED_NAMES["solve_lower_packed"] if mixed
+            else "solve_lower_packed", fn,
+            (_build.ptr(vec), _build.ptr(g2)),
+            (_build.ptr(out), batch, h, block, nrhs, sweeps),
+            (batch * nrhs, nt, block, ad), vec.device)
     out = out[:, :h].reshape(*lead, h, nrhs)
     return out[..., 0] if squeeze else out
 
 
+def solve_lower_packed(vec: torch.Tensor, g: torch.Tensor, h: int,
+                       block: int = 128, *, transpose: bool = False,
+                       compute_dtype=None, accum_dtype=None) -> torch.Tensor:
+    """Solve ``L w = g`` (or ``Lᵀ w = g``) from packed factor(s) ``vec``
+    (…, P); ``g`` is (…, h) or (…, h, m) with the same leading dims.  The
+    solution comes back at the accumulation dtype.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (one launch)."""
+    return _solve(vec, g, h, block, 2 if transpose else 1, compute_dtype,
+                  accum_dtype)
+
+
 def solve_packed(vec: torch.Tensor, g: torch.Tensor, h: int,
-                 block: int = 128) -> torch.Tensor:
-    """L Lᵀ θ = g from packed factor(s) (…, P): the forward launch, then
-    the transposed one, sharing one inversion of the diagonal tiles.
-    ``g`` as for :func:`solve_lower_packed`."""
-    if vec.device.type == "cpu":
-        return packing.solve_packed_ref(vec, g, h, block)
-    inv = ref.packed_diag_inverses(vec, h, block)
-    w = solve_lower_packed(vec, g, h, block, inv_diag=inv)
-    return solve_lower_packed(vec, w, h, block, transpose=True, inv_diag=inv)
+                 block: int = 128, *, compute_dtype=None,
+                 accum_dtype=None) -> torch.Tensor:
+    """L Lᵀ θ = g from packed factor(s) (…, P): both sweeps in one launch.
+    Arguments as for :func:`solve_lower_packed`."""
+    return _solve(vec, g, h, block, 3, compute_dtype, accum_dtype)

@@ -6,7 +6,11 @@ factors, and fused with the packed substitution.
 ``:48``): one block per (dense tile, fold, chunk of λs) Horner-evaluates
 its tile of every L(λ) of the chunk from Θ and writes it straight into the
 unpadded (…, q, h, h) output, upper tiles and the upper half of diagonal
-tiles as zeros.  Bound by bytes (the dense outputs).
+tiles as zeros; the packed tile is found at its offset (no map).  It runs
+at Θ's dtype, bf16 included: a bf16 Θ gives bf16 factors, each Horner step
+computed in float32 and rounded to bf16 after the product and after the
+sum, as torch rounds bf16 arithmetic (counted under
+``interp_factors_bf16``).  Bound by bytes (the dense outputs).
 
 ``interp_solve`` replaces ``src/repro/kernels/poly_interp.py``
 ``interp_solve`` (the Pallas call ``_interp_sweep`` at ``:195``, body
@@ -47,7 +51,7 @@ __all__ = ["interp_factors", "interp_solve"]
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
          + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-_FACTOR_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_FACTOR_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -63,9 +67,10 @@ def interp_factors(theta: torch.Tensor, lams: torch.Tensor, h: int,
                    block: int = 128, *, center=0.0) -> torch.Tensor:
     """Dense interpolated factors L(λ) at every λ.
 
-    ``theta``: (…, r+1, P) packed coefficients (leading dims are folds);
-    ``lams``: (q,).  Returns (…, q, h, h) lower-triangular at Θ's dtype.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    ``theta``: (…, r+1, P) packed coefficients (leading dims are folds)
+    in float64, float32 or bf16; ``lams``: (q,).  Returns (…, q, h, h)
+    lower-triangular at Θ's dtype.  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel.
     """
     lead = theta.shape[:-2]
     r1, p_size = theta.shape[-2:]
@@ -78,20 +83,21 @@ def interp_factors(theta: torch.Tensor, lams: torch.Tensor, h: int,
         return ref.interp_factors(theta, x, h, block)
     n, q = math.prod(lead), x.shape[0]
     th = theta.reshape(n, r1, p_size)
-    _build.check_tensor(th, "interp_factors theta")    # float32 or float64
+    bf16 = dt == torch.bfloat16
+    _build.check_tensor(th, "interp_factors theta", dt if bf16 else None)
     _build.check_tensor(x, "interp_factors lams", dt)
     nt = packing.num_tiles(h, block)
-    pmap = torch.as_tensor(packing.tile_pos_map(h, block), device=theta.device)
     out = torch.empty((n, q, h, h), dtype=dt, device=theta.device)
     if n and q and h:
         fn = _build.c_function("poly_interp",
                                f"rt_interp_factors_{_build.suffix(dt)}",
                                _FACTOR_ARGS)
-        rc = fn(_build.ptr(th), _build.ptr(x), _build.ptr(pmap),
-                _build.ptr(out), n, q, r1 - 1, nt, block, p_size, h,
+        rc = fn(_build.ptr(th), _build.ptr(x), _build.ptr(out), n, q,
+                r1 - 1, nt, block, p_size, h,
                 _build.stream_ptr(theta.device))
         _build.check(rc, "interp_factors")
-        _build.count_launch("interp_factors")
+        _build.count_launch(_build.MIXED_NAMES["interp_factors"] if bf16
+                            else "interp_factors")
     return out.reshape(*lead, q, h, h)
 
 

@@ -1,7 +1,6 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-The plain versions of ``pack_tril``, ``unpack_tril`` and the packed trsm
-(``solve_lower_packed`` / ``solve_packed``) are those of
+The plain versions of ``pack_tril`` and ``unpack_tril`` are those of
 :mod:`repro_torch.core.packing`.
 
 Each function computes what its kernel computes, with the kernel's
@@ -20,11 +19,12 @@ Factorizations and inversions stay at the state's dtype.
 
 The diagonal-tile helpers (:func:`dense_diag_inverses`,
 :func:`packed_diag_inverses`, :func:`interp_diag_inverses`) serve the
-plain versions and the packed trsm's wrapper, as the JAX package computes
-the inverses outside Pallas.  The dense trsm and ``interp_solve`` kernels
-form theirs in their prologue; :func:`invert_lower_tile` is that
-inversion, and :func:`solve_right_looking` (with :func:`cluster_plan`) the
-kernels' cluster order of the substitution, for the tests.
+plain versions, as the JAX package computes the inverses outside Pallas.
+The three cluster-solve kernels (the dense trsm, ``interp_solve`` and the
+packed trsm) form theirs in their prologue; :func:`invert_lower_tile` is
+that inversion, and :func:`solve_right_looking` (with
+:func:`cluster_plan`) the kernels' cluster order of the substitution, for
+the tests.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import packing
 
 __all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
+           "solve_lower_packed", "solve_packed",
            "interp_solve", "interp_factors", "dense_diag_inverses",
            "packed_diag_inverses", "interp_diag_inverses",
            "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
@@ -171,7 +172,6 @@ def packed_diag_inverses(vec: torch.Tensor, h: int,
 
 def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
                         transpose: bool = False,
-                        inv_diag: torch.Tensor | None = None,
                         compute_dtype=None) -> torch.Tensor:
     """Blocked ``L w = g`` (or ``Lᵀ w = g``): l (…, h, h), g (…, h, q) →
     (…, h, q).  Per tile row, the row panel over the solved columns times
@@ -184,8 +184,7 @@ def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
     h = l.shape[-1]
     nt = packing.num_tiles(h, block)
     hp = nt * block
-    if inv_diag is None:
-        inv_diag = dense_diag_inverses(l, block)
+    inv_diag = dense_diag_inverses(l, block)
     lp = _identity_padded(l, block)
     gp = torch.nn.functional.pad(g, (0, 0, 0, hp - h))
     w = torch.zeros_like(gp)
@@ -203,6 +202,51 @@ def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
         w[..., lo:hi, :] = _rounded(inv, cd) @ _rounded(
             gp[..., lo:hi, :] - s, cd)
     return w[..., :h, :]
+
+
+def solve_lower_packed(vec: torch.Tensor, g: torch.Tensor, h: int,
+                       block: int, *, transpose: bool = False,
+                       compute_dtype=None) -> torch.Tensor:
+    """The packed trsm: ``L w = g`` (or ``Lᵀ w = g``) from packed factors
+    vec (…, P), g (…, h, m) → (…, h, m) at g's dtype (the accumulation
+    dtype; ``vec`` is read at it, exactly for a bf16 factor).  Per tile
+    row, the solved segments times the row's tiles (for ``Lᵀ``, column i of
+    packed L read as row i of Lᵀ), then the pre-inverted diagonal tile,
+    inverted at g's dtype from the factor's own values.  With
+    ``compute_dtype`` the tiles, the solved segments, the inverses and the
+    right-hand sides g_i − acc_i are rounded to it before their products
+    (``src/repro/kernels/packed_trsm.py:61-80``, ``:138``)."""
+    cd, dt = compute_dtype, g.dtype
+    nt = packing.num_tiles(h, block)
+    hp = nt * block
+    v = vec.to(dt)
+    tiles = _rounded(v.reshape(*v.shape[:-1], -1, block, block), cd)
+    inv = _rounded(packed_diag_inverses(v, h, block), cd)
+    pmap = packing.tile_pos_map(h, block)
+    gp = torch.nn.functional.pad(g, (0, 0, 0, hp - h))
+    w = torch.zeros_like(gp)
+    for i in (range(nt - 1, -1, -1) if transpose else range(nt)):
+        lo, hi = i * block, (i + 1) * block
+        acc = torch.zeros_like(gp[..., lo:hi, :])
+        for t in (range(i + 1, nt) if transpose else range(i)):
+            seg = _rounded(w[..., t * block:(t + 1) * block, :], cd)
+            if transpose:
+                acc = acc + tiles[..., int(pmap[t, i]), :, :].mT @ seg
+            else:
+                acc = acc + tiles[..., int(pmap[i, t]), :, :] @ seg
+        x = inv[..., i, :, :]
+        w[..., lo:hi, :] = (x.mT if transpose else x) @ _rounded(
+            gp[..., lo:hi, :] - acc, cd)
+    return w[..., :h, :]
+
+
+def solve_packed(vec: torch.Tensor, g: torch.Tensor, h: int, block: int,
+                 compute_dtype=None) -> torch.Tensor:
+    """L Lᵀ w = g from packed factors: :func:`solve_lower_packed` forward,
+    then transposed on its result (the kernel's two sweeps)."""
+    w = solve_lower_packed(vec, g, h, block, compute_dtype=compute_dtype)
+    return solve_lower_packed(vec, w, h, block, transpose=True,
+                              compute_dtype=compute_dtype)
 
 
 def interp_diag_inverses(theta: torch.Tensor, x: torch.Tensor, h: int,
@@ -233,8 +277,11 @@ def interp_diag_inverses(theta: torch.Tensor, x: torch.Tensor, h: int,
 def interp_factors(theta: torch.Tensor, x: torch.Tensor, h: int,
                    block: int) -> torch.Tensor:
     """Dense interpolated factors: theta (…, r+1, P), x (q,) λ − center at
-    Θ's dtype → (…, q, h, h).  Horner over the packed rows, then
-    :func:`~repro_torch.core.packing.unpack_tril`."""
+    Θ's dtype → (…, q, h, h) at Θ's dtype.  Horner over the packed rows,
+    then :func:`~repro_torch.core.packing.unpack_tril`.  For a bf16 Θ each
+    multiply and each add is a bf16 operation of its own, rounded to
+    nearest even (torch computes it in fp32 and rounds), as the kernel
+    rounds each step."""
     degree = theta.shape[-2] - 1
     xs = x.to(theta.dtype)[:, None]
     acc = theta.new_zeros((*theta.shape[:-2], x.shape[0], theta.shape[-1]))

@@ -5,12 +5,15 @@ same check ``chip_smoke.py`` makes at the main path's shapes), for blocks
 16, 32, 64 and 128, for h below, between and above the blocks (ragged
 everywhere), in float64 and float32; then the engine drivers, the host-loop
 drivers, the packed solve and the Gauss–Newton head on the kernel backend
-against the reference backend; the two cluster solves (dense trsm,
-``interp_solve``) at more tile rows than a cluster has blocks and at one
-tile row; the mixed-precision variants (bf16 products, float32 sums)
-against their plain versions, nt = 17 too; the ``ssm_scan`` kernel at N 8,
-16 and 32 on ragged shapes, and the reduced Mamba model against the JAX
-fixture.  Skipped without a CUDA device.  On the
+against the reference backend; the three cluster solves (dense trsm,
+``interp_solve``, packed trsm) at more tile rows than a cluster has blocks
+and at one tile row; the packed trsm at every block, one and both sweeps,
+in float64, float32 and under bf16 products (bf16 and float32 factors);
+``interp_factors`` on a bf16 Θ bit for bit; the mixed-precision variants
+(bf16 products, float32 sums) against their plain versions, nt = 17 too;
+the Gauss–Newton head under ``bf16_store``; the ``ssm_scan`` kernel at N
+8, 16 and 32 on ragged shapes, and the reduced Mamba model against the
+JAX fixture.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -54,10 +57,10 @@ def test_kernels_match_plain_versions(dev, smoke, block, h, dtype):
 @pytest.mark.parametrize("h", [40, 200, 999])
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
 def test_mixed_variants_match_plain_versions(dev, smoke, block, h):
-    """The mixed-precision Cholesky, dense trsm and interp_solve (bf16
-    products, float32 sums, Θ in bf16) against their plain versions in
-    float32, within ``chip_smoke.MIXED_TOL`` (its comment gives the
-    reasons)."""
+    """The mixed-precision Cholesky, dense trsm, interp_solve and packed
+    trsm (bf16 products, float32 sums, Θ and packed factors in bf16), and
+    interp_factors on a bf16 Θ, against their plain versions in float32,
+    within ``chip_smoke.MIXED_TOL`` (its comment gives the reasons)."""
     res = smoke.check_mixed(dev, h, block, 4, 3, 3)
     torch.cuda.synchronize()
     assert all(r["ok"] for r in res.values()), res
@@ -132,16 +135,16 @@ def test_pack_tril_bit_exact_on_misaligned_rows(dev, block, h, dtype,
                          ids=["nt13", "nt32", "nt1", "nt17"])
 def test_cluster_solves_match_plain_versions(dev, smoke, h, block, nrhs,
                                             dtype):
-    """The dense trsm (both sweeps, with and without the caller's diagonal
-    inverses) and interp_solve (g shared over λ and one g per λ) against
-    their plain versions: more tile rows than a cluster has blocks, one
-    tile row, and (nt17) three tile rows a block at B = 128, whose formed
-    inverses do not fit in shared memory and go to the scratch tensor.
-    One cluster launch per call.  Tolerance: smoke.TOL, the plain versions
-    sum in another order."""
+    """The dense trsm (each sweep), the packed trsm (both sweeps) and
+    interp_solve (g shared over λ and one g per λ) against their plain
+    versions: more tile rows than a cluster has blocks, one tile row, and
+    (nt17) three tile rows a block at B = 128, whose formed inverses do not
+    fit in shared memory and go to the scratch tensor.  One cluster launch
+    per call.  Tolerance: smoke.TOL, the plain versions sum in another
+    order."""
     from repro_torch.core import packing
-    from repro_torch.kernels import (LAUNCHES, _build, poly_interp, ref,
-                                     reset_launches, trsm)
+    from repro_torch.kernels import (LAUNCHES, _build, packed_trsm,
+                                     poly_interp, ref, reset_launches, trsm)
     tol = smoke.TOL[dtype]
     scratch = h == 2100
     gen = torch.Generator(device=dev).manual_seed(h + nrhs)
@@ -150,19 +153,23 @@ def test_cluster_solves_match_plain_versions(dev, smoke, h, block, nrhs,
     l = torch.linalg.cholesky(x.mT @ x / h + torch.eye(
         h, device=dev, dtype=torch.float64)).to(dtype).contiguous()
     g = torch.randn(4, h, nrhs, generator=gen, device=dev, dtype=dtype)
-    inv = ref.dense_diag_inverses(l, block)
     for transpose in (False, True):
         want = ref.solve_lower_blocked(l, g, block, transpose=transpose)
-        for given in (None, inv):
-            reset_launches()
-            got = trsm.solve_lower_blocked(l, g, block, transpose=transpose,
-                                           inv_diag=given)
-            torch.cuda.synchronize()
-            assert LAUNCHES["solve_lower_blocked"] == 1
-            if scratch and given is None:
-                assert not _build.PLANS["solve_lower_blocked"]["inv_in_smem"]
-            assert smoke.errors(got, want)[1] <= tol
+        reset_launches()
+        got = trsm.solve_lower_blocked(l, g, block, transpose=transpose)
+        torch.cuda.synchronize()
+        assert LAUNCHES["solve_lower_blocked"] == 1
+        if scratch:
+            assert not _build.PLANS["solve_lower_blocked"]["inv_in_smem"]
+        assert smoke.errors(got, want)[1] <= tol
     v = packing.pack_tril(l, block)
+    reset_launches()
+    got = packed_trsm.solve_packed(v, g, h, block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["solve_lower_packed"] == 1
+    if scratch:
+        assert not _build.PLANS["solve_lower_packed"]["inv_in_smem"]
+    assert smoke.errors(got, ref.solve_packed(v, g, h, block))[1] <= tol
     theta = torch.stack([v[:2], 0.1 * v[2:], 0.01 * v[:2]], 1).contiguous()
     lams = torch.tensor([0.1, 0.5, 2.0], device=dev, dtype=torch.float64)
     xs = lams.to(dtype)
@@ -198,6 +205,124 @@ def test_drivers_match_reference_backend(dev, block):
         np.testing.assert_allclose(got.errors, want.errors, rtol=1e-8)
 
 
+PACKED_CASES = {"f64": (torch.float64, None), "f32": (torch.float32, None),
+                "bf16_factor": (torch.bfloat16, torch.bfloat16),
+                "f32_factor_bf16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("case", list(PACKED_CASES))
+@pytest.mark.parametrize("h", [40, 200, 999])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_packed_trsm_matches_plain_version(dev, smoke, block, h, case):
+    """The packed trsm (the cluster solve with the packed tile source)
+    against its plain version: three factors, 1 and 17 right-hand-side
+    columns, the forward, the transposed and both sweeps, one launch each;
+    float64 and float32 within smoke.TOL (another order of sums), and bf16
+    products on bf16 and on float32 factors within
+    ``chip_smoke.MIXED_TOL`` with the ratio of the errors of kernel and
+    plain against the float64 solve within ``chip_smoke.ERROR_RATIO``."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import (LAUNCHES, packed_trsm, ref,
+                                     reset_launches)
+    dtype, cd = PACKED_CASES[case]
+    mixed = cd is not None
+    gen = torch.Generator(device=dev).manual_seed(h + block)
+    x = torch.randn(3, 2 * h, h, generator=gen, device=dev,
+                    dtype=torch.float64)
+    l = torch.linalg.cholesky(x.mT @ x / h + torch.eye(
+        h, device=dev, dtype=torch.float64))
+    vec = packing.pack_tril(l, block).to(dtype).contiguous()
+    state = torch.float32 if mixed else dtype
+    name = "solve_lower_packed_bf16" if mixed else "solve_lower_packed"
+    for nrhs in (1, 17):
+        g = torch.randn(3, h, nrhs, generator=gen, device=dev, dtype=state)
+        for sweeps in (1, 2, 3):
+            reset_launches()
+            if sweeps == 3:
+                got = packed_trsm.solve_packed(vec, g, h, block,
+                                               compute_dtype=cd)
+                want = ref.solve_packed(vec, g, h, block, cd)
+                exact = ref.solve_packed(vec.double(), g.double(), h, block)
+            else:
+                tr = sweeps == 2
+                got = packed_trsm.solve_lower_packed(
+                    vec, g, h, block, transpose=tr, compute_dtype=cd)
+                want = ref.solve_lower_packed(vec, g, h, block, transpose=tr,
+                                              compute_dtype=cd)
+                exact = ref.solve_lower_packed(vec.double(), g.double(), h,
+                                               block, transpose=tr)
+            torch.cuda.synchronize()
+            assert {k: n for k, n in LAUNCHES.items() if n} == {name: 1}
+            assert got.dtype == state and got.shape == g.shape
+            err = smoke.errors(got, want)[1]
+            if not mixed:
+                assert err <= smoke.TOL[dtype], (nrhs, sweeps, err)
+                continue
+            ratio = (smoke.errors(got.double(), exact)[1]
+                     / smoke.errors(want.double(), exact)[1])
+            assert err <= smoke.MIXED_TOL[name], (nrhs, sweeps, err)
+            assert smoke.ERROR_RATIO[0] <= ratio <= smoke.ERROR_RATIO[1], \
+                (nrhs, sweeps, ratio)
+
+
+@pytest.mark.parametrize("h", [40, 200, 999])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_interp_factors_bf16_bit_exact(dev, block, h):
+    """interp_factors on a bf16 Θ equals its plain version bit for bit
+    (both round every Horner step to bf16); h = 999 writes one element a
+    thread, the others 16 bytes; one launch, counted apart."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import (LAUNCHES, poly_interp, ref,
+                                     reset_launches)
+    gen = torch.Generator(device=dev).manual_seed(h * block)
+    p = packing.packed_size(h, block)
+    theta = (torch.randn(2, 3, p, generator=gen, device=dev)
+             * torch.tensor([1.0, 0.1, 0.01], device=dev)[:, None]
+             ).to(torch.bfloat16)
+    lams = torch.logspace(-3, 1, 11, dtype=torch.float64, device=dev)
+    center = torch.tensor(0.37, device=dev)
+    reset_launches()
+    got = poly_interp.interp_factors(theta, lams, h, block, center=center)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in LAUNCHES.items() if n} == {
+        "interp_factors_bf16": 1}
+    x = lams.to(torch.bfloat16) - center.to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 11, h, h)
+    assert torch.equal(got, ref.interp_factors(theta, x, h, block))
+
+
+def test_gauss_newton_head_under_bf16_store_runs_the_mixed_kernels(dev):
+    """Under ``bf16_store`` the Gauss–Newton head stores Θ in bf16 and a
+    step launches interp_factors on it (bf16 factors) and the mixed dense
+    trsm twice; the steps match the same head on the reference backend
+    under the policy within the JAX package's bound for a bf16 solve
+    (5e-2 of the norm)."""
+    from repro_torch.core import backends, cv
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim import damped_gauss_newton_head
+    data = np.load(ROOT / "tests" / "data" / "torch_table4.npz")
+    folds = cv.make_folds(data["x"], data["y"], int(data["k"]), device=dev)
+    deltas = {}
+    for name in ("cuda", "reference"):
+        bk = backends.resolve_backend(name, block=32, precision="bf16_store")
+        state, step = damped_gauss_newton_head(folds.hess, (1e-2, 1e1),
+                                               block=32, backend=bk)
+        assert state.model.theta.dtype == torch.bfloat16
+        out = []
+        for lam in (0.05, 2.0):
+            reset_launches()
+            delta, state = step(state, folds.grad, lam)
+            torch.cuda.synchronize()
+            if name == "cuda":
+                assert {k: n for k, n in LAUNCHES.items() if n} == dict(
+                    interp_factors_bf16=1, solve_lower_blocked_bf16=2)
+            out.append(delta)
+        deltas[name] = torch.stack(out)
+    d, r = deltas["cuda"], deltas["reference"]
+    assert d.dtype == torch.float32
+    assert float(((d - r).norm(dim=-1) / r.norm(dim=-1)).max()) <= 5e-2
+
+
 @pytest.mark.parametrize("h, block", [(40, 16), (200, 64), (1000, 128)])
 def test_launch_counts_are_kernel_launches(dev, h, block):
     """A Cholesky call counts each of its 3·nt − 2 launches; the other
@@ -216,13 +341,14 @@ def test_launch_counts_are_kernel_launches(dev, h, block):
                             unpack_tril=0, interp_factors=0,
                             solve_lower_packed=0, ssm_scan=0,
                             cholesky_blocked_bf16=0,
-                            solve_lower_blocked_bf16=0, interp_solve_bf16=0)
+                            solve_lower_blocked_bf16=0, interp_solve_bf16=0,
+                            interp_factors_bf16=0, solve_lower_packed_bf16=0)
 
 
 @pytest.mark.parametrize("h, block", [(40, 16), (200, 64), (1000, 128)])
 def test_factor_route_kernels_launch_once_per_call(dev, h, block):
-    """unpack and interp_factors launch one kernel per call; a packed
-    solve launches the forward and the transposed sweep."""
+    """unpack, interp_factors and a packed solve (both sweeps) launch one
+    kernel per call."""
     from repro_torch.core import packing
     from repro_torch.kernels import (LAUNCHES, packed_trsm, poly_interp,
                                      reset_launches, tri_pack)
@@ -237,7 +363,7 @@ def test_factor_route_kernels_launch_once_per_call(dev, h, block):
     theta_sol = packed_trsm.solve_packed(vec, g, h, block)
     torch.cuda.synchronize()
     assert {k: n for k, n in LAUNCHES.items() if n} == dict(
-        unpack_tril=1, interp_factors=1, solve_lower_packed=2)
+        unpack_tril=1, interp_factors=1, solve_lower_packed=1)
     torch.testing.assert_close(dense, eye * 2, rtol=0, atol=0)
     torch.testing.assert_close(factors, (eye * 2)[:, None].expand(
         3, 9, h, h), rtol=0, atol=0)
