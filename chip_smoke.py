@@ -78,16 +78,20 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               within 1e-4 relative.
 12. mamba   — Falcon-Mamba-7B at its published widths in float32, 4 layers,
               seeded weights: forward, prefill (logits and cache) and 8
-              decode steps with the ``ssm_scan`` kernel against its plain
-              version (``scan="reference"``), and decode-after-prefill
-              against forward, all within 1e-4 relative.
+              decode steps with the mixer's two kernels (the causal
+              convolution and the fused scan) against their plain versions
+              (``scan="reference"``), and decode-after-prefill against
+              forward, all within 1e-4 relative; each kernel launched once
+              a layer and step.
 13. serve   — Falcon-Mamba-7B as published (bf16, 64 layers): prefill of 4
               prompts of 2048 tokens, 32 greedy decode steps, and a forward
               over the extended sequences; finite logits, decode consistent
               with forward; prefill and decode walls (median of 3 after a
-              warm run), peak memory, launch counts per path; then one
+              warm run), peak memory, launch counts per path (``ssm_scan``
+              and ``causal_conv1d`` once a layer and step); then one
               profiled prefill and one profiled decode step (a second
-              ``trace`` line).
+              ``trace`` line: device time of the convolution, the scan, the
+              GEMMs and the rest; no library convolution may run).
 
 The ``kernels`` phase also holds the mixed-precision variants (bf16
 products on the tensor cores, float32 sums and state, Θ and packed factors
@@ -99,7 +103,10 @@ bound, its plain version's, its one-dtype float32 kernel's and the float32
 library call's.
 It also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
-one.  Then one ``{"kernels": [...]}`` line, and last the device line
+one, its fused entry ``mamba_scan`` (softplus, scan and gate, bf16) at both
+and at one decode step from a state (both dtypes), and the fused causal
+convolution with bias and silu bit for bit (serve shape, timed against
+``F.conv1d``; ragged, decode and short from a state).  Then one ``{"kernels": [...]}`` line, and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
 one CUDA card; imports nothing of JAX.  The ``kernels`` line carries, for
 the three cluster solves also ``kernel_ms`` (device time of the cluster
@@ -146,7 +153,29 @@ GN_TOL = 1e-2              # Gauss–Newton step vs a dense solve, as
 # the LM path: configs/falcon_mamba_7b.py (published widths)
 MAMBA_ARCH = "falcon-mamba-7b"
 SCAN_SHAPE = (4, 2048, 8192, 16)      # (B, S, d_inner, N) of a serve prefill
-SCAN_RAGGED = (3, 999, 8100, 16)      # S % 32 ≠ 0, d_inner % 64 ≠ 0
+SCAN_RAGGED = (3, 999, 8100, 16)      # S % 16 ≠ 0, d_inner % 32 ≠ 0
+SCAN_DECODE = (4, 1, 8192, 16)        # one decode step, from a state
+DT_RANK = 256                         # falcon-mamba-7b's x_proj: r + 2N
+# The fused scan (mamba_scan) in bf16 against its plain version, per
+# element: |Δ| ≤ 2^-6·|plain| + MAMBA_TOL·max|plain|.  The two float32 y
+# differ by up to MAMBA_TOL of max |y| (the float32 check; summation order
+# and ex2.approx), which near y = 0 (cancellation between D·x and h·C) is
+# no small share of |y| and can flip its sign: the absolute term.  Then y
+# and silu(z) are each rounded to bf16, and either rounding can land on
+# the other neighbouring value (one step, at most 2^-7 of the value); the
+# two products are then up to 2^-7 of their value apart before their own
+# rounding and up to one more step after it: 2^-6 of |plain|.  On the card
+# the serve shape holds one element of 6.7e7 beyond 2^-7·|plain| + the
+# absolute term (``y_worst`` reads it; PERF.md §6).  The share of
+# elements over 2^-7·|plain| alone is printed beside it.  h_last and every
+# float32 output: MAMBA_TOL.
+MIXER_BF16_REL = 2.0 ** -6
+MIXER_BF16_ONE_STEP = 2.0 ** -7
+# MUFU operations the fused scan issues per (t, d) besides the N decays: an
+# ex2 and a reciprocal for softplus, the same for silu
+# (csrc/ssm_scan.cu softplus_fast, silu_fast)
+MIXER_EXTRA_MUFU = 4
+CONV_WIDTH = 4                        # falcon-mamba-7b's d_conv
 MAMBA_TOL = 1e-4           # max |Δ| / max |ref|, float32: kernel vs plain
                            # scan, decode vs forward, card vs JAX fixture
 MAMBA_DEPTH, MAMBA_BATCH, MAMBA_SEQ, MAMBA_DECODE = 4, 2, 250, 8
@@ -180,6 +209,9 @@ REPLACES = {
     "interp_factors": "src/repro/kernels/poly_interp.py:97",
     "solve_lower_packed": "src/repro/kernels/packed_trsm.py:166",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:83",
+    # no Pallas kernel: XLA's convolution, + conv_b and silu
+    # (src/repro/models/blocks.py:387-388), fused by the port
+    "causal_conv1d": "src/repro/models/layers.py:300",
     # the mixed-precision variants (bf16 products, float32 sums and state)
     "cholesky_blocked_bf16": "src/repro/kernels/chol_blocked.py:115",
     "solve_lower_blocked_bf16": "src/repro/kernels/trsm.py:102",
@@ -213,6 +245,9 @@ CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
                 "ptxas")
 # what the kernels line adds for the mixed variants
 MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape")
+# what the kernels line adds for ssm_scan's fused entry (mamba_scan)
+FUSED_KEYS = ("fused_ms", "fused_bound_ms", "fused_bound_by",
+              "fused_plain_ms", "fused_err")
 # kernels that only move values: they must equal their plain versions
 EXACT_KERNELS = ("pack_tril", "unpack_tril")
 # The kernels each sweep of the main path launches; it launches no other.
@@ -229,12 +264,18 @@ SOURCES = {
     "interp_factors": "src/repro_torch/kernels/csrc/poly_interp.cu",
     "solve_lower_packed": "src/repro_torch/kernels/csrc/packed_trsm.cu",
     "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+    "causal_conv1d": "src/repro_torch/kernels/csrc/causal_conv1d.cu",
     "cholesky_blocked_bf16": "src/repro_torch/kernels/csrc/chol_blocked.cu",
     "solve_lower_blocked_bf16": "src/repro_torch/kernels/csrc/trsm.cu",
     "interp_solve_bf16": "src/repro_torch/kernels/csrc/poly_interp.cu",
     "interp_factors_bf16": "src/repro_torch/kernels/csrc/poly_interp.cu",
     "solve_lower_packed_bf16": "src/repro_torch/kernels/csrc/packed_trsm.cu",
 }
+
+
+#: checks that failed in a phase that goes on measuring; main() raises
+#: on them after the kernels line, before the ok line
+FAILED: list = []
 
 
 def emit(phase: str, **fields) -> None:
@@ -264,6 +305,8 @@ def timed_ms(fn, reps: int) -> float:
 def errors(out: torch.Tensor, plain: torch.Tensor) -> tuple[float, float]:
     if not torch.isfinite(out).all():
         raise AssertionError("kernel output is not finite")
+    if not out.numel():
+        return 0.0, 0.0
     diff = float((out - plain).abs().max())
     return diff, diff / max(float(plain.abs().max()), 1e-300)
 
@@ -757,8 +800,9 @@ def scan_inputs(dev, b: int, s: int, di: int, n: int, seed: int = 2):
 
 
 def check_ssm_scan(dev, shape, timing=None) -> dict:
-    """``ssm_scan`` against its plain version on the card (y and h_last);
-    with ``timing`` (a peaks dict), also times and the bound."""
+    """``ssm_scan`` against its plain version on the card (y and h_last),
+    then its fused entry ``mamba_scan`` in bf16 at the same shape; with
+    ``timing`` (a peaks dict), also times and the bounds of both."""
     from repro_torch.kernels import ref, ssm_scan
     ins = scan_inputs(dev, *shape)
 
@@ -773,8 +817,13 @@ def check_ssm_scan(dev, shape, timing=None) -> dict:
     res = dict(max_abs_err=max(ey[0], eh[0]), max_rel_err=max(ey[1], eh[1]),
                tol_rel=TOL[torch.float32])
     res["ok"] = res["max_rel_err"] <= res["tol_rel"]
+    del ins, y, h, y_p, h_p
+    fused = check_mamba_scan(dev, shape, torch.bfloat16, timing=timing)
+    res["fused_err"] = fused["err"]
+    res["ok"] = res["ok"] and fused["ok"]
     if timing is None:
         return res
+    ins = scan_inputs(dev, *shape)
     b, s, di, n = shape
     # read x, dt, B, C, A, D once; write y and h_last once (float32)
     work_bytes = (3 * b * s * di + 2 * b * s * n + di * n + di
@@ -788,7 +837,165 @@ def check_ssm_scan(dev, shape, timing=None) -> dict:
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes_ms=t_bytes, exp_ms=exps / timing["sfu"] * 1e3,
                fp32_ms=flops / timing["fp32"] * 1e3, work_bytes=work_bytes,
-               work_exps=exps, work_flops=flops)
+               work_exps=exps, work_flops=flops,
+               **{k: fused[k] for k in ("fused_ms", "fused_bound_ms",
+                                        "fused_bound_by", "fused_plain_ms",
+                                        "fused_work")})
+    return res
+
+
+def mixer_inputs(dev, b: int, s: int, di: int, n: int, dtype,
+                 h0: bool = False, seed: int = 3):
+    """``mamba_scan``'s inputs as the model makes them: dt_lin and dt_bias
+    whose softplus is of order 0.05, B and C the slices of one (B, S,
+    DT_RANK + 2N) ``x_proj`` output (strided views), A = -(1..N), normal
+    x, z, D and (with ``h0``) an initial state."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device=dev)
+
+    xc, z = randn(b, s, di).to(dtype), randn(b, s, di).to(dtype)
+    dt_lin = 0.5 * randn(b, s, di)
+    dt_bias = randn(di) - 3.0
+    proj = randn(b, s, DT_RANK + 2 * n).to(dtype)
+    bm, cm = proj[..., DT_RANK:DT_RANK + n], proj[..., DT_RANK + n:]
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(
+        di, n).contiguous()
+    d = randn(di)
+    state = randn(b, di, n) if h0 else None
+    return xc, dt_lin, dt_bias, bm, cm, a, d, z, state
+
+
+def _bf16_ordered(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in the order of the values."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def bf16_ulps(out: torch.Tensor, plain: torch.Tensor) -> int:
+    """The most bf16 values between an element of out and of plain."""
+    return int((_bf16_ordered(out) - _bf16_ordered(plain)).abs().max()) \
+        if out.numel() else 0
+
+
+def check_mamba_scan(dev, shape, dtype, h0: bool = False,
+                     timing=None) -> dict:
+    """``mamba_scan`` against its plain version on the card: y (float32:
+    MAMBA_TOL of max |plain|; bf16: per element, MIXER_BF16_REL of |plain|
+    plus MAMBA_TOL of max |plain|) and h_last (MAMBA_TOL); with
+    ``timing``, its time and bound."""
+    from repro_torch.kernels import ref, ssm_scan
+    ins = mixer_inputs(dev, *shape, dtype, h0=h0)
+    (y, h), (y_p, h_p) = ssm_scan.mamba_scan(*ins), ref.mamba_scan(*ins)
+    eh = errors(h, h_p)[1]
+    err = dict(h_last_rel=eh, tol_h_last=MAMBA_TOL)
+    if not torch.isfinite(y).all():
+        raise AssertionError("mamba_scan: y is not finite")
+    d, p = (y.float() - y_p.float()).abs(), y_p.float().abs()
+    scale = float(p.max()) if y.numel() else 0.0
+    y_rel = float(d.max()) / max(scale, 1e-300) if y.numel() else 0.0
+    if dtype == torch.float32:
+        err.update(y_rel=y_rel, tol_y=MAMBA_TOL)
+        ok = y_rel <= MAMBA_TOL
+    else:
+        limit = MIXER_BF16_REL * p + MAMBA_TOL * scale
+        one_step = torch.where(d == 0, torch.zeros_like(d), d / p)
+        if y.numel():
+            # the element furthest beyond one step + the absolute term
+            ratio = d / (MIXER_BF16_ONE_STEP * p + MAMBA_TOL * scale)
+            i = int(ratio.argmax())
+            yf, pf = y.reshape(-1)[i:i + 1], y_p.reshape(-1)[i:i + 1]
+            err["y_worst"] = dict(
+                plain=float(pf), got=float(yf), of_max=float(pf.abs()) / scale,
+                steps=bf16_ulps(yf, pf),
+                of_one_step_limit=float(ratio.reshape(-1)[i]))
+        err.update(y_rel=y_rel,
+                   y_over_limit=float((d > limit).float().sum()),
+                   y_one_step_rel=float(one_step.max()) if y.numel() else 0.0,
+                   y_over_one_step_share=float(
+                       (one_step > MIXER_BF16_ONE_STEP).float().mean())
+                   if y.numel() else 0.0,
+                   y_differ_share=float((d > 0).float().mean())
+                   if y.numel() else 0.0,
+                   y_max_ulps=bf16_ulps(y, y_p), tol_y_elem_rel=MIXER_BF16_REL,
+                   tol_y_abs_of_max=MAMBA_TOL)
+        ok = err["y_over_limit"] == 0
+    ok = ok and eh <= MAMBA_TOL
+    res = dict(err=dict(err, shape=list(shape), dtype=str(dtype), h0=h0,
+                        ok=ok), ok=ok)
+    if timing is None:
+        return res
+    b, s, di, n = shape
+    es = torch.empty((), dtype=dtype).element_size()
+    # read x, z, dt_lin, B, C, A, D, dt_bias once; write y and h_last once
+    work_bytes = (3 * b * s * di * es + b * s * di * 4 + 2 * b * s * n * es
+                  + (di * n + 2 * di + b * di * n) * 4)
+    mufu = b * s * di * (n + MIXER_EXTRA_MUFU)
+    t_bytes = work_bytes / timing["bw"] * 1e3
+    t_ops = mufu / timing["sfu"] * 1e3
+    res.update(fused_ms=timed_ms(lambda: ssm_scan.mamba_scan(*ins), 10),
+               fused_plain_ms=timed_ms(lambda: ref.mamba_scan(*ins), 1),
+               fused_bound_ms=max(t_bytes, t_ops),
+               fused_bound_by="bytes" if t_bytes >= t_ops else "operations",
+               fused_work=dict(bytes=work_bytes, mufu=mufu,
+                               bytes_ms=t_bytes, mufu_ms=t_ops))
+    return res
+
+
+def check_conv(dev, shape, dtype, state: bool, timing=None) -> dict:
+    """``causal_conv1d_silu`` against its plain version on the card, bit
+    for bit (output and new state); with ``timing``, its time, bound and
+    ``F.conv1d`` (cuDNN, TF32 off: conv and bias, no silu) on the same
+    input."""
+    from repro_torch.kernels import causal_conv1d, ref
+    b, s, c = shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(b, s, c, generator=gen, device=dev).to(dtype)
+    w = (0.5 * torch.randn(c, CONV_WIDTH, generator=gen, device=dev)
+         ).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+    st = torch.randn(b, CONV_WIDTH - 1, c, generator=gen,
+                     device=dev).to(dtype) if state else None
+
+    def kernel():
+        return causal_conv1d.causal_conv1d_silu(x, w, bias, st)
+
+    def plain():
+        return ref.causal_conv1d_silu(x, w, bias, st)
+
+    (y, ns), (y_p, ns_p) = kernel(), plain()
+    if not torch.isfinite(y).all():
+        raise AssertionError("causal_conv1d: output is not finite")
+    diff = max(float((y.float() - y_p.float()).abs().max()) if y.numel()
+               else 0.0, float((ns.float() - ns_p.float()).abs().max()))
+    res = dict(max_abs_err=diff, max_ulps=bf16_ulps(y, y_p)
+               if dtype == torch.bfloat16 else None,
+               bit_exact=diff == 0.0, ok=diff == 0.0, shape=list(shape),
+               dtype=str(dtype), state=state)
+    if timing is None:
+        return res
+    es = torch.empty((), dtype=dtype).element_size()
+    # read x, w, b, the state once; write xc and the new state once
+    work_bytes = (2 * b * s * c + c * CONV_WIDTH + c
+                  + 2 * b * (CONV_WIDTH - 1) * c) * es
+    flops = (2.0 * CONV_WIDTH + 4) * b * s * c   # the taps, bias, silu
+    t_bytes = work_bytes / timing["bw"] * 1e3
+    t_ops = flops / timing["fp32"] * 1e3
+    x_ncw = x.transpose(1, 2)
+    w_lib = w[:, None, :]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library_ms = timed_ms(lambda: torch.nn.functional.conv1d(
+            x_ncw, w_lib, bias=bias, padding=CONV_WIDTH - 1, groups=c), 10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    res.update(ms=timed_ms(kernel, 10), plain_ms=timed_ms(plain, 2),
+               library_ms=library_ms, library="F.conv1d(groups=C, bias), "
+               "cudnn.allow_tf32=False", bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               work_bytes=work_bytes, work_flops=flops)
     return res
 
 
@@ -824,15 +1031,38 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     scan_ragged = {"ssm_scan": check_ssm_scan(dev, SCAN_RAGGED)}
     for tag, shape, res in (("ssm_scan", SCAN_SHAPE, scan),
                             ("ssm_scan_ragged", SCAN_RAGGED, scan_ragged)):
-        emit("kernels", shape=tag, dtype="float32",
+        emit("kernels", shape=tag, dtype="float32", fused_dtype="bfloat16",
              **dict(zip(("batch", "seq", "d_inner", "state"), shape)),
              results=res)
+    # the decode step (S = 1 from a state), in the fused entry's both dtypes
+    scan_decode = {f"mamba_scan_{tag}": check_mamba_scan(
+        dev, SCAN_DECODE, dtype, h0=True)
+        for tag, dtype in (("bf16", torch.bfloat16),
+                           ("f32", torch.float32))}
+    scan["ssm_scan"]["fused_err"] = dict(
+        serve=scan["ssm_scan"]["fused_err"],
+        ragged=scan_ragged["ssm_scan"]["fused_err"],
+        decode=scan_decode["mamba_scan_bf16"]["err"])
+    emit("kernels", shape="mamba_scan_decode", results=scan_decode)
+    conv = {"causal_conv1d": check_conv(dev, SCAN_SHAPE[:3], torch.bfloat16,
+                                        False, timing=peaks)}
+    conv_cases = {f"causal_conv1d_{tag}": check_conv(dev, shape, dtype, state)
+                  for tag, shape, dtype, state in (
+                      ("ragged", SCAN_RAGGED[:3], torch.bfloat16, True),
+                      ("decode", SCAN_DECODE[:3], torch.bfloat16, True),
+                      ("short", (2, 2, 8192), torch.bfloat16, True),
+                      ("ragged_f32", (2, 37, 130), torch.float32, True),
+                      ("decode_f32", (2, 1, 8100), torch.float32, True))}
+    emit("kernels", shape="causal_conv1d", width=CONV_WIDTH,
+         results=dict(conv, **conv_cases))
     main.update(scan)
+    main.update(conv)
     bad = [(case, name) for case, res in
            (("main", main), ("ragged", ragged), ("ragged_odd", odd),
             ("float32", f32), ("mixed", mixed),
             ("mixed_ragged", mixed_ragged), ("mixed_ragged_odd", mixed_odd),
-            ("ssm_scan_ragged", scan_ragged))
+            ("ssm_scan_ragged", scan_ragged), ("mamba_scan", scan_decode),
+            ("causal_conv1d", conv_cases))
            for name, r in res.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -960,9 +1190,13 @@ def profiled(fn) -> tuple[dict, dict]:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     tri_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
                   and e.name in TRIANGULAR_SOLVE_OPS)
+    conv_ops = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CPU
+                   and e.name in CONVOLUTION_OPS)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
                 n_kernels=len(kern), triangular_solve_ops=tri_ops,
+                convolution_ops=conv_ops,
                 top=[dict(name=n, ms=ms, count=c)
                      for n, (ms, c) in top]), by_name
 
@@ -1007,6 +1241,8 @@ def solve_kind(name: str) -> str | None:
 
 # the PyTorch calls that inverted diagonal tiles outside the kernels
 # (``packing.invert_diag_tiles``)
+CONVOLUTION_OPS = ("aten::convolution", "aten::_convolution",
+                   "aten::cudnn_convolution", "aten::conv1d")
 TRIANGULAR_SOLVE_OPS = ("aten::linalg_solve_triangular",
                         "aten::triangular_solve")
 
@@ -1560,9 +1796,10 @@ def counted_call(fn):
 
 
 def phase_mamba(dev) -> dict:
-    """Full width, 4 layers, float32: the model on the ssm_scan kernel
-    (``scan="auto"``) against the same weights on its plain version
-    (``scan="reference"``), and decode-after-prefill against forward."""
+    """Full width, 4 layers, float32: the model on the mixer's kernels (the
+    causal convolution and the fused scan, ``scan="auto"``) against the
+    same weights on their plain versions (``scan="reference"``), and
+    decode-after-prefill against forward."""
     from repro_torch.models import Model
     cfg = mamba_config(MAMBA_DEPTH, "float32")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1595,8 +1832,9 @@ def phase_mamba(dev) -> dict:
     got, counts = run("auto")
     want, counts_ref = run("reference")
     for tag, n in (("forward", MAMBA_DEPTH), ("prefill", MAMBA_DEPTH),
-                   ("decode", 0)):
-        check_counts(f"mamba {tag}", counts[tag], dict(ssm_scan=n))
+                   ("decode", MAMBA_DEPTH * MAMBA_DECODE)):
+        check_counts(f"mamba {tag}", counts[tag],
+                     dict(ssm_scan=n, causal_conv1d=n))
         check_counts(f"mamba {tag} (reference)", counts_ref[tag], {})
     rels = {k: rel_err(got[k], want[k]) for k in got}
     model.scan = "auto"
@@ -1657,11 +1895,10 @@ def phase_serve(dev) -> dict:
         lambda: decode_loop(cache, first))
     ext = torch.cat([prompts, gen_toks], 1)
     (logits_f, _), counts["mamba_forward"] = counted_call(lambda: model(ext))
-    check_counts("serve prefill", counts["mamba_prefill"],
-                 dict(ssm_scan=n_layers))
-    check_counts("serve forward", counts["mamba_forward"],
-                 dict(ssm_scan=n_layers))
-    check_counts("serve decode", counts["mamba_decode"], {})
+    for tag, n in (("mamba_prefill", n_layers), ("mamba_forward", n_layers),
+                   ("mamba_decode", n_layers * SERVE_DECODE)):
+        check_counts(f"serve {tag}", counts[tag],
+                     dict(ssm_scan=n, causal_conv1d=n))
     finite = all(bool(torch.isfinite(t).all())
                  for t in (logits_p, logits_d, logits_f))
     pos = logits_f[:, SERVE_PROMPT - 1:]              # prefill, then decodes
@@ -1691,6 +1928,8 @@ def phase_serve(dev) -> dict:
         init_s=init_s, weight_bytes=weight_bytes, finite=finite,
         decode_vs_forward_last=per_pos[-1],
         decode_vs_forward_max=max(per_pos),
+        decode_vs_forward_median=float(np.median(per_pos)),
+        bit_equal_positions=sum(v == 0.0 for v in per_pos),
         prefill_vs_forward=per_pos[0], greedy_agreement=agree,
         tol=SERVE_TOL, walls=walls, median=med,
         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT
@@ -1700,22 +1939,31 @@ def phase_serve(dev) -> dict:
         launches=counts)
     emit("serve", **out)
     if not finite or per_pos[-1] > SERVE_TOL:
-        raise AssertionError(f"serve: finite={finite}, decode vs forward at "
-                             f"the last position {per_pos[-1]} > {SERVE_TOL}")
+        # the run fails at its end, after the trace and the kernels line
+        FAILED.append(f"serve: finite={finite}, decode vs forward at the "
+                      f"last position {per_pos[-1]} > {SERVE_TOL}")
 
     traces = {}
     for tag, fn in (("mamba_prefill", lambda: model.prefill(prompts)),
                     ("mamba_decode", lambda: model.decode(cache, first))):
         trace, by_name = profiled(fn)
         busy = trace["device_busy_ms"]
-        scan_ms = sum(ms for n, (ms, _) in by_name.items()
-                      if "ssm_scan" in n)
-        gemm_ms = sum(ms for n, (ms, _) in by_name.items() if gemm_like(n))
-        traces[tag] = dict(
-            trace, ssm_scan_ms=scan_ms, gemm_ms=gemm_ms,
-            other_ms=sum(ms for ms, _ in by_name.values()) - scan_ms
-            - gemm_ms, ssm_scan_share=scan_ms / busy,
-            gemm_share=gemm_ms / busy)
+        split = dict(conv_ms=0.0, ssm_scan_ms=0.0, gemm_ms=0.0,
+                     rest_ms=0.0)
+        for n, (ms, _) in by_name.items():
+            key = ("conv_ms" if "causal_conv1d" in n else
+                   "ssm_scan_ms" if "ssm_scan" in n else
+                   "gemm_ms" if gemm_like(n) else "rest_ms")
+            split[key] += ms
+        traces[tag] = dict(trace, **split, **{
+            k.replace("_ms", "_share"): v / busy for k, v in split.items()})
+        # the port calls no library convolution: cuDNN is a yardstick only
+        library_conv = [n for n in by_name if "conv" in n.lower()
+                        and "causal_conv1d" not in n]
+        if trace["convolution_ops"] or library_conv:
+            raise AssertionError(f"serve {tag}: a library convolution ran: "
+                                 f"{trace['convolution_ops']} ops, "
+                                 f"kernels {library_conv}")
     emit("trace", **traces)
     return counts
 
@@ -1751,11 +1999,13 @@ def main() -> None:
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          **{k: r[k] for k in CLUSTER_KEYS + MIXED_KEYS
-                            if k in r}))
+                            + FUSED_KEYS if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")
     print(json.dumps({"kernels": rows}), flush=True)
+    if FAILED:
+        raise AssertionError("; ".join(FAILED))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["name"],
         "count": torch.cuda.device_count()}}), flush=True)

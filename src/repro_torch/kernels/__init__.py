@@ -2,7 +2,9 @@
 
 Each wrapper module (``tri_pack``, ``chol_blocked``, ``trsm``,
 ``poly_interp``, ``packed_trsm``, ``ssm_scan``) replaces the Pallas kernels
-of the module of the same name in ``src/repro/kernels``.  A wrapper given
+of the module of the same name in ``src/repro/kernels``;
+``causal_conv1d`` fuses the Mamba mixer's convolution, bias and silu,
+which the JAX package leaves to XLA.  A wrapper given
 CPU tensors runs its plain version (:mod:`.ref` or
 :mod:`repro_torch.core.packing`); given CUDA tensors it launches its
 kernel, built from ``csrc/`` at first use, or raises.  :data:`LAUNCHES`

@@ -16,7 +16,8 @@ non-zero code.  :data:`LAUNCHES` counts, per wrapper, the CUDA kernel
 launches it made (a call that launches several kernels adds each of them;
 a call that failed or took the plain CPU path adds nothing); the
 mixed-precision variants count under names of their own
-(:data:`MIXED_NAMES`).
+(:data:`MIXED_NAMES`); the Mamba mixer's fused scan counts under
+``ssm_scan``, its convolution under ``causal_conv1d``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BLOCKS", "LAUNCHES", "PLANS",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp", "packed_trsm",
-           "ssm_scan")
+           "ssm_scan", "causal_conv1d")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -72,7 +73,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in
                              "solve_lower_blocked", "interp_solve",
                              "unpack_tril", "interp_factors",
                              "solve_lower_packed", "ssm_scan",
-                             *MIXED_NAMES.values())}
+                             "causal_conv1d", *MIXED_NAMES.values())}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

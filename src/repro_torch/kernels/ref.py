@@ -29,6 +29,7 @@ the tests.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import packing
 
@@ -38,7 +39,7 @@ __all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
            "packed_diag_inverses", "interp_diag_inverses",
            "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
            "solve_right_looking",
-           "ssm_scan"]
+           "ssm_scan", "mamba_scan", "causal_conv1d", "causal_conv1d_silu"]
 
 
 def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -439,6 +440,21 @@ def solve_right_looking(tile, diag, g: torch.Tensor, nt: int, block: int,
     return slots[sweeps == 1]
 
 
+def _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0):
+    f32 = torch.float32
+    xc, dt, b_mat, c_mat, a, d_skip = (
+        t.to(f32) for t in (xc, dt, b_mat, c_mat, a, d_skip))
+    bsz, s, di = xc.shape
+    h = xc.new_zeros(bsz, di, a.shape[-1]) if h0 is None else h0.to(f32)
+    ys = []
+    for t in range(s):
+        a_bar = torch.exp(dt[:, t, :, None] * a)
+        h = a_bar * h + (dt[:, t] * xc[:, t])[..., None] * b_mat[:, t, None, :]
+        ys.append((h * c_mat[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) if ys else xc.new_zeros(bsz, 0, di)
+    return y + d_skip * xc, h
+
+
 def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
              c_mat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -449,15 +465,62 @@ def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     ``y_t = h_t·C_t + d_skip⊙x_t``; returns (y (B, S, di), h_S (B, di, N)).
     Holds one (B, di, N) state, never the (B, S, di, N) decay tensor.
     """
-    f32 = torch.float32
-    xc, dt, b_mat, c_mat, a, d_skip = (
-        t.to(f32) for t in (xc, dt, b_mat, c_mat, a, d_skip))
-    bsz, s, di = xc.shape
-    h = xc.new_zeros(bsz, di, a.shape[-1])
-    ys = []
-    for t in range(s):
-        a_bar = torch.exp(dt[:, t, :, None] * a)
-        h = a_bar * h + (dt[:, t] * xc[:, t])[..., None] * b_mat[:, t, None, :]
-        ys.append((h * c_mat[:, t, None, :]).sum(-1))
-    y = torch.stack(ys, 1) if ys else xc.new_zeros(bsz, 0, di)
-    return y + d_skip * xc, h
+    return _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, None)
+
+
+def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
+               b_mat: torch.Tensor, c_mat: torch.Tensor, a: torch.Tensor,
+               d_skip: torch.Tensor, z: torch.Tensor,
+               h0: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 mixer from the scan to the gate (the JAX package's
+    ``blocks.py:360-379`` and ``:391``; with ``h0``, the SSM step of
+    ``mamba_decode``, ``:402-426``).
+
+    xc, z: (B, S, di) in the activation dtype; dt_lin: (B, S, di) float32,
+    the ``dt_proj`` product before its bias; dt_bias, d_skip: (di,);
+    b_mat, c_mat: (B, S, N); a: (di, N), negative; h0: (B, di, N) or
+    ``None`` (zero state).  ``dt = softplus(dt_lin + dt_bias)`` and the scan
+    in float32 (:func:`ssm_scan`, from ``h0``), ``y`` rounded to xc's dtype,
+    times ``silu(z)`` in that dtype.  Returns (y (B, S, di) in xc's dtype,
+    h_last (B, di, N) float32).
+    """
+    dt = F.softplus(dt_lin + dt_bias.float())
+    y, h_last = _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0)
+    return y.to(xc.dtype) * F.silu(z), h_last
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal convolution.  x: (B, S, C); w: (C, K); state: the
+    last K-1 inputs (B, K-1, C), zeros when ``None``.  Returns (y, the new
+    state).
+
+    Written as K shifted multiply-adds in float32, rounded once to
+    ``x.dtype``: ``y_t = Σ_k xp_{t+k} w_k`` over ``xp = [state, x]``, the
+    cross-correlation ``lax.conv_general_dilated`` computes
+    (``src/repro/models/layers.py:300-315``).  No cuDNN call, so no TF32 on
+    the card.
+    """
+    k = w.shape[-1]
+    bsz, s, c = x.shape
+    if state is None:
+        state = x.new_zeros(bsz, k - 1, c)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    xf, wf = xp.float(), w.float()
+    y = xf[:, :s] * wf[:, 0]
+    for j in range(1, k):
+        y += xf[:, j:j + s] * wf[:, j]
+    # a copy: a view would keep the whole (B, S+K-1, C) input alive
+    return y.to(x.dtype), xp[:, s:].clone()
+
+
+def causal_conv1d_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       state: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`causal_conv1d` of x with ``w`` in x's dtype, then ``+ b`` and
+    ``silu`` in x's dtype (the JAX package's ``blocks.py:387-388``).
+    Returns (xc, the new state)."""
+    y, new_state = causal_conv1d(x, w.to(x.dtype), state)
+    return F.silu(y + b.to(x.dtype)), new_state

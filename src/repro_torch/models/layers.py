@@ -1,11 +1,14 @@
 """The primitives of the Mamba-1 path, from the JAX package's
 ``models/layers.py``: forward only, no custom gradients.
+
+``causal_conv1d`` is the plain version the ``causal_conv1d`` kernel is held
+to (:mod:`repro_torch.kernels.ref`), re-exported here.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
-
 import torch
+
+from repro_torch.kernels.ref import causal_conv1d
 
 __all__ = ["rms_norm", "causal_conv1d"]
 
@@ -17,28 +20,3 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.float().square().mean(-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * (1 + scale.to(x.dtype))
-
-
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
-                  state: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal convolution.  x: (B, S, C); w: (C, K); state: the
-    last K-1 inputs (B, K-1, C), zeros when ``None``.  Returns (y, the new
-    state).
-
-    Written as K shifted multiply-adds in float32, rounded once to
-    ``x.dtype``: ``y_t = Σ_k xp_{t+k} w_k`` over ``xp = [state, x]``, the
-    cross-correlation ``lax.conv_general_dilated`` computes
-    (``layers.py:300-315``).  No cuDNN call, so no TF32 on the card.
-    """
-    k = w.shape[-1]
-    bsz, s, c = x.shape
-    if state is None:
-        state = x.new_zeros(bsz, k - 1, c)
-    xp = torch.cat([state.to(x.dtype), x], dim=1)
-    xf, wf = xp.float(), w.float()
-    y = xf[:, :s] * wf[:, 0]
-    for j in range(1, k):
-        y += xf[:, j:j + s] * wf[:, j]
-    # a copy: a view would keep the whole (B, S+K-1, C) input alive
-    return y.to(x.dtype), xp[:, s:].clone()

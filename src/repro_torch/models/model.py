@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.ssm_scan import resolve_scan
+from repro_torch.kernels.ssm_scan import resolve_mixer
 
 from . import blocks
 from .config import ModelConfig
@@ -55,10 +55,10 @@ class Model(nn.Module):
     """A Mamba-1 language model on one device.
 
     ``device=None`` is the CUDA device (``RuntimeError`` without one).
-    ``scan`` picks the mixer's recurrence: ``"auto"`` the ``ssm_scan``
-    kernel for CUDA tensors and its plain version for CPU ones,
-    ``"reference"`` the plain version anywhere, ``"cuda"`` the kernel
-    (``ValueError`` off the card).  The weights are ``params`` (dotted
+    ``scan`` picks the mixer's two kernels (the causal convolution and the
+    fused scan): ``"auto"`` the kernels for CUDA tensors and their plain
+    versions for CPU ones, ``"reference"`` the plain versions anywhere,
+    ``"cuda"`` the kernels (``ValueError`` off the card).  The weights are ``params`` (dotted
     name → tensor, see :meth:`load_params`) when given, else drawn by
     :func:`~repro_torch.models.params.init_params` from ``generator``
     (default: a generator on the device seeded with 0), on the device.
@@ -71,9 +71,9 @@ class Model(nn.Module):
         if cfg.family != "ssm":
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port runs the 'ssm' family only; "
-                "the others are queued in ROADMAP.md (queue 1 item 13)")
+                "the others are queued in ROADMAP.md (queue 1 item 10)")
         dev = resolve_device(device)
-        resolve_scan(scan, dev)
+        resolve_mixer(scan, dev)
         self.cfg, self.scan, self._device = cfg, scan, dev
         v, d = cfg.vocab_size, cfg.d_model
         self.embed = _placeholder((v, d))
@@ -191,7 +191,7 @@ class Model(nn.Module):
         new = []
         for layer, c in zip(self.groups, cache["groups"]):
             h = blocks.norm_apply(layer.ln, x, cfg)
-            y, c = blocks.mamba_decode(layer.mamba, h, c, cfg)
+            y, c = blocks.mamba_decode(layer.mamba, h, c, cfg, self.scan)
             x = x + y
             new.append(c)
         return self._head(x), {"groups": new, "pos": cache["pos"] + 1}

@@ -12,8 +12,10 @@ in float64, float32 and under bf16 products (bf16 and float32 factors);
 ``interp_factors`` on a bf16 Θ bit for bit; the mixed-precision variants
 (bf16 products, float32 sums) against their plain versions, nt = 17 too;
 the Gauss–Newton head under ``bf16_store``; the ``ssm_scan`` kernel at N
-8, 16 and 32 on ragged shapes, and the reduced Mamba model against the
-JAX fixture.  Skipped without a CUDA device.  On the
+8, 16 and 32 on ragged shapes, its fused entry ``mamba_scan`` (S 0, 1 from
+a state, 37, 100; d_inner 20, 130, 8100; N 4 to 32; float32 and bf16) and
+the fused causal convolution (bit for bit), and the reduced Mamba model
+against the JAX fixture.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -340,7 +342,7 @@ def test_launch_counts_are_kernel_launches(dev, h, block):
                             solve_lower_blocked=0, interp_solve=0,
                             unpack_tril=0, interp_factors=0,
                             solve_lower_packed=0, ssm_scan=0,
-                            cholesky_blocked_bf16=0,
+                            causal_conv1d=0, cholesky_blocked_bf16=0,
                             solve_lower_blocked_bf16=0, interp_solve_bf16=0,
                             interp_factors_bf16=0, solve_lower_packed_bf16=0)
 
@@ -434,6 +436,76 @@ def test_ssm_scan_kernel_matches_plain_version(dev, b, s, di, n):
         if want.numel():                     # S = 0: y is empty, h zero
             assert float((got - want).abs().max()) <= \
                 1e-4 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("di", [20, 130, 8100])
+@pytest.mark.parametrize("s", [0, 1, 37, 100])
+def test_mamba_scan_kernel_matches_plain_version(dev, smoke, s, di, n,
+                                                 dtype):
+    """The fused scan (softplus, scan, gate; B and C read in place from an
+    x_proj output) against ref.mamba_scan, S = 1 from a state (the decode
+    step), one launch.  Limits (chip_smoke.check_mamba_scan): float32 y and
+    h_last 1e-4 of max |plain|, the order of float32 sums; bf16 y per
+    element 2^-6·|plain| + 1e-4·max|plain|: y and silu(z) each rounded to
+    bf16, either of which can land on the other neighbour (2^-7 of the
+    value), then the product rounded (one more step), after float32 values
+    that differ by the float32 limit (near y = 0 even in sign)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches, ssm_scan
+    ins = smoke.mixer_inputs(dev, 2, s, di, n, dtype, h0=s == 1)
+    reset_launches()
+    ssm_scan.mamba_scan(*ins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == 1
+    res = smoke.check_mamba_scan(dev, (2, s, di, n), dtype, h0=s == 1)
+    assert res["ok"], res["err"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape, state", [
+    ((3, 1, 8192), True), ((2, 2, 8192), True), ((2, 37, 20), True),
+    ((2, 70, 130), False), ((1, 33, 8100), True), ((2, 0, 64), True)],
+    ids=["decode", "short", "ragged20", "ragged130", "ragged8100", "empty"])
+def test_causal_conv1d_kernel_matches_plain_version(dev, smoke, shape, state,
+                                                    dtype):
+    """The fused convolution, bias and silu equal ref.causal_conv1d_silu bit
+    for bit (output and new state): the same float32 products and sums in
+    the same order, rounded to the activation dtype where torch rounds, silu
+    by the math library's expf and an IEEE division as torch's kernel.  S = 1
+    and S < K - 1 from a state, channels that are not a multiple of 8, one
+    launch."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    res = smoke.check_conv(dev, shape, dtype, state)
+    torch.cuda.synchronize()
+    assert LAUNCHES["causal_conv1d"] == 1      # the plain version adds none
+    assert res["bit_exact"], res
+
+@pytest.mark.parametrize("scan", ["cuda", "reference"])
+def test_bf16_decode_reproduces_forward(dev, smoke, scan):
+    """Falcon-Mamba-7B's widths, 2 bf16 layers: prefill then decode steps of
+    4 rows give the logits that one forward over the extended sequences
+    gives at those positions, bit for bit.  Each decode product runs on at
+    least blocks._MIN_ROWS rows, where cuBLAS sums as it does for the
+    forward's rows; the conv and scan kernels (or their plain versions) and
+    RMSNorm compute each row alone."""
+    from repro_torch.models import Model
+    cfg = smoke.mamba_config(2, "bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = Model(cfg, device=dev, generator=gen, scan=scan)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
+                            device=dev)
+    logits, cache = model.prefill(prompts)
+    toks, got = [logits[:, -1].argmax(-1, keepdim=True)], [logits]
+    for _ in range(4):
+        step, cache = model.decode(cache, toks[-1])
+        got.append(step)
+        toks.append(step[:, -1].argmax(-1, keepdim=True))
+    want = model(torch.cat([prompts, *toks[:-1]], 1))[0][:, 511:]
+    assert torch.equal(torch.cat(got, 1), want)
 
 
 def test_reduced_mamba_matches_jax_fixture(dev, smoke):
