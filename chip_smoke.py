@@ -72,18 +72,36 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               medians of 5 in turns; one profiled run of each bf16 sweep
               (no library trsm or Cholesky may run); the Table-4 fixture
               under ``bf16_refined`` against ``fp32`` (printed, not held).
-11. mamba_fixture — the reduced Falcon-Mamba model (weights, tokens and
+11. baselines — the paper's other CV algorithms at the main configuration
+              (Table 3 and §7), each counted (the kernels of its path and
+              no other, as many launches as predicted):
+              ``cv_picholesky_warmstart`` (g_first 4, g_rest 2) and
+              ``cv_pinrmse`` on ``cuda`` against ``reference`` (1e-9 and
+              1e-8, the same λ*); MChol (c −1.5, s 1.5, s0 0.0025) visiting
+              the same λs as ``reference`` (the first divergence printed);
+              ``cv_svd`` full within 1e-8 of the exact engine, truncated
+              and randomized (rank h/4, a seeded test matrix) printed; low
+              rank on ``make_low_rank_dataset(512, 1024, 64)``, rank None
+              within 1e-8 of exact on the same folds, rank 64 printed;
+              ``select_interpolant`` on the card's packed anchors
+              (k, g, P), the same choice as ``reference``; ``RidgeCV``
+              (``fit`` λ* = ``cv_picholesky``'s, ``fit_theta`` θ within
+              1e-8 of ``reference``); ``CountingBackend`` stage counts; one
+              profiled run each of warm-start, PINRMSE, MChol and
+              ``fit_theta`` (no library Cholesky or triangular solve may
+              run); wall medians of 3 in turns of every algorithm.
+12. mamba_fixture — the reduced Falcon-Mamba model (weights, tokens and
               answers of ``tests/data/torch_mamba.npz``, made by the JAX
               package) on the kernel: forward, prefill and two decode steps
               within 1e-4 relative.
-12. mamba   — Falcon-Mamba-7B at its published widths in float32, 4 layers,
+13. mamba   — Falcon-Mamba-7B at its published widths in float32, 4 layers,
               seeded weights: forward, prefill (logits and cache) and 8
               decode steps with the mixer's two kernels (the causal
               convolution and the fused scan) against their plain versions
               (``scan="reference"``), and decode-after-prefill against
               forward, all within 1e-4 relative; each kernel launched once
               a layer and step.
-13. serve   — Falcon-Mamba-7B as published (bf16, 64 layers): prefill of 4
+14. serve   — Falcon-Mamba-7B as published (bf16, 64 layers): prefill of 4
               prompts of 2048 tokens, 32 greedy decode steps, and a forward
               over the extended sequences; finite logits, decode consistent
               with forward; prefill and decode walls (median of 3 after a
@@ -1730,6 +1748,304 @@ def phase_precision(dev, folds, lams) -> dict:
     return launches
 
 
+# the baselines phase: the paper's other CV algorithms (Table 3)
+WARM_G_REST = 2            # picholesky_warmstart: g_first = G_SAMPLES
+# warm-start curve on cuda vs reference: the CPU test's bound for g_rest 2
+# (tests/test_torch_strategies.py WARM_RTOL, where the reason is given)
+WARM_TOL = 1e-9
+# MChol: the log10 midpoint of [LAM_LO, LAM_HI], and configs/picholesky.py
+# mchol_s, mchol_s0 of the JAX package
+MCHOL_C, MCHOL_S, MCHOL_S0 = -1.5, 1.5, 0.0025
+K_TRUNC = H // 4           # t-SVD and r-SVD rank
+LOW_RANK = (512, 1024, 64)  # make_low_rank_dataset (n, h, rank)
+SELECT_TOL = 1e-9          # select_interpolant scores, relative
+BASELINE_REPEATS = 3       # timed runs per algorithm, in turns
+# the kernels each new path launches (and no other)
+BASELINE_KERNELS = {
+    "picholesky_warmstart": ("cholesky_blocked", "pack_tril",
+                             "interp_solve"),
+    "pinrmse": ("cholesky_blocked", "solve_lower_blocked"),
+    "mchol": ("cholesky_blocked", "solve_lower_blocked"),
+    "svd": (), "tsvd": (), "rsvd": (), "low_rank": (),
+    "select_interpolant": ("cholesky_blocked", "pack_tril"),
+    "ridge_cv": ("cholesky_blocked", "pack_tril", "interp_solve",
+                 "solve_lower_blocked"),
+}
+
+
+def first_divergence(a: list, b: list):
+    """(index, a_i, b_i) of the first place two visit lists part, or
+    None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, x, y
+    return None if len(a) == len(b) else (min(len(a), len(b)), None, None)
+
+
+def phase_baselines(dev, folds, lams) -> dict:
+    """The paper's other CV algorithms at the main configuration (Table 3
+    and §7): warm-start, PINRMSE and MChol on the cuda backend against the
+    reference backend, each counted; the SVD family against the exact
+    engine; low rank on a planted low-rank dataset; ``select_interpolant``
+    on the card's packed anchors; ``RidgeCV``; ``CountingBackend`` stage
+    counts; one profiled run each of warm-start, PINRMSE, MChol and
+    ``RidgeCV.fit_theta`` (no library Cholesky or triangular solve may
+    run); wall medians of every algorithm, in turns.  Failures go into
+    FAILED."""
+    from repro_torch.core import backends, cv, engine, picholesky
+    from repro_torch.core.ridge_cv import RidgeCV
+    from repro_torch.data import make_low_rank_dataset, \
+        make_regression_dataset
+
+    def fail(msg: str) -> None:
+        FAILED.append(f"baselines: {msg}")
+
+    chol = chol_launches(H, BLOCK)
+    n_chunks = -(-N_LAMBDAS // engine.auto_lam_chunk(
+        H, BLOCK, torch.float64, engine.LAM_CHUNK_BUDGET_BYTES))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    omega = torch.randn(H, K_TRUNC + 10, generator=gen, dtype=torch.float64,
+                        device=dev)
+    x_lr, y_lr = make_low_rank_dataset(*LOW_RANK, seed=SEED,
+                                       dtype=torch.float64, device=dev)
+    lr_folds = cv.make_folds(x_lr, y_lr, K_FOLDS, device=dev)
+    runs = {
+        "chol": lambda bk: cv.cv_exact_cholesky(folds, lams, backend=bk,
+                                                device=dev),
+        "pichol": lambda bk: cv.cv_picholesky(
+            folds, lams, g=G_SAMPLES, degree=DEGREE, block=BLOCK,
+            backend=bk, device=dev),
+        "picholesky_warmstart": lambda bk: cv.cv_picholesky_warmstart(
+            folds, lams, g_first=G_SAMPLES, g_rest=WARM_G_REST,
+            degree=DEGREE, block=BLOCK, backend=bk, device=dev),
+        "pinrmse": lambda bk: cv.cv_pinrmse(
+            folds, lams, g=G_SAMPLES, degree=DEGREE, backend=bk,
+            device=dev),
+        "mchol": lambda bk: cv.cv_multilevel_cholesky(
+            folds, MCHOL_C, MCHOL_S, MCHOL_S0, backend=bk, device=dev),
+        "svd": lambda bk: cv.cv_svd(folds, lams, "full", backend=bk,
+                                    device=dev),
+        "tsvd": lambda bk: cv.cv_svd(folds, lams, "truncated", K_TRUNC,
+                                     backend=bk, device=dev),
+        "rsvd": lambda bk: cv.cv_svd(folds, lams, "randomized", K_TRUNC,
+                                     omega, backend=bk, device=dev),
+        "low_rank": lambda bk: engine.CVEngine(
+            "low_rank", backend=bk, device=dev).run(lr_folds, lams),
+        "low_rank_exact": lambda bk: cv.cv_exact_cholesky(
+            lr_folds, lams, backend=bk, device=dev),
+    }
+    out, launches, results = {}, {}, {}
+    first_s = {}
+    for tag in ("picholesky_warmstart", "pinrmse", "mchol", "svd", "tsvd",
+                "rsvd", "low_rank"):
+        t0 = time.perf_counter()
+        results[tag], launches[tag] = counted(runs[tag])
+        first_s[tag] = time.perf_counter() - t0
+        stray = [k for k, n in launches[tag].items()
+                 if n and k not in BASELINE_KERNELS[tag]]
+        missing = [k for k in BASELINE_KERNELS[tag]
+                   if launches[tag][k] == 0]
+        if stray or missing:
+            fail(f"{tag}: never launched {missing}, launched {stray} it "
+                 f"should not: {launches[tag]}")
+    out["first_run_s"] = first_s
+    exact = runs["chol"]("cuda")
+
+    def curve(tag, got, want, tol, other):
+        rel = float(np.max(np.abs(got.errors - want.errors)
+                           / np.abs(want.errors)))
+        rec = dict(best_lam=got.best_lam, best_lam_other=want.best_lam,
+                   argmin=int(np.argmin(got.errors)), other=other,
+                   curve_rel_err=rel, tol=tol,
+                   n_exact_chol=got.n_exact_chol)
+        if not np.isfinite(got.errors).all() or rel > tol \
+                or got.best_lam != want.best_lam:
+            fail(f"{tag} disagrees with {other}: {rec}")
+        return rec
+
+    # warm-start and PINRMSE: cuda against reference on the card
+    warm = results["picholesky_warmstart"]
+    out["picholesky_warmstart"] = curve(
+        "picholesky_warmstart", warm, runs["picholesky_warmstart"](
+            "reference"), WARM_TOL, "reference backend")
+    want_warm = dict(cholesky_blocked=2 * chol, pack_tril=2,
+                     interp_solve=n_chunks)
+    if warm.n_exact_chol != G_SAMPLES + K_FOLDS * WARM_G_REST:
+        fail(f"picholesky_warmstart n_exact_chol {warm.n_exact_chol}")
+    out["pinrmse"] = curve("pinrmse", results["pinrmse"],
+                           runs["pinrmse"]("reference"), MAIN_TOL,
+                           "reference backend")
+    # MChol: the same search as the reference backend's
+    mc, mc_ref = results["mchol"], runs["mchol"]("reference")
+    visited, visited_ref = (r.extras["visited_lams"] for r in (mc, mc_ref))
+    levels = int(np.ceil(np.log2(MCHOL_S / MCHOL_S0)))
+    out["mchol"] = dict(
+        c=MCHOL_C, s=MCHOL_S, s0=MCHOL_S0, levels=levels,
+        evaluations=len(visited), n_chol=mc.n_exact_chol,
+        n_chol_reference=mc_ref.n_exact_chol, best_lam=mc.best_lam,
+        best_lam_reference=mc_ref.best_lam, visited_lams=visited,
+        first_divergence=first_divergence(visited, visited_ref),
+        max_rel_err=float(np.max(np.abs(mc.errors - mc_ref.errors)
+                                 / np.abs(mc_ref.errors)))
+        if mc.errors.shape == mc_ref.errors.shape else None)
+    if visited != visited_ref or mc.best_lam != mc_ref.best_lam \
+            or mc.n_exact_chol != mc_ref.n_exact_chol:
+        fail(f"mchol: the search on cuda parts from the reference "
+             f"backend's: {out['mchol']}")
+    if not 3 + 2 * (levels - 1) <= len(visited) <= 3 * levels:
+        fail(f"mchol: {len(visited)} evaluations over {levels} levels")
+    expected = {
+        "picholesky_warmstart": want_warm,
+        "pinrmse": dict(cholesky_blocked=chol, solve_lower_blocked=2),
+        "mchol": dict(cholesky_blocked=len(visited) * chol,
+                      solve_lower_blocked=2 * len(visited)),
+        "svd": {}, "tsvd": {}, "rsvd": {}, "low_rank": {},
+    }
+    for tag, want in expected.items():
+        if launches[tag] != {k: want.get(k, 0) for k in launches[tag]}:
+            fail(f"{tag}: launches {launches[tag]}, predicted {want}")
+    # the SVD family: full is the exact ridge path by another route
+    out["svd"] = curve("svd", results["svd"], exact, MAIN_TOL,
+                       "exact engine on cuda")
+    full = results["svd"].errors
+    for tag in ("tsvd", "rsvd"):
+        r = results[tag]
+        out[tag] = dict(k_trunc=K_TRUNC, best_lam=r.best_lam,
+                        argmin=int(np.argmin(r.errors)),
+                        max_rel_gap_to_full=float(np.max(
+                            np.abs(r.errors - full) / np.abs(full))))
+        if not np.isfinite(r.errors).all():
+            fail(f"{tag}: curve is not finite")
+    # low rank: rank None is the exact path on its dataset; rank 64 printed
+    lr_exact = runs["low_rank_exact"]("cuda")
+    out["low_rank"] = curve("low_rank", results["low_rank"], lr_exact,
+                            MAIN_TOL, "exact engine on cuda, same folds")
+    lr64 = engine.CVEngine(engine.make_strategy("low_rank",
+                                                rank=LOW_RANK[2]),
+                           device=dev).run(lr_folds, lams)
+    out["low_rank_r64"] = dict(
+        best_lam=lr64.best_lam, argmin=int(np.argmin(lr64.errors)),
+        max_rel_gap_to_exact=float(np.max(np.abs(lr64.errors
+                                                 - lr_exact.errors)
+                                          / np.abs(lr_exact.errors))))
+    out["low_rank_dataset"] = dict(zip(("n", "h", "rank"), LOW_RANK))
+    # select_interpolant on the main configuration's packed anchors
+    sample = picholesky.choose_sample_lambdas(lams[0], lams[-1], G_SAMPLES,
+                                              device=dev)
+
+    def anchors(bk_name):
+        bk = backends.resolve_backend(bk_name, block=BLOCK, device=dev)
+        eye = torch.eye(H, dtype=torch.float64, device=dev)
+        h_tr = folds.hess[None] - folds.fold_hess
+        return bk.pack_tril(bk.cholesky(h_tr[:, None] + sample[:, None, None]
+                                        * eye), BLOCK)
+
+    def select(bk_name, targets=None):
+        t = anchors(bk_name) if targets is None else targets
+        return picholesky.select_interpolant(t, sample, backend=bk_name), t
+
+    (sel, targets), launches["select_interpolant"] = counted(select)
+    sel_ref, _ = select("reference", targets)
+    sel_cpu = picholesky.select_interpolant(targets.cpu(), sample.cpu())
+    sel_ref_targets, _ = select("reference")
+    del targets
+
+    def score_gap(a, b):
+        return max(abs(a["scores"][k] - b["scores"][k]) / abs(b["scores"][k])
+                   for k in b["scores"])
+
+    out["select_interpolant"] = dict(
+        degree=sel["degree"], basis=sel["basis"], scores=sel["scores"],
+        reference=(sel_ref["degree"], sel_ref["basis"]),
+        score_rel_gap=score_gap(sel, sel_ref), tol=SELECT_TOL,
+        cpu=(sel_cpu["degree"], sel_cpu["basis"]),
+        cpu_score_rel_gap=score_gap(sel, sel_cpu),
+        reference_targets=(sel_ref_targets["degree"],
+                           sel_ref_targets["basis"]),
+        reference_targets_score_rel_gap=score_gap(sel, sel_ref_targets))
+    if (sel["degree"], sel["basis"]) != (sel_ref["degree"],
+                                         sel_ref["basis"]) \
+            or score_gap(sel, sel_ref) > SELECT_TOL:
+        fail(f"select_interpolant: {out['select_interpolant']}")
+    # RidgeCV at the main configuration, on the data the folds came from
+    x, y = make_regression_dataset(N_TRAIN, H, seed=SEED,
+                                   dtype=torch.float64, device=dev)
+    ridge = {bk: RidgeCV(k_folds=K_FOLDS, n_lambdas=N_LAMBDAS, lam_lo=LAM_LO,
+                         lam_hi=LAM_HI, g_samples=G_SAMPLES, degree=DEGREE,
+                         block=BLOCK, backend=bk, device=dev)
+             for bk in ("cuda", "reference")}
+    (theta, res), launches["ridge_cv"] = counted(
+        lambda bk: ridge[bk].fit_theta(x, y))
+    pi = cv.cv_picholesky(folds, ridge["cuda"].lambdas(), g=G_SAMPLES,
+                          degree=DEGREE, block=BLOCK, backend="cuda",
+                          device=dev)
+    theta_ref, _ = ridge["reference"].fit_theta(x, y)
+    out["ridge_cv"] = dict(best_lam=res.best_lam,
+                           cv_picholesky_best_lam=pi.best_lam,
+                           theta_rel_err=rel_err(theta, theta_ref),
+                           tol=MAIN_TOL)
+    if res.best_lam != pi.best_lam or out["ridge_cv"]["theta_rel_err"] \
+            > MAIN_TOL:
+        fail(f"ridge_cv: {out['ridge_cv']}")
+    want_ridge = dict(cholesky_blocked=2 * chol, pack_tril=1,
+                      interp_solve=n_chunks, solve_lower_blocked=2)
+    want_select = dict(cholesky_blocked=chol, pack_tril=1)
+    for tag, want in (("ridge_cv", want_ridge),
+                      ("select_interpolant", want_select)):
+        if launches[tag] != {k: want.get(k, 0) for k in launches[tag]}:
+            fail(f"{tag}: launches {launches[tag]}, predicted {want}")
+    expected.update(ridge_cv=want_ridge, select_interpolant=want_select)
+    out["launches_predicted"] = expected
+    # CountingBackend around each new strategy (and MChol)
+    stages = {}
+    for tag, run in (("picholesky_warmstart", runs["picholesky_warmstart"]),
+                     ("pinrmse", runs["pinrmse"]), ("svd", runs["svd"]),
+                     ("low_rank", runs["low_rank"]), ("mchol", runs["mchol"])):
+        bk = backends.CountingBackend(backends.CudaBackend())
+        run(bk)
+        stages[tag] = {k: dict(v) for k, v in bk.by_stage.items()}
+    out["counting_backend"] = stages
+    ok = (stages["picholesky_warmstart"].get("prepare", {}).get("cholesky")
+          and stages["picholesky_warmstart"].get("fold_state", {}).get(
+              "cholesky")
+          and stages["picholesky_warmstart"].get("fold_errors", {}).get(
+              "interp_solve")
+          and stages["pinrmse"].get("prepare", {}).get("cholesky")
+          and not stages["svd"] and not stages["low_rank"]
+          and stages["mchol"] == {"unstaged": {"cholesky": len(visited)}})
+    if not ok:
+        fail(f"CountingBackend stage counts: {stages}")
+    # no library factorization or triangular solve on the Cholesky paths
+    traces = {}
+    for tag, fn in (("picholesky_warmstart",
+                     lambda: runs["picholesky_warmstart"]("cuda")),
+                    ("pinrmse", lambda: runs["pinrmse"]("cuda")),
+                    ("mchol", lambda: runs["mchol"]("cuda")),
+                    ("ridge_cv", lambda: ridge["cuda"].fit_theta(x, y))):
+        trace, by_name = profiled(fn)
+        traces[tag] = dict(
+            trace, cholesky=chol_split(by_name),
+            library_trsm={n: v for n, v in by_name.items()
+                          if is_library_trsm(n)},
+            library_cholesky={n: v for n, v in by_name.items()
+                              if is_library_factorization(n)})
+        if trace["triangular_solve_ops"] or traces[tag]["library_trsm"] \
+                or traces[tag]["library_cholesky"]:
+            fail(f"{tag}: a library Cholesky or triangular solve ran: "
+                 f"{traces[tag]}")
+    out["trace"] = traces
+    # walls: the paper's Table 3 on the card, in turns
+    walls = {tag: [] for tag in runs}
+    for _ in range(BASELINE_REPEATS):
+        for tag, run in runs.items():
+            walls[tag].append(_wall(lambda: run("cuda")))
+    out["wall_s"] = walls
+    out["wall_s_median"] = {k: float(np.median(v)) for k, v in walls.items()}
+    emit("baselines", h=H, n=N_TRAIN, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES,
+         r=DEGREE, block=BLOCK, dtype="float64", launches=launches, **out)
+    return launches
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |Δ| / max |want|, failing on a non-finite value."""
     return errors(got.float(), want.float())[1]
@@ -1982,6 +2298,7 @@ def main() -> None:
     launches["gauss_newton"] = phase_gauss_newton(dev, folds)
     phase_table4(dev)
     launches.update(phase_precision(dev, folds, lams))
+    launches.update(phase_baselines(dev, folds, lams))
     del folds, lams
     phase_mamba_fixture(dev)
     phase_mamba(dev)

@@ -16,9 +16,14 @@ has two implementations behind one object:
 ``reference`` on the CPU.  Every backend carries the pipeline's
 :class:`~repro_torch.core.precision.PrecisionPolicy`.  Leading dimensions
 of every argument are batch dimensions (folds, λs).
+
+:class:`CountingBackend` wraps either and counts its factorizations and
+λ-stage solves per engine stage; :func:`retile_backend` changes the kernel
+tile sizes of a backend.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Union
 
@@ -28,7 +33,8 @@ from .precision import PRESETS, PrecisionLike, PrecisionPolicy, \
     resolve_precision
 
 __all__ = ["LinalgBackend", "ReferenceBackend", "CudaBackend",
-           "resolve_backend", "BackendLike", "shared_rhs"]
+           "CountingBackend", "resolve_backend", "retile_backend",
+           "BackendLike", "shared_rhs"]
 
 
 def shared_rhs(pf, g: torch.Tensor) -> torch.Tensor:
@@ -235,7 +241,131 @@ class CudaBackend(LinalgBackend):
                               center=center)
 
 
+class CountingBackend(LinalgBackend):
+    """Delegating wrapper that counts calls to ``cholesky`` and to the
+    λ-stage workhorses ``interp_solve`` and ``solve_packed``
+    (``src/repro/core/backends.py:270``).
+
+    Counts are **per call site and per stage**: :attr:`by_stage` maps a
+    stage label to ``{op: calls}``; :class:`~repro_torch.core.engine.
+    CVEngine` scopes its ``prepare``, ``fold_state`` and ``fold_errors``
+    stages with :meth:`stage`, and calls outside any scope land in
+    ``'unstaged'``.  The port runs eagerly, so a call counts once each
+    time it executes, where the reference counts once per trace; a batched
+    call (every fold, or every anchor, in one tensor) counts once either
+    way, so :attr:`n_cholesky` counts factorization calls, not matrices.
+    A cold path moves the count; a path with no factorization leaves it
+    at 0.
+
+    Transparent to ``name`` and ``precision``; :meth:`with_precision` and
+    :func:`retile_backend` return views over the same counters.
+    """
+
+    def __init__(self, inner: LinalgBackend, _shared_counts: dict = None):
+        self.inner = inner
+        # stage label -> {op: calls}; shared by every view of this backend
+        self.by_stage: dict = {} if _shared_counts is None else _shared_counts
+        self._stage: str | None = None
+
+    @property
+    def n_cholesky(self) -> int:
+        return sum(rec.get("cholesky", 0) for rec in self.by_stage.values())
+
+    @property
+    def name(self) -> str:
+        return self.inner.name
+
+    @property
+    def precision(self) -> PrecisionPolicy:
+        return self.inner.precision
+
+    def with_precision(self, policy: PrecisionPolicy) -> "CountingBackend":
+        """A view over the same counters with ``policy`` attached (this
+        instance is left as it is)."""
+        return CountingBackend(self.inner.with_precision(policy),
+                               _shared_counts=self.by_stage)
+
+    def reset(self) -> None:
+        self.by_stage.clear()       # in place: the views share this dict
+
+    @contextlib.contextmanager
+    def stage(self, label: str):
+        """Attribute the calls made inside this scope to ``label``
+        (nested scopes restore the outer label on exit)."""
+        prev, self._stage = self._stage, label
+        try:
+            yield self
+        finally:
+            self._stage = prev
+
+    def stage_count(self, label: str, op: str = "cholesky") -> int:
+        return self.by_stage.get(label, {}).get(op, 0)
+
+    def _count(self, op: str) -> None:
+        rec = self.by_stage.setdefault(self._stage or "unstaged", {})
+        rec[op] = rec.get(op, 0) + 1
+
+    def cholesky(self, a):
+        self._count("cholesky")
+        return self.inner.cholesky(a)
+
+    def solve_lower(self, l, b, *, transpose=False):
+        return self.inner.solve_lower(l, b, transpose=transpose)
+
+    def solve_from_factor(self, l, g):
+        return self.inner.solve_from_factor(l, g)
+
+    def pack_tril(self, mat, block):
+        return self.inner.pack_tril(mat, block)
+
+    def unpack_tril(self, vec, h, block):
+        return self.inner.unpack_tril(vec, h, block)
+
+    def solve_packed(self, pf, g):
+        self._count("solve_packed")
+        return self.inner.solve_packed(pf, g)
+
+    def interp_solve(self, theta, lams, g, *, h, block, center=0.0,
+                     rhs_per_lam=False):
+        self._count("interp_solve")
+        return self.inner.interp_solve(theta, lams, g, h=h, block=block,
+                                       center=center,
+                                       rhs_per_lam=rhs_per_lam)
+
+    def interp_factors(self, theta, lams, *, h, block, center=0.0):
+        return self.inner.interp_factors(theta, lams, h=h, block=block,
+                                         center=center)
+
+
 BackendLike = Union[None, str, LinalgBackend]
+
+
+def retile_backend(bk: LinalgBackend, *, chol_block: int | None = None,
+                   trsm_block: int | None = None) -> LinalgBackend:
+    """``bk`` with the given kernel tile sizes.  A :class:`CudaBackend`
+    takes only the blocks its kernels are compiled for
+    (:data:`repro_torch.kernels._build.BLOCKS`; ``ValueError`` otherwise);
+    a backend without kernel tiles (reference) comes back unchanged; a
+    :class:`CountingBackend` is re-wrapped around its retiled inner
+    backend, sharing its counters."""
+    if chol_block is None and trsm_block is None:
+        return bk
+    if isinstance(bk, CountingBackend):
+        inner = retile_backend(bk.inner, chol_block=chol_block,
+                               trsm_block=trsm_block)
+        if inner is bk.inner:
+            return bk
+        return CountingBackend(inner, _shared_counts=bk.by_stage)
+    if isinstance(bk, CudaBackend):
+        from repro_torch.kernels import _build
+        for what, b in (("chol_block", chol_block), ("trsm_block",
+                                                     trsm_block)):
+            if b is not None:
+                _build.check_block(b, f"retile_backend {what}")
+        return dataclasses.replace(
+            bk, chol_block=chol_block or bk.chol_block,
+            trsm_block=trsm_block or bk.trsm_block)
+    return bk
 
 
 def resolve_backend(backend: BackendLike = None, *, block: int | None = None,

@@ -12,11 +12,12 @@ what makes these drivers its oracle:
   evaluate the dense interpolated factors L(λ) (``eval_factor``), then
   forward and back substitution on each;
 * ``host_cv_pinrmse`` interpolates the hold-out curve itself from g exact
-  evaluations (the §6.5 straw-man).
+  evaluations (the §6.5 straw-man);
+* ``host_cv_svd`` runs the SVD family on each fold's raw training rows
+  (the other folds in ascending order).
 
-Each takes ``backend=`` (``'auto'``: the CUDA kernels when the folds lie on
-a CUDA device, ``torch.linalg`` on the CPU).  ``host_cv_svd`` waits for the
-SVD solvers (``ROADMAP.md`` queue 1 item 6).
+The Cholesky drivers take ``backend=`` (``'auto'``: the CUDA kernels when
+the folds lie on a CUDA device, ``torch.linalg`` on the CPU).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from . import picholesky, solvers
 from .backends import BackendLike, resolve_backend
 from .folds import CVResult, FoldData, holdout_nrmse
 
-__all__ = ["host_cv_exact_cholesky", "host_cv_picholesky", "host_cv_pinrmse"]
+__all__ = ["host_cv_exact_cholesky", "host_cv_picholesky", "host_cv_pinrmse",
+           "host_cv_svd"]
 
 
 def _fold_train_stats(folds: FoldData, f: int):
@@ -51,7 +53,7 @@ def host_cv_exact_cholesky(folds: FoldData, lams, *,
     errs = []
     for f in range(k):
         h_tr, g_tr = _fold_train_stats(folds, f)
-        thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, lams, bk)
+        thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, lams, backend=bk)
         errs.append(_fold_errors(folds, f, thetas))
     curve = torch.stack(errs).mean(0)
     return CVResult.from_errors(lams.cpu().numpy(), curve.cpu().numpy(),
@@ -98,3 +100,24 @@ def host_cv_pinrmse(folds: FoldData, lams, g: int = 4, degree: int = 2, *,
     k = folds.fold_hess.shape[0]
     return CVResult.from_errors(lams.cpu().numpy(), errs.cpu().numpy(), k * g,
                                 sample_lams=sample.cpu().numpy())
+
+
+def host_cv_svd(folds: FoldData, lams, mode: str = "full", k_trunc: int = 0,
+                omega=None) -> CVResult:
+    """SVD / t-SVD / r-SVD baselines on the raw design matrix, one fold at
+    a time.  ``mode='randomized'`` projects every fold with one Gaussian
+    test matrix: ``omega`` (h, k_trunc + 10), by default drawn from a
+    generator seeded 0."""
+    lams = _grid(folds, lams)
+    k, n_f, h = folds.x_folds.shape
+    errs = []
+    for f in range(k):
+        others = [i for i in range(k) if i != f]
+        x_tr = folds.x_folds[others].reshape((k - 1) * n_f, h)
+        y_tr = folds.y_folds[others].reshape(-1)
+        factors = solvers.svd_ridge_factors(x_tr, y_tr, mode, k_trunc,
+                                            omega=omega)
+        errs.append(_fold_errors(folds, f,
+                                 solvers.svd_ridge_sweep(factors, lams)))
+    curve = torch.stack(errs).mean(0)
+    return CVResult.from_errors(lams.cpu().numpy(), curve.cpu().numpy(), 0)

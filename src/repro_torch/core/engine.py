@@ -11,13 +11,30 @@ by q regularizers.  :class:`CVEngine` runs it as
 
 All linear algebra goes through one ``backend=`` switch
 (:mod:`repro_torch.core.backends`): the CUDA kernels on the card, plain
-``torch.linalg`` on the CPU.  Strategies: ``exact`` (k·q factorizations)
-and ``picholesky`` (k·g factorizations + the fused interpolant sweep).
+``torch.linalg`` on the CPU.  A :class:`~repro_torch.core.backends.
+CountingBackend` sees each stage under its label (``prepare``,
+``fold_state``, ``fold_errors``).
+
+Strategies (the paper's algorithms, ``src/repro/core/engine.py:167-600``):
+
+* ``exact`` — k·q factorizations;
+* ``picholesky`` — k·g factorizations + the fused interpolant sweep;
+* ``picholesky_warmstart`` — a fold-0 anchor fit, then per fold a refit of
+  the residual from ``g_rest`` factorizations;
+* ``pinrmse`` — the hold-out curve itself interpolated from g exact
+  evaluations (the §6.5 straw-man);
+* ``svd`` — SVD / t-SVD / r-SVD of the raw training design;
+* ``low_rank`` — low-rank ACV through the Woodbury identity.
+
+MChol (§6.2) is a host-side driver (:func:`repro_torch.core.cv.
+cv_multilevel_cholesky`): its search is decision-dependent.
+``picholesky_sketched`` waits for ``core/sketch.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -29,8 +46,9 @@ from .folds import CVResult, FoldData, holdout_nrmse
 from .precision import PrecisionLike
 
 __all__ = ["CVEngine", "ExactCholesky", "PiCholeskyStrategy",
-           "make_strategy", "STRATEGIES", "LAM_CHUNK_BUDGET_BYTES",
-           "auto_lam_chunk", "chunk_lams"]
+           "PiCholeskyWarmstart", "PinrmseStrategy", "SVDStrategy",
+           "LowRankStrategy", "make_strategy", "STRATEGIES",
+           "LAM_CHUNK_BUDGET_BYTES", "auto_lam_chunk", "chunk_lams"]
 
 #: byte budget the ``lam_chunk='auto'`` heuristic sizes one chunk's packed
 #: factors against.  The same value as the JAX package's, so both packages
@@ -69,6 +87,17 @@ def _errors_from_thetas(thetas: torch.Tensor, x_f: torch.Tensor,
     return holdout_nrmse(thetas, x_f[:, None], y_f[:, None])
 
 
+def _other_folds(x_folds: torch.Tensor) -> torch.Tensor:
+    """Each fold's training rows, the k − 1 other folds in the reference's
+    order ``(f + 1 + arange(k − 1)) % k`` (``src/repro/core/engine.py:472``):
+    (k, n_f, …) → (k, (k − 1)·n_f, …)."""
+    k, n_f = x_folds.shape[:2]
+    f = torch.arange(k, device=x_folds.device)
+    others = (f[:, None] + 1 + torch.arange(k - 1, device=x_folds.device)
+              ) % k                                        # (k, k − 1)
+    return x_folds[others].reshape(k, (k - 1) * n_f, *x_folds.shape[2:])
+
+
 class StrategyBase:
     def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
         return ()
@@ -81,28 +110,43 @@ class StrategyBase:
 class ExactCholesky(StrategyBase):
     """Chol baseline: factorize at every (fold, λ) — k·q factorizations."""
 
+    chol_fn: Optional[Callable] = None
     name: str = "exact"
 
     def n_exact_chol(self, k, q):
         return k * q
 
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
-        thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, lams, bk)
+        thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, lams, self.chol_fn,
+                                              bk)
+        return _errors_from_thetas(thetas, x_f, y_f)
+
+
+class _InterpolantErrors:
+    """The λ stage of the piCholesky family: the fused interpolant solve
+    of every fold at the chunk, corrected by
+    :func:`~repro_torch.core.picholesky.refine_solutions` under a refining
+    policy (``bf16_refined``)."""
+
+    def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
+        thetas = state.solve(lams, g_tr, backend=bk)        # (k, c, h)
+        if bk.precision.refine_iters:   # bf16_refined: fp32 residual sweep
+            thetas = picholesky.refine_solutions(state, h_tr, g_tr, lams,
+                                                 thetas, backend=bk)
         return _errors_from_thetas(thetas, x_f, y_f)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class PiCholeskyStrategy(StrategyBase):
+class PiCholeskyStrategy(_InterpolantErrors, StrategyBase):
     """Algorithm 1 per fold: g exact factorizations + a polynomial fit;
     the dense sweep reads the interpolant only (fused Horner + packed
-    substitution, no factor of the sweep is materialized).  Under a
-    refining policy (``bf16_refined``) each chunk's solves are corrected
-    by :func:`~repro_torch.core.picholesky.refine_solutions`."""
+    substitution, no factor of the sweep is materialized)."""
 
     g: int = 4
     degree: int = 2
     block: int = 128
     basis: str = "monomial"
+    chol_fn: Optional[Callable] = None
     name: str = "picholesky"
 
     def n_exact_chol(self, k, q):
@@ -113,17 +157,183 @@ class PiCholeskyStrategy(StrategyBase):
 
     def fold_state(self, h_tr, g_tr, aux, bk):
         return picholesky.fit(h_tr, aux, self.degree, block=self.block,
-                              basis=self.basis, backend=bk)
+                              basis=self.basis, chol_fn=self.chol_fn,
+                              backend=bk)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PiCholeskyWarmstart(_InterpolantErrors, StrategyBase):
+    """Cross-fold warm-starting (paper §7 future work;
+    ``src/repro/core/engine.py:369``).
+
+    An anchor fit on fold 0 (``g_first`` factorizations over the λ range,
+    in ``prepare``) gives the coefficient prior Θ⁰.  Every fold then refits
+    only the residual from ``g_rest`` fresh factorizations,
+
+        Θ_f = Θ⁰ + argmin_Δ ‖V_r Δ − (T_f − V_r Θ⁰)‖² + μ‖S Δ‖²,
+
+    S² = diag(V_rᵀV_r), so the damping is relative per monomial order.  All
+    folds refresh at once: one Cholesky call over the (k, g_rest) shifted
+    Hessians and one ``pack_tril``.  The damped (r+1)² solve runs on the
+    host at the policy's fit dtype and is applied to V_rᵀ first, then to
+    the residual targets (the reference solves against V_rᵀ R; the two
+    differ by summation order, amplified by the condition of the barely
+    regularized normal matrix when g_rest ≤ degree).
+    """
+
+    g_first: int = 4
+    g_rest: int = 2
+    degree: int = 2
+    mu: float = 1e-6
+    block: int = 128
+    chol_fn: Optional[Callable] = None
+    name: str = "picholesky_warmstart"
+
+    def n_exact_chol(self, k, q):
+        # anchor fit + one refresh per fold (fold 0's refresh is performed)
+        return self.g_first + k * max(self.g_rest, 1)
+
+    def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
+        chol = self.chol_fn or bk.cholesky
+        base = picholesky.fit(h_tr[0], _sample_grid(lams, self.g_first),
+                              self.degree, block=self.block, chol_fn=chol,
+                              backend=bk)
+        sample_rest = _sample_grid(lams, max(self.g_rest, 1))
+        # the residual regression runs at the policy's fit dtype
+        fit_dtype = bk.precision.fit_dtype(h_tr.dtype)
+        v_rest = picholesky.vandermonde(sample_rest.cpu(), self.degree
+                                        ).to(fit_dtype)
+        gram = v_rest.T @ v_rest
+        lhs = gram + self.mu * torch.diag(torch.diag(gram))
+        # (r+1)² solve on the host, as the Θ fit's (picholesky.fit)
+        proj = torch.linalg.solve(lhs, v_rest.T)          # (r+1, g_rest)
+        return dict(sample_rest=sample_rest,
+                    v_rest=v_rest.to(h_tr.device),
+                    proj=proj.to(h_tr.device),
+                    base_theta=base.theta, center=base.center)
+
+    def fold_state(self, h_tr, g_tr, aux, bk):
+        chol = self.chol_fn or bk.cholesky
+        h = h_tr.shape[-1]
+        eye = torch.eye(h, dtype=h_tr.dtype, device=h_tr.device)
+        lam = aux["sample_rest"][:, None, None]
+        factors = chol(h_tr[:, None] + lam * eye)         # (k, g_rest, h, h)
+        v, base = aux["v_rest"], aux["base_theta"]
+        t = bk.pack_tril(factors, self.block).to(v.dtype)  # (k, g_rest, P)
+        resid = t - v @ base.to(v.dtype)
+        theta = (base.to(v.dtype) + aux["proj"] @ resid).to(base.dtype)
+        return picholesky.PiCholesky(theta=theta, center=aux["center"],
+                                     h=h, block=self.block)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PinrmseStrategy(StrategyBase):
+    """PINRMSE straw-man (§6.5; ``src/repro/core/engine.py:550``):
+    interpolate the hold-out-error curve itself from g exact evaluations —
+    the paper shows it selects wrong λs.  The k·g evaluations (one batched
+    Cholesky call and the dense trsm) and the curve fit at the policy's
+    fit dtype run in ``prepare``; the (r+1)² solve of the fit runs on the
+    host."""
+
+    g: int = 4
+    degree: int = 2
+    chol_fn: Optional[Callable] = None
+    name: str = "pinrmse"
+
+    def n_exact_chol(self, k, q):
+        return k * self.g
+
+    def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
+        sample = _sample_grid(lams, self.g)
+        thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, sample,
+                                              self.chol_fn, bk)
+        mean_err = _errors_from_thetas(thetas, x_folds, y_folds).mean(0)
+        fit_dtype = bk.precision.fit_dtype(mean_err.dtype)
+        # the (r+1)² solve on the host: on the card torch.linalg.solve
+        # launches library triangular solves
+        v = picholesky.vandermonde(sample.cpu(), self.degree).to(fit_dtype)
+        theta = torch.linalg.solve(v.T @ v, v.T @ mean_err.cpu().to(fit_dtype))
+        return theta.to(h_tr.device)
 
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
-        thetas = state.solve(lams, g_tr, backend=bk)        # (k, c, h)
-        if bk.precision.refine_iters:   # bf16_refined: fp32 residual sweep
-            thetas = picholesky.refine_solutions(state, h_tr, g_tr, lams,
-                                                 thetas, backend=bk)
+        v = picholesky.vandermonde(lams, self.degree).to(aux.dtype)
+        # the same curve on every fold, so the mean is the curve itself
+        return (v @ aux).expand(x_f.shape[0], -1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SVDStrategy(StrategyBase):
+    """SVD / t-SVD / r-SVD baselines on the raw design matrix
+    (``src/repro/core/engine.py:451``).  Each fold's training rows are the
+    other folds' raw rows, stacked once in ``prepare`` ((k, (k − 1)·n_f,
+    h)); ``fold_state`` factors every fold in one batched call.
+
+    ``mode='randomized'`` projects every fold with one Gaussian test
+    matrix: ``omega`` (h, k_trunc + 10) when given, else drawn from a
+    generator seeded 0 (:func:`~repro_torch.core.solvers.
+    randomized_range_finder`)."""
+
+    mode: str = "full"                 # full | truncated | randomized
+    k_trunc: int = 0
+    omega: Optional[torch.Tensor] = None
+    name: str = "svd"
+
+    def n_exact_chol(self, k, q):
+        return 0
+
+    def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
+        return _other_folds(x_folds), _other_folds(y_folds)
+
+    def fold_state(self, h_tr, g_tr, aux, bk):
+        return solvers.svd_ridge_factors(*aux, self.mode, self.k_trunc,
+                                         omega=self.omega)
+
+    def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
+        return _errors_from_thetas(solvers.svd_ridge_sweep(state, lams),
+                                   x_f, y_f)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LowRankStrategy(StrategyBase):
+    """Low-rank ACV (Stephenson, Udell & Broderick, arXiv:2008.10547;
+    ``src/repro/core/engine.py:486``) for the n ≪ h regime: ``fold_state``
+    SVDs every fold's (n_tr, h) training design into
+    :class:`~repro_torch.core.solvers.LowRankFactors`; ``fold_errors``
+    sweeps the grid through the Woodbury identity.  Equal to the exact
+    ridge path when ``rank`` ≥ rank(X) (``None``: full min(n_tr, h)), the
+    rank-r ACV approximation below it.  No factorization of H."""
+
+    rank: Optional[int] = None
+    name: str = "low_rank"
+
+    def n_exact_chol(self, k, q):
+        return 0
+
+    def descriptor(self) -> str:
+        return f"lowrank/r{'full' if self.rank is None else int(self.rank)}"
+
+    def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
+        return _other_folds(x_folds)
+
+    def fold_state(self, h_tr, g_tr, aux, bk):
+        return solvers.lowrank_ridge_factors(aux, self.rank,
+                                             precision=bk.precision)
+
+    def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
+        thetas = solvers.lowrank_ridge_sweep(
+            state, g_tr, lams,
+            compute_dtype=bk.precision.accum_dtype(g_tr.dtype))
         return _errors_from_thetas(thetas, x_f, y_f)
 
 
-STRATEGIES = {"exact": ExactCholesky, "picholesky": PiCholeskyStrategy}
+STRATEGIES = {
+    "exact": ExactCholesky,
+    "picholesky": PiCholeskyStrategy,
+    "picholesky_warmstart": PiCholeskyWarmstart,
+    "svd": SVDStrategy,
+    "low_rank": LowRankStrategy,
+    "pinrmse": PinrmseStrategy,
+}
 
 
 def make_strategy(name: str, **params):
@@ -166,6 +376,12 @@ class CVEngine:
             device=self._device)
         self._prec = self._bk.precision
 
+    def _stage_scope(self, label: str):
+        """The counting scope of a stage-counting backend
+        (:class:`~repro_torch.core.backends.CountingBackend`), else none."""
+        stage = getattr(self._bk, "stage", None)
+        return stage(label) if callable(stage) else contextlib.nullcontext()
+
     @staticmethod
     def _check_lams(lams, device) -> torch.Tensor:
         """A 1-D, non-empty λ grid on ``device``, or ``ValueError``."""
@@ -207,16 +423,19 @@ class CVEngine:
         q = lams_t.shape[0]
         h_tr = folds.hess[None] - folds.fold_hess
         g_tr = folds.grad[None] - folds.fold_grad
-        aux = strat.prepare(folds.x_folds, folds.y_folds, h_tr, g_tr, lams_t,
-                            bk)
-        state = strat.fold_state(h_tr, g_tr, aux, bk)
+        with self._stage_scope("prepare"):
+            aux = strat.prepare(folds.x_folds, folds.y_folds, h_tr, g_tr,
+                                lams_t, bk)
+        with self._stage_scope("fold_state"):
+            state = strat.fold_state(h_tr, g_tr, aux, bk)
 
         def errors_at(lams_c):
             return strat.fold_errors(state, h_tr, g_tr, folds.x_folds,
                                      folds.y_folds, lams_c, aux, bk)
 
-        errs = self._stream_errors(errors_at, lams_t, h_tr.shape[-1],
-                                   h_tr.dtype)
+        with self._stage_scope("fold_errors"):
+            errs = self._stream_errors(errors_at, lams_t, h_tr.shape[-1],
+                                       h_tr.dtype)
         errs = errs.cpu().numpy()[:, :q]
         return CVResult.from_errors(
             lams_t.cpu().numpy(), errs.mean(0), strat.n_exact_chol(k, q),

@@ -12,6 +12,7 @@ Basis options: ``'monomial'`` (V[s,k] = λ_s^k, the paper's) and
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,7 +22,10 @@ from . import packing
 from .backends import BackendLike, resolve_backend
 
 __all__ = ["PiCholesky", "fit", "vandermonde", "choose_sample_lambdas",
-           "evaluate", "evaluate_packed", "lam_tensor", "refine_solutions"]
+           "evaluate", "evaluate_packed", "lam_tensor", "refine_solutions",
+           "loo_interp_scores", "select_interpolant"]
+
+BASES = ("monomial", "centered")
 
 
 def lam_tensor(lam, device) -> torch.Tensor:
@@ -116,10 +120,13 @@ class PiCholesky:
 
 def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
         degree: int = 2, *, block: int = 128, basis: str = "monomial",
-        factors=None, backend: BackendLike = "reference") -> PiCholesky:
+        chol_fn: Optional[Callable] = None, factors=None,
+        backend: BackendLike = "reference") -> PiCholesky:
     """Algorithm 1.  ``hessian``: (…, h, h) SPD; ``sample_lams``: (g,) with
-    g > degree.  ``factors`` skips the factorization: dense (…, g, h, h) or
-    a :class:`~repro_torch.core.packing.PackedFactor` with vec (…, g, P),
+    g > degree.  ``chol_fn`` (default the backend's ``cholesky``)
+    factorizes the (…, g, h, h) batch of shifted Hessians in one call.
+    ``factors`` skips the factorization: dense (…, g, h, h) or a
+    :class:`~repro_torch.core.packing.PackedFactor` with vec (…, g, P),
     consumed without an unpack (then ``hessian`` may be ``None``).
 
     The normal equations run at the policy's fit dtype; Θ is stored at its
@@ -137,9 +144,7 @@ def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
     g = sample_lams.shape[0]
     if g <= degree:
         raise ValueError(f"need g > r: got g={g}, r={degree}")
-    if basis not in ("monomial", "centered"):
-        raise ValueError(f"unknown basis {basis!r}; "
-                         "expected 'monomial' or 'centered'")
+    _check_basis(basis)
     bk = resolve_backend(backend)
 
     if isinstance(factors, packing.PackedFactor):
@@ -152,7 +157,8 @@ def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
         if factors is None:
             eye = torch.eye(h, dtype=hessian.dtype, device=hessian.device)
             lam = sample_lams.to(hessian.device)[:, None, None]
-            factors = bk.cholesky(hessian[..., None, :, :] + lam * eye)
+            factors = (chol_fn or bk.cholesky)(
+                hessian[..., None, :, :] + lam * eye)
         targets = bk.pack_tril(factors, block)              # (…, g, P)
 
     center = (sample_lams.mean() if basis == "centered"
@@ -171,6 +177,93 @@ def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
     return PiCholesky(theta=theta.to(store_dtype),
                       center=center.to(fit_dtype).to(targets.device),
                       h=h, block=block)
+
+
+def _check_basis(basis: str) -> None:
+    if basis not in BASES:
+        raise ValueError(f"unknown basis {basis!r}; "
+                         "expected 'monomial' or 'centered'")
+
+
+def loo_interp_scores(targets: torch.Tensor, sample_lams, degrees:
+                      Sequence[int], *, bases: Sequence[str] = ("monomial",),
+                      backend: BackendLike = "reference") -> dict:
+    """Leave-one-anchor-out CV scores of candidate (degree, basis) pairs
+    (``src/repro/core/picholesky.py:182``).
+
+    ``targets``: tile-packed anchor factors, (g, P) or (k, g, P).  For each
+    held-out anchor s the candidate is fitted by the normal equations on
+    the other g − 1 anchors and evaluated at λ_s; its score is the mean
+    over anchors and folds of ‖prediction − T_s‖ / ‖T_s‖.  A fit is linear
+    in the targets, so every held-out prediction of a candidate is one
+    (g, g) weight matrix applied to T: the (r+1)² solves run on the host
+    and the targets see one GEMM per candidate, at the policy's fit dtype.
+    A candidate needs g − 1 > degree (``ValueError`` otherwise).
+
+    Returns ``{(degree, basis): float}``.
+    """
+    t = torch.as_tensor(targets)
+    if t.ndim == 2:
+        t = t[None]                                        # (k=1, g, P)
+    lam = lam_tensor(sample_lams, "cpu").reshape(-1)
+    g = int(lam.shape[0])
+    for r in degrees:
+        if g - 1 <= int(r):
+            raise ValueError(
+                f"leave-one-out selection needs g - 1 > degree: "
+                f"g={g} anchors cannot score degree {r}")
+    fit_dtype = resolve_backend(backend).precision.fit_dtype(t.dtype)
+    t = t.to(fit_dtype)
+    lam = lam.to(fit_dtype)
+    tiny = torch.finfo(fit_dtype).tiny
+    norms = torch.linalg.vector_norm(t, dim=-1) + tiny     # (k, g)
+    scores: dict = {}
+    for basis in bases:
+        _check_basis(basis)
+        center = lam.mean() if basis == "centered" else lam.new_zeros(())
+        for r in degrees:
+            v = vandermonde(lam, int(r), center)           # (g, r+1)
+            weights = []
+            for s in range(g):
+                vw = v.clone()
+                vw[s] = 0                                  # drop anchor s
+                weights.append(v[s] @ torch.linalg.solve(vw.T @ v, vw.T))
+            w = torch.stack(weights).to(t.device)          # (g, g)
+            pred = w @ t                                   # (k, g, P)
+            errs = torch.linalg.vector_norm(pred - t, dim=-1) / norms
+            scores[(int(r), basis)] = float(errs.mean())
+    return scores
+
+
+def select_interpolant(targets: torch.Tensor, sample_lams,
+                       degrees: Optional[Sequence[int]] = None, *,
+                       bases: Sequence[str] = BASES,
+                       backend: BackendLike = "reference") -> dict:
+    """Choose the interpolant (degree, basis) by :func:`loo_interp_scores`
+    (``src/repro/core/picholesky.py:249``).  ``degrees=None`` tries every
+    scorable degree 1 .. g−2.  Ties break toward the lowest degree: the
+    candidates are taken basis by basis in ascending degree, and only a
+    strictly better score displaces the incumbent.
+
+    Returns ``dict(degree=, basis=, score=, scores={'basis/r': float})``.
+    """
+    g = int(lam_tensor(sample_lams, "cpu").reshape(-1).shape[0])
+    if degrees is None:
+        degrees = tuple(range(1, g - 1))
+    degrees = tuple(int(r) for r in degrees)
+    if not degrees:
+        raise ValueError(f"no candidate degrees to select from "
+                         f"(g={g} anchors admit degrees 1..{g - 2})")
+    scores = loo_interp_scores(targets, sample_lams, degrees, bases=bases,
+                               backend=backend)
+    best_key, best = None, None
+    for basis in bases:
+        for r in degrees:
+            s = scores[(r, basis)]
+            if best is None or s < best:
+                best_key, best = (r, basis), s
+    return dict(degree=best_key[0], basis=best_key[1], score=best,
+                scores={f"{b}/r{r}": s for (r, b), s in scores.items()})
 
 
 def evaluate_packed(model: PiCholesky, lams) -> packing.PackedFactor:

@@ -18,7 +18,7 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["make_classification", "random_polynomial_features",
-           "make_regression_dataset"]
+           "make_regression_dataset", "make_low_rank_dataset"]
 
 
 def make_classification(gen: torch.Generator, n: int, raw_dim: int, *,
@@ -74,3 +74,32 @@ def make_regression_dataset(n: int, h: int, *, seed: int = 0,
     y = feats @ theta_true + noise * torch.randn(n, generator=gen,
                                                  dtype=dtype, device=dev)
     return feats, y
+
+
+def make_low_rank_dataset(n: int, h: int, rank: int, *, seed: int = 0,
+                          noise: float = 1.0, tail_scale: float = 1e-3,
+                          signal_scale: float = 3.0, dtype=torch.float32,
+                          device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planted (numerically) rank-r design in the n ≪ h regime of the
+    low-rank ACV strategy, made on ``device`` (``None``: the CUDA device)
+    from ``seed``.
+
+    ``X = A @ B + tail_scale · E`` with A (n, r), B (r, h) / √r: the top r
+    singular values carry the signal and the tail sits ``tail_scale``
+    below them (a small tail keeps the SVD's order and signs determined).
+    Labels come from a planted model in the row space plus noise.
+    """
+    if not 0 < rank <= min(n, h):
+        raise ValueError(f"rank must be in (0, min(n={n}, h={h})], got {rank}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=dev)
+
+    a = normal(n, rank)
+    b = normal(rank, h) / math.sqrt(rank)
+    x = a @ b + tail_scale * normal(n, h)
+    theta_true = signal_scale * (b.T @ normal(rank)) / math.sqrt(h)
+    y = x @ theta_true + noise * normal(n)
+    return x, y

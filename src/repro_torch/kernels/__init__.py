@@ -7,7 +7,9 @@ of the module of the same name in ``src/repro/kernels``;
 which the JAX package leaves to XLA.  A wrapper given
 CPU tensors runs its plain version (:mod:`.ref` or
 :mod:`repro_torch.core.packing`); given CUDA tensors it launches its
-kernel, built from ``csrc/`` at first use, or raises.  :data:`LAUNCHES`
+kernel, built from ``csrc/`` at first use, or raises.  :mod:`.ops` gives
+them the JAX package's entry-point names (``src/repro/kernels/ops.py``).
+:data:`LAUNCHES`
 counts the CUDA kernel launches per wrapper, the mixed-precision variants
 under the names of :data:`MIXED_NAMES`.
 """

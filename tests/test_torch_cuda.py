@@ -14,8 +14,12 @@ in float64, float32 and under bf16 products (bf16 and float32 factors);
 the Gauss–Newton head under ``bf16_store``; the ``ssm_scan`` kernel at N
 8, 16 and 32 on ragged shapes, its fused entry ``mamba_scan`` (S 0, 1 from
 a state, 37, 100; d_inner 20, 130, 8100; N 4 to 32; float32 and bf16) and
-the fused causal convolution (bit for bit), and the reduced Mamba model
-against the JAX fixture.  Skipped without a CUDA device.  On the
+the fused causal convolution (bit for bit), the reduced Mamba model
+against the JAX fixture; the paper's other CV algorithms (warm-start,
+PINRMSE, MChol, the SVD family, low rank) on the kernel backend against the
+reference backend, ``select_interpolant`` and ``RidgeCV`` on the card, and
+``kernels.ops`` (the kernels on CUDA tensors, ``REPRO_KERNELS=ref``
+refused there).  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -513,3 +517,143 @@ def test_reduced_mamba_matches_jax_fixture(dev, smoke):
     reproduce the JAX outputs of tests/data/torch_mamba.npz (1e-4)."""
     out = smoke.phase_mamba_fixture(dev)
     assert all(r["ok"] for r in out.values()), out
+
+
+@pytest.fixture(scope="module")
+def t4_folds(dev):
+    """The Table-4 fixture's folds (h=144) and grid on the card."""
+    from repro_torch.core import cv
+    data = np.load(ROOT / "tests" / "data" / "torch_table4.npz")
+    folds = cv.make_folds(data["x"], data["y"], int(data["k"]), device=dev)
+    return folds, torch.as_tensor(data["lams"], device=dev)
+
+
+@pytest.mark.parametrize("block", [16, 32])
+@pytest.mark.parametrize("name", ["picholesky_warmstart", "pinrmse", "mchol",
+                                  "svd_full", "svd_randomized", "low_rank"])
+def test_new_strategies_match_reference_backend(dev, t4_folds, name, block):
+    """Each of the paper's other algorithms on the cuda backend against the
+    reference backend on the card: the same λ* (MChol: the same visited
+    λs), curves within 1e-8 (warm-start within its CPU test's 1e-9); the
+    Cholesky paths launch only the port's kernels; the SVD paths and low
+    rank none."""
+    from repro_torch.core import backends, cv, engine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    folds, lams = t4_folds
+    omega = torch.randn(folds.x_folds.shape[-1], 30,
+                        generator=torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.float64, device=dev)
+    runs = {
+        "picholesky_warmstart": lambda bk: cv.cv_picholesky_warmstart(
+            folds, lams, block=block, backend=bk, device=dev),
+        "pinrmse": lambda bk: cv.cv_pinrmse(folds, lams, backend=bk,
+                                            device=dev),
+        "mchol": lambda bk: cv.cv_multilevel_cholesky(
+            folds, -1.5, 1.5, 0.01, backend=bk, device=dev),
+        "svd_full": lambda bk: cv.cv_svd(folds, lams, backend=bk,
+                                         device=dev),
+        "svd_randomized": lambda bk: cv.cv_svd(
+            folds, lams, "randomized", 20, omega, backend=bk, device=dev),
+        "low_rank": lambda bk: engine.CVEngine(
+            "low_rank", backend=bk, block=block, device=dev).run(folds,
+                                                                 lams),
+    }
+    kernels = {"picholesky_warmstart": {"cholesky_blocked", "pack_tril",
+                                        "interp_solve"},
+               "pinrmse": {"cholesky_blocked", "solve_lower_blocked"},
+               "mchol": {"cholesky_blocked", "solve_lower_blocked"}}
+    reset_launches()
+    got = runs[name](backends.resolve_backend("cuda", block=block))
+    torch.cuda.synchronize()
+    assert {k for k, n in LAUNCHES.items() if n} == kernels.get(name, set())
+    want = runs[name]("reference")
+    np.testing.assert_array_equal(got.lams, want.lams)
+    np.testing.assert_allclose(got.errors, want.errors,
+                               rtol=1e-9 if name == "picholesky_warmstart"
+                               else 1e-8)
+    assert got.best_lam == want.best_lam
+    assert got.n_exact_chol == want.n_exact_chol
+    if name == "mchol":
+        assert got.extras["visited_lams"] == want.extras["visited_lams"]
+
+
+def test_select_interpolant_and_ridge_cv_on_the_card(dev, t4_folds):
+    """select_interpolant on anchors factored and packed by the kernels:
+    the same degree and scores as on the CPU within 1e-9 or their float64
+    resolution eps·max_s cond(V_sᵀV_s) (tests/test_torch_select.py gives
+    the reason); RidgeCV's λ* that of cv_picholesky, its θ within 1e-8 of
+    the reference backend's."""
+    from repro_torch.core import backends, cv, picholesky
+    from repro_torch.core.ridge_cv import RidgeCV
+    folds, lams = t4_folds
+    bk = backends.CudaBackend(32, 32)
+    sample = picholesky.choose_sample_lambdas(lams[0], lams[-1], 5,
+                                              device=dev)
+    h = folds.hess.shape[-1]
+    eye = torch.eye(h, dtype=torch.float64, device=dev)
+    targets = bk.pack_tril(bk.cholesky(
+        (folds.hess[None] - folds.fold_hess)[:, None]
+        + sample[:, None, None] * eye), 32)
+    got = picholesky.select_interpolant(targets, sample, backend=bk)
+    cpu = picholesky.select_interpolant(targets.cpu(), sample.cpu())
+    assert got["degree"] == cpu["degree"]
+    lam = sample.cpu().numpy()
+    eps = float(np.finfo(np.float64).eps)
+    for key, s in cpu["scores"].items():
+        basis, r = key.split("/r")
+        v = (lam[:, None] - (lam.mean() if basis == "centered" else 0.0)
+             ) ** np.arange(int(r) + 1)
+        floor = eps * max(np.linalg.cond(np.delete(v, i, 0).T
+                                         @ np.delete(v, i, 0))
+                          for i in range(lam.size))
+        assert abs(got["scores"][key] - s) <= max(1e-9 * s, floor), key
+    x = folds.x_folds.reshape(-1, h)
+    y = folds.y_folds.reshape(-1)
+    ridge = {b: RidgeCV(k_folds=folds.x_folds.shape[0], n_lambdas=9,
+                        lam_lo=1e-3, lam_hi=10.0, block=32, backend=b,
+                        device=dev) for b in ("cuda", "reference")}
+    theta, res = ridge["cuda"].fit_theta(x, y)
+    pi = cv.cv_picholesky(cv.make_folds(x, y, folds.x_folds.shape[0],
+                                        device=dev),
+                          ridge["cuda"].lambdas(), block=32, backend="cuda",
+                          device=dev)
+    assert res.best_lam == pi.best_lam
+    theta_ref, res_ref = ridge["reference"].fit_theta(x, y)
+    assert res_ref.best_lam == res.best_lam
+    torch.testing.assert_close(theta, theta_ref, rtol=1e-8, atol=1e-12)
+
+
+def test_ops_run_the_kernels_and_refuse_ref_on_the_card(dev, monkeypatch):
+    """kernels.ops on CUDA tensors launches the kernels and agrees with the
+    plain versions on the CPU; with REPRO_KERNELS=ref it raises rather than
+    run a plain version on the card."""
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    h, block = 200, 64
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((2, 300, h))
+    hess = torch.from_numpy(np.einsum("kni,knj->kij", a, a)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((2, h))).to(dev)
+    monkeypatch.delenv("REPRO_KERNELS", raising=False)
+    reset_launches()
+    l = ops.cholesky(hess, block)
+    vec = ops.pack_tril(l, block)
+    sol = ops.solve_packed(vec, g, h, block)
+    sweep = ops.solve_factor_sweep(l, g[0], block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pack_tril"] == 1 and LAUNCHES["solve_lower_packed"] == 1
+    assert LAUNCHES["solve_lower_blocked"] == 2
+    assert LAUNCHES["cholesky_blocked"] > 0
+    for got, want in ((sol, ops.solve_packed(vec.cpu(), g.cpu(), h, block)),
+                      (sweep, ops.solve_factor_sweep(l.cpu(), g[0].cpu(),
+                                                     block))):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-12)
+    monkeypatch.setenv("REPRO_KERNELS", "ref")
+    for call in (lambda: ops.cholesky(hess, block),
+                 lambda: ops.pack_tril(l, block),
+                 lambda: ops.solve_packed(vec, g, h, block),
+                 lambda: ops.solve_lower(l, g, block)):
+        with pytest.raises(RuntimeError, match="REPRO_KERNELS=ref"):
+            call()
+    # on the CPU the switch is what it was: the plain versions
+    torch.testing.assert_close(ops.pack_tril(l.cpu(), block), vec.cpu(),
+                               rtol=0, atol=0)
