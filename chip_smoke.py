@@ -111,6 +111,40 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               ``trace`` line: device time of the convolution, the scan, the
               GEMMs and the rest; no library convolution may run).
 
+15. cache   — the warm-replay factor cache at the main configuration: a
+              cold run with ``cache_anchors``, an exact hit, a covering hit
+              on a sub-grid, a refit at degree 3 from the cached anchors,
+              save → load → replay; ``CountingBackend`` factorizations per
+              route (0 on every warm one), hit against cold and loaded
+              against in memory bit for bit; times of the fingerprint
+              (device → host copy and sha256), the cold sweep with and
+              without a cache, the hit, the refit, save and load.
+16. staged  — ``sweep_async`` pipelined against serial, cold and warm, bit
+              for bit; ``run_async`` against ``run``; early stopping;
+              the exact strategy staged and searched; ``search`` at the
+              default wave and at wave 8 (λ* against the dense argmin's
+              bracket); ``select_interpolant``; ``advise_anchor``; wall
+              medians and the device's idle share of the pipelined and
+              the serial sweep.
+17. cv_serve — the CV sweep server on ``make_traffic`` at the main
+              configuration (8 problems, 48 requests, 6 tenants, Zipf 1.2)
+              with ``ServerConfig`` defaults: p50/p99 latency, throughput,
+              hit rate, tenants sharing, the fingerprint's share; every
+              response against a solo cold run bit for bit; a second pass
+              with room for three cache entries (no stale entry served).
+18. sketch  — sketched anchors at a tall configuration (n = 131,072):
+              SRHT and Gaussian at m = 8192, count sketch at the smallest
+              m in 16,384 / 32,768 / 65,536 whose IHS contracts; each
+              method's contraction factor, its curve on ``cuda`` against
+              ``reference`` (1e-8, the same λ*), the count sketch twice bit
+              for bit, the curves against the dense sweep and the regret of
+              each pick on it, and the sketched anchor build against the
+              dense Hessian formation.
+
+Phases 15–18 run after ``baselines`` and before ``mamba_fixture``; each
+adds its paths to ``launches_by_path``, and their failures are collected
+and raised after the ``kernels`` line.
+
 The ``kernels`` phase also holds the mixed-precision variants (bf16
 products on the tensor cores, float32 sums and state, Θ and packed factors
 read in bf16: the Cholesky, the dense trsm, ``interp_solve`` and the
@@ -2046,6 +2080,471 @@ def phase_baselines(dev, folds, lams) -> dict:
     return launches
 
 
+# ------------------------------------------- the engine's reuse and staging
+# surface: sketched anchors, the factor cache, the staged sweep and search,
+# the CV sweep server
+
+SKETCH_N = 131072          # the tall configuration: n ≫ h (n_tr = 104,856)
+SKETCH_M = 8192            # SRHT and Gaussian: m ≈ 8·h (README, sketched
+                           # anchors)
+COUNTSKETCH_MS = (16384, 32768, 65536)   # the smallest that contracts
+IHS_ITERS = 2
+ASYNC_TOL = 1e-12          # run_async against run, relative
+STAGED_REPEATS = 3         # timed sweeps per order / cache route, in turns
+# make_traffic at the main configuration (benchmarks/bench_serving.py's mix)
+SERVE_TRAFFIC = dict(h=H, n=N_TRAIN, k=K_FOLDS, n_problems=8, n_requests=48,
+                     n_tenants=6, zipf_a=1.2, grid_sizes=(17, 25, 33),
+                     shifted_grid_every=8)
+
+
+def _pi_strategy(degree=DEGREE):
+    from repro_torch.core import engine
+    return engine.make_strategy("picholesky", g=G_SAMPLES, degree=degree,
+                                block=BLOCK)
+
+
+def _counted(fn):
+    """``counted`` for a call that takes no backend argument."""
+    return counted(lambda _: fn())
+
+
+def ihs_contraction(plan, folds, lams, bk) -> dict:
+    """Fold 0's interpolated sketched solve refined by 0..IHS_ITERS sweeps
+    against the exact solve at every λ: the relative error after each sweep
+    (largest over the grid) and the contraction factor, the largest ratio
+    e_{i+1} / e_i over the grid and the sweeps (below 1: every sweep
+    contracts the error at every λ)."""
+    from repro_torch.core import engine, picholesky, sketch, solvers
+    k, _, h = folds.x_folds.shape
+    x_tr = folds.x_folds[[(1 + j) % k for j in range(k - 1)]].reshape(-1, h)
+    h_tr = folds.hess - folds.fold_hess[0]
+    g_tr = folds.grad - folds.fold_grad[0]
+    model = picholesky.fit(sketch.sketched_gram(plan, x_tr, 0),
+                           engine._sample_grid(lams, G_SAMPLES), DEGREE,
+                           block=BLOCK, backend=bk)
+    exact = solvers.solve_cholesky_sweep(h_tr, g_tr, lams, backend=bk)
+    th0 = model.solve(lams, g_tr, backend=bk)
+    errs = []
+    for it in range(IHS_ITERS + 1):
+        th = picholesky.refine_solutions(model, h_tr, g_tr, lams, th0,
+                                         backend=bk, iters=it)
+        errs.append((torch.linalg.vector_norm(th - exact, dim=-1)
+                     / torch.linalg.vector_norm(exact, dim=-1)).cpu().numpy())
+    steps = np.stack([b / a for a, b in zip(errs, errs[1:])])  # (iters, q)
+    return dict(rel_err_by_iter=[float(e.max()) for e in errs],
+                contraction=float(steps.max()),
+                contraction_by_iter=[float(r.max()) for r in steps])
+
+
+def phase_sketch(dev) -> dict:
+    """Sketched anchors at the tall configuration (h=1024, n=131,072, k=5,
+    q=31, g=4, r=2, block 128, float64): SRHT and Gaussian at m = 8192,
+    count sketch at the smallest m of COUNTSKETCH_MS whose IHS contracts;
+    each method's IHS contraction, its curve on cuda against reference
+    (MAIN_TOL, same λ*), the count sketch twice bit for bit, the curves
+    against the dense picholesky sweep with the regret of each pick on
+    the dense curve, and the sketched anchor build against the dense
+    Hessian formation (CUDA events)."""
+    from repro_torch.core import backends, cv, engine, sketch
+    from repro_torch.data import make_regression_dataset
+
+    def fail(msg: str) -> None:
+        FAILED.append(f"sketch: {msg}")
+
+    t0 = time.perf_counter()
+    x, y = make_regression_dataset(SKETCH_N, H, seed=SEED,
+                                   dtype=torch.float64, device=dev)
+    folds = cv.make_folds(x, y, K_FOLDS, device=dev)
+    del x, y
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    lams = torch.logspace(np.log10(LAM_LO), np.log10(LAM_HI), N_LAMBDAS,
+                          dtype=torch.float64, device=dev)
+    xf = folds.x_folds
+    k, n_f, _ = xf.shape
+    out = dict(n=SKETCH_N, n_tr=(k - 1) * n_f, data_s=data_s,
+               x_bytes=xf.numel() * xf.element_size())
+    out["dense_hessians_ms"] = timed_ms(
+        lambda: torch.einsum("kni,knj->kij", xf, xf), 3)
+    dense = cv.cv_picholesky(folds, lams, g=G_SAMPLES, degree=DEGREE,
+                             block=BLOCK, backend="cuda", device=dev)
+    ed = dense.errors
+    out["dense_best_lam"] = dense.best_lam
+    out["dense_curve"] = ed.tolist()
+    cuda = backends.CudaBackend()
+    contraction = {}
+    chosen = None
+    for m in COUNTSKETCH_MS:
+        plan = sketch.SketchPlan("countsketch", m, SEED, IHS_ITERS)
+        contraction[m] = ihs_contraction(plan, folds, lams, cuda)
+        if contraction[m]["contraction"] < 1.0:
+            chosen = m
+            break
+    out["countsketch_search"] = {str(m): v for m, v in contraction.items()}
+    if chosen is None:
+        fail(f"no count sketch m in {COUNTSKETCH_MS} contracts: "
+             f"{contraction}")
+        chosen = COUNTSKETCH_MS[-1]
+    plans = {"srht": sketch.SketchPlan("srht", SKETCH_M, SEED, IHS_ITERS),
+             "gaussian": sketch.SketchPlan("gaussian", SKETCH_M, SEED,
+                                           IHS_ITERS),
+             "countsketch": sketch.SketchPlan("countsketch", chosen, SEED,
+                                              IHS_ITERS)}
+    launches = {}
+    for name, plan in plans.items():
+        rec = dict(descriptor=plan.descriptor())
+        rec["ihs"] = (contraction[plan.m] if name == "countsketch"
+                      else ihs_contraction(plan, folds, lams, cuda))
+        rec["contracts"] = rec["ihs"]["contraction"] < 1.0
+
+        def run(bk, plan=plan):
+            return engine.CVEngine(_pi_strategy(), backend=bk, sketch=plan,
+                                   device=dev).run(folds, lams)
+
+        res, launches[f"sketch_{name}"] = counted(run)
+        try:
+            rec["vs_reference"] = curve_check(f"sketch {name}", res,
+                                              run("reference"),
+                                              "reference backend")
+        except AssertionError as e:
+            fail(str(e))
+        if name == "countsketch":
+            rec["bitwise_twice"] = bool(np.array_equal(res.errors,
+                                                       run("cuda").errors))
+            if not rec["bitwise_twice"]:
+                fail("two count-sketch runs differ")
+        i = int(np.argmin(res.errors))
+        rec.update(best_lam=res.best_lam, curve=res.errors.tolist(),
+                   max_rel_gap_to_dense=float(np.max(np.abs(res.errors - ed)
+                                                     / ed)),
+                   regret_on_dense=float((ed[i] - ed.min()) / ed.min()))
+        strat = engine.CVEngine(_pi_strategy(), sketch=plan,
+                                device=dev).strategy
+        rec["anchor_hessians_ms"] = timed_ms(
+            lambda: strat.anchor_hessian(None, xf, cuda), 2)
+        rec["sweep_wall_s"] = _wall(lambda: run("cuda"))
+        out[name] = rec
+    out["dense_sweep_wall_s"] = _wall(lambda: cv.cv_picholesky(
+        folds, lams, g=G_SAMPLES, degree=DEGREE, block=BLOCK,
+        backend="cuda", device=dev))
+    emit("sketch", h=H, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES, r=DEGREE,
+         block=BLOCK, dtype="float64", ihs_iters=IHS_ITERS,
+         launches=launches, **out)
+    del folds, xf
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cache(dev, folds, lams) -> dict:
+    """The warm-replay cache at the main configuration: a cold run with
+    cache_anchors, an exact hit, a covering hit on a sub-grid, a refit at
+    degree 3 from the cached anchors, save → load → replay; CountingBackend
+    factorizations per route (0 on every warm one), the hit against the
+    cold curve and the loaded against the in-memory one bit for bit; times
+    of the fingerprint, the cold sweep (with and without a cache), the hit,
+    the refit, save and load."""
+    import tempfile
+    from repro_torch.core import backends, engine, factor_cache as fc
+
+    def fail(msg: str) -> None:
+        FAILED.append(f"cache: {msg}")
+
+    bk = backends.CountingBackend(backends.CudaBackend())
+    cache = fc.FactorCache()
+
+    def eng(c=cache, reuse="exact", degree=DEGREE, **kw):
+        return engine.CVEngine(_pi_strategy(degree), backend=bk, device=dev,
+                               cache=c, reuse=reuse, cache_anchors=True, **kw)
+
+    launches, n_chol, status, res = {}, {}, {}, {}
+
+    def route(tag, fn):
+        bk.reset()
+        res[tag], launches[f"cache_{tag}"] = _counted(fn)
+        n_chol[tag] = bk.n_cholesky
+        status[tag] = res[tag].extras["engine"]["cache"]["status"]
+
+    sub = lams[4:27]
+    route("cold", lambda: eng().run(folds, lams))
+    route("hit", lambda: eng().run(folds, lams))
+    route("covering", lambda: eng(reuse="covering").run(folds, sub))
+    route("refit", lambda: eng(degree=3).run(folds, lams))
+    (entry,) = [e for e in cache.entries.values() if e.state.degree == DEGREE]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        cache.save(d)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = fc.FactorCache.load(d, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        route("loaded", lambda: eng(c=loaded).run(folds, lams))
+    want = dict(cold="miss", hit="hit", covering="hit", refit="refit",
+                loaded="hit")
+    if status != want:
+        fail(f"routes {status}, expected {want}")
+    if n_chol["cold"] == 0 or any(n_chol[t] for t in want if t != "cold"):
+        fail(f"factorizations by route {n_chol}")
+    bitwise = dict(
+        hit_vs_cold=bool(np.array_equal(res["hit"].errors,
+                                        res["cold"].errors)),
+        loaded_vs_memory=bool(np.array_equal(res["loaded"].errors,
+                                             res["hit"].errors)))
+    if not all(bitwise.values()):
+        fail(f"bit equality {bitwise}")
+    cover_gap = float(np.max(np.abs(res["covering"].errors
+                                    - res["cold"].errors[4:27])
+                             / res["cold"].errors[4:27]))
+    refit_gap = float(np.max(np.abs(res["refit"].errors - res["cold"].errors)
+                             / res["cold"].errors))
+    h_tr = folds.hess[None] - folds.fold_hess
+
+    def refit_once():
+        c = fc.FactorCache()
+        c.put(entry.key, entry.state, entry.anchors)
+        return eng(c=c, degree=3).run(folds, lams)
+
+    timed = {
+        "fingerprint": lambda: fc.hessian_fingerprint(h_tr),
+        "cold_no_cache": lambda: engine.CVEngine(
+            _pi_strategy(), backend="cuda", device=dev).run(folds, lams),
+        "cold_populate": lambda: eng(c=fc.FactorCache()).run(folds, lams),
+        "hit": lambda: eng().run(folds, lams),
+        "refit": refit_once,
+    }
+    walls = {t: [] for t in timed}
+    for _ in range(STAGED_REPEATS):
+        for t, fn in timed.items():
+            walls[t].append(_wall(fn) * 1e3)
+    med = {t: float(np.median(v)) for t, v in walls.items()}
+    emit("cache", h=H, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES, r=DEGREE,
+         block=BLOCK, dtype="float64", status=status, n_cholesky=n_chol,
+         bitwise=bitwise, covering_grid=[4, 27],
+         covering_rel_gap_to_cold=cover_gap,
+         refit_degree3_rel_gap_to_degree2=refit_gap,
+         entry_bytes=entry.nbytes, save_s=save_s, load_s=load_s,
+         wall_ms=walls, wall_ms_median=med,
+         replay_ms_median=med["hit"] - med["fingerprint"],
+         fingerprint_bytes=h_tr.numel() * h_tr.element_size(),
+         launches=launches)
+    return launches
+
+
+def phase_staged(dev, folds, lams) -> dict:
+    """The staged sweep and the λ search at the main configuration:
+    sweep_async pipelined against serial (cold, and warm on a cache) bit
+    for bit, run_async against run (ASYNC_TOL), early stopping at stop_tol
+    0, the exact strategy's staged sweep and search, search at the default
+    wave and at wave 8 (evaluated λs, λ* against the dense argmin's
+    bracket), select_interpolant and advise_anchor; wall medians of the
+    pipelined and the serial sweep, and one profiled run of each (the
+    device's idle share)."""
+    from repro_torch.core import engine, factor_cache as fc
+
+    def fail(msg: str) -> None:
+        FAILED.append(f"staged: {msg}")
+
+    def pi(**kw):
+        return engine.CVEngine(_pi_strategy(), backend="cuda", device=dev,
+                               **kw)
+
+    def exact(**kw):
+        return engine.CVEngine("exact", backend="cuda", device=dev, **kw)
+
+    def curve(parts):
+        return np.concatenate([p.fold_errors for p in parts], axis=1)
+
+    launches, out = {}, {}
+    e = pi()
+    pipe, launches["staged_pipelined"] = _counted(
+        lambda: list(e.sweep_async(folds, lams)))
+    serial = list(e.sweep_async(folds, lams, pipelined=False))
+    cache = fc.FactorCache()
+    ec = pi(cache=cache)
+    ec.run(folds, lams)
+    warm_pipe, launches["staged_warm"] = _counted(
+        lambda: list(ec.sweep_async(folds, lams)))
+    warm_serial = list(ec.sweep_async(folds, lams, pipelined=False))
+    out["bitwise"] = dict(
+        cold=bool(np.array_equal(curve(pipe), curve(serial))),
+        warm=bool(np.array_equal(curve(warm_pipe), curve(warm_serial))),
+        warm_vs_cold=bool(np.array_equal(curve(warm_pipe), curve(pipe))))
+    if not all(out["bitwise"].values()):
+        fail(f"pipelined against serial: {out['bitwise']}")
+    out["chunks"] = len(pipe)
+    run = e.run(folds, lams)
+    ra = e.run_async(folds, lams)
+    out["run_async_rel_err"] = float(np.max(np.abs(ra.errors - run.errors)
+                                            / run.errors))
+    if out["run_async_rel_err"] > ASYNC_TOL or ra.best_lam != run.best_lam:
+        fail(f"run_async against run: {out['run_async_rel_err']}")
+    early = list(e.sweep_async(folds, lams, stop_tol=0.0))
+    prefix = np.concatenate([p.errors for p in early])
+    out["early_stop"] = dict(
+        chunks=len(early), lams=int(prefix.shape[0]),
+        stopped=early[-1].stopped, best_lam=early[-1].best_lam,
+        full_best_lam=run.best_lam,
+        prefix_bitwise=bool(np.array_equal(prefix,
+                                           run.errors[:prefix.shape[0]])))
+    if not out["early_stop"]["prefix_bitwise"] \
+            or early[-1].best_lam != run.best_lam:
+        fail(f"early stop: {out['early_stop']}")
+    ex_parts, launches["staged_exact"] = _counted(
+        lambda: list(exact().sweep_async(folds, lams)))
+    ex_run = exact().run(folds, lams)
+    out["exact_staged_rel_err"] = float(np.max(np.abs(
+        curve(ex_parts).mean(0) - ex_run.errors) / ex_run.errors))
+    q = N_LAMBDAS
+    i = int(np.argmin(run.errors))
+    lo, hi = float(lams[max(i - 1, 0)]), float(lams[min(i + 1, q - 1)])
+    searches = {}
+    for tag, mk, wave in (("search", pi, None), ("search_wave8", pi, 8),
+                          ("search_exact", exact, None)):
+        s, launches[tag] = _counted(lambda: mk().search(folds, lams,
+                                                        wave=wave))
+        info = s.extras["engine"]["search"]
+        searches[tag] = dict(
+            wave=info["wave"], waves=info["waves"],
+            lams_evaluated=info["lams_evaluated"], lams=s.lams.tolist(),
+            stopped_on=info["stopped_on"], best_lam=s.best_lam,
+            dense_bracket=[lo, hi], in_bracket=lo <= s.best_lam <= hi,
+            n_exact_chol=s.n_exact_chol)
+    warm_search = pi(cache=cache).search(folds, lams)
+    searches["search_warm_n_exact_chol"] = warm_search.n_exact_chol
+    out["search"] = searches
+    sel, launches["engine_select_interpolant"] = _counted(
+        lambda: pi().select_interpolant(folds, lams))
+    out["select_interpolant"] = dict(degree=sel["degree"],
+                                     basis=sel["basis"],
+                                     anchor_status=sel["anchor_status"],
+                                     scores=sel["scores"])
+    t0 = time.perf_counter()
+    adv = pi().advise_anchor(folds, lams)
+    out["advise_anchor"] = dict(adv, seconds=time.perf_counter() - t0)
+    walls = {"pipelined": [], "serial": []}
+    for _ in range(STAGED_REPEATS):
+        for tag in walls:
+            walls[tag].append(_wall(lambda: list(e.sweep_async(
+                folds, lams, pipelined=tag == "pipelined"))))
+    out["wall_s"] = walls
+    out["wall_s_median"] = {t: float(np.median(v)) for t, v in walls.items()}
+    out["trace"] = {tag: profiled(lambda: list(e.sweep_async(
+        folds, lams, pipelined=tag == "pipelined")))[0]
+        for tag in ("pipelined", "serial")}
+    emit("staged", h=H, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES, r=DEGREE,
+         block=BLOCK, dtype="float64", launches=launches, **out)
+    return launches
+
+
+def phase_cv_serve(dev) -> dict:
+    """The CV sweep server on make_traffic at the main configuration (8
+    problems, 48 requests, 6 tenants, Zipf 1.2, grids of 17/25/33 λs and
+    every 8th on a shifted range) with ServerConfig's defaults, after one
+    warm-up round, as benchmarks/bench_serving.py runs it: p50/p99
+    latency, throughput, hit rate, tenants sharing, the fingerprint's
+    share of the wall; every response against a solo cold run bit for
+    bit; then a second server whose cache holds three entries, which must
+    serve no stale entry."""
+    from repro_torch.core import engine, factor_cache as fc
+    from repro_torch.serving import CVSweepServer, ServerConfig, \
+        SweepRequest, TrafficConfig, make_traffic
+    from repro_torch.serving.traffic import log_grid
+
+    def fail(msg: str) -> None:
+        FAILED.append(f"cv_serve: {msg}")
+
+    cfg = TrafficConfig(**SERVE_TRAFFIC)
+    reqs = make_traffic(cfg, device=dev)
+    warm = make_traffic(dataclasses.replace(
+        cfg, n_requests=1, n_tenants=1, n_problems=1, seed=cfg.seed + 777),
+        device=dev)[0].folds
+    solo: dict = {}
+    for r in reqs:
+        key = (id(r.folds), id(r.lams))
+        if key not in solo:
+            solo[key] = engine.CVEngine(
+                _pi_strategy(), backend="cuda", device=dev,
+                cache=fc.FactorCache(), reuse="covering",
+                cache_anchors=True).run(r.folds, r.lams)
+    spent = [0.0]
+    fingerprint = fc.hessian_fingerprint
+
+    def timed_fingerprint(h_tr):
+        t0 = time.perf_counter()
+        try:
+            return fingerprint(h_tr)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    def serve(config):
+        srv = CVSweepServer(_pi_strategy(), backend="cuda", device=dev,
+                            config=config)
+        for q in cfg.grid_sizes:
+            srv.submit(SweepRequest("_warmup", warm, log_grid(q, device=dev)))
+        srv.drain()
+        warm_stats = dict(srv.cache.stats)
+        spent[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            srv.submit(SweepRequest(r.tenant, r.folds, r.lams))
+        resps = srv.drain()
+        wall = time.perf_counter() - t0
+        by_id = {r.request_id: r for r in resps}
+        first = min(by_id)
+        stale = []
+        for j, r in enumerate(reqs):
+            got = by_id[first + j].result
+            want = solo[(id(r.folds), id(r.lams))]
+            if not (np.array_equal(got.errors, want.errors)
+                    and got.best_lam == want.best_lam):
+                stale.append(j)
+        lat = np.array([r.latency_s for r in resps])
+        st = srv.stats
+        hits = st["cache"]["hits"] - warm_stats["hits"]
+        misses = st["cache"]["misses"] - warm_stats["misses"]
+        tenants = {t: rec for t, rec in st["tenants"].items()
+                   if t.startswith("tenant-")}
+        rec = dict(
+            p50_s=float(np.percentile(lat, 50)),
+            p99_s=float(np.percentile(lat, 99)),
+            mean_s=float(lat.mean()), wall_s=wall,
+            throughput_rps=len(resps) / wall,
+            hit_rate=hits / (hits + misses) if hits + misses else 0.0,
+            hits=hits, misses=misses,
+            anchor_hits=st["cache"]["anchor_hits"],
+            evictions=st["cache"]["evictions"],
+            entries=st["cache"]["entries"], bytes=st["cache"]["bytes"],
+            tenants_sharing=sum(1 for t in tenants.values() if t["hits"]),
+            dispatches=st["dispatches"], batch_mean=st["batch_mean"],
+            statuses={s: sum(1 for r in resps if r.status == s)
+                      for s in ("hit", "refit", "miss")},
+            fingerprint_s=spent[0], fingerprint_share=spent[0] / wall,
+            mismatched_requests=stale)
+        return srv, rec
+
+    fc.hessian_fingerprint = timed_fingerprint
+    try:
+        (srv, first_pass), counts = _counted(lambda: serve(ServerConfig()))
+        entry = max(e.nbytes for e in srv.cache.entries.values())
+        del srv
+        _, budget_pass = serve(ServerConfig(cache_bytes=3 * entry))
+    finally:
+        fc.hessian_fingerprint = fingerprint
+    for tag, rec in (("unbounded", first_pass), ("three_entries",
+                                                   budget_pass)):
+        if rec["mismatched_requests"]:
+            fail(f"{tag}: requests {rec['mismatched_requests']} differ from "
+                 "their solo cold runs")
+    if budget_pass["evictions"] == 0:
+        fail("the three-entry cache evicted nothing")
+    emit("cv_serve", traffic=SERVE_TRAFFIC, g=G_SAMPLES, r=DEGREE,
+         block=BLOCK, unique_problems=len(solo), entry_bytes=entry,
+         unbounded=first_pass, three_entries=budget_pass,
+         launches=dict(cv_serve=counts))
+    return dict(cv_serve=counts)
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |Δ| / max |want|, failing on a non-finite value."""
     return errors(got.float(), want.float())[1]
@@ -2299,7 +2798,11 @@ def main() -> None:
     phase_table4(dev)
     launches.update(phase_precision(dev, folds, lams))
     launches.update(phase_baselines(dev, folds, lams))
+    launches.update(phase_cache(dev, folds, lams))
+    launches.update(phase_staged(dev, folds, lams))
     del folds, lams
+    launches.update(phase_cv_serve(dev))
+    launches.update(phase_sketch(dev))
     phase_mamba_fixture(dev)
     phase_mamba(dev)
     launches.update(phase_serve(dev))

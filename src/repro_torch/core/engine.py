@@ -23,31 +23,48 @@ Strategies (the paper's algorithms, ``src/repro/core/engine.py:167-600``):
   the residual from ``g_rest`` factorizations;
 * ``pinrmse`` — the hold-out curve itself interpolated from g exact
   evaluations (the §6.5 straw-man);
+* ``picholesky_sketched`` — piCholesky over sketched anchor Hessians
+  with IHS-refined solves;
 * ``svd`` — SVD / t-SVD / r-SVD of the raw training design;
 * ``low_rank`` — low-rank ACV through the Woodbury identity.
 
 MChol (§6.2) is a host-side driver (:func:`repro_torch.core.cv.
 cv_multilevel_cholesky`): its search is decision-dependent.
-``picholesky_sketched`` waits for ``core/sketch.py``.
+
+Around the sweep (``src/repro/core/engine.py:1101-2156``):
+
+* ``cache=`` — the warm-replay path (:mod:`repro_torch.core.factor_cache`):
+  a fingerprint hit skips ``fold_state``, an anchor hit refits Θ with no
+  factorization, a miss runs the cold stage and populates the cache;
+* :meth:`CVEngine.sweep_async` / :meth:`CVEngine.run_async` — the staged
+  sweep, one partial curve per λ chunk, with early stopping; pipelined
+  (no host sync between stages, one chunk of look-ahead) or serial;
+* :meth:`CVEngine.search` — adaptive λ refinement in fixed-width waves;
+* :meth:`CVEngine.select_interpolant`, :meth:`CVEngine.with_interpolant`
+  and :meth:`CVEngine.advise_anchor` (:mod:`repro_torch.core.bound`);
+* :meth:`CVEngine.run_batch` — one stacked ``fold_state`` for a batch's
+  cold problems (:mod:`repro_torch.serving`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Any, Callable, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from . import factor_cache as cachelib
 from . import packing, picholesky, solvers
+from . import sketch as sketchlib
 from .backends import BackendLike, LinalgBackend, resolve_backend
 from .folds import CVResult, FoldData, holdout_nrmse
 from .precision import PrecisionLike
 
-__all__ = ["CVEngine", "ExactCholesky", "PiCholeskyStrategy",
-           "PiCholeskyWarmstart", "PinrmseStrategy", "SVDStrategy",
-           "LowRankStrategy", "make_strategy", "STRATEGIES",
+__all__ = ["CVEngine", "SweepChunk", "ExactCholesky", "PiCholeskyStrategy",
+           "PiCholeskySketched", "PiCholeskyWarmstart", "PinrmseStrategy",
+           "SVDStrategy", "LowRankStrategy", "make_strategy", "STRATEGIES",
            "LAM_CHUNK_BUDGET_BYTES", "auto_lam_chunk", "chunk_lams"]
 
 #: byte budget the ``lam_chunk='auto'`` heuristic sizes one chunk's packed
@@ -99,11 +116,29 @@ def _other_folds(x_folds: torch.Tensor) -> torch.Tensor:
 
 
 class StrategyBase:
+    """Default no-op ``prepare`` / ``fold_state``; not cacheable."""
+
+    #: True when ``fold_state`` is a pure per-fold function of (h_tr_f,
+    #: g_tr_f, anchors, params, backend) and ``prepare`` depends only on the
+    #: λ grid: :meth:`CVEngine.run_batch` may then stack several problems'
+    #: folds into one ``fold_state`` call and slice the state back.
+    batchable_state: bool = False
+
     def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
         return ()
 
     def fold_state(self, h_tr, g_tr, aux, bk):
         return ()
+
+    def cache_meta(self, lams) -> Optional[dict]:
+        """Warm-replay cache support (``src/repro/core/engine.py:149``):
+        ``None`` (not cacheable), or ``dict(anchors=<(g,) λ grid the fit
+        factorizes at>, params=<static fit parameters>[, sketch=<anchor
+        production descriptor>])``.  A cacheable strategy's ``fold_state``
+        is a pure function of (training Hessians, anchors, params,
+        backend), and its ``fold_errors`` never reads ``aux`` (a replayed
+        sweep runs with ``aux=()``)."""
+        return None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -148,6 +183,7 @@ class PiCholeskyStrategy(_InterpolantErrors, StrategyBase):
     basis: str = "monomial"
     chol_fn: Optional[Callable] = None
     name: str = "picholesky"
+    batchable_state = True
 
     def n_exact_chol(self, k, q):
         return k * self.g
@@ -159,6 +195,127 @@ class PiCholeskyStrategy(_InterpolantErrors, StrategyBase):
         return picholesky.fit(h_tr, aux, self.degree, block=self.block,
                               basis=self.basis, chol_fn=self.chol_fn,
                               backend=bk)
+
+    def cache_meta(self, lams):
+        if self.chol_fn is not None:     # an opaque override: unkeyable
+            return None
+        return dict(anchors=_sample_grid(lams, self.g),
+                    params=dict(strategy=self.name, g=self.g,
+                                degree=self.degree, block=self.block,
+                                basis=self.basis))
+
+    def _fit_with_anchors(self, hess, anchors, bk):
+        """(Θ, packed anchors at the storage dtype): the anchor factors of
+        every fold in one Cholesky call, packed, and Θ fitted from them
+        (the same arithmetic as :meth:`fold_state`)."""
+        h = hess.shape[-1]
+        eye = torch.eye(h, dtype=hess.dtype, device=hess.device)
+        factors = bk.cholesky(hess[:, None] + anchors[:, None, None] * eye)
+        vec = bk.pack_tril(factors, self.block)             # (k, g, P)
+        pf = packing.PackedFactor(vec=vec, h=h, block=self.block)
+        model = picholesky.fit(hess, anchors, self.degree, block=self.block,
+                               basis=self.basis, factors=pf, backend=bk)
+        # fit from the full-precision targets, cache at the storage dtype
+        return model, vec.to(bk.precision.store_dtype(vec.dtype))
+
+    def fold_state_and_anchors(self, h_tr, g_tr, aux, bk):
+        """``fold_state`` that also returns the packed anchor factors
+        (k, g, P), so the engine can cache them: a later fit of another
+        degree or basis over the same anchors refits from them with no
+        factorization (``src/repro/core/engine.py:240``)."""
+        return self._fit_with_anchors(h_tr, aux, bk)
+
+    def anchor_hessian(self, h_tr, x_folds, bk):
+        """The Hessians the anchor factorizations run on: the training
+        Hessians here; the sketched subclass substitutes its sketched
+        grams, so interpolant selection scores the targets the sweep
+        fits."""
+        return h_tr
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PiCholeskySketched(PiCholeskyStrategy):
+    """Algorithm 1 over sketched anchor Hessians — the Iterative Hessian
+    Sketch (Pilanci & Wainwright, arXiv:1411.0347) behind the piCholesky
+    seam (``src/repro/core/engine.py:264``).
+
+    Each fold's anchors factorize ``H̃_f = (S X_tr)ᵀ(S X_tr)`` from
+    ``m ≪ n`` sketched rows of its training design (the other folds' raw
+    rows, stacked per fold), so forming the anchor Hessian costs O(m·h²)
+    instead of O(n·h²).  ``fold_errors`` corrects the interpolated solves
+    by ``sketch.ihs_iters`` (+ the policy's ``refine_iters``) sweeps of
+    :func:`~repro_torch.core.picholesky.refine_solutions` with the exact
+    Hessian: the sketched factor preconditions, the residual is exact.
+
+    ``draws`` injects the sketch's random parts, one dict per fold (the
+    :func:`~repro_torch.core.sketch.draw_sketch` layout); ``None`` draws
+    them from the plan's generators.  Injected draws are not described by
+    the plan, so such a strategy is not cacheable.  ``fold_state`` reads
+    raw fold rows and fold indices: not batchable.
+    """
+
+    sketch: Optional[sketchlib.SketchPlan] = None
+    draws: Optional[tuple] = None
+    name: str = "picholesky_sketched"
+    batchable_state = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "sketch", sketchlib.as_plan(self.sketch))
+
+    def _plan(self) -> sketchlib.SketchPlan:
+        if self.sketch is None:
+            raise ValueError(
+                "picholesky_sketched needs a SketchPlan: pass "
+                "CVEngine(sketch=...) or PiCholeskySketched(sketch=...)")
+        return self.sketch
+
+    def anchor_hessian(self, h_tr, x_folds, bk) -> torch.Tensor:
+        """(k, h, h) sketched grams, one fold at a time (a fold's training
+        rows are the other folds', in the reference's order)."""
+        plan = self._plan()
+        k, n_f, h = x_folds.shape
+        ad = bk.precision.accum_dtype(x_folds.dtype)
+        out = []
+        for f in range(k):
+            others = [(f + 1 + j) % k for j in range(k - 1)]
+            x_tr = x_folds[others].reshape((k - 1) * n_f, h)
+            draws = None if self.draws is None else {
+                n: d.to(x_tr.device) for n, d in self.draws[f].items()}
+            out.append(sketchlib.sketched_gram(
+                plan, x_tr, f, accum_dtype=ad, draws=draws).to(x_tr.dtype))
+        return torch.stack(out)
+
+    def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
+        self._plan()
+        return dict(anchors=_sample_grid(lams, self.g), x=x_folds)
+
+    def fold_state(self, h_tr, g_tr, aux, bk):
+        return picholesky.fit(self.anchor_hessian(None, aux["x"], bk),
+                              aux["anchors"], self.degree, block=self.block,
+                              basis=self.basis, chol_fn=self.chol_fn,
+                              backend=bk)
+
+    def fold_state_and_anchors(self, h_tr, g_tr, aux, bk):
+        return self._fit_with_anchors(
+            self.anchor_hessian(None, aux["x"], bk), aux["anchors"], bk)
+
+    def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
+        # the IHS loop is refine_solutions with the exact Hessian; never
+        # reads aux (warm replay runs with aux=())
+        thetas = state.solve(lams, g_tr, backend=bk)
+        iters = self._plan().ihs_iters + bk.precision.refine_iters
+        if iters:
+            thetas = picholesky.refine_solutions(state, h_tr, g_tr, lams,
+                                                 thetas, backend=bk,
+                                                 iters=iters)
+        return _errors_from_thetas(thetas, x_f, y_f)
+
+    def cache_meta(self, lams):
+        meta = super().cache_meta(lams)
+        if meta is None or self.draws is not None:
+            return None
+        meta["sketch"] = self._plan().descriptor()
+        return meta
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -224,6 +381,18 @@ class PiCholeskyWarmstart(_InterpolantErrors, StrategyBase):
         theta = (base.to(v.dtype) + aux["proj"] @ resid).to(base.dtype)
         return picholesky.PiCholesky(theta=theta, center=aux["center"],
                                      h=h, block=self.block)
+
+    def cache_meta(self, lams):
+        if self.chol_fn is not None:
+            return None
+        # Θ_f depends on both node sets: the fold-0 anchor fit and the
+        # per-fold residual refresh grid
+        anchors = torch.cat([_sample_grid(lams, self.g_first),
+                             _sample_grid(lams, max(self.g_rest, 1))])
+        return dict(anchors=anchors,
+                    params=dict(strategy=self.name, g_first=self.g_first,
+                                g_rest=self.g_rest, degree=self.degree,
+                                mu=self.mu, block=self.block))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -325,10 +494,20 @@ class LowRankStrategy(StrategyBase):
             compute_dtype=bk.precision.accum_dtype(g_tr.dtype))
         return _errors_from_thetas(thetas, x_f, y_f)
 
+    def cache_meta(self, lams):
+        # a λ-independent state: an empty anchor grid, so every grid over
+        # the same problem derives the same key; block 0 (unpacked state)
+        return dict(anchors=lams.new_zeros((0,)),
+                    params=dict(strategy=self.name, block=0,
+                                rank=-1 if self.rank is None
+                                else int(self.rank)),
+                    sketch=self.descriptor())
+
 
 STRATEGIES = {
     "exact": ExactCholesky,
     "picholesky": PiCholeskyStrategy,
+    "picholesky_sketched": PiCholeskySketched,
     "picholesky_warmstart": PiCholeskyWarmstart,
     "svd": SVDStrategy,
     "low_rank": LowRankStrategy,
@@ -345,6 +524,61 @@ def make_strategy(name: str, **params):
 
 
 @dataclasses.dataclass
+class SweepChunk:
+    """One completed λ chunk of a staged sweep — a partial error curve
+    (``src/repro/core/engine.py:616``).  ``best_lam`` / ``best_error``
+    track the running minimum over every chunk streamed so far;
+    ``stopped`` marks the chunk at which early stopping ended the stream."""
+
+    index: int               # chunk position in the stream
+    start: int               # grid offset of this chunk's first λ
+    n_chunks: int            # chunks the full stream would have
+    lams: np.ndarray         # (c,) this chunk's λs (padding stripped)
+    fold_errors: np.ndarray  # (k, c) per-fold hold-out errors
+    errors: np.ndarray       # (c,) fold-mean partial curve
+    best_lam: float          # running argmin λ
+    best_error: float        # running min mean error
+    stopped: bool            # early stop fired at this chunk
+    n_exact_chol: int        # factorizations for the grid evaluated so far
+    cache: Optional[dict]    # cache record (None without a cache)
+
+
+def _read_async(e: torch.Tensor):
+    """Start copying ``e`` to the host behind the work queued so far and
+    return a function that waits for that copy only and gives the numpy
+    array.  On the card the copy goes into pinned memory on the current
+    stream with an event after it, so work launched later (the next λ
+    chunk) keeps running while the host waits; a plain ``.cpu()`` would
+    wait for it too."""
+    e = e.detach()
+    if e.device.type != "cuda":
+        return e.numpy
+    host = torch.empty(e.shape, dtype=e.dtype, pin_memory=True)
+    host.copy_(e, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(e.device))
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+def _fold_slice(state, lo: int, hi: int, k_total: int):
+    """Folds ``lo:hi`` of a batched-over-folds state: every tensor field
+    whose leading dimension is the fold count is sliced; the rest (a
+    shared center) is kept."""
+    kw = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == k_total:
+            v = v[lo:hi]
+        kw[f.name] = v
+    return type(state)(**kw)
+
+
+@dataclasses.dataclass
 class CVEngine:
     """Batched k-fold × λ sweep runner.
 
@@ -358,6 +592,20 @@ class CVEngine:
     precision: the pipeline's precision policy.
     device:    where the sweep runs; ``None`` is the CUDA device (and
                raises without one).
+    cache:     a :class:`~repro_torch.core.factor_cache.FactorCache`: on a
+               fingerprint hit of a cacheable strategy (``cache_meta``)
+               ``fold_state`` is skipped and the cached state replays the
+               grid; on a miss the cold stage runs and populates the cache.
+    reuse:     ``'exact'`` (default), ``'covering'`` (also a cached Θ whose
+               anchor range covers the grid's) or ``False`` (write only).
+    cache_anchors: also cache the packed anchor factors, so a later fit of
+               another degree or basis over the same anchors refits Θ with
+               no factorization.
+    sketch:    a :class:`~repro_torch.core.sketch.SketchPlan` (or its dict)
+               promoting ``picholesky`` to :class:`PiCholeskySketched`.
+    mesh, donate, tune, tune_cache, tune_lattice: the reference's sharding,
+               buffer donation and autotuning; not ported yet, so anything
+               but the default raises ``NotImplementedError``.
     """
 
     strategy: Union[str, StrategyBase]
@@ -366,15 +614,64 @@ class CVEngine:
     lam_chunk: Union[None, int, str] = "auto"
     precision: PrecisionLike = None
     device: Optional[Union[str, torch.device]] = None
+    cache: Optional[cachelib.FactorCache] = None
+    reuse: Union[bool, str] = "exact"
+    cache_anchors: bool = False
+    sketch: Optional[Any] = None
+    mesh: Any = None
+    donate: Optional[bool] = None
+    tune: Any = False
+    tune_cache: Any = None
+    tune_lattice: Optional[dict] = None
 
     def __post_init__(self):
+        for name, default in (("mesh", None), ("donate", None),
+                              ("tune", False), ("tune_cache", None),
+                              ("tune_lattice", None)):
+            if getattr(self, name) is not default:
+                raise NotImplementedError(
+                    f"CVEngine({name}=...) is not ported yet (the port runs "
+                    "on one card, unsharded and untuned)")
         if isinstance(self.strategy, str):
             self.strategy = make_strategy(self.strategy)
+        if self.sketch is not None:
+            plan = sketchlib.as_plan(self.sketch)
+            strat = self.strategy
+            if isinstance(strat, PiCholeskySketched):
+                if strat.sketch is None:
+                    self.strategy = dataclasses.replace(strat, sketch=plan)
+                elif strat.sketch != plan:
+                    raise ValueError(
+                        f"conflicting sketch plans: engine sketch= is "
+                        f"{plan.descriptor()} but the strategy carries "
+                        f"{strat.sketch.descriptor()}")
+            elif type(strat) is PiCholeskyStrategy:
+                self.strategy = PiCholeskySketched(
+                    g=strat.g, degree=strat.degree, block=strat.block,
+                    basis=strat.basis, chol_fn=strat.chol_fn, sketch=plan)
+            else:
+                raise ValueError(
+                    "sketch= needs the picholesky strategy, got "
+                    f"{getattr(strat, 'name', strat)!r}")
+            self.sketch = plan
+        if isinstance(self.strategy, PiCholeskySketched) \
+                and self.strategy.sketch is None:
+            raise ValueError(
+                "picholesky_sketched needs a SketchPlan: pass "
+                "CVEngine(sketch=...) or a strategy instance with sketch=")
+        if self.reuse is True:
+            self.reuse = "exact"
+        if self.reuse not in (False, "exact", "covering"):
+            raise ValueError(f"reuse must be 'exact', 'covering' or False; "
+                             f"got {self.reuse!r}")
         self._device = resolve_device(self.device)
         self._bk: LinalgBackend = resolve_backend(
             self.backend, block=self.block, precision=self.precision,
             device=self._device)
         self._prec = self._bk.precision
+        self._interp_engines: dict = {}   # (degree, basis) -> engine
+
+    # -- stages ------------------------------------------------------------
 
     def _stage_scope(self, label: str):
         """The counting scope of a stage-counting backend
@@ -382,16 +679,32 @@ class CVEngine:
         stage = getattr(self._bk, "stage", None)
         return stage(label) if callable(stage) else contextlib.nullcontext()
 
+    def _sync(self, pipelined: bool) -> None:
+        """The serial reference blocks after every stage; the pipelined
+        order never does."""
+        if not pipelined and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
     @staticmethod
-    def _check_lams(lams, device) -> torch.Tensor:
-        """A 1-D, non-empty λ grid on ``device``, or ``ValueError``."""
-        lams = torch.as_tensor(lams, device=device)
+    def _check_lams(lams, device, min_q: int = 1,
+                    what: str = "sweep") -> torch.Tensor:
+        """A 1-D grid of at least ``min_q`` λs on ``device``, or
+        ``ValueError`` naming the problem."""
+        if not isinstance(lams, torch.Tensor):
+            lams = np.array(lams)          # a copy: numpy views may be
+        lams = torch.as_tensor(lams, device=device)   # read-only
         if lams.ndim != 1:
             raise ValueError(
                 f"λ grid must be 1-D, got shape {tuple(lams.shape)}")
-        if lams.shape[0] == 0:
-            raise ValueError("empty λ grid (q=0): the sweep needs at least "
-                             "1 candidate λ value(s)")
+        q = lams.shape[0]
+        if q == 0:
+            raise ValueError(f"empty λ grid (q=0): the {what} needs at least "
+                             f"{min_q} candidate λ value(s)")
+        if q < min_q:
+            raise ValueError(
+                f"λ grid has {q} value(s) but the {what} needs at least "
+                f"{min_q} (a single λ defines no range to refine — "
+                "use run() for a point evaluation)")
         return lams
 
     def _resolve_chunk(self, h: int, dtype) -> Optional[int]:
@@ -415,30 +728,631 @@ class CVEngine:
         chunks, _ = chunk_lams(lams, chunk)
         return torch.cat([errors_at(c) for c in chunks], dim=1)[:, :q]
 
-    def run(self, folds: FoldData, lams) -> CVResult:
-        lams_t = self._check_lams(lams, self._device)
-        folds = folds.to(self._device)
+    @staticmethod
+    def _split(folds: FoldData):
+        """Each fold's training Hessian and gradient (k, h, h), (k, h)."""
+        return (folds.hess[None] - folds.fold_hess,
+                folds.grad[None] - folds.fold_grad)
+
+    def _meta(self, cache=None, **extra) -> dict:
+        """``extras['engine']``; the ``cache`` record only when a cache is
+        attached."""
+        meta = dict(strategy=self.strategy.name, backend=self._bk.name,
+                    precision=self._prec.name, lam_chunk=self.lam_chunk,
+                    device=str(self._device), **extra)
+        if self.cache is not None:
+            meta["cache"] = cache
+        return meta
+
+    def _cold_state(self, h_tr, g_tr, folds: FoldData, lams,
+                    with_anchors: bool, pipelined: bool = True):
+        """``prepare`` then ``fold_state`` (or ``fold_state_and_anchors``)
+        over every fold in one call: ``(state, packed anchors | None,
+        aux)``."""
         strat, bk = self.strategy, self._bk
-        k = folds.fold_hess.shape[0]
-        q = lams_t.shape[0]
-        h_tr = folds.hess[None] - folds.fold_hess
-        g_tr = folds.grad[None] - folds.fold_grad
         with self._stage_scope("prepare"):
             aux = strat.prepare(folds.x_folds, folds.y_folds, h_tr, g_tr,
-                                lams_t, bk)
+                                lams, bk)
+        self._sync(pipelined)
         with self._stage_scope("fold_state"):
-            state = strat.fold_state(h_tr, g_tr, aux, bk)
+            if with_anchors:
+                state, vec = strat.fold_state_and_anchors(h_tr, g_tr, aux, bk)
+            else:
+                state, vec = strat.fold_state(h_tr, g_tr, aux, bk), None
+        self._sync(pipelined)
+        pf = (packing.PackedFactor(vec=vec, h=h_tr.shape[-1],
+                                   block=strat.block)
+              if vec is not None else None)
+        return state, pf, aux
+
+    def _errors(self, state, h_tr, g_tr, folds: FoldData, lams, aux
+                ) -> torch.Tensor:
+        """The λ stage over a whole grid, chunked → (k, q)."""
+        strat, bk = self.strategy, self._bk
 
         def errors_at(lams_c):
             return strat.fold_errors(state, h_tr, g_tr, folds.x_folds,
                                      folds.y_folds, lams_c, aux, bk)
 
         with self._stage_scope("fold_errors"):
-            errs = self._stream_errors(errors_at, lams_t, h_tr.shape[-1],
+            return self._stream_errors(errors_at, lams, h_tr.shape[-1],
                                        h_tr.dtype)
+
+    # -- warm-replay cache -------------------------------------------------
+
+    def _cache_meta(self, lams) -> Optional[dict]:
+        if self.cache is None:
+            return None
+        return self.strategy.cache_meta(lams)
+
+    def _make_key(self, h_tr, meta: dict) -> cachelib.CacheKey:
+        return cachelib.make_key(
+            h_tr, meta["anchors"], block=meta["params"]["block"],
+            backend=self._bk.name, params=meta["params"],
+            precision=self._prec.descriptor(),
+            sketch=meta.get("sketch", "exact"))
+
+    def _refit_from_anchors(self, pf: packing.PackedFactor, meta: dict):
+        """Θ from cached packed anchor factors: one least-squares product
+        per fold, no factorization (``src/repro/core/engine.py:1101``)."""
+        strat = self.strategy
+        with self._stage_scope("fold_state"):
+            return picholesky.fit(None, meta["anchors"], strat.degree,
+                                  block=strat.block, basis=strat.basis,
+                                  factors=pf, backend=self._bk)
+
+    def _acquire_cached_state(self, meta: dict, key, cold_state_fn):
+        """Fingerprint → hit | anchor refit | cold populate
+        (``src/repro/core/engine.py:1874``).  ``cold_state_fn(with_anchors)``
+        gives ``(state, packed anchors | None)``; returns ``(entry,
+        status)``."""
+        strat, cache = self.strategy, self.cache
+        if self.reuse:
+            entry = cache.lookup(key, self.reuse)
+        else:
+            entry = None
+            cache.misses += 1     # write-only runs are misses by definition
+        status = "hit"
+        if entry is None:
+            with_anchors = (self.cache_anchors
+                            and hasattr(strat, "fold_state_and_anchors"))
+            cached_pf = (cache.get_anchors(key)
+                         if self.reuse and with_anchors else None)
+            if cached_pf is not None:
+                state = self._refit_from_anchors(cached_pf, meta)
+                entry = cache.put(key, state, cached_pf)
+                status = "refit"
+            else:
+                state, pf = cold_state_fn(with_anchors)
+                entry = cache.put(key, state, pf)
+                status = "miss"
+        return entry, status
+
+    def _cache_info(self, entry, status: str, **extra) -> dict:
+        # the digest of the entry served (≠ the requested key's under a
+        # covering hit), so results are attributable to their Θ
+        return dict(status=status, digest=entry.key.digest()[:12],
+                    policy=self.reuse, **extra, **self.cache.stats)
+
+    def _staged_state_for(self, h_tr, g_tr, folds: FoldData, lams,
+                          pipelined: bool):
+        """The state stage with its cache dispatch, shared by :meth:`run`,
+        :meth:`sweep_async` and :meth:`search`: ``(state, aux, warm,
+        cache_info)``.  A cacheable strategy's λ stage runs with
+        ``aux=()``, warm or cold."""
+        meta = self._cache_meta(lams)
+        if meta is None:
+            state, _, aux = self._cold_state(h_tr, g_tr, folds, lams, False,
+                                             pipelined)
+            info = None if self.cache is None else dict(status="bypass")
+            return state, aux, False, info
+        key = self._make_key(h_tr, meta)
+
+        def cold_state(with_anchors):
+            state, pf, _ = self._cold_state(h_tr, g_tr, folds, lams,
+                                            with_anchors, pipelined)
+            return state, pf
+
+        entry, status = self._acquire_cached_state(meta, key, cold_state)
+        return entry.state, (), status != "miss", \
+            self._cache_info(entry, status)
+
+    # -- the sweep ---------------------------------------------------------
+
+    def run(self, folds: FoldData, lams) -> CVResult:
+        lams_t = self._check_lams(lams, self._device)
+        folds = folds.to(self._device)
+        k, q = folds.fold_hess.shape[0], lams_t.shape[0]
+        h_tr, g_tr = self._split(folds)
+        state, aux, warm, info = self._staged_state_for(h_tr, g_tr, folds,
+                                                        lams_t, True)
+        errs = self._errors(state, h_tr, g_tr, folds, lams_t, aux)
         errs = errs.cpu().numpy()[:, :q]
         return CVResult.from_errors(
-            lams_t.cpu().numpy(), errs.mean(0), strat.n_exact_chol(k, q),
-            engine=dict(strategy=strat.name, backend=bk.name,
-                        precision=self._prec.name, lam_chunk=self.lam_chunk,
-                        device=str(self._device)))
+            lams_t.cpu().numpy(), errs.mean(0),
+            0 if warm else self.strategy.n_exact_chol(k, q),
+            engine=self._meta(cache=info))
+
+    # -- staged sweep ------------------------------------------------------
+
+    def sweep_async(self, folds: FoldData, lams, *,
+                    stop_tol: Optional[float] = None, stop_patience: int = 2,
+                    pipelined: bool = True) -> Iterator[SweepChunk]:
+        """Staged sweep: yields a :class:`SweepChunk` per λ chunk
+        (``src/repro/core/engine.py:1309``).
+
+        stop_tol:  ``None`` disables early stopping.  A float ≥ 0: a chunk
+                   improves when its minimum mean error drops below
+                   ``best · (1 − stop_tol)``; after ``stop_patience``
+                   non-improving chunks in a row the stream stops.  A chunk
+                   with a non-finite mean raises ``FloatingPointError``.
+        pipelined: ``True`` launches every stage without a host sync, and a
+                   full sweep launches chunk c+1 before it reads chunk c
+                   (the read waits for chunk c's copy only).  ``False``
+                   synchronizes the device after every stage — the serial
+                   order.  Both run the same operations on the same inputs,
+                   so their curves are the same bits.
+
+        The state stage, cache dispatch included, is :meth:`run`'s (every
+        fold in one call); a miss populates the cache before the λ stream
+        starts, so an early-stopped sweep still leaves a whole entry.
+        """
+        if stop_tol is not None and stop_tol < 0:
+            raise ValueError(f"stop_tol must be >= 0 or None, got {stop_tol}")
+        if stop_patience < 1:
+            raise ValueError(
+                f"stop_patience must be >= 1, got {stop_patience}")
+        lams_t = self._check_lams(lams, self._device)
+        lams_np = lams_t.cpu().numpy()
+        folds = folds.to(self._device)
+        k, q = folds.fold_hess.shape[0], lams_t.shape[0]
+        h_tr, g_tr = self._split(folds)
+        strat, bk = self.strategy, self._bk
+        chunk = self._resolve_chunk(h_tr.shape[-1], h_tr.dtype)
+        if chunk is None or chunk > q:
+            chunk = q
+        chunks, _ = chunk_lams(lams_t, chunk)
+        n_c = chunks.shape[0]
+
+        state, aux, warm, cache_info = self._staged_state_for(
+            h_tr, g_tr, folds, lams_t, pipelined)
+
+        def dispatch(c):
+            with self._stage_scope("fold_errors"):
+                e = strat.fold_errors(state, h_tr, g_tr, folds.x_folds,
+                                      folds.y_folds, chunks[c], aux, bk)
+            self._sync(pipelined)
+            return _read_async(e)
+
+        # a full pipelined sweep keeps one chunk of look-ahead; early
+        # stopping decides chunk by chunk (the decision is the sync point)
+        lookahead = pipelined and stop_tol is None
+        best, best_lam, streak, n_eval = np.inf, float("nan"), 0, 0
+        nxt = dispatch(0) if lookahead else None
+        for c in range(n_c):
+            read = nxt if nxt is not None else dispatch(c)
+            nxt = dispatch(c + 1) if lookahead and c + 1 < n_c else None
+            width = min(chunk, q - c * chunk)
+            fold_errs = read()[:, :width]
+            mean = fold_errs.mean(0)
+            finite = np.isfinite(mean)
+            if not finite.all() and stop_tol is not None:
+                bad = lams_np[c * chunk + np.flatnonzero(~finite)]
+                raise FloatingPointError(
+                    f"non-finite hold-out mean at λ={bad[:4].tolist()} "
+                    f"(chunk {c}): the early-stop search cannot rank "
+                    "non-finite errors; fix the fold/precision (singular "
+                    "fold? bf16 overflow → 'bf16_refined') or sweep the "
+                    "full grid with stop_tol=None")
+            n_eval += width
+            if finite.any():
+                i = int(np.flatnonzero(finite)[np.argmin(mean[finite])])
+                improved = (bool(mean[i] < best * (1.0 - stop_tol))
+                            if stop_tol is not None and np.isfinite(best)
+                            else bool(mean[i] < best))
+                if mean[i] < best:   # strict: ties keep the earlier λ
+                    best = float(mean[i])
+                    best_lam = float(lams_np[c * chunk + i])
+            else:
+                improved = False
+            streak = 0 if improved else streak + 1
+            stopped = (stop_tol is not None and streak >= stop_patience
+                       and c + 1 < n_c)
+            yield SweepChunk(
+                index=c, start=c * chunk, n_chunks=n_c,
+                lams=lams_np[c * chunk: c * chunk + width],
+                fold_errors=fold_errs, errors=mean, best_lam=best_lam,
+                best_error=float(best), stopped=stopped,
+                n_exact_chol=0 if warm else strat.n_exact_chol(k, n_eval),
+                cache=cache_info)
+            if stopped:
+                return
+        if not np.isfinite(best):
+            raise FloatingPointError(
+                "sweep finished with no finite hold-out mean at any λ "
+                "(singular fold? overflow → try precision='bf16_refined' "
+                "or fp64); refusing to report a nan λ* selection")
+
+    def run_async(self, folds: FoldData, lams, *,
+                  stop_tol: Optional[float] = None, stop_patience: int = 2,
+                  pipelined: bool = True) -> CVResult:
+        """:meth:`sweep_async` consumed into a :class:`CVResult` over the
+        evaluated prefix of the grid; ``extras['engine']['async']`` records
+        how far the stream ran."""
+        parts = list(self.sweep_async(folds, lams, stop_tol=stop_tol,
+                                      stop_patience=stop_patience,
+                                      pipelined=pipelined))
+        last = parts[-1]
+        errors = np.concatenate([p.errors for p in parts])
+        meta = self._meta(cache=last.cache)
+        meta["async"] = dict(
+            pipelined=pipelined, stop_tol=stop_tol,
+            stop_patience=stop_patience, stopped=last.stopped,
+            chunks_evaluated=len(parts), chunks_total=last.n_chunks,
+            lams_evaluated=int(errors.shape[0]))
+        return CVResult.from_errors(np.concatenate([p.lams for p in parts]),
+                                    errors, last.n_exact_chol, engine=meta)
+
+    # -- adaptive λ search -------------------------------------------------
+
+    def search(self, folds: FoldData, lams, *, wave: Optional[int] = None,
+               tol_decades: float = 0.05, plateau_tol: Optional[float] = None,
+               plateau_patience: int = 2, max_waves: int = 32,
+               select_interp: bool = False,
+               pipelined: bool = True) -> CVResult:
+        """Adaptive λ refinement over the grid's range
+        (``src/repro/core/engine.py:1510``): one coarse log-spaced wave of
+        ``wave`` points over [λ_min, λ_max], then waves of ``wave`` points
+        strictly inside the bracket of the running minimum's evaluated
+        neighbours, until the bracket is narrower than ``tol_decades``
+        (or the error plateaus, or ``max_waves``).  ``wave`` defaults to
+        the resolved λ chunk capped to 8 and floored at 3.  The state stage
+        (cache dispatch included) runs once, as in :meth:`sweep_async`.
+        ``select_interp`` runs :meth:`select_interpolant` first and
+        searches with its choice.  Returns a :class:`CVResult` over every
+        evaluated λ, sorted; the trace is ``extras['engine']['search']``.
+        """
+        if tol_decades <= 0:
+            raise ValueError(f"tol_decades must be > 0, got {tol_decades}")
+        if plateau_tol is not None and plateau_tol < 0:
+            raise ValueError(
+                f"plateau_tol must be >= 0 or None, got {plateau_tol}")
+        if plateau_patience < 1:
+            raise ValueError(
+                f"plateau_patience must be >= 1, got {plateau_patience}")
+        if max_waves < 1:
+            raise ValueError(f"max_waves must be >= 1, got {max_waves}")
+        if select_interp:
+            sel = self.select_interpolant(folds, lams)
+            res = self.with_interpolant(sel["degree"], sel["basis"]).search(
+                folds, lams, wave=wave, tol_decades=tol_decades,
+                plateau_tol=plateau_tol, plateau_patience=plateau_patience,
+                max_waves=max_waves, pipelined=pipelined)
+            res.extras["engine"]["interp_selection"] = sel
+            return res
+        lams_t = self._check_lams(lams, self._device, min_q=2,
+                                  what="adaptive λ-search")
+        lams_np = lams_t.cpu().numpy()
+        if np.any(lams_np <= 0):
+            raise ValueError("adaptive λ-search refines over log-λ: "
+                             "every grid value must be positive")
+        folds = folds.to(self._device)
+        k, q = folds.fold_hess.shape[0], lams_t.shape[0]
+        h_tr, g_tr = self._split(folds)
+        strat, bk = self.strategy, self._bk
+        chunk = self._resolve_chunk(h_tr.shape[-1], h_tr.dtype)
+        if wave is None:
+            w = max(3, min(8, chunk if chunk else 8))
+        else:
+            w = int(wave)
+            if w < 3:
+                raise ValueError(
+                    f"wave must be >= 3 (a refinement wave needs interior "
+                    f"points on both sides of the minimum), got {w}")
+
+        state, aux, warm, cache_info = self._staged_state_for(
+            h_tr, g_tr, folds, lams_t, pipelined)
+
+        def eval_wave(xs):
+            """Mean hold-out error at 10**xs — one λ-stage call."""
+            lam_w = np.asarray(10.0 ** xs, dtype=lams_np.dtype)
+            with self._stage_scope("fold_errors"):
+                e = strat.fold_errors(
+                    state, h_tr, g_tr, folds.x_folds, folds.y_folds,
+                    torch.as_tensor(lam_w, device=self._device), aux, bk)
+            return lam_w, e.cpu().numpy().mean(0)
+
+        lo = float(np.log10(lams_np.min()))
+        hi = float(np.log10(lams_np.max()))
+        xs_all = np.empty(0)
+        lams_all = np.empty(0, dtype=lams_np.dtype)
+        errs_all = np.empty(0)
+        best, best_x, waves, streak = np.inf, lo, 0, 0
+        width = hi - lo
+        stopped_on = "max_waves"
+        next_xs = np.linspace(lo, hi, w)
+        while True:
+            lam_w, mean = eval_wave(next_xs)
+            waves += 1
+            finite = np.isfinite(mean)
+            if not finite.any():
+                raise FloatingPointError(
+                    f"adaptive λ-search wave {waves} produced no finite "
+                    f"hold-out mean (λ∈[{lam_w.min():.3g}, "
+                    f"{lam_w.max():.3g}]): cannot rank the bracket "
+                    "(singular fold? overflow → 'bf16_refined'/fp64)")
+            xs_all = np.concatenate([xs_all, next_xs])
+            lams_all = np.concatenate([lams_all, lam_w])
+            errs_all = np.concatenate([errs_all, mean])
+            prev_best = best
+            j = int(np.flatnonzero(finite)[np.argmin(mean[finite])])
+            if mean[j] < best:
+                best, best_x = float(mean[j]), float(next_xs[j])
+            improved = (bool(best < prev_best * (1.0 - plateau_tol))
+                        if plateau_tol is not None and np.isfinite(prev_best)
+                        else bool(best < prev_best))
+            streak = 0 if improved else streak + 1
+            # bracket: the evaluated neighbours of the running minimum
+            xs_sorted = np.sort(xs_all)
+            pos = int(np.searchsorted(xs_sorted, best_x))
+            left = xs_sorted[pos - 1] if pos > 0 else xs_sorted[0]
+            right = (xs_sorted[pos + 1] if pos + 1 < xs_sorted.shape[0]
+                     else xs_sorted[-1])
+            width = float(right - left)
+            if width <= tol_decades:
+                stopped_on = "interval"
+                break
+            if plateau_tol is not None and streak >= plateau_patience:
+                stopped_on = "plateau"
+                break
+            if waves >= max_waves:
+                break
+            next_xs = np.linspace(left, right, w + 2)[1:-1]
+
+        order = np.argsort(xs_all)
+        n_eval = int(xs_all.shape[0])
+        meta = self._meta(cache=cache_info)
+        meta["search"] = dict(
+            wave=w, waves=waves, lams_evaluated=n_eval, dense_q=q,
+            evals_vs_grid=n_eval / q, tol_decades=tol_decades,
+            plateau_tol=plateau_tol, plateau_patience=plateau_patience,
+            interval_decades=width, stopped_on=stopped_on)
+        return CVResult.from_errors(
+            lams_all[order], errs_all[order],
+            0 if warm else strat.n_exact_chol(k, n_eval), engine=meta)
+
+    # -- interpolant selection and anchor advice ----------------------------
+
+    def with_interpolant(self, degree: int, basis: str) -> "CVEngine":
+        """This engine at another (degree, basis) of its piCholesky
+        strategy, sharing backend, cache and device (memoized).  Same
+        anchors, so on a cache with ``cache_anchors`` its first sweep
+        refits Θ from the cached anchors with no factorization."""
+        strat = self.strategy
+        if not isinstance(strat, PiCholeskyStrategy):
+            raise ValueError(
+                "with_interpolant needs the picholesky strategy, got "
+                f"{getattr(strat, 'name', strat)!r}")
+        key = (int(degree), str(basis))
+        if key == (strat.degree, strat.basis):
+            return self
+        if key not in self._interp_engines:
+            self._interp_engines[key] = CVEngine(
+                strategy=dataclasses.replace(strat, degree=key[0],
+                                             basis=key[1]),
+                backend=self._bk, block=self.block, lam_chunk=self.lam_chunk,
+                device=self._device, cache=self.cache, reuse=self.reuse,
+                cache_anchors=self.cache_anchors)
+        return self._interp_engines[key]
+
+    def select_interpolant(self, folds: FoldData, lams, *, degrees=None,
+                           bases=("monomial", "centered")) -> dict:
+        """Choose the interpolant (degree, basis) by leave-one-anchor-out
+        CV against the packed anchor targets
+        (:func:`~repro_torch.core.picholesky.select_interpolant`).  The
+        targets come from the cache when its anchor fingerprint matches
+        (no factorization); otherwise the anchors are factored here and,
+        with ``cache_anchors``, parked as an anchors-only entry.  Returns
+        the selection plus ``anchor_status`` ('anchors', 'cold' or
+        'cold+cached'), ``g`` and the anchor grid."""
+        strat, bk = self.strategy, self._bk
+        if not isinstance(strat, PiCholeskyStrategy):
+            raise ValueError(
+                "interpolant selection needs the picholesky strategy, got "
+                f"{getattr(strat, 'name', strat)!r}")
+        lams_t = self._check_lams(lams, self._device, min_q=2,
+                                  what="interpolant selection")
+        folds = folds.to(self._device)
+        anchors = _sample_grid(lams_t, strat.g)
+        h_tr, _ = self._split(folds)
+        meta = self._cache_meta(lams_t)
+        key = None if meta is None else self._make_key(h_tr, meta)
+        pf = (self.cache.get_anchors(key)
+              if key is not None and self.reuse else None)
+        status = "anchors"
+        if pf is None:
+            with self._stage_scope("fold_state"):
+                hess = strat.anchor_hessian(h_tr, folds.x_folds, bk)
+                eye = torch.eye(hess.shape[-1], dtype=hess.dtype,
+                                device=hess.device)
+                vec = bk.pack_tril(
+                    bk.cholesky(hess[:, None] + anchors[:, None, None] * eye),
+                    strat.block)
+            vec = vec.to(self._prec.store_dtype(vec.dtype))
+            pf = packing.PackedFactor(vec=vec, h=int(h_tr.shape[-1]),
+                                      block=strat.block)
+            status = "cold"
+            if key is not None and self.cache_anchors:
+                self.cache.put(key, None, pf)   # anchors-only entry
+                status = "cold+cached"
+        sel = picholesky.select_interpolant(pf.vec, anchors, degrees,
+                                            bases=bases, backend=bk)
+        sel["anchor_status"] = status
+        sel["g"] = strat.g
+        sel["anchors"] = anchors.cpu().numpy().tolist()
+        return sel
+
+    def advise_anchor(self, folds: FoldData, lams, *, probe_dim: int = 32,
+                      n_grid: int = 5) -> dict:
+        """Bound-guided anchor placement (``src/repro/core/engine.py:1808``):
+        the Thm 4.4 score of each anchor interval
+        (:func:`~repro_torch.core.bound.anchor_advisor`) on the leading
+        ``probe_dim`` principal submatrix of the fold-mean training
+        Hessian, and the log-midpoint of the weakest interval as the next
+        anchor.  A heuristic for placement; it enters no sweep."""
+        g = getattr(self.strategy, "g", None)
+        if g is None:
+            raise ValueError(
+                "anchor advice needs an anchored interpolant strategy "
+                f"(with g sample shifts); "
+                f"{getattr(self.strategy, 'name', self.strategy)!r} has none")
+        from . import bound
+        lams_t = self._check_lams(lams, self._device, min_q=2,
+                                  what="anchor advisor")
+        folds = folds.to(self._device)
+        anchors = _sample_grid(lams_t, g)
+        h_tr, _ = self._split(folds)
+        d = min(int(probe_dim), int(h_tr.shape[-1]))
+        out = bound.anchor_advisor(h_tr.mean(0)[:d, :d],
+                                   anchors.cpu().numpy(), n_grid=n_grid)
+        out["probe_dim"] = d
+        out["anchors"] = anchors.cpu().numpy().tolist()
+        return out
+
+    # -- batched admission (multi-tenant serving) ---------------------------
+
+    def _cache_scope(self, tenant: Optional[str]):
+        """Tenant attribution on the attached cache (none without one)."""
+        if self.cache is None or tenant is None:
+            return contextlib.nullcontext()
+        return self.cache.tenant_scope(tenant)
+
+    def run_batch(self, problems, *, tenants=None) -> list:
+        """N CV problems ``(FoldData, lams)``, one stacked ``fold_state``
+        call for the cold ones, a λ stream each
+        (``src/repro/core/engine.py:1986``).  Each result is bit for bit
+        what a solo :meth:`run` against the same cache state gives: the
+        per-fold arithmetic does not depend on the batch (the Θ product
+        runs per fold).
+
+        Per problem: fingerprint → hit | anchor refit | cold; the cold
+        problems' folds are concatenated and factored in one call, then
+        sliced back and cached under their own keys; a duplicate of an
+        earlier problem in the batch is looked up again after that and
+        served as a hit.  The fused path needs a cache, ``reuse`` on, a
+        ``batchable_state`` cacheable strategy, one fold geometry and one
+        anchor set; otherwise the batch runs problem by problem.
+        """
+        problems = [(f.to(self._device), self._check_lams(l, self._device))
+                    for f, l in problems]
+        if tenants is None:
+            tenants = [None] * len(problems)
+        if len(tenants) != len(problems):
+            raise ValueError(f"{len(tenants)} tenant labels for "
+                             f"{len(problems)} problems")
+        if not problems:
+            return []
+        strat = self.strategy
+        metas = [self._cache_meta(l) for _, l in problems]
+        fusable = (self.cache is not None and self.reuse is not False
+                   and strat.batchable_state
+                   and all(m is not None for m in metas))
+        if fusable:
+            a0, f0 = metas[0]["anchors"], problems[0][0]
+            fusable = all(
+                torch.equal(m["anchors"], a0)
+                and f.fold_hess.shape[1:] == f0.fold_hess.shape[1:]
+                and f.x_folds.shape[1:] == f0.x_folds.shape[1:]
+                and f.fold_hess.dtype == f0.fold_hess.dtype
+                for (f, _), m in zip(problems, metas))
+        if not fusable:
+            out = []
+            for (f, l), t in zip(problems, tenants):
+                with self._cache_scope(t):
+                    out.append(self.run(f, l))
+            return out
+
+        cache = self.cache
+        splits = [self._split(f) for f, _ in problems]
+        keys = [self._make_key(h_tr, m) for (h_tr, _), m in zip(splits, metas)]
+        with_anchors = (self.cache_anchors
+                        and hasattr(strat, "fold_state_and_anchors"))
+
+        # pass 1: fingerprint lookup; duplicates wait for the cold stage
+        n = len(problems)
+        entries: list = [None] * n
+        statuses: list = [None] * n
+        first_of: dict = {}
+        cold_idx: list = []
+        for i, key in enumerate(keys):
+            digest = key.digest()
+            if digest in first_of:
+                continue
+            first_of[digest] = i
+            with self._cache_scope(tenants[i]):
+                entry = cache.lookup(key, self.reuse)
+                if entry is not None:
+                    entries[i], statuses[i] = entry, "hit"
+                    continue
+                pf = cache.get_anchors(key) if with_anchors else None
+            if pf is not None:
+                state = self._refit_from_anchors(pf, metas[i])
+                with self._cache_scope(tenants[i]):
+                    entries[i] = cache.put(key, state, pf)
+                statuses[i] = "refit"
+            else:
+                cold_idx.append(i)
+
+        # pass 2: one stacked fold_state call for every cold problem
+        if cold_idx:
+            stacked = FoldData(
+                hess=problems[cold_idx[0]][0].hess,
+                grad=problems[cold_idx[0]][0].grad,
+                fold_hess=torch.cat([problems[i][0].fold_hess
+                                     for i in cold_idx]),
+                fold_grad=torch.cat([problems[i][0].fold_grad
+                                     for i in cold_idx]),
+                x_folds=torch.cat([problems[i][0].x_folds for i in cold_idx]),
+                y_folds=torch.cat([problems[i][0].y_folds for i in cold_idx]))
+            h_stack = torch.cat([splits[i][0] for i in cold_idx])
+            g_stack = torch.cat([splits[i][1] for i in cold_idx])
+            state, pf, _ = self._cold_state(h_stack, g_stack, stacked,
+                                            problems[cold_idx[0]][1],
+                                            with_anchors)
+            k_total, off = h_stack.shape[0], 0
+            for i in cold_idx:
+                k_i = splits[i][0].shape[0]
+                st_i = _fold_slice(state, off, off + k_i, k_total)
+                pf_i = (packing.PackedFactor(vec=pf.vec[off:off + k_i],
+                                             h=pf.h, block=pf.block)
+                        if pf is not None else None)
+                off += k_i
+                with self._cache_scope(tenants[i]):
+                    entries[i] = cache.put(keys[i], st_i, pf_i)
+                statuses[i] = "miss"
+
+        # pass 3: in-batch duplicates are hits now (or, if the budget has
+        # already evicted the first occurrence, served from its object)
+        for i, key in enumerate(keys):
+            if entries[i] is not None:
+                continue
+            with self._cache_scope(tenants[i]):
+                entry = cache.lookup(key, self.reuse)
+            entries[i] = entry if entry is not None \
+                else entries[first_of[key.digest()]]
+            statuses[i] = "hit"
+
+        results = []
+        for i, ((folds_i, lams_i), (h_tr, g_tr)) in enumerate(
+                zip(problems, splits)):
+            k_i, q_i = h_tr.shape[0], int(lams_i.shape[0])
+            errs = self._errors(entries[i].state, h_tr, g_tr, folds_i,
+                                lams_i, ()).cpu().numpy()[:, :q_i]
+            info = self._cache_info(entries[i], statuses[i],
+                                    tenant=tenants[i])
+            results.append(CVResult.from_errors(
+                lams_i.cpu().numpy(), errs.mean(0),
+                strat.n_exact_chol(k_i, q_i) if statuses[i] == "miss" else 0,
+                engine=self._meta(cache=info, batch=dict(
+                    size=n, index=i, cold=len(cold_idx)))))
+        return results

@@ -171,9 +171,25 @@ def fit(hessian: torch.Tensor | None, sample_lams: torch.Tensor,
     # That solve runs on the host: on the card torch.linalg.solve launches
     # cuBLAS trsm kernels and reads its status back to the host all the
     # same, and elementwise tensor operations cost more launches than it.
-    v = vandermonde(sample_lams.cpu(), degree, center.cpu()).to(fit_dtype)
+    lams_host = sample_lams.cpu()
+    distinct = torch.unique(lams_host).numel()
+    if distinct <= degree:
+        # coincident shifts (a one-λ grid collapses every anchor onto it):
+        # VᵀV is singular and any Θ the solve returns is rounding noise
+        raise FloatingPointError(
+            f"the degree-{degree} fit needs {degree + 1} distinct sample "
+            f"shifts, got {distinct} distinct of {g}: the normal equations "
+            "are singular (a λ grid with no range?)")
+    v = vandermonde(lams_host, degree, center.cpu()).to(fit_dtype)
     proj = torch.linalg.solve(v.T @ v, v.T).to(targets.device)  # (r+1, g)
-    theta = proj @ targets.to(fit_dtype)                    # (…, r+1, P)
+    # one 2-D product per leading index: a batched product may take another
+    # library kernel (another summation order) for another batch size, and
+    # a fold's Θ must not depend on how many folds share the call
+    # (CVEngine.run_batch stacks several problems' folds)
+    t = targets.to(fit_dtype)
+    flat = t.reshape(-1, *t.shape[-2:])
+    theta = torch.stack([proj @ t_i for t_i in flat]).reshape(
+        *t.shape[:-2], proj.shape[0], t.shape[-1])          # (…, r+1, P)
     return PiCholesky(theta=theta.to(store_dtype),
                       center=center.to(fit_dtype).to(targets.device),
                       h=h, block=block)

@@ -19,7 +19,10 @@ against the JAX fixture; the paper's other CV algorithms (warm-start,
 PINRMSE, MChol, the SVD family, low rank) on the kernel backend against the
 reference backend, ``select_interpolant`` and ``RidgeCV`` on the card, and
 ``kernels.ops`` (the kernels on CUDA tensors, ``REPRO_KERNELS=ref``
-refused there).  Skipped without a CUDA device.  On the
+refused there), and the engine's staging surface: the count sketch's
+fixed-order reduction (the same bits twice, and as on the CPU),
+``run_batch`` against solo runs and the pipelined ``sweep_async`` against
+the serial one, bit for bit.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -657,3 +660,67 @@ def test_ops_run_the_kernels_and_refuse_ref_on_the_card(dev, monkeypatch):
     # on the CPU the switch is what it was: the plain versions
     torch.testing.assert_close(ops.pack_tril(l.cpu(), block), vec.cpu(),
                                rtol=0, atol=0)
+
+
+def _regression_folds(dev, seed, h=96, n=2048, k=4):
+    from repro_torch.serving.traffic import regression_folds
+    return regression_folds(h=h, n=n, k=k, seed=seed, device=dev)
+
+
+def test_countsketch_gives_the_same_bits_twice(dev):
+    """The count sketch reduces in a fixed order on the card (no
+    scatter-add atomics): two runs of the sketched sweep give the same
+    bits, and its gram equals the CPU's up to the gram product."""
+    from repro_torch.core import engine, sketch
+    folds = _regression_folds(dev, 1)
+    lams = torch.logspace(-3, 0, 17, dtype=torch.float64, device=dev)
+    plan = sketch.SketchPlan(method="countsketch", m=1024, seed=2)
+    runs = [engine.CVEngine("picholesky", block=32, sketch=plan,
+                            device=dev).run(folds, lams) for _ in range(2)]
+    np.testing.assert_array_equal(runs[0].errors, runs[1].errors)
+    x = folds.x_folds[1:].reshape(-1, folds.x_folds.shape[-1])
+    draws = sketch.draw_sketch(plan, x.shape[0], 0, dtype=x.dtype,
+                               device=dev)
+    rows = [sketch.sketch_rows(plan, x, draws) for _ in range(2)]
+    assert torch.equal(rows[0], rows[1])
+    cpu = sketch.sketch_rows(plan, x.cpu(), {n: d.cpu()
+                                             for n, d in draws.items()})
+    assert torch.equal(rows[0].cpu(), cpu)
+
+
+def test_run_batch_equals_solo_runs_bit_for_bit(dev):
+    """Stacking cold problems' folds into one fold_state call changes no
+    bit of any problem's curve on the kernels (the Θ product runs per
+    fold)."""
+    from repro_torch.core import engine, factor_cache
+    problems = [_regression_folds(dev, s) for s in (1, 2, 3)]
+    lams = torch.logspace(-3, 0, 17, dtype=torch.float64, device=dev)
+
+    def eng():
+        return engine.CVEngine("picholesky", block=32, device=dev,
+                               cache=factor_cache.FactorCache(),
+                               cache_anchors=True)
+
+    batched = eng().run_batch([(f, lams) for f in problems])
+    assert [r.extras["engine"]["cache"]["status"] for r in batched] == \
+        ["miss"] * 3
+    for r, f in zip(batched, problems):
+        np.testing.assert_array_equal(r.errors, eng().run(f, lams).errors)
+
+
+def test_pipelined_sweep_equals_serial_bit_for_bit(dev):
+    """sweep_async without host syncs (one chunk of look-ahead, the chunk
+    read behind an event) against the serial order, cold and warm."""
+    from repro_torch.core import engine, factor_cache
+    folds = _regression_folds(dev, 4, h=256, n=4096)
+    lams = torch.logspace(-3, 0, 31, dtype=torch.float64, device=dev)
+    cache = factor_cache.FactorCache()
+    for _ in ("cold", "warm"):
+        eng = engine.CVEngine("picholesky", block=64, lam_chunk=3,
+                              device=dev, cache=cache)
+        pipe = list(eng.sweep_async(folds, lams, pipelined=True))
+        serial = list(eng.sweep_async(folds, lams, pipelined=False))
+        assert len(pipe) == 11
+        for a, b in zip(pipe, serial):
+            np.testing.assert_array_equal(a.fold_errors, b.fold_errors)
+    assert cache.hits >= 2

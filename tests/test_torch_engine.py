@@ -121,6 +121,8 @@ def test_partially_nan_curve_ranks_finite_entries():
 def test_unknown_strategy_and_chunk_raise(problem):
     folds, lams, _ = problem
     with pytest.raises(ValueError, match="unknown strategy"):
-        CVEngine("picholesky_sketched", device="cpu")   # not ported yet
+        CVEngine("picholesky_sketchy", device="cpu")
+    with pytest.raises(ValueError, match="needs a SketchPlan"):
+        CVEngine("picholesky_sketched", device="cpu")   # no plan given
     with pytest.raises(ValueError, match="lam_chunk"):
         CVEngine("exact", lam_chunk=0, device="cpu").run(folds, lams)

@@ -309,10 +309,9 @@ def test_low_rank_factors_under_bf16_store(low_rank_folds):
 
 
 def test_strategy_registry_lists_the_ported_strategies():
-    assert set(engine.STRATEGIES) == set(jengine.STRATEGIES) - {
-        "picholesky_sketched"}
+    assert set(engine.STRATEGIES) == set(jengine.STRATEGIES)
     with pytest.raises(ValueError, match="unknown strategy"):
-        engine.make_strategy("picholesky_sketched")
+        engine.make_strategy("picholesky_sketchy")
 
 
 def test_make_low_rank_dataset_checks_and_rank():
