@@ -141,9 +141,39 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               each pick on it, and the sketched anchor build against the
               dense Hessian formation.
 
-Phases 15–18 run after ``baselines`` and before ``mamba_fixture``; each
-adds its paths to ``launches_by_path``, and their failures are collected
-and raised after the ``kernels`` line.
+19. tune    — ``tune='auto'`` at the main configuration, uncut: the
+              chosen ``TunedConfig``, the lattice (blocks 32/64/128 × the
+              chunk ladder) with every candidate's priced step, measured
+              wall (median of 3 in turns after a warm run), launches
+              against the plan's, and curve against ``reference`` (1e-8,
+              the same λ*; at block 128 every chunk bit for bit the untuned
+              run); the predicted against the measured rank (Spearman), the
+              choice no slower than the untuned default and its distance
+              from the measured best (reported); the exact strategy
+              pinned at blocks 32, 64 and 128 through ``tune=`` (the
+              dense trsm and the Cholesky at the tuner's blocks: curve
+              against ``reference``, launches against the plan, the
+              ``'auto'`` choice bit for bit its pinned run); 0
+              factorizations and 0 launches while tuning, a cache hit on
+              the second tune, save → load of the tuning cache;
+              ``launch_s`` (a dependent chain of the Cholesky's launches)
+              beside the card's ``nvidia-smi`` line; ``mesh='auto'`` and
+              ``donate`` bit for bit; ``sweep_temp_bytes`` with and without
+              ``donate``, the reference's memory contract at its test's
+              shape (≤ 64 B per extra λ from q 64 to 1024 at chunk 16,
+              held; unchunked over chunked, reported) and the main
+              configuration at q 64 and 256;
+              ``ServerConfig(tune='auto')`` over the cv_serve traffic (one
+              tuning per geometry, every response the same bits as its
+              solo run under the same config); ``RidgeCV(cv_mesh='auto')``
+              against ``RidgeCV()``.  Its paths join ``launches_by_path``
+              as ``tune_*``.  When the tuner picks another block than the
+              main configuration's, the ``kernels`` phase also times rows
+              1, 3, 6 and 8 at that block (``tuned_block``).
+
+Phases 15–19 run after ``baselines`` and before ``mamba_fixture`` (19
+before ``cv_serve``); each adds its paths to ``launches_by_path``, and
+their failures are collected and raised after the ``kernels`` line.
 
 The ``kernels`` phase also holds the mixed-precision variants (bf16
 products on the tensor cores, float32 sums and state, Θ and packed factors
@@ -180,11 +210,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# configs/picholesky.py of the JAX package, copied
-H, N_TRAIN, K_FOLDS, N_LAMBDAS, G_SAMPLES, DEGREE = 1024, 4096, 5, 31, 4, 2
-LAM_LO, LAM_HI, BLOCK = 1e-3, 1.0, 128
+from repro_torch.configs.picholesky import CONFIG  # noqa: E402
+from repro_torch.core.engine import LAM_CHUNK_BUDGET_BYTES  # noqa: E402
+from repro_torch.distributed.roofline import peaks_for  # noqa: E402
+from repro_torch.distributed.sharding import auto_lam_chunk  # noqa: E402
+
+# the main configuration: the port's configs/picholesky.py
+H, N_TRAIN, K_FOLDS = CONFIG.h, CONFIG.n_train, CONFIG.k_folds
+N_LAMBDAS, G_SAMPLES, DEGREE = CONFIG.n_lambdas, CONFIG.g_samples, \
+    CONFIG.degree
+LAM_LO, LAM_HI, BLOCK = CONFIG.lam_lo, CONFIG.lam_hi, CONFIG.block
 SEED = 0
-LAM_CHUNK = 3    # what lam_chunk='auto' gives at h=1024, block=128, float64
+# what lam_chunk='auto' gives at the main configuration (float64)
+LAM_CHUNK = auto_lam_chunk(H, BLOCK, torch.float64, LAM_CHUNK_BUDGET_BYTES)
 
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}   # max |Δ| / max |plain|
 MAIN_TOL = 1e-8            # curve of the cuda backend vs the reference one
@@ -236,21 +274,10 @@ SERVE_TOL = 5e-2           # bf16, 64 layers: decode vs forward logits at the
                            # last position, max |Δ| / max |forward|
 SERVE_REPEATS = 3
 
-# Published peaks (NVIDIA data sheets, dense): bytes/s, FP64 on tensor
-# cores, FP64 and FP32 outside them, bf16 on tensor cores (half the data
-# sheets' with-sparsity figure).  Chosen by the card's name.  ``sfu``:
-# exponentials per second on the special-function units, 16 per clock per
-# SM (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0) × SMs × boost clock (SXM 132 × 1.98 GHz, PCIe 114 ×
-# 1.755 GHz, NVL 132 × 1.785 GHz; NVIDIA data sheets).
-PEAKS = {
-    "SXM": dict(bw=3.35e12, fp64_tc=67e12, fp64=34e12, fp32=67e12,
-                bf16_tc=989e12, sfu=16 * 132 * 1.98e9),
-    "PCIe": dict(bw=2.0e12, fp64_tc=51e12, fp64=26e12, fp32=51e12,
-                 bf16_tc=756e12, sfu=16 * 114 * 1.755e9),
-    "NVL": dict(bw=3.9e12, fp64_tc=60e12, fp64=30e12, fp32=60e12,
-                bf16_tc=835e12, sfu=16 * 132 * 1.785e9),
-}
+# The card's published peaks (bytes/s, FP64 on tensor cores, FP64 and
+# FP32 outside them, bf16 on tensor cores, ``sfu`` exponentials/s) are
+# ``repro_torch.distributed.roofline.PEAKS``, chosen by the card's name
+# (``peaks_for``): one source for this script and the tuner's roofline.
 
 REPLACES = {
     "pack_tril": "src/repro/kernels/tri_pack.py:73",
@@ -332,11 +359,6 @@ FAILED: list = []
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def peaks_for(name: str) -> dict:
-    key = "PCIe" if "PCIe" in name else "NVL" if "NVL" in name else "SXM"
-    return dict(PEAKS[key], part=key)
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -617,6 +639,21 @@ def check_kernels(dev, h: int, block: int, n_anchor: int, n_exact: int,
         by_kernel=split,
         diag_ms_per_tile_column=split["diag_kernel"]["ms_per_launch"])
     return res
+
+
+#: the main path's rows (1, 3, 6, 8) timed again at the tuner's block
+TUNED_ROWS = ("cholesky_blocked", "pack_tril", "interp_solve",
+              "solve_lower_blocked")
+
+
+def tuned_config(dev, folds, lams):
+    """What ``tune='auto'`` chooses at the main configuration (pricing
+    only: nothing runs)."""
+    from repro_torch.core import engine
+    from repro_torch.distributed import autotune
+    eng = engine.CVEngine(_pi_strategy(), backend="cuda", device=dev,
+                          tune="auto")
+    return autotune.tune(eng, folds, lams)
 
 
 def bf16_chunk() -> int:
@@ -1058,6 +1095,23 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     emit("kernels", shape="main", h=H, block=BLOCK, dtype="float64",
          anchor_batch=K_FOLDS * G_SAMPLES, exact_batch=K_FOLDS * LAM_CHUNK,
          results=main)
+    # the rows of the main path again at the tuner's block, when it picks
+    # another than the main configuration's
+    tuned = tuned_config(dev, folds, lams)
+    if tuned.block != BLOCK:
+        at_tuned = check_kernels(dev, H, tuned.block, K_FOLDS * G_SAMPLES,
+                                 K_FOLDS * LAM_CHUNK, torch.float64, folds,
+                                 lams, timing=peaks)
+        emit("kernels", shape="tuned_block", h=H, block=tuned.block,
+             dtype="float64", results=at_tuned)
+        for name in TUNED_ROWS:
+            main[name]["tuned_block"] = dict(
+                block=tuned.block, **{key: at_tuned[name][key] for key in (
+                    "ms", "bound_ms", "plain_ms", "library_ms",
+                    "max_abs_err", "ok")})
+        if not all(at_tuned[name]["ok"] for name in TUNED_ROWS):
+            raise AssertionError(f"kernels at the tuned block {tuned.block} "
+                                 "disagree with their plain versions")
     ragged = check_kernels(dev, 1000, BLOCK, 4, 3, torch.float64)
     emit("kernels", shape="ragged", h=1000, block=BLOCK, dtype="float64",
          results=ragged)
@@ -2436,6 +2490,378 @@ def phase_staged(dev, folds, lams) -> dict:
     return launches
 
 
+TUNE_REPEATS = 3           # timed sweeps per lattice candidate, in turns
+# The tuner's choice must not be slower than the configuration it replaces
+# (median walls): tuning refines the default, never regresses it.  How far
+# it is from the measured best is reported (chosen_over_best), not held:
+# the launch-plan model does not see the cluster solve's per-block latency
+# and misses the best by 5-15 % (PERF.md §6, ROADMAP.md queue 3).
+# the reference's memory contract (tests/test_packed_pipeline.py:279-293):
+# h 64, n 400, k 4, g 4, block 16, lam_chunk 16; q 64 against q 1024
+MEM_SHAPE = dict(h=64, n=400, k=4, block=16, chunk=16)
+MEM_BYTES_PER_LAM = 64
+LAUNCH_PROBE = (512, 16, 20)   # h, block, calls: 94 dependent launches a call
+
+
+def measure_launch_s(dev) -> dict:
+    """Host seconds per launch of a dependent chain of the port's kernels:
+    ``cholesky_blocked`` of one small matrix at block 16 (3·nt − 2 = 94
+    launches a call, each tile step waiting on the last), a burst of calls
+    with one synchronization at the end, wall over launches (median of 5
+    bursts after a warm one)."""
+    from repro_torch.kernels import LAUNCHES, chol_blocked, reset_launches
+    h, block, calls = LAUNCH_PROBE
+    a = torch.eye(h, dtype=torch.float64, device=dev) * 2.0
+    chol_blocked.cholesky_blocked(a, block)
+    per = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            chol_blocked.cholesky_blocked(a, block)
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) / LAUNCHES["cholesky_blocked"])
+    return dict(launch_s=float(np.median(per)), bursts=per, h=h,
+                block=block, calls=calls,
+                launches_per_call=chol_launches(h, block))
+
+
+def phase_tune(dev, folds, lams, dev_info) -> dict:
+    """``tune='auto'`` at the main configuration, uncut: the lattice and
+    every candidate's priced step, its measured wall (median of
+    TUNE_REPEATS in turns, after a warm run) and its curve against the
+    reference backend; the predicted against the measured rank; zero
+    factorizations while tuning, a cache hit on the second tune, a
+    save → load of the tuning cache; ``launch_s``; ``mesh='auto'`` and
+    ``donate`` bit for bit; the sweep's measured peak memory (the
+    reference's O(chunk · P) contract at its test's shape, then the main
+    configuration); the server with ``tune='auto'`` over the cv_serve
+    traffic; ``RidgeCV(cv_mesh='auto')``."""
+    import shutil
+    from repro_torch.core import backends, engine, factor_cache as fc, cv
+    from repro_torch.core.ridge_cv import RidgeCV
+    from repro_torch.data import make_regression_dataset
+    from repro_torch.distributed import autotune, plan_cost, roofline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import CVSweepServer, ServerConfig, \
+        SweepRequest, TrafficConfig, make_traffic
+
+    def fail(msg: str) -> None:
+        FAILED.append(f"tune: {msg}")
+
+    launches, out = {}, {}
+    out["smi"] = dev_info["smi"]
+    out["launch"] = measure_launch_s(dev)
+    out["launch_s_preset"] = roofline.detect_hw(torch.float64).launch_s
+    hw = roofline.detect_hw(torch.float64)
+    out["hw"] = dataclasses.asdict(hw)
+
+    # -- the tuner: zero executions, the lattice, the cache ---------------
+    counting = backends.CountingBackend(backends.CudaBackend())
+    eng = engine.CVEngine(_pi_strategy(), backend=counting, device=dev,
+                          tune="auto")
+    cache = autotune.TuningCache()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cfg = autotune.tune(eng, folds, lams, cache=cache)
+    out["tune_seconds"] = time.perf_counter() - t0
+    out["tune_factorizations"] = counting.n_cholesky
+    out["tune_launches"] = sum(LAUNCHES.values())
+    if counting.n_cholesky or out["tune_launches"]:
+        fail(f"tune() ran {counting.n_cholesky} factorizations and "
+             f"{out['tune_launches']} launches")
+    lowered = cache.lowerings
+    again = autotune.tune(eng, folds, lams, cache=cache)
+    out["second_tune"] = dict(source=again.source, stats=cache.stats)
+    if again.source != "cache" or cache.lowerings != lowered \
+            or again.key() != cfg.key():
+        fail(f"second tune is no cache hit: {out['second_tune']}")
+    cache_dir = ROOT / "build" / "tune_cache_smoke"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cache.save(str(cache_dir))
+    loaded = autotune.TuningCache.load(str(cache_dir))
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    out["save_load_same"] = loaded.configs == cache.configs
+    if not out["save_load_same"]:
+        fail("the tuning cache's save → load changed its verdicts")
+    out["chosen"] = cfg.to_json()
+
+    k, _, h = folds.x_folds.shape
+    default = autotune.default_config(eng, k, h, N_LAMBDAS, torch.float64)
+    cands = autotune.candidate_lattice(
+        h=h, k=k, q=N_LAMBDAS, n_devices=1, default=default,
+        blocks=autotune.DEFAULT_BLOCKS,
+        store_dtype=torch.float64, budget=engine.LAM_CHUNK_BUDGET_BYTES)
+    scored = autotune.score_candidates(eng, folds, lams, cands, hw=hw)
+    out["lattice_size"] = len(scored)
+    plain = engine.CVEngine(_pi_strategy(), backend="cuda", device=dev)
+    untuned = plain.run(folds, lams)
+    ref = engine.CVEngine(_pi_strategy(), backend="reference",
+                          device=dev).run(folds, lams)
+    runs = {}
+    rows = []
+    launches["tune_lattice"] = dict.fromkeys(LAUNCHES, 0)
+    for cand in scored:
+        derived = eng._apply_tuned(cand)
+        r, n = _counted(lambda: derived.run(folds, lams))
+        for name, c in n.items():
+            launches["tune_lattice"][name] += c
+        cost, _ = plan_cost.engine_cost(derived, k, h, N_LAMBDAS,
+                                        torch.float64)
+        rel = float(np.max(np.abs(r.errors - ref.errors) / ref.errors))
+        row = dict(block=cand.block, lam_chunk=cand.lam_chunk,
+                   predicted_s=cand.predicted_s, launches=dict(n),
+                   plan_launches=cost.launches,
+                   plan_calls=cost.calls, curve_rel_err=rel,
+                   argmin=int(np.argmin(r.errors)),
+                   argmin_reference=int(np.argmin(ref.errors)),
+                   bitwise_untuned=bool(np.array_equal(r.errors,
+                                                       untuned.errors)))
+        if rel > MAIN_TOL or row["argmin"] != row["argmin_reference"]:
+            fail(f"candidate {cand.key()}: curve {rel} from the reference, "
+                 f"argmin {row['argmin']} vs {row['argmin_reference']}")
+        if cand.block == BLOCK and not row["bitwise_untuned"]:
+            fail(f"candidate {cand.key()} at the default block differs "
+                 "from the untuned run")
+        kernel_launches = sum(n.values())
+        if kernel_launches != cost.launches:
+            fail(f"candidate {cand.key()}: {kernel_launches} launches, "
+                 f"the plan prices {cost.launches}")
+        runs[cand.key()] = lambda d=derived: d.run(folds, lams)
+        rows.append(row)
+    walls = {key: [] for key in runs}
+    for _ in range(TUNE_REPEATS):           # in turns, after the warm runs
+        for key, fn in runs.items():
+            walls[key].append(_wall(fn))
+    for row, cand in zip(rows, scored):
+        row["wall_s"] = walls[cand.key()]
+        row["wall_s_median"] = float(np.median(walls[cand.key()]))
+    pred = np.array([r["predicted_s"] for r in rows])
+    meas = np.array([r["wall_s_median"] for r in rows])
+    rank_p = np.argsort(np.argsort(pred, kind="stable"), kind="stable")
+    rank_m = np.argsort(np.argsort(meas, kind="stable"), kind="stable")
+    spearman = float(np.corrcoef(rank_p, rank_m)[0, 1])
+    chosen_wall = walls[cfg.key()]
+    best = int(np.argmin(meas))
+    out["candidates"] = rows
+    out["rank"] = dict(
+        spearman=spearman, predicted_order=[
+            [rows[i]["block"], rows[i]["lam_chunk"]] for i in np.argsort(
+                pred, kind="stable")],
+        measured_order=[[rows[i]["block"], rows[i]["lam_chunk"]]
+                        for i in np.argsort(meas, kind="stable")],
+        chosen_wall_s_median=float(np.median(chosen_wall)),
+        best=[rows[best]["block"], rows[best]["lam_chunk"]],
+        best_wall_s_median=float(meas[best]),
+        default_wall_s_median=float(np.median(walls[default.key()])),
+        chosen_over_best=float(np.median(chosen_wall) / meas[best]),
+        chosen_over_default=float(np.median(chosen_wall)
+                                  / np.median(walls[default.key()])))
+    if out["rank"]["chosen_over_default"] > 1.0:
+        fail(f"the tuner's choice {cfg.key()} is "
+             f"{out['rank']['chosen_over_default']:.3f}× the untuned "
+             f"default {default.key()}")
+
+    # -- the exact strategy at the lattice's blocks: the dense trsm --------
+    # (row 8) and the Cholesky at blocks 32, 64 and 128 through tune=, at
+    # the chunk the tuner chooses for it
+    def exact_engine(tune):
+        return engine.CVEngine(engine.make_strategy("exact"), backend="cuda",
+                               device=dev, tune=tune)
+
+    eng_x = exact_engine("auto")
+    cfg_x = autotune.tune(eng_x, folds, lams)
+    ref_x = engine.CVEngine(engine.make_strategy("exact"),
+                            backend="reference", device=dev).run(folds, lams)
+    r_auto, launches["tune_exact_auto"] = _counted(
+        lambda: eng_x.run(folds, lams))
+    launches["tune_exact"] = dict.fromkeys(LAUNCHES, 0)
+    xrows, xruns = [], {}
+    for blk in autotune.DEFAULT_BLOCKS:
+        pin = autotune.TunedConfig(block=blk, lam_chunk=cfg_x.lam_chunk)
+        pinned = exact_engine(pin)
+        r, n = _counted(lambda: pinned.run(folds, lams))
+        for name, c in n.items():
+            launches["tune_exact"][name] += c
+        cost, _ = plan_cost.engine_cost(pinned._apply_tuned(pin), k, h,
+                                        N_LAMBDAS, torch.float64)
+        rel = float(np.max(np.abs(r.errors - ref_x.errors) / ref_x.errors))
+        row = dict(block=blk, lam_chunk=pin.lam_chunk, launches=dict(n),
+                   plan_launches=cost.launches, curve_rel_err=rel,
+                   argmin=int(np.argmin(r.errors)),
+                   argmin_reference=int(np.argmin(ref_x.errors)),
+                   bitwise_auto=bool(np.array_equal(r.errors,
+                                                    r_auto.errors)))
+        if rel > MAIN_TOL or row["argmin"] != row["argmin_reference"]:
+            fail(f"exact at block {blk}: curve {rel} from the reference, "
+                 f"argmin {row['argmin']} vs {row['argmin_reference']}")
+        missing = [k_ for k_ in PATH_KERNELS["exact"] if n[k_] == 0]
+        stray = [k_ for k_, c in n.items()
+                 if c and k_ not in PATH_KERNELS["exact"]]
+        if missing or stray or sum(n.values()) != cost.launches:
+            fail(f"exact at block {blk}: launches {n}, the plan prices "
+                 f"{cost.launches}")
+        if blk == cfg_x.block and not row["bitwise_auto"]:
+            fail(f"exact: tune='auto' ({cfg_x.key()}) differs from its "
+                 "pinned configuration")
+        xruns[blk] = lambda e=pinned: e.run(folds, lams)
+        xrows.append(row)
+    xwalls = {blk: [] for blk in xruns}
+    for _ in range(TUNE_REPEATS):
+        for blk, fn in xruns.items():
+            xwalls[blk].append(_wall(fn))
+    for row in xrows:
+        row["wall_s"] = xwalls[row["block"]]
+        row["wall_s_median"] = float(np.median(xwalls[row["block"]]))
+    out["exact"] = dict(chosen=cfg_x.to_json(), rows=xrows)
+    del eng_x, r_auto, xruns
+
+    # -- the tuned engine end to end: counted, profiled -------------------
+    tuned = engine.CVEngine(_pi_strategy(), backend="cuda", device=dev,
+                            tune="auto")
+    r_t, launches["tune_auto"] = _counted(lambda: tuned.run(folds, lams))
+    out["tuned_run"] = dict(tune=r_t.extras["engine"]["tune"],
+                            bitwise_chosen=bool(np.array_equal(
+                                r_t.errors, eng._apply_tuned(cfg).run(
+                                    folds, lams).errors)))
+    out["trace"] = dict(tuned=profiled(lambda: tuned.run(folds, lams))[0],
+                        untuned=profiled(lambda: plain.run(folds,
+                                                           lams))[0])
+
+    # -- the mesh and donate on one card ---------------------------------
+    meshed = engine.CVEngine(_pi_strategy(), backend="cuda", device=dev,
+                             mesh="auto")
+    r_m, launches["tune_mesh"] = _counted(lambda: meshed.run(folds, lams))
+    r_nd = engine.CVEngine(_pi_strategy(), backend="cuda", device=dev,
+                           donate=False).run(folds, lams)
+    out["mesh"] = dict(extras=r_m.extras["engine"]["mesh"],
+                       bitwise=bool(np.array_equal(r_m.errors,
+                                                   untuned.errors)))
+    out["donate"] = dict(default=untuned.extras["engine"]["donated"],
+                         bitwise=bool(np.array_equal(r_nd.errors,
+                                                     untuned.errors)))
+    if not out["mesh"]["bitwise"] or not out["donate"]["bitwise"]:
+        fail(f"mesh / donate change the curve: {out['mesh']} "
+             f"{out['donate']}")
+
+    # -- the sweep's measured peak memory ---------------------------------
+    mem = {}
+    mem["main_donate"] = {
+        str(d): engine.CVEngine(_pi_strategy(), backend="cuda", device=dev,
+                                donate=d).sweep_temp_bytes(folds, lams)
+        for d in (True, False)}
+    ms = MEM_SHAPE
+    xm, ym = make_regression_dataset(ms["n"], ms["h"], seed=SEED,
+                                     dtype=torch.float64, device=dev)
+    f4 = cv.make_folds(xm, ym, ms["k"], device=dev)
+
+    def strat4():
+        return engine.make_strategy("picholesky", g=G_SAMPLES,
+                                    block=ms["block"])
+
+    def grid(q):
+        return torch.logspace(-3, 2, q, dtype=torch.float64, device=dev)
+
+    chunked = engine.CVEngine(strat4(), backend="cuda", block=ms["block"],
+                              lam_chunk=ms["chunk"], donate=False,
+                              device=dev)
+    dense = engine.CVEngine(strat4(), backend="cuda", block=ms["block"],
+                            lam_chunk=None, donate=False, device=dev)
+    (t64, t1024, t_dense), launches["tune_memory"] = _counted(lambda: (
+        chunked.sweep_temp_bytes(f4, grid(64)),
+        chunked.sweep_temp_bytes(f4, grid(1024)),
+        dense.sweep_temp_bytes(f4, grid(1024))))
+    per_lam = (t1024 - t64) / (1024 - 64)
+    r_chunked = chunked.replay_temp_bytes(f4, grid(1024))
+    r_dense = dense.replay_temp_bytes(f4, grid(1024))
+    mem["contract"] = dict(
+        shape=ms, q64=t64, q1024=t1024, dense_q1024=t_dense,
+        bytes_per_extra_lam=per_lam, bound_per_lam=MEM_BYTES_PER_LAM,
+        dense_over_chunked=t_dense / t1024 if t1024 else float("inf"),
+        dense_over_chunked_holds=t_dense > 10 * t1024,
+        replay_q1024=r_chunked, dense_replay_q1024=r_dense,
+        dense_over_chunked_replay=r_dense / r_chunked if r_chunked
+        else float("inf"))
+    if abs(t1024 - t64) > MEM_BYTES_PER_LAM * (1024 - 64):
+        fail(f"chunked peak grows {per_lam:.1f} B per extra λ "
+             f"(> {MEM_BYTES_PER_LAM}): {mem['contract']}")
+    # The reference's second clause (unchunked > 10× chunked) is reported,
+    # not held: the chunked sweep's peak is the state stage's anchors,
+    # which XLA's temp accounting and the card's allocator see alike,
+    # while the unchunked λ stream's working set is what the scoring
+    # materializes (PERF.md §6).
+    main_lams = {q: torch.logspace(np.log10(LAM_LO), np.log10(LAM_HI), q,
+                                   dtype=torch.float64, device=dev)
+                 for q in (64, 256)}
+    mem["main"] = {
+        f"q{q}": dict(sweep=plain.sweep_temp_bytes(folds, lq),
+                      replay=plain.replay_temp_bytes(folds, lq))
+        for q, lq in main_lams.items()}
+    out["memory"] = mem
+    del f4, xm, ym
+
+    # -- the server with tune='auto' over the cv_serve traffic -----------
+    tcfg = TrafficConfig(**SERVE_TRAFFIC)
+    reqs = make_traffic(tcfg, device=dev)
+
+    def serve():
+        srv = CVSweepServer(_pi_strategy(), backend="cuda", device=dev,
+                            config=ServerConfig(tune="auto"))
+        for r in reqs:
+            srv.submit(SweepRequest(r.tenant, r.folds, r.lams))
+        return srv, srv.drain()
+
+    (srv, resps), launches["tune_serve"] = _counted(serve)
+    geometries = {int(r.lams.shape[0]) for r in reqs}
+    solo: dict = {}
+    stale = []
+    first = min(r.request_id for r in resps)
+    by_id = {r.request_id: r for r in resps}
+    for j, r in enumerate(reqs):
+        got = by_id[first + j].result
+        tj = autotune.TunedConfig.from_json(got.extras["engine"]["tune"])
+        key = (id(r.folds), id(r.lams), tj.key())
+        if key not in solo:
+            solo[key] = engine.CVEngine(
+                _pi_strategy(), backend="cuda", device=dev,
+                cache=fc.FactorCache(), reuse="covering",
+                cache_anchors=True, tune=tj).run(r.folds, r.lams)
+        want = solo[key]
+        if not (np.array_equal(got.errors, want.errors)
+                and got.best_lam == want.best_lam):
+            stale.append(j)
+    st = srv.stats["tuning"]
+    out["serve"] = dict(tuning=st, geometries=len(geometries),
+                        requests=len(reqs), mismatched_requests=stale,
+                        chosen={str(q): None for q in sorted(geometries)})
+    for r in resps:
+        out["serve"]["chosen"][str(int(r.result.lams.shape[0]))] = \
+            r.result.extras["engine"]["tune"]
+    if st["entries"] != len(geometries) or st["misses"] != len(geometries):
+        fail(f"server tuned {st} for {len(geometries)} geometries")
+    if stale:
+        fail(f"server responses {stale} differ from their solo runs")
+    del srv, resps, reqs, solo
+
+    # -- RidgeCV over the mesh -------------------------------------------
+    x, y = make_regression_dataset(N_TRAIN, H, seed=SEED,
+                                   dtype=torch.float64, device=dev)
+    r_plain = RidgeCV(device=dev).fit(x, y)
+    r_mesh, launches["tune_ridge_cv"] = _counted(
+        lambda: RidgeCV(cv_mesh="auto", device=dev).fit(x, y))
+    out["ridge_cv"] = dict(best_lam=r_mesh.best_lam,
+                           best_lam_plain=r_plain.best_lam,
+                           mesh=r_mesh.extras["engine"]["mesh"])
+    if r_mesh.best_lam != r_plain.best_lam:
+        fail(f"RidgeCV(cv_mesh='auto') selects {r_mesh.best_lam}, "
+             f"RidgeCV() {r_plain.best_lam}")
+    emit("tune", h=H, n=N_TRAIN, k=K_FOLDS, q=N_LAMBDAS, g=G_SAMPLES,
+         r=DEGREE, dtype="float64", launches=launches, **out)
+    return launches
+
+
 def phase_cv_serve(dev) -> dict:
     """The CV sweep server on make_traffic at the main configuration (8
     problems, 48 requests, 6 tenants, Zipf 1.2, grids of 17/25/33 λs and
@@ -2800,6 +3226,7 @@ def main() -> None:
     launches.update(phase_baselines(dev, folds, lams))
     launches.update(phase_cache(dev, folds, lams))
     launches.update(phase_staged(dev, folds, lams))
+    launches.update(phase_tune(dev, folds, lams, dev_info))
     del folds, lams
     launches.update(phase_cv_serve(dev))
     launches.update(phase_sketch(dev))
@@ -2819,7 +3246,7 @@ def main() -> None:
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          **{k: r[k] for k in CLUSTER_KEYS + MIXED_KEYS
-                            + FUSED_KEYS if k in r}))
+                            + FUSED_KEYS + ("tuned_block",) if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")

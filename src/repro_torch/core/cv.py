@@ -6,7 +6,8 @@
 of the k folds.  ``device=None`` runs on the CUDA device;
 ``backend='auto'`` picks the CUDA kernels there and ``torch.linalg`` on
 the CPU.  ``chol_fn=`` replaces the backend's factorization (it takes a
-(…, h, h) batch)."""
+(…, h, h) batch); ``mesh=`` splits the engine's sweep over a folds × λ
+mesh (``None``, ``'auto'`` or a ``CVMesh``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,23 +34,23 @@ def _sample_lams(result: CVResult, g: int) -> np.ndarray:
 
 def cv_exact_cholesky(folds: FoldData, lams, chol_fn=None, *,
                       backend: BackendLike = "auto", precision=None,
-                      device=None) -> CVResult:
+                      device=None, mesh=None) -> CVResult:
     """Chol baseline: k·q exact factorizations."""
     eng = CVEngine(make_strategy("exact", chol_fn=chol_fn), backend=backend,
-                   precision=precision, device=device)
+                   precision=precision, device=device, mesh=mesh)
     return eng.run(folds, lams)
 
 
 def cv_picholesky(folds: FoldData, lams, g: int = 4, degree: int = 2, *,
                   block: int = 128, basis: str = "monomial", chol_fn=None,
                   backend: BackendLike = "auto", precision=None,
-                  device=None) -> CVResult:
+                  device=None, mesh=None) -> CVResult:
     """piCholesky CV: k·g exact factorizations + interpolation for the
     rest.  ``extras['sample_lams']`` holds the g sample shifts."""
     eng = CVEngine(make_strategy("picholesky", g=g, degree=degree,
                                  block=block, basis=basis, chol_fn=chol_fn),
                    backend=backend, block=block, precision=precision,
-                   device=device)
+                   device=device, mesh=mesh)
     result = eng.run(folds, lams)
     result.extras["sample_lams"] = _sample_lams(result, g)
     return result
@@ -59,7 +60,7 @@ def cv_picholesky_warmstart(folds: FoldData, lams, g_first: int = 4,
                             g_rest: int = 2, degree: int = 2, *,
                             mu: float = 1e-6, block: int = 128, chol_fn=None,
                             backend: BackendLike = "auto", precision=None,
-                            device=None) -> CVResult:
+                            device=None, mesh=None) -> CVResult:
     """piCholesky with cross-fold warm-starting (§7): a fold-0 anchor fit
     (``g_first`` factorizations), then per fold a refit of the residual
     from ``g_rest`` factorizations with the scale-relative damping ``mu``
@@ -70,7 +71,7 @@ def cv_picholesky_warmstart(folds: FoldData, lams, g_first: int = 4,
                                  g_rest=g_rest, degree=degree, mu=mu,
                                  block=block, chol_fn=chol_fn),
                    backend=backend, block=block, precision=precision,
-                   device=device)
+                   device=device, mesh=mesh)
     result = eng.run(folds, lams)
     result.extras["sample_lams"] = _sample_lams(result, g_first)
     return result
@@ -128,25 +129,26 @@ def cv_multilevel_cholesky(folds: FoldData, c: float, s: float = 1.5,
 
 def cv_svd(folds: FoldData, lams, mode: str = "full", k_trunc: int = 0,
            omega=None, *, backend: BackendLike = "auto",
-           device=None) -> CVResult:
+           device=None, mesh=None) -> CVResult:
     """SVD / t-SVD / r-SVD baselines on the raw design matrix;
     ``mode='randomized'`` projects with ``omega`` (h, k_trunc + 10), by
     default a Gaussian matrix drawn from a generator seeded 0."""
     eng = CVEngine(make_strategy("svd", mode=mode, k_trunc=k_trunc,
                                  omega=omega),
-                   backend=backend, device=device)
+                   backend=backend, device=device, mesh=mesh)
     return eng.run(folds, lams)
 
 
 def cv_pinrmse(folds: FoldData, lams, g: int = 4, degree: int = 2,
                chol_fn=None, *, backend: BackendLike = "auto",
-               precision=None, device=None) -> CVResult:
+               precision=None, device=None, mesh=None) -> CVResult:
     """PINRMSE straw-man (§6.5): interpolate the hold-out-error curve itself
     from g exact evaluations — shown by the paper to select wrong λs.
     ``extras['sample_lams']`` holds the g evaluated shifts."""
     eng = CVEngine(make_strategy("pinrmse", g=g, degree=degree,
                                  chol_fn=chol_fn),
-                   backend=backend, precision=precision, device=device)
+                   backend=backend, precision=precision, device=device,
+                   mesh=mesh)
     result = eng.run(folds, lams)
     result.extras["sample_lams"] = _sample_lams(result, g)
     return result

@@ -44,51 +44,55 @@ Around the sweep (``src/repro/core/engine.py:1101-2156``):
   and :meth:`CVEngine.advise_anchor` (:mod:`repro_torch.core.bound`);
 * :meth:`CVEngine.run_batch` — one stacked ``fold_state`` for a batch's
   cold problems (:mod:`repro_torch.serving`).
+
+And the reference's distribution and tuning (``src/repro/core/engine.py:
+653-720, 780-941``):
+
+* ``mesh=`` — a (folds × λ) :class:`~repro_torch.distributed.sharding.
+  CVMesh` of devices: fold group i's state lives on its row's devices, the
+  λ grid is padded to the λ axis and split over it, and the errors are
+  gathered onto the engine's device;
+* ``donate=`` — the sweep drops its own training Hessians (and
+  gradients) once the state stage has consumed them and the λ stage does
+  not read them;
+* ``tune=`` — :mod:`repro_torch.distributed.autotune` prices the block ×
+  λ-chunk × mesh lattice from launch plans and a derived engine runs the
+  chosen configuration;
+* :meth:`CVEngine.sweep_temp_bytes` / :meth:`CVEngine.replay_temp_bytes`
+  — the sweep's measured peak memory on the card.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Iterator, Optional, Union
+from typing import (Any, Callable, Iterator, Optional, Protocol, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..distributed import sharding as shardlib
+from ..distributed.sharding import auto_lam_chunk, chunk_lams
 from . import factor_cache as cachelib
 from . import packing, picholesky, solvers
 from . import sketch as sketchlib
 from .backends import BackendLike, LinalgBackend, resolve_backend
 from .folds import CVResult, FoldData, holdout_nrmse
-from .precision import PrecisionLike
+from .precision import PrecisionLike, map_tensors
 
-__all__ = ["CVEngine", "SweepChunk", "ExactCholesky", "PiCholeskyStrategy",
-           "PiCholeskySketched", "PiCholeskyWarmstart", "PinrmseStrategy",
-           "SVDStrategy", "LowRankStrategy", "make_strategy", "STRATEGIES",
-           "LAM_CHUNK_BUDGET_BYTES", "auto_lam_chunk", "chunk_lams"]
+__all__ = ["CVEngine", "CVStrategy", "SweepChunk", "ExactCholesky",
+           "PiCholeskyStrategy", "PiCholeskySketched", "PiCholeskyWarmstart",
+           "PinrmseStrategy", "SVDStrategy", "LowRankStrategy",
+           "make_strategy", "STRATEGIES", "LAM_CHUNK_BUDGET_BYTES",
+           "auto_lam_chunk", "chunk_lams"]
 
 #: byte budget the ``lam_chunk='auto'`` heuristic sizes one chunk's packed
 #: factors against.  The same value as the JAX package's, so both packages
-#: cut a grid into the same chunks.
+#: cut a grid into the same chunks (:func:`~repro_torch.distributed.
+#: sharding.auto_lam_chunk`; a chunk sized for the card comes from the
+#: tuner's ladder).
 LAM_CHUNK_BUDGET_BYTES = 16 * 1024 * 1024
-
-
-def auto_lam_chunk(h: int, block: int, dtype, budget: int) -> int:
-    """λ-chunk size whose per-chunk packed working set fits ``budget``."""
-    return max(1, int(budget // packing.packed_nbytes(h, block, dtype)))
-
-
-def chunk_lams(lams: torch.Tensor, chunk: int):
-    """(q,) → ((q_pad // chunk), chunk) plus q.  The last chunk is
-    edge-padded by repeating the last λ (an SPD shift that always
-    factorizes); callers cut the padded entries off."""
-    if chunk <= 0:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    q = lams.shape[0]
-    pad = (-q) % chunk
-    if pad:
-        lams = torch.cat([lams, lams[-1:].expand(pad)])
-    return lams.reshape(-1, chunk), q
 
 
 def _sample_grid(lams: torch.Tensor, g: int) -> torch.Tensor:
@@ -115,6 +119,24 @@ def _other_folds(x_folds: torch.Tensor) -> torch.Tensor:
     return x_folds[others].reshape(k, (k - 1) * n_f, *x_folds.shape[2:])
 
 
+@runtime_checkable
+class CVStrategy(Protocol):
+    """What the engine asks of an algorithm (``src/repro/core/engine.py:
+    109``); every strategy of :data:`STRATEGIES` satisfies it.  The port's
+    strategies run every fold at once: folds are the leading dimension of
+    ``h_tr`` (k, h, h), ``g_tr`` (k, h) and the state."""
+
+    name: str
+
+    def n_exact_chol(self, k: int, q: int) -> int: ...
+
+    def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk): ...
+
+    def fold_state(self, h_tr, g_tr, aux, bk): ...
+
+    def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk): ...
+
+
 class StrategyBase:
     """Default no-op ``prepare`` / ``fold_state``; not cacheable."""
 
@@ -129,6 +151,19 @@ class StrategyBase:
 
     def fold_state(self, h_tr, g_tr, aux, bk):
         return ()
+
+    #: ``launch_plan(p)``: the port's kernel calls of one sweep, as
+    #: :class:`~repro_torch.distributed.plan_cost.Launch` records priced by
+    #: the :class:`~repro_torch.distributed.plan_cost.PlanBuilder` ``p``
+    #: (what ``tune=`` prices).  ``None``: the strategy runs none of the
+    #: port's kernels, and ``tune=`` refuses it.
+    launch_plan = None
+
+    def errors_read(self, bk) -> frozenset:
+        """Which of the training statistics ``fold_errors`` reads
+        (``'h_tr'``, ``'g_tr'``): ``donate`` drops the others once the
+        state stage has run."""
+        return frozenset(("h_tr", "g_tr"))
 
     def cache_meta(self, lams) -> Optional[dict]:
         """Warm-replay cache support (``src/repro/core/engine.py:149``):
@@ -151,6 +186,12 @@ class ExactCholesky(StrategyBase):
     def n_exact_chol(self, k, q):
         return k * q
 
+    def launch_plan(self, p):
+        # each trip factors the chunk's shifted Hessians, then the trsm pair
+        nb = p.k_loc * p.c
+        return [p.cholesky("fold_errors", nb, p.trips),
+                p.trsm_pair("fold_errors", nb, p.trips)]
+
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, lams, self.chol_fn,
                                               bk)
@@ -163,9 +204,30 @@ class _InterpolantErrors:
     :func:`~repro_torch.core.picholesky.refine_solutions` under a refining
     policy (``bf16_refined``)."""
 
+    def errors_read(self, bk) -> frozenset:
+        return frozenset(("h_tr", "g_tr") if bk.precision.refine_iters
+                         else ("g_tr",))
+
+    def refine_iters(self, precision) -> int:
+        """Refinement sweeps ``fold_errors`` runs after the solve."""
+        return precision.refine_iters
+
+    def _state_plan(self, p, stage, nb):
+        return [p.cholesky(stage, nb), p.pack(stage, nb, self.block)]
+
+    def _errors_plan(self, p):
+        # interp_solve once a trip; each refinement sweep once more, with a
+        # right-hand side per λ
+        out = [p.interp("fold_errors", self.block, self.degree, p.trips)]
+        iters = self.refine_iters(p.precision)
+        if iters:
+            out.append(p.interp("fold_errors", self.block, self.degree,
+                                p.trips * iters, rhs_per_lam=True))
+        return out
+
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         thetas = state.solve(lams, g_tr, backend=bk)        # (k, c, h)
-        if bk.precision.refine_iters:   # bf16_refined: fp32 residual sweep
+        if self.refine_iters(bk.precision):   # bf16_refined: fp32 residual
             thetas = picholesky.refine_solutions(state, h_tr, g_tr, lams,
                                                  thetas, backend=bk)
         return _errors_from_thetas(thetas, x_f, y_f)
@@ -187,6 +249,10 @@ class PiCholeskyStrategy(_InterpolantErrors, StrategyBase):
 
     def n_exact_chol(self, k, q):
         return k * self.g
+
+    def launch_plan(self, p):
+        return (self._state_plan(p, "fold_state", p.k_loc * self.g)
+                + self._errors_plan(p))
 
     def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
         return _sample_grid(lams, self.g)
@@ -299,11 +365,17 @@ class PiCholeskySketched(PiCholeskyStrategy):
         return self._fit_with_anchors(
             self.anchor_hessian(None, aux["x"], bk), aux["anchors"], bk)
 
+    def errors_read(self, bk) -> frozenset:
+        return frozenset(("h_tr", "g_tr"))
+
+    def refine_iters(self, precision) -> int:
+        return self._plan().ihs_iters + precision.refine_iters
+
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         # the IHS loop is refine_solutions with the exact Hessian; never
         # reads aux (warm replay runs with aux=())
         thetas = state.solve(lams, g_tr, backend=bk)
-        iters = self._plan().ihs_iters + bk.precision.refine_iters
+        iters = self.refine_iters(bk.precision)
         if iters:
             thetas = picholesky.refine_solutions(state, h_tr, g_tr, lams,
                                                  thetas, backend=bk,
@@ -349,6 +421,13 @@ class PiCholeskyWarmstart(_InterpolantErrors, StrategyBase):
     def n_exact_chol(self, k, q):
         # anchor fit + one refresh per fold (fold 0's refresh is performed)
         return self.g_first + k * max(self.g_rest, 1)
+
+    def launch_plan(self, p):
+        # fold 0's anchor fit in prepare, then every fold's refresh
+        return (self._state_plan(p, "prepare", self.g_first)
+                + self._state_plan(p, "fold_state",
+                                   p.k_loc * max(self.g_rest, 1))
+                + self._errors_plan(p))
 
     def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
         chol = self.chol_fn or bk.cholesky
@@ -412,6 +491,11 @@ class PinrmseStrategy(StrategyBase):
     def n_exact_chol(self, k, q):
         return k * self.g
 
+    def launch_plan(self, p):
+        # the k·g evaluations in prepare, on every fold; no λ stage kernel
+        return [p.cholesky("prepare", p.k * self.g),
+                p.trsm_pair("prepare", p.k * self.g, 1)]
+
     def prepare(self, x_folds, y_folds, h_tr, g_tr, lams, bk):
         sample = _sample_grid(lams, self.g)
         thetas = solvers.solve_cholesky_sweep(h_tr, g_tr, sample,
@@ -423,6 +507,9 @@ class PinrmseStrategy(StrategyBase):
         v = picholesky.vandermonde(sample.cpu(), self.degree).to(fit_dtype)
         theta = torch.linalg.solve(v.T @ v, v.T @ mean_err.cpu().to(fit_dtype))
         return theta.to(h_tr.device)
+
+    def errors_read(self, bk) -> frozenset:
+        return frozenset()
 
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         v = picholesky.vandermonde(lams, self.degree).to(aux.dtype)
@@ -457,6 +544,9 @@ class SVDStrategy(StrategyBase):
         return solvers.svd_ridge_factors(*aux, self.mode, self.k_trunc,
                                          omega=self.omega)
 
+    def errors_read(self, bk) -> frozenset:
+        return frozenset()
+
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         return _errors_from_thetas(solvers.svd_ridge_sweep(state, lams),
                                    x_f, y_f)
@@ -487,6 +577,9 @@ class LowRankStrategy(StrategyBase):
     def fold_state(self, h_tr, g_tr, aux, bk):
         return solvers.lowrank_ridge_factors(aux, self.rank,
                                              precision=bk.precision)
+
+    def errors_read(self, bk) -> frozenset:
+        return frozenset(("g_tr",))
 
     def fold_errors(self, state, h_tr, g_tr, x_f, y_f, lams, aux, bk):
         thetas = solvers.lowrank_ridge_sweep(
@@ -566,16 +659,27 @@ def _read_async(e: torch.Tensor):
 
 
 def _fold_slice(state, lo: int, hi: int, k_total: int):
-    """Folds ``lo:hi`` of a batched-over-folds state: every tensor field
-    whose leading dimension is the fold count is sliced; the rest (a
-    shared center) is kept."""
-    kw = {}
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
-        if isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == k_total:
-            v = v[lo:hi]
-        kw[f.name] = v
-    return type(state)(**kw)
+    """Folds ``lo:hi`` of a batched-over-folds state: every tensor whose
+    leading dimension is the fold count is sliced; the rest (a shared
+    center) is kept."""
+    return map_tensors(
+        lambda v: v[lo:hi] if v.ndim and v.shape[0] == k_total else v, state)
+
+
+def _to(tree, device):
+    """Every tensor of ``tree`` on ``device``."""
+    return map_tensors(lambda t: t.to(device), tree)
+
+
+def _on(device: torch.device):
+    """The current CUDA device set to ``device`` (nothing for the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+class _GroupStates(list):
+    """A fitted state per fold group of a mesh, each on its group's first
+    device (the state stage of a ``batchable_state`` strategy, split)."""
 
 
 @dataclasses.dataclass
@@ -603,9 +707,30 @@ class CVEngine:
                no factorization.
     sketch:    a :class:`~repro_torch.core.sketch.SketchPlan` (or its dict)
                promoting ``picholesky`` to :class:`PiCholeskySketched`.
-    mesh, donate, tune, tune_cache, tune_lattice: the reference's sharding,
-               buffer donation and autotuning; not ported yet, so anything
-               but the default raises ``NotImplementedError``.
+    mesh:      ``None`` (one device), ``'auto'`` (a folds × λ mesh over
+               every CUDA device; with one device the sweep runs unsharded,
+               and ``extras['engine']['mesh']`` is ``None``) or a
+               :class:`~repro_torch.distributed.sharding.CVMesh`.  Fold
+               group i's state lives on row i's devices (a
+               ``batchable_state`` strategy fits it there); the λ grid is
+               edge-padded to the λ axis and split over it, and the errors
+               are gathered onto ``device``.  The fold axis must divide k.
+    donate:    drop the sweep's own training Hessians and gradients once
+               the state stage has consumed them, where the λ stage does
+               not read them (``errors_read``); ``None`` is ``True`` on the
+               card and ``False`` on the CPU.  The caller's ``FoldData`` is
+               never touched; the errors are the same bits.
+    tune:      ``False``; ``'auto'``, which prices the block × λ-chunk ×
+               mesh lattice of each new geometry from its launch plans
+               (:mod:`repro_torch.distributed.autotune`, nothing runs) and
+               runs the predicted-fastest configuration through a derived
+               engine; or a ``TunedConfig``, which pins one.  ``'auto'``
+               refuses a strategy without a launch plan (``svd``,
+               ``low_rank``) with ``ValueError``.
+    tune_cache: a ``TuningCache`` shared across engines (``None`` with
+               ``tune='auto'``: a private one).
+    tune_lattice: lattice overrides for ``autotune.tune`` (``blocks``,
+               ``chunks``, ``mesh_shapes``, ``hw``, ``devices``).
     """
 
     strategy: Union[str, StrategyBase]
@@ -625,13 +750,15 @@ class CVEngine:
     tune_lattice: Optional[dict] = None
 
     def __post_init__(self):
-        for name, default in (("mesh", None), ("donate", None),
-                              ("tune", False), ("tune_cache", None),
-                              ("tune_lattice", None)):
-            if getattr(self, name) is not default:
-                raise NotImplementedError(
-                    f"CVEngine({name}=...) is not ported yet (the port runs "
-                    "on one card, unsharded and untuned)")
+        from ..distributed.autotune import TunedConfig
+        if not isinstance(self.tune, TunedConfig) \
+                and self.tune not in (False, "auto"):
+            raise ValueError(f"tune must be False, 'auto' or a TunedConfig; "
+                             f"got {self.tune!r}")
+        if not isinstance(self.mesh, shardlib.CVMesh) \
+                and self.mesh not in (None, "auto"):
+            raise ValueError(f"mesh must be None, 'auto' or a CVMesh; got "
+                             f"{self.mesh!r}")
         if isinstance(self.strategy, str):
             self.strategy = make_strategy(self.strategy)
         if self.sketch is not None:
@@ -669,7 +796,154 @@ class CVEngine:
             self.backend, block=self.block, precision=self.precision,
             device=self._device)
         self._prec = self._bk.precision
+        if self.donate is None:
+            self.donate = self._device.type == "cuda"
         self._interp_engines: dict = {}   # (degree, basis) -> engine
+        self._tuned_engines: dict = {}    # TunedConfig.key() -> engine
+
+    # -- mesh --------------------------------------------------------------
+
+    def _device_pool(self) -> list:
+        """The devices a mesh of this engine may span: an explicit mesh's,
+        else every CUDA device on the card, else the engine's device."""
+        if isinstance(self.mesh, shardlib.CVMesh):
+            return self.mesh.flat
+        if self._device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self._device]
+
+    def _resolve_mesh(self, k: int) -> Optional[shardlib.CVMesh]:
+        if self.mesh is None:
+            return None
+        if isinstance(self.mesh, shardlib.CVMesh):
+            return self.mesh
+        pool = self._device_pool()
+        if len(pool) == 1:        # 'auto' on one device: unsharded
+            return None
+        return shardlib.make_cv_mesh(k, pool)
+
+    @staticmethod
+    def _check_fold_axis(mesh: Optional[shardlib.CVMesh], k: int) -> None:
+        """The engine's error, when the fold count does not tile the
+        mesh's fold axis (folds cannot be padded)."""
+        if mesh is None:
+            return
+        n_fold = mesh.shape[shardlib.CV_FOLD_AXIS]
+        if k % n_fold:
+            raise ValueError(
+                f"{k} folds not divisible by mesh axis "
+                f"{shardlib.CV_FOLD_AXIS}={n_fold}")
+
+    def _shards(self, mesh, state, aux, h_tr, g_tr, folds: FoldData) -> list:
+        """Per mesh device (rows of the fold axis, columns of the λ axis)
+        what its λ stage reads, on that device: its fold group's state,
+        training statistics and hold-out blocks, and ``aux``."""
+        k = folds.fold_hess.shape[0]
+        k_loc = k // mesh.shape[shardlib.CV_FOLD_AXIS]
+        rows = []
+        for i, row in enumerate(mesh.devices):
+            lo, hi = i * k_loc, (i + 1) * k_loc
+            st = state[i] if isinstance(state, _GroupStates) \
+                else _fold_slice(state, lo, hi, k)
+            rows.append([dict(
+                dev=d, state=_to(st, d), aux=_to(aux, d),
+                h=None if h_tr is None else h_tr[lo:hi].to(d),
+                g=None if g_tr is None else g_tr[lo:hi].to(d),
+                x=folds.x_folds[lo:hi].to(d), y=folds.y_folds[lo:hi].to(d))
+                for d in row])
+        return rows
+
+    def _mesh_errors(self, rows: list, lams: torch.Tensor, h: int, dtype,
+                     stream: bool) -> torch.Tensor:
+        """The λ stage over ``lams`` on a mesh: the grid edge-padded to
+        the λ axis and split over it, every device's share launched (in
+        ``lam_chunk`` chunks when ``stream``), then the errors gathered
+        onto the engine's device with the padding dropped → (k, q)."""
+        strat, bk = self.strategy, self._bk
+        lams_p, q = shardlib.pad_to_multiple(lams, len(rows[0]))
+        q_loc = lams_p.shape[0] // len(rows[0])
+        parts = []
+        for row in rows:
+            out = []
+            for j, sh in enumerate(row):
+                def errors_at(lams_c, sh=sh):
+                    return strat.fold_errors(sh["state"], sh["h"], sh["g"],
+                                             sh["x"], sh["y"], lams_c,
+                                             sh["aux"], bk)
+
+                lam_j = lams_p[j * q_loc:(j + 1) * q_loc].to(sh["dev"])
+                with _on(sh["dev"]):
+                    out.append(self._stream_errors(errors_at, lam_j, h, dtype)
+                               if stream else errors_at(lam_j))
+            parts.append(out)
+        return torch.cat([torch.cat([e.to(self._device) for e in out], 1)
+                          for out in parts], 0)[:, :q]
+
+    def _donated(self, h_tr, g_tr):
+        """``(h_tr, g_tr)`` with what the λ stage does not read dropped
+        under ``donate`` (the sweep's own buffers: the allocator may reuse
+        them)."""
+        if not self.donate:
+            return h_tr, g_tr
+        reads = self.strategy.errors_read(self._bk)
+        return (h_tr if "h_tr" in reads else None,
+                g_tr if "g_tr" in reads else None)
+
+    # -- autotuning --------------------------------------------------------
+
+    def _apply_tuned(self, cfg, devices=None) -> "CVEngine":
+        """The derived engine that runs a tuned configuration (memoized):
+        the strategy's packing block and the kernel tiles at
+        ``cfg.block``, the λ chunk pinned, the mesh of ``cfg.mesh_shape``
+        (this engine's explicit mesh when its shape matches, else one over
+        ``devices`` or :meth:`_device_pool`).  Shares the cache and the
+        policy; its ``tune=False`` is the recursion guard."""
+        key = cfg.key()
+        if key in self._tuned_engines:
+            return self._tuned_engines[key]
+        from .backends import retile_backend
+        strat = self.strategy
+        if dataclasses.is_dataclass(strat) and any(
+                f.name == "block" for f in dataclasses.fields(strat)) \
+                and strat.block != cfg.block:
+            strat = dataclasses.replace(strat, block=cfg.block)
+        bk = retile_backend(self._bk, chol_block=cfg.block,
+                            trsm_block=cfg.block)
+        mesh = None
+        if cfg.mesh_shape is not None:
+            shape = tuple(cfg.mesh_shape)
+            if isinstance(self.mesh, shardlib.CVMesh) and (
+                    self.mesh.shape[shardlib.CV_FOLD_AXIS],
+                    self.mesh.shape[shardlib.CV_LAM_AXIS]) == shape:
+                mesh = self.mesh
+            else:
+                pool = self._device_pool() if devices is None \
+                    else list(devices)
+                mesh = shardlib.CVMesh.from_devices(pool, *shape)
+        derived = CVEngine(
+            strategy=strat, backend=bk, mesh=mesh, donate=self.donate,
+            block=cfg.block, lam_chunk=int(cfg.lam_chunk),
+            device=self._device, cache=self.cache, reuse=self.reuse,
+            cache_anchors=self.cache_anchors, tune=False,
+            tune_cache=self.tune_cache)
+        self._tuned_engines[key] = derived
+        return derived
+
+    def _tuned_engine(self, folds: FoldData, lams):
+        """(derived engine, chosen config) for this geometry — the tune
+        dispatch of every public entry point."""
+        from ..distributed import autotune
+        lattice = dict(self.tune_lattice or {})
+        if isinstance(self.tune, autotune.TunedConfig):
+            cfg = self.tune
+        else:
+            if self.tune_cache is None:
+                self.tune_cache = autotune.TuningCache()
+            cfg = autotune.tune(self, folds,
+                                self._check_lams(lams, self._device),
+                                cache=self.tune_cache, **lattice)
+        return self._apply_tuned(cfg, devices=lattice.get("devices")), cfg
 
     # -- stages ------------------------------------------------------------
 
@@ -708,6 +982,8 @@ class CVEngine:
         return lams
 
     def _resolve_chunk(self, h: int, dtype) -> Optional[int]:
+        """The λ chunk (``None``: no streaming).  ``'auto'`` budgets the
+        chunk's packed factors at the policy's storage dtype."""
         if self.lam_chunk is None:
             return None
         if self.lam_chunk == "auto":
@@ -720,13 +996,21 @@ class CVEngine:
         return chunk
 
     def _stream_errors(self, errors_at, lams, h, dtype) -> torch.Tensor:
-        """``errors_at`` over the grid, one λ chunk at a time → (k, q)."""
+        """``errors_at`` over the grid, one λ chunk at a time → (k, q).
+        Each chunk's errors go straight into one (k, q_pad) output, so
+        what the stream keeps beyond a chunk's work is O(q) numbers."""
         q = lams.shape[0]
         chunk = self._resolve_chunk(h, dtype)
         if chunk is None or chunk >= q:
             return errors_at(lams)
         chunks, _ = chunk_lams(lams, chunk)
-        return torch.cat([errors_at(c) for c in chunks], dim=1)[:, :q]
+        first = errors_at(chunks[0])
+        out = first.new_empty((first.shape[0], chunks.numel()))
+        out[:, :chunk] = first
+        del first
+        for c in range(1, chunks.shape[0]):
+            out[:, c * chunk:(c + 1) * chunk] = errors_at(chunks[c])
+        return out[:, :q]
 
     @staticmethod
     def _split(folds: FoldData):
@@ -734,26 +1018,42 @@ class CVEngine:
         return (folds.hess[None] - folds.fold_hess,
                 folds.grad[None] - folds.fold_grad)
 
-    def _meta(self, cache=None, **extra) -> dict:
-        """``extras['engine']``; the ``cache`` record only when a cache is
-        attached."""
+    def _meta(self, cache=None, mesh=None, **extra) -> dict:
+        """``extras['engine']``: the mesh used (its axis sizes) and whether
+        the sweep donated its buffers; the ``cache`` record only when a
+        cache is attached."""
         meta = dict(strategy=self.strategy.name, backend=self._bk.name,
                     precision=self._prec.name, lam_chunk=self.lam_chunk,
-                    device=str(self._device), **extra)
+                    device=str(self._device),
+                    mesh=None if mesh is None else dict(mesh.shape),
+                    donated=bool(self.donate), **extra)
         if self.cache is not None:
             meta["cache"] = cache
         return meta
 
     def _cold_state(self, h_tr, g_tr, folds: FoldData, lams,
-                    with_anchors: bool, pipelined: bool = True):
+                    with_anchors: bool, pipelined: bool = True, mesh=None):
         """``prepare`` then ``fold_state`` (or ``fold_state_and_anchors``)
         over every fold in one call: ``(state, packed anchors | None,
-        aux)``."""
+        aux)``.  On a mesh a ``batchable_state`` strategy fits each fold
+        group on its row's first device instead (:class:`_GroupStates`)."""
         strat, bk = self.strategy, self._bk
         with self._stage_scope("prepare"):
             aux = strat.prepare(folds.x_folds, folds.y_folds, h_tr, g_tr,
                                 lams, bk)
         self._sync(pipelined)
+        if mesh is not None and strat.batchable_state and not with_anchors:
+            k_loc = h_tr.shape[0] // mesh.shape[shardlib.CV_FOLD_AXIS]
+            groups = _GroupStates()
+            with self._stage_scope("fold_state"):
+                for i, row in enumerate(mesh.devices):
+                    dev, lo = row[0], i * k_loc
+                    with _on(dev):
+                        groups.append(strat.fold_state(
+                            h_tr[lo:lo + k_loc].to(dev),
+                            g_tr[lo:lo + k_loc].to(dev), _to(aux, dev), bk))
+            self._sync(pipelined)
+            return groups, None, aux
         with self._stage_scope("fold_state"):
             if with_anchors:
                 state, vec = strat.fold_state_and_anchors(h_tr, g_tr, aux, bk)
@@ -765,18 +1065,23 @@ class CVEngine:
               if vec is not None else None)
         return state, pf, aux
 
-    def _errors(self, state, h_tr, g_tr, folds: FoldData, lams, aux
-                ) -> torch.Tensor:
-        """The λ stage over a whole grid, chunked → (k, q)."""
+    def _errors(self, state, h_tr, g_tr, folds: FoldData, lams, aux,
+                mesh=None) -> torch.Tensor:
+        """The λ stage over a whole grid, chunked → (k, q); on a mesh
+        every device streams its share of the grid."""
         strat, bk = self.strategy, self._bk
+        h, dtype = folds.fold_hess.shape[-1], folds.fold_hess.dtype
+        if mesh is not None:
+            rows = self._shards(mesh, state, aux, h_tr, g_tr, folds)
+            with self._stage_scope("fold_errors"):
+                return self._mesh_errors(rows, lams, h, dtype, stream=True)
 
         def errors_at(lams_c):
             return strat.fold_errors(state, h_tr, g_tr, folds.x_folds,
                                      folds.y_folds, lams_c, aux, bk)
 
         with self._stage_scope("fold_errors"):
-            return self._stream_errors(errors_at, lams, h_tr.shape[-1],
-                                       h_tr.dtype)
+            return self._stream_errors(errors_at, lams, h, dtype)
 
     # -- warm-replay cache -------------------------------------------------
 
@@ -835,15 +1140,16 @@ class CVEngine:
                     policy=self.reuse, **extra, **self.cache.stats)
 
     def _staged_state_for(self, h_tr, g_tr, folds: FoldData, lams,
-                          pipelined: bool):
+                          pipelined: bool, mesh=None):
         """The state stage with its cache dispatch, shared by :meth:`run`,
         :meth:`sweep_async` and :meth:`search`: ``(state, aux, warm,
         cache_info)``.  A cacheable strategy's λ stage runs with
-        ``aux=()``, warm or cold."""
+        ``aux=()``, warm or cold; a cached state is whole (every fold) and
+        is split over a mesh by the λ stage."""
         meta = self._cache_meta(lams)
         if meta is None:
             state, _, aux = self._cold_state(h_tr, g_tr, folds, lams, False,
-                                             pipelined)
+                                             pipelined, mesh)
             info = None if self.cache is None else dict(status="bypass")
             return state, aux, False, info
         key = self._make_key(h_tr, meta)
@@ -860,18 +1166,90 @@ class CVEngine:
     # -- the sweep ---------------------------------------------------------
 
     def run(self, folds: FoldData, lams) -> CVResult:
+        if self.tune:
+            derived, cfg = self._tuned_engine(folds, lams)
+            res = derived.run(folds, lams)
+            res.extras["engine"]["tune"] = cfg.to_json()
+            return res
         lams_t = self._check_lams(lams, self._device)
-        folds = folds.to(self._device)
-        k, q = folds.fold_hess.shape[0], lams_t.shape[0]
-        h_tr, g_tr = self._split(folds)
-        state, aux, warm, info = self._staged_state_for(h_tr, g_tr, folds,
-                                                        lams_t, True)
-        errs = self._errors(state, h_tr, g_tr, folds, lams_t, aux)
+        errs, warm, info, mesh = self._sweep(folds, lams_t)
+        k, q = errs.shape[0], lams_t.shape[0]
         errs = errs.cpu().numpy()[:, :q]
         return CVResult.from_errors(
             lams_t.cpu().numpy(), errs.mean(0),
             0 if warm else self.strategy.n_exact_chol(k, q),
-            engine=self._meta(cache=info))
+            engine=self._meta(cache=info, mesh=mesh))
+
+    def _sweep(self, folds: FoldData, lams_t: torch.Tensor):
+        """:meth:`run`'s sweep on the device: ``(errors (k, q), warm,
+        cache_info, mesh)``.  ``h_tr`` and ``g_tr`` are the sweep's own;
+        under ``donate`` the λ stage gets only what it reads."""
+        folds = folds.to(self._device)
+        k = folds.fold_hess.shape[0]
+        mesh = self._resolve_mesh(k)
+        self._check_fold_axis(mesh, k)
+        h_tr, g_tr = self._split(folds)
+        state, aux, warm, info = self._staged_state_for(
+            h_tr, g_tr, folds, lams_t, True, mesh)
+        h_tr, g_tr = self._donated(h_tr, g_tr)
+        errs = self._errors(state, h_tr, g_tr, folds, lams_t, aux, mesh)
+        return errs, warm, info, mesh
+
+    # -- the sweep's peak memory on the card --------------------------------
+
+    def _card_only(self, what: str) -> None:
+        if self._device.type != "cuda":
+            raise NotImplementedError(
+                f"{what} measures the sweep's peak on the card "
+                "(torch.cuda.max_memory_allocated over one sweep); a CPU "
+                "engine has no allocator to read, and no estimate is given")
+
+    def _measured_peak(self, sweep) -> int:
+        """Peak bytes the caching allocator handed out during ``sweep()``
+        beyond what was allocated before it, less its result's block."""
+        dev = self._device
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = sweep()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the allocator hands out 512-byte multiples
+        held = -(-out.untyped_storage().nbytes() // 512) * 512
+        return int(peak - base - held)
+
+    def sweep_temp_bytes(self, folds: FoldData, lams) -> int:
+        """The unsharded sweep's peak memory on the card, beyond its inputs
+        and its result (``src/repro/core/engine.py:1842``): the allocator's
+        peak over one sweep (the training statistics, the state stage and
+        the chunked λ stream) less what was allocated before it and the
+        result's bytes.  The measurable O(chunk · P) memory contract.
+        Raises ``NotImplementedError`` on a CPU engine."""
+        self._card_only("sweep_temp_bytes")
+        lams_t = self._check_lams(lams, self._device)
+        folds = folds.to(self._device)
+
+        def sweep():
+            h_tr, g_tr = self._split(folds)
+            state, _, aux = self._cold_state(h_tr, g_tr, folds, lams_t,
+                                             False)
+            h_tr, g_tr = self._donated(h_tr, g_tr)
+            return self._errors(state, h_tr, g_tr, folds, lams_t, aux)
+
+        return self._measured_peak(sweep)
+
+    def replay_temp_bytes(self, folds: FoldData, lams) -> int:
+        """The λ stream's peak memory alone, from a state fitted before the
+        measurement (``src/repro/core/engine.py:1859``): the working set
+        the policy's storage dtype governs.  Raises
+        ``NotImplementedError`` on a CPU engine."""
+        self._card_only("replay_temp_bytes")
+        lams_t = self._check_lams(lams, self._device)
+        folds = folds.to(self._device)
+        h_tr, g_tr = self._split(folds)
+        state, _, aux = self._cold_state(h_tr, g_tr, folds, lams_t, False)
+        return self._measured_peak(
+            lambda: self._errors(state, h_tr, g_tr, folds, lams_t, aux))
 
     # -- staged sweep ------------------------------------------------------
 
@@ -902,25 +1280,43 @@ class CVEngine:
         if stop_patience < 1:
             raise ValueError(
                 f"stop_patience must be >= 1, got {stop_patience}")
+        if self.tune:
+            derived, _ = self._tuned_engine(folds, lams)
+            yield from derived.sweep_async(
+                folds, lams, stop_tol=stop_tol, stop_patience=stop_patience,
+                pipelined=pipelined)
+            return
         lams_t = self._check_lams(lams, self._device)
         lams_np = lams_t.cpu().numpy()
         folds = folds.to(self._device)
         k, q = folds.fold_hess.shape[0], lams_t.shape[0]
+        h, dtype = folds.fold_hess.shape[-1], folds.fold_hess.dtype
+        mesh = self._resolve_mesh(k)
+        self._check_fold_axis(mesh, k)
         h_tr, g_tr = self._split(folds)
         strat, bk = self.strategy, self._bk
-        chunk = self._resolve_chunk(h_tr.shape[-1], h_tr.dtype)
+        chunk = self._resolve_chunk(h, dtype)
         if chunk is None or chunk > q:
             chunk = q
+        if mesh is not None:     # one chunk splits evenly over the λ axis
+            chunk += (-chunk) % mesh.shape[shardlib.CV_LAM_AXIS]
         chunks, _ = chunk_lams(lams_t, chunk)
         n_c = chunks.shape[0]
 
         state, aux, warm, cache_info = self._staged_state_for(
-            h_tr, g_tr, folds, lams_t, pipelined)
+            h_tr, g_tr, folds, lams_t, pipelined, mesh)
+        h_tr, g_tr = self._donated(h_tr, g_tr)
+        rows = None if mesh is None else \
+            self._shards(mesh, state, aux, h_tr, g_tr, folds)
 
         def dispatch(c):
             with self._stage_scope("fold_errors"):
-                e = strat.fold_errors(state, h_tr, g_tr, folds.x_folds,
-                                      folds.y_folds, chunks[c], aux, bk)
+                if rows is None:
+                    e = strat.fold_errors(state, h_tr, g_tr, folds.x_folds,
+                                          folds.y_folds, chunks[c], aux, bk)
+                else:
+                    e = self._mesh_errors(rows, chunks[c], h, dtype,
+                                          stream=False)
             self._sync(pipelined)
             return _read_async(e)
 
@@ -979,12 +1375,20 @@ class CVEngine:
         """:meth:`sweep_async` consumed into a :class:`CVResult` over the
         evaluated prefix of the grid; ``extras['engine']['async']`` records
         how far the stream ran."""
+        if self.tune:
+            derived, cfg = self._tuned_engine(folds, lams)
+            res = derived.run_async(folds, lams, stop_tol=stop_tol,
+                                    stop_patience=stop_patience,
+                                    pipelined=pipelined)
+            res.extras["engine"]["tune"] = cfg.to_json()
+            return res
         parts = list(self.sweep_async(folds, lams, stop_tol=stop_tol,
                                       stop_patience=stop_patience,
                                       pipelined=pipelined))
         last = parts[-1]
         errors = np.concatenate([p.errors for p in parts])
-        meta = self._meta(cache=last.cache)
+        meta = self._meta(cache=last.cache,
+                          mesh=self._resolve_mesh(folds.fold_hess.shape[0]))
         meta["async"] = dict(
             pipelined=pipelined, stop_tol=stop_tol,
             stop_patience=stop_patience, stopped=last.stopped,
@@ -1022,6 +1426,15 @@ class CVEngine:
                 f"plateau_patience must be >= 1, got {plateau_patience}")
         if max_waves < 1:
             raise ValueError(f"max_waves must be >= 1, got {max_waves}")
+        if self.tune:
+            derived, cfg = self._tuned_engine(folds, lams)
+            res = derived.search(
+                folds, lams, wave=wave, tol_decades=tol_decades,
+                plateau_tol=plateau_tol, plateau_patience=plateau_patience,
+                max_waves=max_waves, select_interp=select_interp,
+                pipelined=pipelined)
+            res.extras["engine"]["tune"] = cfg.to_json()
+            return res
         if select_interp:
             sel = self.select_interpolant(folds, lams)
             res = self.with_interpolant(sel["degree"], sel["basis"]).search(
@@ -1038,9 +1451,12 @@ class CVEngine:
                              "every grid value must be positive")
         folds = folds.to(self._device)
         k, q = folds.fold_hess.shape[0], lams_t.shape[0]
+        h, dtype = folds.fold_hess.shape[-1], folds.fold_hess.dtype
+        mesh = self._resolve_mesh(k)
+        self._check_fold_axis(mesh, k)
         h_tr, g_tr = self._split(folds)
         strat, bk = self.strategy, self._bk
-        chunk = self._resolve_chunk(h_tr.shape[-1], h_tr.dtype)
+        chunk = self._resolve_chunk(h, dtype)
         if wave is None:
             w = max(3, min(8, chunk if chunk else 8))
         else:
@@ -1049,17 +1465,27 @@ class CVEngine:
                 raise ValueError(
                     f"wave must be >= 3 (a refinement wave needs interior "
                     f"points on both sides of the minimum), got {w}")
+        if mesh is not None:     # one wave splits evenly over the λ axis
+            w += (-w) % mesh.shape[shardlib.CV_LAM_AXIS]
 
         state, aux, warm, cache_info = self._staged_state_for(
-            h_tr, g_tr, folds, lams_t, pipelined)
+            h_tr, g_tr, folds, lams_t, pipelined, mesh)
+        h_tr, g_tr = self._donated(h_tr, g_tr)
+        rows = None if mesh is None else \
+            self._shards(mesh, state, aux, h_tr, g_tr, folds)
 
         def eval_wave(xs):
             """Mean hold-out error at 10**xs — one λ-stage call."""
             lam_w = np.asarray(10.0 ** xs, dtype=lams_np.dtype)
+            lam_t = torch.as_tensor(lam_w, device=self._device)
             with self._stage_scope("fold_errors"):
-                e = strat.fold_errors(
-                    state, h_tr, g_tr, folds.x_folds, folds.y_folds,
-                    torch.as_tensor(lam_w, device=self._device), aux, bk)
+                if rows is None:
+                    e = strat.fold_errors(
+                        state, h_tr, g_tr, folds.x_folds, folds.y_folds,
+                        lam_t, aux, bk)
+                else:
+                    e = self._mesh_errors(rows, lam_t, h, dtype,
+                                          stream=False)
             return lam_w, e.cpu().numpy().mean(0)
 
         lo = float(np.log10(lams_np.min()))
@@ -1111,7 +1537,7 @@ class CVEngine:
 
         order = np.argsort(xs_all)
         n_eval = int(xs_all.shape[0])
-        meta = self._meta(cache=cache_info)
+        meta = self._meta(cache=cache_info, mesh=mesh)
         meta["search"] = dict(
             wave=w, waves=waves, lams_evaluated=n_eval, dense_q=q,
             evals_vs_grid=n_eval / q, tol_decades=tol_decades,
@@ -1140,9 +1566,11 @@ class CVEngine:
             self._interp_engines[key] = CVEngine(
                 strategy=dataclasses.replace(strat, degree=key[0],
                                              basis=key[1]),
-                backend=self._bk, block=self.block, lam_chunk=self.lam_chunk,
+                backend=self._bk, mesh=self.mesh, donate=self.donate,
+                block=self.block, lam_chunk=self.lam_chunk,
                 device=self._device, cache=self.cache, reuse=self.reuse,
-                cache_anchors=self.cache_anchors)
+                cache_anchors=self.cache_anchors,
+                tune_cache=self.tune_cache)
         return self._interp_engines[key]
 
     def select_interpolant(self, folds: FoldData, lams, *, degrees=None,
@@ -1252,10 +1680,18 @@ class CVEngine:
                              f"{len(problems)} problems")
         if not problems:
             return []
+        if self.tune:
+            # an admission group shares one geometry (the server's
+            # admission key): one tune on the batch's head covers it
+            derived, cfg = self._tuned_engine(*problems[0])
+            results = derived.run_batch(problems, tenants=tenants)
+            for r in results:
+                r.extras["engine"]["tune"] = cfg.to_json()
+            return results
         strat = self.strategy
         metas = [self._cache_meta(l) for _, l in problems]
         fusable = (self.cache is not None and self.reuse is not False
-                   and strat.batchable_state
+                   and self.mesh is None and strat.batchable_state
                    and all(m is not None for m in metas))
         if fusable:
             a0, f0 = metas[0]["anchors"], problems[0][0]

@@ -49,17 +49,71 @@ def make_folds(x, y, k: int, *, device=None) -> FoldData:
                     x, y)
 
 
+def _pad2(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``a`` with a zero slice appended along ``dim`` where it has one."""
+    if a.shape[dim] > 1:
+        return a
+    return torch.cat([a, torch.zeros_like(a)], dim)
+
+
+def _row_mean(a: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, each row summed alike whatever it is
+    batched with.  On the card the rows (…, r, n) are the columns of one
+    batched GEMM with a (2, n) ones matrix, padded to at least two
+    batches and two columns: cuBLAS sums a column of a batched GEMM alike
+    for any batch and column count from two up, where a gemv, a plain
+    GEMM and the reduction kernel pick their summation order by the
+    shape (``scripts/probe_holdout_batch.py``).  On the CPU it is
+    ``torch.mean``, whose kernel sums every row alike, where the BLAS gemv
+    does not (``torch.std``'s one-pass kernel neither)."""
+    if not a.is_cuda:
+        return torch.mean(a, dim=-1)
+    n = a.shape[-1]
+    b = a.reshape(-1, a.shape[-2] if a.ndim > 1 else 1, n)   # (B, r, n)
+    nb, r = b.shape[:2]
+    bt = _pad2(_pad2(b, 1), 0).mT
+    ones = a.new_ones(bt.shape[0], 2, n)
+    return ((ones @ bt)[:nb, 0, :r] / n).reshape(a.shape[:-1])
+
+
+def _predict(theta: torch.Tensor, x_hold: torch.Tensor) -> torch.Tensor:
+    """x_hold (…, n_f, h) · θ (…, h) → (…, n_f), each (fold, λ)'s rows
+    summed alike whatever folds and λs are batched beside it.  On the
+    card, for θ (…, c, h) against x_hold (…, 1, n_f, h) with the same
+    leading dims (the engine's scores), one batched GEMM with a fold a
+    batch and a λ a column, padded to at least two of each (see
+    :func:`_row_mean`), laid out as :func:`_row_mean` reads it.  The GEMM
+    also never materializes the broadcast (…, c, n_f, h) copy of the rows.
+    On the CPU, and for other shapes, the broadcast product."""
+    if x_hold.is_cuda and x_hold.ndim == theta.ndim + 1 \
+            and x_hold.ndim >= 3 and x_hold.shape[-3] == 1 \
+            and theta.shape[:-2] == x_hold.shape[:-3]:
+        c, h = theta.shape[-2:]
+        x = x_hold.squeeze(-3)
+        xb = x.reshape(-1, *x.shape[-2:])                 # (B, n_f, h)
+        tb = theta.reshape(-1, c, h)                      # (B, c, h)
+        nb = xb.shape[0]
+        out = (_pad2(xb, 0) @ _pad2(_pad2(tb, 1), 0).mT).mT[:nb, :c]
+        return out.contiguous().reshape(*x.shape[:-2], c, x.shape[-2])
+    return (x_hold @ theta[..., None])[..., 0]
+
+
 def holdout_nrmse(theta: torch.Tensor, x_hold: torch.Tensor,
                   y_hold: torch.Tensor) -> torch.Tensor:
     """Normalized RMSE on held-out rows: theta (…, h), x_hold (…, n_f, h),
     y_hold (…, n_f), leading dims broadcast.  The normalizer is the
-    population standard deviation (``correction=0``).  θ and the rows are
-    promoted to one dtype (float32 solutions of a mixed policy on float64
-    data score at float64), as ``jnp`` promotes."""
+    population standard deviation, in two passes as ``jnp.std`` takes it.
+    The predictions are :func:`_predict`'s and every mean is
+    :func:`_row_mean`'s, so a (fold, λ)'s score does not depend on the
+    folds and λs it is batched with: the λ chunk and the mesh's fold
+    groups change no bit of the curve.  θ and the rows are promoted to one
+    dtype (float32 solutions of a mixed policy on float64 data score at
+    float64), as ``jnp`` promotes."""
     dt = torch.promote_types(theta.dtype, x_hold.dtype)
-    pred = (x_hold.to(dt) @ theta.to(dt)[..., None])[..., 0]
-    mse = torch.mean((pred - y_hold) ** 2, dim=-1)
-    denom = torch.std(y_hold, dim=-1, correction=0) + 1e-30
+    pred = _predict(theta.to(dt), x_hold.to(dt))
+    mse = _row_mean((pred - y_hold) ** 2)
+    dev = y_hold - _row_mean(y_hold)[..., None]
+    denom = torch.sqrt(_row_mean(dev * dev)) + 1e-30
     return torch.sqrt(mse) / denom
 
 

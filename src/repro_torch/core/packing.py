@@ -25,8 +25,9 @@ from .precision import as_dtype, default_accum_dtype
 __all__ = [
     "num_tiles", "tile_index_pairs", "tile_pos_map", "column_starts",
     "packed_size", "packed_nbytes", "pack_tril", "unpack_tril",
-    "PackedFactor", "invert_diag_tiles", "solve_lower_packed",
-    "solve_packed_ref",
+    "pack_tril_rowwise", "unpack_tril_rowwise", "pack_tril_full",
+    "tril_mask_packed", "PackedFactor", "invert_diag_tiles",
+    "solve_lower_packed", "solve_packed_ref",
 ]
 
 
@@ -113,6 +114,49 @@ def unpack_tril(vec: torch.Tensor, h: int, block: int = 128) -> torch.Tensor:
     t = flat.reshape(*lead, nt, nt, block, block).transpose(-3, -2)
     m = t.reshape(*lead, nt * block, nt * block)
     return torch.tril(m[..., :h, :h])
+
+
+@functools.lru_cache(maxsize=None)
+def _tril_flat_indices(h: int) -> np.ndarray:
+    r, c = np.tril_indices(h)
+    return r * h + c
+
+
+def pack_tril_rowwise(mat: torch.Tensor) -> torch.Tensor:
+    """The paper's row-wise baseline (Table 1): the lower triangle's
+    entries row by row, (…, h, h) → (…, h(h+1)/2); exact size, unaligned
+    rows."""
+    h = mat.shape[-1]
+    flat = mat.reshape(*mat.shape[:-2], h * h)
+    return flat.index_select(-1, _index(_tril_flat_indices(h), mat.device))
+
+
+def unpack_tril_rowwise(vec: torch.Tensor, h: int) -> torch.Tensor:
+    """Inverse of :func:`pack_tril_rowwise`: (…, h(h+1)/2) → (…, h, h)."""
+    lead = vec.shape[:-1]
+    flat = vec.new_zeros((*lead, h * h))
+    flat.index_copy_(-1, _index(_tril_flat_indices(h), vec.device), vec)
+    return flat.reshape(*lead, h, h)
+
+
+def pack_tril_full(mat: torch.Tensor) -> torch.Tensor:
+    """The paper's full-matrix baseline: the whole matrix with its upper
+    half zeroed, flattened, (…, h, h) → (…, h²); aligned, twice the
+    interpolation work."""
+    return torch.tril(mat).reshape(*mat.shape[:-2], -1)
+
+
+def tril_mask_packed(h: int, block: int = 128, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """(P,) mask of the real (non-padding) entries of the tile-packed
+    layout: a packed all-ones matrix.  Packed by the ``pack_tril`` kernel
+    on the card (the plain version on the CPU); ``device=None`` is the
+    CUDA device."""
+    from .._device import resolve_device
+    from ..kernels import tri_pack
+    ones = torch.ones((h, h), dtype=as_dtype(dtype),
+                      device=resolve_device(device))
+    return tri_pack.pack_tril(ones, block)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,7 @@ from typing import Optional, Union
 import torch
 
 __all__ = ["PrecisionPolicy", "PRESETS", "resolve_precision",
-           "default_accum_dtype", "as_dtype", "PrecisionLike"]
+           "default_accum_dtype", "as_dtype", "PrecisionLike", "tree_astype"]
 
 _NAMES = {
     "float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -143,3 +143,32 @@ def resolve_precision(policy: PrecisionLike = None) -> PrecisionPolicy:
     except KeyError:
         raise ValueError(f"unknown precision policy {policy!r}; "
                          f"have {sorted(PRESETS)}") from None
+
+
+def map_tensors(fn, tree):
+    """``fn`` applied to every tensor of a nested tuple, list or dict and to
+    every tensor field of a dataclass (rebuilt with ``dataclasses.replace``,
+    so static fields survive); anything else is returned as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        out = [map_tensors(fn, t) for t in tree]
+        return type(tree)(out) if not hasattr(tree, "_fields") \
+            else type(tree)(*out)
+    if isinstance(tree, dict):
+        return type(tree)((k, map_tensors(fn, v)) for k, v in tree.items())
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def tree_astype(tree, dtype):
+    """Cast every floating tensor of ``tree`` to ``dtype``
+    (``src/repro/core/precision.py:199``): nested tuples, lists and dicts,
+    and the tensor fields of the port's dataclasses (``PackedFactor``,
+    ``PiCholesky``).  Static fields and integer tensors are kept."""
+    dt = as_dtype(dtype)
+    return map_tensors(
+        lambda t: t.to(dt) if t.is_floating_point() else t, tree)

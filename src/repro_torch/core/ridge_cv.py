@@ -1,11 +1,12 @@
 """RidgeCV — k-fold cross-validated ridge with the piCholesky λ sweep, the
 end-to-end entry point (``src/repro/core/ridge_cv.py:26``).
 
-One device: the fold statistics, the sweep and the refit at λ* run where
-``device=`` says (``None``: the CUDA device).  The reference's ``ctx=``
-(rows sharded over a mesh) and ``cv_mesh=`` (the sweep sharded over folds
-× λs) wait for the port of ``distributed/`` (``ROADMAP.md`` queue 1 item
-9); a value other than ``None`` is refused.
+The fold statistics, the sweep and the refit at λ* run where ``device=``
+says (``None``: the CUDA device).  ``ctx=`` (a
+:class:`~repro_torch.distributed.context.MeshCtx`) places the rows on its
+mesh's first device (``MeshCtx(None)``: nowhere else), and ``cv_mesh=``
+(``None``, ``'auto'`` or a ``CVMesh``) splits the sweep over folds × λs
+(:class:`~repro_torch.core.engine.CVEngine` ``mesh=``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional, Union
 import torch
 
 from .._device import resolve_device
+from ..distributed.context import MeshCtx
 from . import cv as cvlib
 from . import picholesky, solvers
 from .backends import resolve_backend
@@ -38,18 +40,21 @@ class RidgeCV:
     degree: int = 2
     block: int = 128
     method: str = "pichol"
-    ctx: object = None              # not ported yet: must stay None
+    ctx: Optional[MeshCtx] = None
     backend: object = "auto"        # 'auto' | 'cuda' | 'reference' | backend
-    cv_mesh: object = None          # not ported yet: must stay None
+    cv_mesh: object = None          # None | 'auto' | CVMesh for the λ sweep
     precision: object = None        # PrecisionPolicy | preset name | None
     device: Optional[Union[str, torch.device]] = None
 
     def __post_init__(self):
-        for what in ("ctx", "cv_mesh"):
-            if getattr(self, what) is not None:
-                raise NotImplementedError(
-                    f"RidgeCV({what}=...): the mesh-sharded paths wait for "
-                    "the port of distributed/; pass None")
+        if self.ctx is not None and not isinstance(self.ctx, MeshCtx):
+            raise TypeError(f"ctx must be a MeshCtx or None, got "
+                            f"{type(self.ctx).__name__}")
+        from ..distributed.sharding import CVMesh
+        if not isinstance(self.cv_mesh, CVMesh) \
+                and self.cv_mesh not in (None, "auto"):
+            raise ValueError(f"cv_mesh must be None, 'auto' or a CVMesh; "
+                             f"got {self.cv_mesh!r}")
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; expected one "
                              f"of {METHODS}")
@@ -63,15 +68,20 @@ class RidgeCV:
 
     def fit(self, x, y) -> cvlib.CVResult:
         dev = resolve_device(self.device)
+        ctx = self.ctx or MeshCtx(None)
+        if ctx.mesh is not None:
+            x = ctx.constrain(torch.as_tensor(x), ctx.dp_axes, None)
+            y = ctx.constrain(torch.as_tensor(y), ctx.dp_axes)
         folds = cvlib.make_folds(x, y, self.k_folds, device=dev)
         lams = self.lambdas()
         if self.method == "exact":
             return cvlib.cv_exact_cholesky(folds, lams, backend=self.backend,
+                                           mesh=self.cv_mesh,
                                            precision=self.precision,
                                            device=dev)
         return cvlib.cv_picholesky(folds, lams, g=self.g_samples,
                                    degree=self.degree, block=self.block,
-                                   backend=self.backend,
+                                   backend=self.backend, mesh=self.cv_mesh,
                                    precision=self.precision, device=dev)
 
     def fit_theta(self, x, y):

@@ -13,7 +13,9 @@ Service is FIFO across admission groups (the group whose head request is
 oldest goes next) and within a group, at most ``max_batch`` requests a
 dispatch.  :meth:`CVSweepServer.take_responses` hands a tenant only its own
 responses.  Driven synchronously from the host (``submit`` then
-``step`` / ``drain``).
+``step`` / ``drain``).  Under ``ServerConfig(tune='auto')`` the pooled
+engines share one :class:`~repro_torch.distributed.autotune.TuningCache`,
+so each admission group's geometry is tuned once per server.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ..core import factor_cache as cachelib
 from ..core.engine import CVEngine, PiCholeskyStrategy
 from ..core.folds import CVResult, FoldData
 from ..core.precision import resolve_precision
+from ..distributed import autotune
 
 __all__ = ["SweepRequest", "SweepResponse", "ServerConfig", "CVSweepServer"]
 
@@ -77,8 +80,11 @@ class ServerConfig:
     search_tol:    ``tol_decades`` of ``mode='search'`` requests.
     search_wave:   λ points a wave for ``mode='search'`` (``None``: the
                    engine's default).
-    tune, tune_lattice: the reference's autotuning; not ported yet, so
-                   anything but the default raises ``NotImplementedError``.
+    tune:          ``tune=`` of every pooled engine (``'auto'``: tuned
+                   from launch plans).  The engines share one tuning cache,
+                   keyed by geometry, so each geometry is tuned once per
+                   server, however many tenants send it.
+    tune_lattice:  lattice overrides forwarded to the engines.
     """
 
     max_batch: int = 8
@@ -90,12 +96,6 @@ class ServerConfig:
     tune_lattice: Optional[dict] = None
     search_tol: float = 0.05
     search_wave: Optional[int] = None
-
-    def __post_init__(self):
-        if self.tune is not False or self.tune_lattice is not None:
-            raise NotImplementedError(
-                "ServerConfig(tune=...) is not ported yet (the port's "
-                "engines run untuned)")
 
 
 class CVSweepServer:
@@ -112,6 +112,9 @@ class CVSweepServer:
         self._backend = backend
         self._default_precision = resolve_precision(precision).name
         self.cache = cachelib.FactorCache(max_bytes=self.config.cache_bytes)
+        # one tuning cache per server: every pooled engine and tenant
+        # reuses a geometry's verdict
+        self.tune_cache = autotune.TuningCache()
         self._engines: Dict[str, CVEngine] = {}
         self._queues: Dict[tuple, Deque[SweepRequest]] = \
             collections.OrderedDict()
@@ -130,7 +133,9 @@ class CVSweepServer:
                 precision=name, device=self.device, cache=self.cache,
                 reuse=self.config.reuse,
                 cache_anchors=self.config.cache_anchors,
-                lam_chunk=self.config.lam_chunk)
+                lam_chunk=self.config.lam_chunk, tune=self.config.tune,
+                tune_cache=self.tune_cache,
+                tune_lattice=self.config.tune_lattice)
         return self._engines[name]
 
     def _admission_key(self, req: SweepRequest) -> tuple:
@@ -229,5 +234,6 @@ class CVSweepServer:
                                 if self.dispatches else 0.0),
                     engines=sorted(self._engines),
                     cache=self.cache.stats,
+                    tuning=self.tune_cache.stats,
                     tenants={t: dict(rec)
                              for t, rec in self.cache.tenant_stats.items()})

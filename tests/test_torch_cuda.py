@@ -22,7 +22,8 @@ reference backend, ``select_interpolant`` and ``RidgeCV`` on the card, and
 refused there), and the engine's staging surface: the count sketch's
 fixed-order reduction (the same bits twice, and as on the CPU),
 ``run_batch`` against solo runs and the pipelined ``sweep_async`` against
-the serial one, bit for bit.  Skipped without a CUDA device.  On the
+the serial one, bit for bit; the hold-out scores the same bits whatever
+they are batched with.  Skipped without a CUDA device.  On the
 card, from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -724,3 +725,34 @@ def test_pipelined_sweep_equals_serial_bit_for_bit(dev):
         for a, b in zip(pipe, serial):
             np.testing.assert_array_equal(a.fold_errors, b.fold_errors)
     assert cache.hits >= 2
+
+
+@pytest.mark.parametrize("k, n_f, h", [(5, 37, 64), (5, 819, 1024),
+                                       (3, 1000, 512)])
+def test_holdout_scores_do_not_depend_on_the_batch_on_the_card(dev, k, n_f,
+                                                                h):
+    """``folds.holdout_nrmse`` on CUDA tensors at the engine's score shape
+    (θ (k, c, h) against rows (k, 1, n_f, h)): a (fold, λ)'s score is the
+    same bits scored beside c − 1 other λs (c = 1, 2, 3, 16) or in any
+    contiguous group of folds (a mesh's fold group), and within 1e-12 of
+    the CPU's."""
+    from repro_torch.core.folds import holdout_nrmse
+    gen = np.random.default_rng(7)
+    q = 16
+    theta = torch.from_numpy(gen.standard_normal((k, q, h)))
+    x = torch.from_numpy(gen.standard_normal((k, n_f, h)))
+    y = torch.from_numpy(gen.standard_normal((k, n_f)))
+    td, xd, yd = theta.to(dev), x[:, None].to(dev), y[:, None].to(dev)
+    full = holdout_nrmse(td, xd, yd).cpu()
+    for c in (1, 2, 3, 16):
+        for s in range(0, q, c):
+            part = holdout_nrmse(td[:, s:s + c], xd, yd).cpu()
+            assert torch.equal(part, full[:, s:s + c]), (c, s)
+    for n in range(1, k):
+        for f in range(k - n + 1):
+            g = slice(f, f + n)
+            part = holdout_nrmse(td[g].clone(), xd[g].clone(),
+                                 yd[g].clone()).cpu()
+            assert torch.equal(part, full[g]), (f, n)
+    cpu = holdout_nrmse(theta, x[:, None], y[:, None])
+    torch.testing.assert_close(full, cpu, rtol=1e-12, atol=0)

@@ -61,7 +61,8 @@ def test_run_matches_jax_engine(problem, name, lam_chunk, backend):
     assert res.n_exact_chol == ref[name].n_exact_chol
     eng = res.extras["engine"]
     assert eng == dict(strategy=name, backend=backend, precision="native",
-                       lam_chunk=lam_chunk, device="cpu")
+                       lam_chunk=lam_chunk, device="cpu", mesh=None,
+                       donated=False)
 
 
 def test_chunking_matches_jax_helpers():

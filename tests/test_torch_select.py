@@ -185,10 +185,10 @@ def test_ridge_cv_fit_and_fit_theta_match_jax(design, backend, method):
 
 
 def test_ridge_cv_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ctx"):
+    with pytest.raises(TypeError, match="ctx"):
         RidgeCV(ctx=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="cv_mesh"):
-        RidgeCV(cv_mesh="auto", device="cpu")
+    with pytest.raises(ValueError, match="cv_mesh"):
+        RidgeCV(cv_mesh="everywhere", device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         RidgeCV(method="svd", device="cpu")
 

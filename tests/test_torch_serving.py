@@ -244,8 +244,14 @@ def test_run_batch_fallbacks_and_checks():
     np.testing.assert_array_equal(
         r.errors, engine.CVEngine(_strat(), device="cpu").run(fa,
                                                               LAMS).errors)
-    with pytest.raises(NotImplementedError, match="tune"):
-        ServerConfig(tune="auto")
+    # tune= reaches every pooled engine, which share the server's one
+    # tuning cache (tests/test_torch_autotune.py drives it)
+    srv = CVSweepServer(_strat(), device="cpu",
+                        config=ServerConfig(tune="auto"))
+    assert srv.engine().tune == "auto"
+    assert srv.engine().tune_cache is srv.tune_cache
+    assert srv.stats["tuning"] == dict(entries=0, hits=0, misses=0,
+                                       lowerings=0)
 
 
 @pytest.mark.parametrize("entry", ["FactorCache.load",

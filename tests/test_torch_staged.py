@@ -23,6 +23,7 @@ from repro_torch.core import engine, factor_cache as fc  # noqa: E402
 from repro_torch.core.backends import CountingBackend, \
     resolve_backend  # noqa: E402
 from repro_torch.core.folds import FoldData  # noqa: E402
+from repro_torch.distributed.sharding import CVMesh  # noqa: E402
 
 H, BLOCK, G = 24, 8, 4
 LAMS = np.asarray(props.log_grid(17))
@@ -160,9 +161,17 @@ def test_sweep_argument_checks(folds):
             eng.search(tf, LAMS, **kw)
     with pytest.raises(ValueError, match="positive"):
         eng.search(tf, np.asarray([-1.0, 1.0]))
-    for name in ("mesh", "donate", "tune"):
-        with pytest.raises(NotImplementedError, match=name):
-            engine.CVEngine("exact", device="cpu", **{name: "auto"})
+    for name in ("mesh", "tune"):
+        with pytest.raises(ValueError, match=name):
+            engine.CVEngine("exact", device="cpu", **{name: "bogus"})
+    # a fold axis that does not divide k is refused before any work
+    k = tf.fold_hess.shape[0]
+    bad = CVMesh.from_devices([torch.device("cpu")] * (k + 1), k + 1, 1)
+    eng_bad = engine.CVEngine("exact", device="cpu", mesh=bad)
+    with pytest.raises(ValueError, match="not divisible"):
+        list(eng_bad.sweep_async(tf, LAMS))
+    with pytest.raises(ValueError, match="not divisible"):
+        eng_bad.search(tf, LAMS)
 
 
 def test_single_lam_grid_consistent_and_search_refuses(folds):
