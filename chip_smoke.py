@@ -171,6 +171,26 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               main configuration's, the ``kernels`` phase also times rows
               1, 3, 6 and 8 at that block (``tuned_block``).
 
+20. train  — training the Mamba family, after ``serve`` (its model freed):
+              the reduced model of ``tests/data/torch_mamba_train.npz`` on
+              the kernels (loss and every gradient within 1e-4 of JAX's,
+              one AdamW update on JAX's gradients within 1e-6 of JAX's
+              parameters); Falcon-Mamba-7B as published (64 layers, bf16,
+              remat) with Adafactor, 5 steps of 4 × 2048 tokens of
+              ``token_stream`` through ``TrainLoop`` (step ms as the median
+              of the last 4, tokens/s, peak memory, losses and gradient
+              norms finite, launches: each of the four mixer kernels
+              2 × 64 a step), 3 steps on one repeated batch (its loss must
+              fall) and one profiled step (device time of the GEMMs, the
+              forward scan, kernel A, the forward convolution, kernel B
+              and the rest; the idle share; no library convolution);
+              AdamW at 32 of the 64 layers (its float32 moments do not fit
+              one card at 64), 3 steps; one full-width float32 layer at
+              batch 1 × 2048 on the kernels against their plain versions
+              (loss and every gradient within 1e-4); the reduced model
+              resumed from a checkpoint after 6 steps, its parameters and
+              AdamW state bit for bit.  One ``train`` line per part.
+
 Phases 15–19 run after ``baselines`` and before ``mamba_fixture`` (19
 before ``cv_serve``); each adds its paths to ``launches_by_path``, and
 their failures are collected and raised after the ``kernels`` line.
@@ -188,7 +208,13 @@ the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one, its fused entry ``mamba_scan`` (softplus, scan and gate, bf16) at both
 and at one decode step from a state (both dtypes), and the fused causal
 convolution with bias and silu bit for bit (serve shape, timed against
-``F.conv1d``; ragged, decode and short from a state).  Then one ``{"kernels": [...]}`` line, and last the device line
+``F.conv1d``; ragged, decode and short from a state).  And the two
+backward kernels of training against their plain backward passes: kernel
+A (``mamba_scan_bwd``) at the training shape in bf16 (timed) and float32,
+ragged (S 999, d_inner 8100) and small from a state, every gradient within
+its stated tolerance; kernel B (``causal_conv1d_bwd``) with dx bit for
+bit, timed against autograd of ``F.conv1d``; both the same bits on two
+calls; and ``ssm_scan``'s refusal of a gradient on the card.  Then one ``{"kernels": [...]}`` line, and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
 one CUDA card; imports nothing of JAX.  The ``kernels`` line carries, for
 the three cluster solves also ``kernel_ms`` (device time of the cluster
@@ -270,6 +296,36 @@ MAMBA_TOL = 1e-4           # max |Δ| / max |ref|, float32: kernel vs plain
                            # scan, decode vs forward, card vs JAX fixture
 MAMBA_DEPTH, MAMBA_BATCH, MAMBA_SEQ, MAMBA_DECODE = 4, 2, 250, 8
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 2048, 32
+# training (phase train): falcon-mamba-7b as published, Adafactor, batch
+# TRAIN_BATCH × TRAIN_SEQ tokens of token_stream, TRAIN_STEPS through
+# TrainLoop, then TRAIN_REPEAT steps on one batch (its loss must fall);
+# AdamW (the launcher's rule for 7B) at ADAMW_DEPTH of the 64 layers, whose
+# float32 moments would not fit one card at full depth; one full-width
+# layer at batch 1 × TRAIN_SEQ, kernels against plain versions; the reduced
+# model resumed from a checkpoint after RESUME_STEPS
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_REPEAT = 4, 2048, 5, 3
+ADAMW_DEPTH, ADAMW_STEPS = 32, 3
+RESUME_STEPS, RESUME_TOTAL = 6, 8
+# the train fixture (tests/data/torch_mamba_train.npz): loss and gradients
+# within MAMBA_TOL of JAX's (as tests/test_torch_train.py holds the CPU),
+# one AdamW update on JAX's gradients within ADAMW_TOL of JAX's parameters
+# (the same float32 operations, rounded alike but for a last bit)
+ADAMW_TOL = 1e-6
+# The backward kernels against their plain versions.  Kernel A forms
+# exp(dt·A), softplus and silu with the MUFU approximations and sums over
+# d_inner, batch and time in another order than the plain version: float32,
+# each gradient within MAMBA_BWD_TOL of its max |plain|, the forward's
+# tolerance (measured ≤ 1.5e-6 on the card).  In bf16 the gate's two
+# roundings (y and silu(z) to bf16) can land on the other neighbouring
+# value, as in the forward (MIXER_BF16_REL per element for dxc and dz); one
+# such step of dy' moves a float32 gradient that carries it by 2^-8 of its
+# term: MAMBA_BWD_BF16_TOL = 2^-8 of max |plain| for those (measured
+# ≤ 2e-6).
+MAMBA_BWD_TOL = 1e-4
+MAMBA_BWD_BF16_TOL = 2.0 ** -8
+# Kernel B: dx bit for bit; dw and db are float32 sums over (B, S) in
+# another order than torch's sum.
+CONV_BWD_TOL = 1e-5
 SERVE_TOL = 5e-2           # bf16, 64 layers: decode vs forward logits at the
                            # last position, max |Δ| / max |forward|
 SERVE_REPEATS = 3
@@ -291,6 +347,10 @@ REPLACES = {
     # no Pallas kernel: XLA's convolution, + conv_b and silu
     # (src/repro/models/blocks.py:387-388), fused by the port
     "causal_conv1d": "src/repro/models/layers.py:300",
+    # the backward kernels of training: no Pallas kernel; the reference's
+    # custom_vjp of the recurrence (_clr_bwd) and XLA's autodiff of the conv
+    "mamba_scan_bwd": "src/repro/models/layers.py:388",
+    "causal_conv1d_bwd": "src/repro/models/layers.py:300",
     # the mixed-precision variants (bf16 products, float32 sums and state)
     "cholesky_blocked_bf16": "src/repro/kernels/chol_blocked.py:115",
     "solve_lower_blocked_bf16": "src/repro/kernels/trsm.py:102",
@@ -344,6 +404,8 @@ SOURCES = {
     "solve_lower_packed": "src/repro_torch/kernels/csrc/packed_trsm.cu",
     "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
     "causal_conv1d": "src/repro_torch/kernels/csrc/causal_conv1d.cu",
+    "mamba_scan_bwd": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+    "causal_conv1d_bwd": "src/repro_torch/kernels/csrc/causal_conv1d.cu",
     "cholesky_blocked_bf16": "src/repro_torch/kernels/csrc/chol_blocked.cu",
     "solve_lower_blocked_bf16": "src/repro_torch/kernels/csrc/trsm.cu",
     "interp_solve_bf16": "src/repro_torch/kernels/csrc/poly_interp.cu",
@@ -1088,6 +1150,206 @@ def check_conv(dev, shape, dtype, state: bool, timing=None) -> dict:
     return res
 
 
+def _bitwise(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+SCAN_BWD_NAMES = ("dxc", "ddt_lin", "ddt_bias", "db_mat", "dc_mat", "da",
+                  "dd_skip", "dz", "dh0")
+
+
+def check_mamba_scan_bwd(dev, shape, dtype, h0: bool = False,
+                         timing=None) -> dict:
+    """``mamba_scan_bwd`` (kernel A) against its plain version on the card,
+    every gradient: float32, max |Δ| ≤ MAMBA_BWD_TOL of max |plain| each;
+    bf16, dxc and dz per element within MIXER_BF16_REL of |plain| plus
+    MAMBA_BWD_TOL of max |plain|, the float32 gradients MAMBA_BWD_BF16_TOL
+    of max |plain| (see their comment); the same bits on two calls; with
+    ``timing``, its time, bound and plain time."""
+    from repro_torch.kernels import ref, ssm_scan
+    ins = mixer_inputs(dev, *shape, dtype, h0=h0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dy = torch.randn(*shape[:3], generator=gen, device=dev).to(dtype)
+    dh_last = torch.randn(shape[0], shape[2], shape[3], generator=gen,
+                          device=dev) if h0 else None
+    args = (*ins[:8], dy, ins[8], dh_last)
+
+    def kernel():
+        return ssm_scan.mamba_scan_bwd(*args)
+
+    def plain():
+        return ref.mamba_scan_bwd(*args)
+
+    got, want = kernel(), plain()
+    twice = _bitwise(got, kernel())
+    torch.cuda.synchronize()
+    err, ok = {}, twice
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        if g is None:
+            continue
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"mamba_scan_bwd: {name} is not finite")
+        d = (g.float() - w.float()).abs()
+        scale = float(w.float().abs().max()) if w.numel() else 0.0
+        rel = float(d.max()) / max(scale, 1e-300) if w.numel() else 0.0
+        rec = dict(rel=rel)
+        if dtype == torch.bfloat16 and name in ("dxc", "dz"):
+            limit = MIXER_BF16_REL * w.float().abs() + MAMBA_BWD_TOL * scale
+            rec.update(over_limit=float((d > limit).sum()),
+                       max_ulps=bf16_ulps(g, w))
+            good = rec["over_limit"] == 0
+        else:
+            tol = MAMBA_BWD_TOL if dtype == torch.float32 \
+                else MAMBA_BWD_BF16_TOL
+            rec["tol"] = tol
+            good = rel <= tol
+        rec["ok"] = good
+        err[name] = rec
+        ok = ok and good
+    res = dict(err=err, bitwise_twice=twice, shape=list(shape),
+               dtype=str(dtype), h0=h0, ok=ok,
+               max_abs_err=max(float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got, want)
+                               if g is not None and g.numel()))
+    if timing is None:
+        return res
+    b, s, di, n = shape
+    es = torch.empty((), dtype=dtype).element_size()
+    # read x, z, dy (T), dt_lin (f32), B, C (T), A, D, dt_bias once; write
+    # dx, dz (T), d dt_lin (f32), dB, dC (f32), dA, dD, d dt_bias once
+    work_bytes = (3 * b * s * di * es + b * s * di * 4 + 2 * b * s * n * es
+                  + (di * n + 2 * di) * 4
+                  + 2 * b * s * di * es + b * s * di * 4 + 2 * b * s * n * 4
+                  + (di * n + 2 * di) * 4)
+    # the decays once per (b, t, d, n), softplus, its derivative and the
+    # gate's two sigmoids per (b, t, d)
+    mufu = b * s * di * (n + MIXER_EXTRA_MUFU)
+    t_bytes = work_bytes / timing["bw"] * 1e3
+    t_ops = mufu / timing["sfu"] * 1e3
+    res.update(ms=timed_ms(kernel, 5), plain_ms=timed_ms(plain, 1),
+               library_ms=None, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               work=dict(bytes=work_bytes, mufu=mufu, bytes_ms=t_bytes,
+                         mufu_ms=t_ops,
+                         mufu_issued=3 * b * s * di * n))
+    return res
+
+
+def check_conv_bwd(dev, shape, dtype, state: bool, timing=None) -> dict:
+    """``causal_conv1d_silu_bwd`` (kernel B) against its plain version on
+    the card: dx (and dstate) bit for bit, dw and db within CONV_BWD_TOL of
+    max |plain| (float32 sums in another order); the same bits on two
+    calls; with ``timing``, its time, bound, plain time and the backward of
+    ``F.conv1d`` (groups = C, cuDNN, TF32 off) on the same input."""
+    from repro_torch.kernels import causal_conv1d, ref
+    b, s, c = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(b, s, c, generator=gen, device=dev).to(dtype)
+    w = (0.5 * torch.randn(c, CONV_WIDTH, generator=gen, device=dev)
+         ).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+    dout = torch.randn(b, s, c, generator=gen, device=dev).to(dtype)
+    st = torch.randn(b, CONV_WIDTH - 1, c, generator=gen,
+                     device=dev).to(dtype) if state else None
+
+    def kernel():
+        return causal_conv1d.causal_conv1d_silu_bwd(x, w, bias, dout, st)
+
+    def plain():
+        return ref.causal_conv1d_silu_bwd(x, w, bias, dout, st)
+
+    got, want = kernel(), plain()
+    twice = _bitwise(got, kernel())
+    torch.cuda.synchronize()
+    err = {}
+    for name, g, v in zip(("dx", "dw", "db", "dstate"), got, want):
+        if g is None:
+            continue
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"causal_conv1d_bwd: {name} is not finite")
+        d = float((g.float() - v.float()).abs().max()) if g.numel() else 0.0
+        scale = float(v.float().abs().max()) if v.numel() else 0.0
+        err[name] = dict(max_abs=d, rel=d / max(scale, 1e-300))
+    exact = all(err[k]["max_abs"] == 0.0 for k in ("dx", "dstate")
+                if k in err)
+    sums_ok = all(err[k]["rel"] <= CONV_BWD_TOL for k in ("dw", "db"))
+    res = dict(err=err, dx_bit_exact=exact, bitwise_twice=twice,
+               ok=exact and sums_ok and twice, shape=list(shape),
+               dtype=str(dtype), state=state, tol_sums=CONV_BWD_TOL,
+               max_abs_err=max(e["max_abs"] for e in err.values()))
+    if timing is None:
+        return res
+    es = torch.empty((), dtype=dtype).element_size()
+    # read x, dout, w, b, the state once; write dx, dstate (T), dw, db (f32)
+    k = CONV_WIDTH
+    work_bytes = ((3 * b * s * c + c * k + c + 2 * b * (k - 1) * c) * es
+                  + c * (k + 1) * 4)
+    # the recompute (K products and sums, bias), silu's gradient, K
+    # products and sums each for dx and dw, one sum for db
+    flops = (6.0 * k + 10) * b * s * c
+    t_bytes = work_bytes / timing["bw"] * 1e3
+    t_ops = flops / timing["fp32"] * 1e3
+    xl = x.transpose(1, 2).detach().requires_grad_()
+    wl = w[:, None, :].detach().requires_grad_()
+    bl = bias.detach().requires_grad_()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yl = torch.nn.functional.conv1d(xl, wl, bias=bl, padding=k - 1,
+                                        groups=c)
+        gl = torch.randn_like(yl)
+        library_ms = timed_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl, bl), gl, retain_graph=True), 5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    res.update(ms=timed_ms(kernel, 10), plain_ms=timed_ms(plain, 2),
+               library_ms=library_ms,
+               library="autograd of F.conv1d(groups=C, bias), "
+               "cudnn.allow_tf32=False", bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               work_bytes=work_bytes, work_flops=flops)
+    return res
+
+
+def phase_kernels_bwd(dev, peaks) -> tuple[dict, dict]:
+    """Rows 11 and 12, the backward kernels of training, against their
+    plain versions: at the training shape in bf16 (timed) and float32, at a
+    ragged shape (odd S, d_inner not a multiple of a block) from a state,
+    and small from a state; then ``ssm_scan``'s refusal of a gradient on
+    the card."""
+    from repro_torch.kernels import ssm_scan
+    rows = {"mamba_scan_bwd": check_mamba_scan_bwd(
+                dev, SCAN_SHAPE, torch.bfloat16, timing=peaks),
+            "causal_conv1d_bwd": check_conv_bwd(
+                dev, SCAN_SHAPE[:3], torch.bfloat16, False, timing=peaks)}
+    cases = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dtype == torch.float32:
+            cases["mamba_scan_bwd_train_f32"] = check_mamba_scan_bwd(
+                dev, SCAN_SHAPE, dtype)
+            cases["causal_conv1d_bwd_train_f32"] = check_conv_bwd(
+                dev, SCAN_SHAPE[:3], dtype, False)
+        cases[f"mamba_scan_bwd_ragged_{tag}"] = check_mamba_scan_bwd(
+            dev, SCAN_RAGGED, dtype, h0=True)
+        cases[f"mamba_scan_bwd_small_{tag}"] = check_mamba_scan_bwd(
+            dev, (2, 37, 130, 8), dtype, h0=True)
+        cases[f"causal_conv1d_bwd_ragged_{tag}"] = check_conv_bwd(
+            dev, SCAN_RAGGED[:3], dtype, True)
+        cases[f"causal_conv1d_bwd_small_{tag}"] = check_conv_bwd(
+            dev, (2, 37, 130), dtype, True)
+    ins = [t.requires_grad_() for t in scan_inputs(dev, 1, 4, 64, 16)]
+    try:
+        ssm_scan.ssm_scan(*ins)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    cases["ssm_scan_refuses_grad"] = dict(ok=refused, refused=refused)
+    emit("kernels", shape="backward", train_shape=list(SCAN_SHAPE),
+         results=dict(rows, **cases))
+    return rows, cases
+
+
 def phase_kernels(dev, folds, lams, peaks) -> dict:
     main = check_kernels(dev, H, BLOCK, K_FOLDS * G_SAMPLES,
                          K_FOLDS * LAM_CHUNK, torch.float64, folds, lams,
@@ -1161,14 +1423,17 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
                       ("decode_f32", (2, 1, 8100), torch.float32, True))}
     emit("kernels", shape="causal_conv1d", width=CONV_WIDTH,
          results=dict(conv, **conv_cases))
+    bwd, bwd_cases = phase_kernels_bwd(dev, peaks)
     main.update(scan)
     main.update(conv)
+    main.update(bwd)
     bad = [(case, name) for case, res in
            (("main", main), ("ragged", ragged), ("ragged_odd", odd),
             ("float32", f32), ("mixed", mixed),
             ("mixed_ragged", mixed_ragged), ("mixed_ragged_odd", mixed_odd),
             ("ssm_scan_ragged", scan_ragged), ("mamba_scan", scan_decode),
-            ("causal_conv1d", conv_cases))
+            ("causal_conv1d", conv_cases), ("backward", bwd),
+            ("backward_cases", bwd_cases))
            for name, r in res.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -2990,6 +3255,7 @@ def fixture_params(data) -> dict:
     return params
 
 
+@torch.no_grad()
 def phase_mamba_fixture(dev) -> dict:
     """The reduced Falcon-Mamba model of ``tests/data/torch_mamba.npz`` (JAX
     weights and answers) on the kernel: forward, prefill (logits, conv
@@ -3036,6 +3302,7 @@ def counted_call(fn):
     return counted(lambda _: fn())
 
 
+@torch.no_grad()
 def phase_mamba(dev) -> dict:
     """Full width, 4 layers, float32: the model on the mixer's kernels (the
     causal convolution and the fused scan, ``scan="auto"``) against the
@@ -3099,6 +3366,7 @@ def gemm_like(name: str) -> bool:
                                             "cutlass", "splitk"))
 
 
+@torch.no_grad()
 def phase_serve(dev) -> dict:
     """Falcon-Mamba-7B as published (bf16, 64 layers): 4 prompts of 2048
     tokens prefilled, 32 greedy decode steps, a forward over the extended
@@ -3209,6 +3477,312 @@ def phase_serve(dev) -> dict:
     return counts
 
 
+def train_fixture(dev, scan: str) -> dict:
+    """The reduced model of ``tests/data/torch_mamba_train.npz`` (JAX's
+    weights, batch, loss and gradients) on ``dev``: the loss and every
+    gradient leaf within MAMBA_TOL of JAX's, and one AdamW update (the
+    launcher's defaults) on JAX's gradients within ADAMW_TOL of JAX's
+    parameters.  The CPU test runs it too (``scan="auto"``)."""
+    from repro_torch import configs, convert
+    from repro_torch.optim import adamw
+    data = np.load(ROOT / "tests" / "data" / "torch_mamba_train.npz")
+    cfg = configs.get(MAMBA_ARCH).reduced()
+
+    model = convert.model_from_numpy(cfg, _tree(data, "param/"), device=dev,
+                                     scan=scan)
+    batch = {k: torch.as_tensor(data[k], device=dev)
+             for k in ("tokens", "labels")}
+    loss, _ = model.loss(batch)
+    named = dict(model.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    out = {"loss": dict(rel_err=abs(float(loss.detach()) - float(data["loss"]))
+                        / abs(float(data["loss"])), tol=MAMBA_TOL)}
+    for key in data.files:
+        if not key.startswith("grad/"):
+            continue
+        name = key[len("grad/"):]
+        head, _, rest = name.partition(".")
+        got = grads[name] if head != "groups" else torch.stack(
+            [grads[f"groups.{i}.{rest}"] for i in range(cfg.n_layers)])
+        out[key] = dict(rel_err=rel_err(got, torch.as_tensor(data[key],
+                                                             device=dev)),
+                        tol=MAMBA_TOL)
+    # one AdamW update on JAX's gradients, from JAX's weights
+    jgrads = convert.params_from_numpy(cfg, _tree(data, "grad/"), dev)
+    init, update = adamw()
+    update(jgrads, init(model), model)
+    new = dict(model.named_parameters())
+    for key in data.files:
+        if not key.startswith("adamw/"):
+            continue
+        name = key[len("adamw/"):]
+        head, _, rest = name.partition(".")
+        got = new[name] if head != "groups" else torch.stack(
+            [new[f"groups.{i}.{rest}"] for i in range(cfg.n_layers)])
+        out[key] = dict(rel_err=rel_err(got.detach(), torch.as_tensor(
+            data[key], device=dev)), tol=ADAMW_TOL)
+    ok = all(r["rel_err"] <= r["tol"] for r in out.values())
+    return dict(results=out, ok=ok, layers=cfg.n_layers, d_model=cfg.d_model,
+                worst=max(out.items(), key=lambda kv: kv[1]["rel_err"]
+                          / kv[1]["tol"])[0])
+
+
+def _tree(data, prefix: str) -> dict:
+    """The nested tree of a fixture's ``<prefix><dotted name>`` entries."""
+    tree: dict = {}
+    for key in data.files:
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _expect(layers: int, steps: int, remat: bool) -> dict:
+    """Launches of a training run: per layer and step the two forward
+    kernels (twice under remat: the backward runs each layer again) and
+    the two backward kernels (two launches a call each)."""
+    fwd = layers * steps * (2 if remat else 1)
+    return dict(ssm_scan=fwd, causal_conv1d=fwd,
+                mamba_scan_bwd=2 * layers * steps,
+                causal_conv1d_bwd=2 * layers * steps)
+
+
+def _train_split(by_name: dict) -> dict:
+    """Device ms of one training step by kernel group."""
+    split = dict(gemm_ms=0.0, scan_fwd_ms=0.0, mamba_scan_bwd_ms=0.0,
+                 conv_fwd_ms=0.0, conv_bwd_ms=0.0, rest_ms=0.0)
+    for n, (ms, _) in by_name.items():
+        key = ("mamba_scan_bwd_ms" if "mamba_scan_bwd" in n else
+               "conv_bwd_ms" if ("causal_conv1d_silu_bwd" in n
+                                 or "causal_conv1d_bwd" in n) else
+               "conv_fwd_ms" if "causal_conv1d" in n else
+               "scan_fwd_ms" if "ssm_scan" in n else
+               "gemm_ms" if gemm_like(n) else "rest_ms")
+        split[key] += ms
+    return split
+
+
+def _run_loop(model, opt, steps: int, data, ckpt_dir=None, every=None):
+    """``steps`` of TrainLoop over ``data``; returns (the loop's result,
+    per-step losses and gradient norms, the loop)."""
+    from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
+    step = make_train_step(model, opt)
+    norms = []
+
+    def recorded(params, state, batch, extra=None):
+        out = step(params, state, batch, extra)
+        norms.append(float(out[2]["grad_norm"]))
+        return out
+
+    loop = TrainLoop(TrainLoopConfig(
+        total_steps=steps, log_every=1, ckpt_dir=ckpt_dir,
+        ckpt_every=every or steps), recorded, model, opt[0](model))
+    res = loop.run(data)
+    return res, [e["loss"] for e in res["log"]], norms, loop
+
+
+def phase_train(dev) -> dict:
+    """Training the Mamba family on the card: the JAX fixture; the full
+    model (64 layers, bf16, remat) with Adafactor; AdamW at 32 layers; one
+    full-width layer with the kernels against their plain versions; resume
+    from a checkpoint.  Launches per path; failures are collected."""
+    import itertools
+    import shutil
+    from repro_torch import configs
+    from repro_torch.data import token_stream
+    from repro_torch.models import Model
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.optim._tree import named_tensors
+    from repro_torch.train import make_train_step
+    launches, out = {}, {}
+    torch.cuda.empty_cache()
+
+    # 1. the JAX fixture on the kernels
+    fx, launches["train_fixture"] = counted_call(
+        lambda: train_fixture(dev, "cuda"))
+    check_counts("train fixture", launches["train_fixture"],
+                 _expect(4, 1, False))
+    out["fixture"] = fx
+    emit("train", part="fixture", launches=_nonzero(
+        launches["train_fixture"]), **fx)
+    if not fx["ok"]:
+        FAILED.append(f"train fixture: {fx['worst']} off JAX's: "
+                      f"{fx['results'][fx['worst']]}")
+
+    # 2. the full model, Adafactor, through TrainLoop
+    cfg = configs.get(MAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    data = token_stream(torch.Generator(device=dev).manual_seed(1),
+                        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    opt = adafactor()
+    (res, losses, norms, loop), launches["train_adafactor"] = counted_call(
+        lambda: _run_loop(model, opt, TRAIN_STEPS,
+                          itertools.islice(data, TRAIN_STEPS)))
+    check_counts("train adafactor", launches["train_adafactor"],
+                 _expect(cfg.n_layers, TRAIN_STEPS, cfg.remat))
+    secs = [e["sec_per_step"] for e in res["log"]]
+    step_ms = float(np.median(secs[1:])) * 1e3
+    full = dict(layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
+                params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                optimizer="adafactor", steps=TRAIN_STEPS, losses=losses,
+                grad_norms=norms, step_ms_each=[x * 1e3 for x in secs],
+                step_ms=step_ms,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                stragglers=res["straggler_steps"])
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    # one batch, repeated: its loss must fall
+    state = loop.opt_state
+    step = make_train_step(model, opt)
+    batch = next(data)
+    repeat = []
+    for _ in range(TRAIN_REPEAT):
+        _, state, m = step(model, state, batch)
+        repeat.append(float(m["loss"]))
+    full["repeated_batch_losses"] = repeat
+    falls = repeat[-1] < repeat[0]
+    # one profiled step
+    holder = {"state": state}
+
+    def one_step():
+        _, holder["state"], m = step(model, holder["state"], batch)
+        return m
+
+    trace, by_name = profiled(one_step)
+    split = _train_split(by_name)
+    busy = trace["device_busy_ms"]
+    full["trace"] = dict(trace, **split, **{
+        k.replace("_ms", "_share"): v / busy for k, v in split.items()})
+    library_conv = [n for n in by_name if "conv" in n.lower()
+                    and "causal_conv1d" not in n]
+    out["adafactor"] = full
+    emit("train", part="adafactor", launches=_nonzero(
+        launches["train_adafactor"]), **full)
+    if not finite or not falls:
+        FAILED.append(f"train adafactor: finite={finite}, repeated-batch "
+                      f"losses {repeat} do not fall")
+    if trace["convolution_ops"] or library_conv:
+        FAILED.append(f"train: a library convolution ran: {library_conv}")
+    del model, loop, state, holder, step, opt
+    torch.cuda.empty_cache()
+
+    # 3. AdamW, the launcher's rule for 7B, at ADAMW_DEPTH layers
+    cfg32 = dataclasses.replace(cfg, n_layers=ADAMW_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg32, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    opt = adamw()
+    (res, losses, norms, _), launches["train_adamw"] = counted_call(
+        lambda: _run_loop(model, opt, ADAMW_STEPS,
+                          itertools.islice(data, ADAMW_STEPS)))
+    check_counts("train adamw", launches["train_adamw"],
+                 _expect(ADAMW_DEPTH, ADAMW_STEPS, cfg32.remat))
+    secs = [e["sec_per_step"] for e in res["log"]]
+    aw = dict(layers=ADAMW_DEPTH, of_layers=cfg.n_layers,
+              params=sum(p.numel() for p in model.parameters()),
+              optimizer="adamw", steps=ADAMW_STEPS, losses=losses,
+              grad_norms=norms, step_ms_each=[x * 1e3 for x in secs],
+              step_ms=float(np.median(secs[1:])) * 1e3,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              cut="32 of 64 layers: AdamW's float32 moments, bf16 weights "
+              "and gradients at 64 layers need ~87 GB")
+    out["adamw"] = aw
+    emit("train", part="adamw", launches=_nonzero(launches["train_adamw"]),
+         **aw)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))):
+        FAILED.append(f"train adamw: not finite: {losses}, {norms}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # 4. one full-width layer, float32: kernels against plain versions
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32",
+                               param_dtype="float32")
+    m1 = Model(cfg1, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(SEED))
+    tok = torch.Generator(device=dev).manual_seed(2)
+    one = {k: torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), generator=tok,
+                            device=dev) for k in ("tokens", "labels")}
+    got = {}
+    for scan in ("cuda", "reference"):
+        m1.scan = scan
+
+        def grads_of():
+            loss, _ = m1.loss(one)
+            named = dict(m1.named_parameters())
+            return loss.detach(), dict(zip(named, torch.autograd.grad(
+                loss, list(named.values()))))
+
+        got[scan], launches[f"train_layer_{scan}"] = counted_call(grads_of)
+    check_counts("train layer (cuda)", launches["train_layer_cuda"],
+                 _expect(1, 1, cfg1.remat))
+    check_counts("train layer (reference)", launches["train_layer_reference"],
+                 {})
+    rels = {"loss": rel_err(got["cuda"][0], got["reference"][0])}
+    rels.update({name: rel_err(g, got["reference"][1][name])
+                 for name, g in got["cuda"][1].items()})
+    worst = max(rels, key=rels.get)
+    out["layer"] = dict(rel_err=rels, worst=worst, tol=MAMBA_TOL)
+    emit("train", part="layer_vs_plain", layers=1, batch=1, seq=TRAIN_SEQ,
+         dtype="float32", tol=MAMBA_TOL, worst=worst,
+         worst_rel_err=rels[worst], rel_err=rels)
+    if rels[worst] > MAMBA_TOL:
+        FAILED.append(f"train layer: {worst} kernel vs plain {rels[worst]} "
+                      f"> {MAMBA_TOL}")
+    del m1, got
+    torch.cuda.empty_cache()
+
+    # 5. resume: the reduced model, a checkpoint every 3 steps
+    ckpt = ROOT / "build" / "train_resume_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rcfg = configs.get(MAMBA_ARCH).reduced()
+
+    def fresh():
+        return Model(rcfg, device=dev, scan="cuda",
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    def stream():
+        return token_stream(torch.Generator(device=dev).manual_seed(3),
+                            rcfg.vocab_size, 2, 64)
+
+    m_a, opt = fresh(), adamw(lr=1e-3)
+    _, _, _, loop_a = _run_loop(m_a, opt, RESUME_STEPS,
+                                itertools.islice(stream(), RESUME_STEPS),
+                                ckpt_dir=str(ckpt), every=3)
+    m_b = fresh()
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    loop_b = TrainLoop(TrainLoopConfig(total_steps=RESUME_TOTAL,
+                                       ckpt_dir=str(ckpt), ckpt_every=3),
+                       make_train_step(m_b, opt), m_b, opt[0](m_b))
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        named_tensors(m_a).values(), named_tensors(m_b).values()))
+    from repro_torch.checkpoint import tree_leaves
+    sa, sb = tree_leaves(loop_a.opt_state), tree_leaves(loop_b.opt_state)
+    same_opt = len(sa) == len(sb) and all(torch.equal(a, b)
+                                          for a, b in zip(sa, sb))
+    after = loop_b.run(itertools.islice(stream(), RESUME_TOTAL))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res_ok = (loop_b.start_step == RESUME_STEPS and same_params and same_opt
+              and type(loop_b.opt_state).__name__ == "AdamWState"
+              and after["final_step"] == RESUME_TOTAL)
+    out["resume"] = dict(start_step=loop_b.start_step, params_bitwise=same_params,
+                         opt_state_bitwise=same_opt,
+                         final_step=after["final_step"], ok=res_ok)
+    emit("train", part="resume", **out["resume"])
+    if not res_ok:
+        FAILED.append(f"train resume: {out['resume']}")
+    return launches
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -3233,6 +3807,7 @@ def main() -> None:
     phase_mamba_fixture(dev)
     phase_mamba(dev)
     launches.update(phase_serve(dev))
+    launches.update(phase_train(dev))
     rows = []
     for name in REPLACES:
         r = kern[name]

@@ -19,7 +19,8 @@ A bf16 leaf goes to disk as its raw 16-bit view (``uint16``) with
 ``bfloat16`` in the manifest, and comes back through a torch view: numpy
 has no bf16 type of its own.
 
-Trees are nested dicts (keys sorted), tuples and lists of tensors, with
+Trees are nested dicts (keys sorted), tuples, ``NamedTuple``s (the
+optimizer states; rebuilt as their own class) and lists of tensors, with
 dataclasses (``PiCholesky``, ``PackedFactor``, ``LowRankFactors``) whose
 tensor fields are children and whose other fields ride in the structure;
 ``None`` holds no leaf.
@@ -58,6 +59,8 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
         if isinstance(x, dict):
             keys = sorted(x)
             return ("dict", tuple(keys), tuple(walk(x[k]) for k in keys))
+        if isinstance(x, tuple) and hasattr(type(x), "_fields"):
+            return ("namedtuple", type(x), tuple(walk(v) for v in x))
         if isinstance(x, (list, tuple)):
             return (type(x).__name__, tuple(walk(v) for v in x))
         if dataclasses.is_dataclass(x) and not isinstance(x, type):
@@ -96,6 +99,8 @@ def tree_unflatten(structure: Any, leaves: List[Any]) -> Any:
         if kind in ("list", "tuple"):
             vals = [build(c) for c in s[1]]
             return vals if kind == "list" else tuple(vals)
+        if kind == "namedtuple":
+            return s[1](*(build(c) for c in s[2]))
         cls, static, kids = s[1], dict(s[2]), s[3]
         return cls(**static, **{name: build(c) for name, c in kids})
 

@@ -3,7 +3,7 @@
 ``get(name)`` returns the full :class:`~repro_torch.models.config.ModelConfig`
 (as the JAX package's ``configs.get``); ``get(name).reduced()`` the CPU test
 variant.  Only the ``ssm`` family runs so far; the other configurations of
-the JAX registry come with their families (``ROADMAP.md`` queue 1 item 10).
+the JAX registry come with their families (``ROADMAP.md`` queue 1 item 4).
 """
 from __future__ import annotations
 

@@ -19,11 +19,13 @@ from .core.picholesky import PiCholesky
 from .models.config import ModelConfig
 from .models.model import Model
 from .models.params import flatten
+from .optim.adafactor import AdafactorState
+from .optim.adamw import AdamWState
 from .optim.gauss_newton import GNState
 
 __all__ = ["folds_from_numpy", "picholesky_from_numpy",
            "packed_factor_from_numpy", "gn_state_from_numpy",
-           "model_from_numpy"]
+           "params_from_numpy", "model_from_numpy", "opt_state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -59,13 +61,13 @@ def gn_state_from_numpy(state, device=None) -> GNState:
                    hi=_tensor(state.hi, device))
 
 
-def model_from_numpy(cfg: ModelConfig, params, device=None,
-                     scan: str = "auto") -> Model:
-    """A reference ``Model(cfg).init`` tree (nested dicts of arrays) as the
-    port's :class:`~repro_torch.models.Model`.  The leading layer axis of
-    ``groups`` is unstacked into one module per layer; every leaf keeps its
-    name, layout and values (``groups.mamba.wx`` (L, d, di) becomes
-    ``groups.<i>.mamba.wx`` (d, di))."""
+def params_from_numpy(cfg: ModelConfig, params, device=None
+                      ) -> dict:
+    """A reference ``Model(cfg)`` tree (nested dicts of arrays: parameters,
+    or gradients of the same shapes) by the port's dotted names: the
+    leading layer axis of ``groups`` unstacked (``groups.mamba.wx`` (L, d,
+    di) becomes ``groups.<i>.mamba.wx`` (d, di)), every leaf keeping its
+    values."""
     dev = resolve_device(device)
     flat = {}
     for name, leaf in flatten(params):
@@ -79,4 +81,33 @@ def model_from_numpy(cfg: ModelConfig, params, device=None,
                 flat[f"groups.{i}.{rest}"] = _tensor(stacked[i], dev)
         else:
             flat[name] = _tensor(leaf, dev)
-    return Model(cfg, device=dev, scan=scan, params=flat)
+    return flat
+
+
+def model_from_numpy(cfg: ModelConfig, params, device=None,
+                     scan: str = "auto") -> Model:
+    """A reference ``Model(cfg).init`` tree (nested dicts of arrays) as the
+    port's :class:`~repro_torch.models.Model`, whose parameters are
+    :func:`params_from_numpy`'s.  The model is what a train step takes as
+    its ``params``."""
+    dev = resolve_device(device)
+    return Model(cfg, device=dev, scan=scan,
+                 params=params_from_numpy(cfg, params, dev))
+
+
+def opt_state_from_numpy(state, device=None):
+    """A reference ``AdamWState(step, mu, nu)`` or ``AdafactorState(step,
+    vr, vc)`` (fields of array-likes, the trees nested dicts) as the
+    port's, which keeps the reference's layout: each tree by the
+    reference's dotted leaf names, the layer axis first."""
+    fields = getattr(type(state), "_fields", ())
+    kinds = {("step", "mu", "nu"): AdamWState,
+             ("step", "vr", "vc"): AdafactorState}
+    if tuple(fields) not in kinds:
+        raise TypeError(f"not an AdamW or Adafactor state: fields {fields}")
+    dev = resolve_device(device)
+    step = torch.as_tensor(np.array(state.step), dtype=torch.int32,
+                           device=dev)
+    trees = [{name: _tensor(leaf, dev) for name, leaf in
+              flatten(getattr(state, f))} for f in fields[1:]]
+    return kinds[tuple(fields)](step, *trees)

@@ -1,3 +1,4 @@
-from .synthetic import make_low_rank_dataset, make_regression_dataset
+from .synthetic import make_low_rank_dataset, make_regression_dataset, \
+    token_stream
 
-__all__ = ["make_regression_dataset", "make_low_rank_dataset"]
+__all__ = ["make_regression_dataset", "make_low_rank_dataset", "token_stream"]

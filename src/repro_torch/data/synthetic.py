@@ -1,5 +1,5 @@
-"""Synthetic ridge data: the JAX package's construction on a
-``torch.Generator``.
+"""Synthetic data: the JAX package's constructions on a ``torch.Generator``
+(ridge designs, and the LM token stream).
 
 Two-class Gaussian-mixture data pushed through the Kar–Karnick random
 polynomial feature map, with labels from a planted linear model plus noise
@@ -11,14 +11,14 @@ arrays instead.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 from .._device import resolve_device
 
 __all__ = ["make_classification", "random_polynomial_features",
-           "make_regression_dataset", "make_low_rank_dataset"]
+           "make_regression_dataset", "make_low_rank_dataset", "token_stream"]
 
 
 def make_classification(gen: torch.Generator, n: int, raw_dim: int, *,
@@ -103,3 +103,22 @@ def make_low_rank_dataset(n: int, h: int, rank: int, *, seed: int = 0,
     theta_true = signal_scale * (b.T @ normal(rank)) / math.sqrt(h)
     y = x @ theta_true + noise * normal(n)
     return x, y
+
+
+def token_stream(generator: torch.Generator, vocab_size: int, batch: int,
+                 seq_len: int) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless synthetic LM batches (``src/repro/data/synthetic.py:134``):
+    tokens drawn i.i.d. from the Zipf-ish unigram logits
+    ``-log1p(arange(V))`` on the generator's device, ``{"tokens": (batch,
+    seq_len), "labels": the same shifted by one}`` (int64).  The draws
+    differ from ``jax.random``'s; parity tests hand both packages JAX's
+    tokens."""
+    dev = generator.device
+    logits = -torch.log1p(torch.arange(vocab_size, dtype=torch.float32,
+                                       device=dev))
+    probs = torch.softmax(logits, 0)
+    while True:
+        tokens = torch.multinomial(probs, batch * (seq_len + 1),
+                                   replacement=True, generator=generator
+                                   ).view(batch, seq_len + 1)
+        yield {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

@@ -4,7 +4,10 @@ Each wrapper module (``tri_pack``, ``chol_blocked``, ``trsm``,
 ``poly_interp``, ``packed_trsm``, ``ssm_scan``) replaces the Pallas kernels
 of the module of the same name in ``src/repro/kernels``;
 ``causal_conv1d`` fuses the Mamba mixer's convolution, bias and silu,
-which the JAX package leaves to XLA.  A wrapper given
+which the JAX package leaves to XLA.  The mixer's two kernels have
+backward kernels of their own (``ssm_scan.mamba_scan_bwd``,
+``causal_conv1d.causal_conv1d_silu_bwd``), which their
+``torch.autograd.Function``s launch for CUDA tensors.  A wrapper given
 CPU tensors runs its plain version (:mod:`.ref` or
 :mod:`repro_torch.core.packing`); given CUDA tensors it launches its
 kernel, built from ``csrc/`` at first use, or raises.  :mod:`.ops` gives

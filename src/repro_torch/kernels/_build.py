@@ -17,7 +17,9 @@ launches it made (a call that launches several kernels adds each of them;
 a call that failed or took the plain CPU path adds nothing); the
 mixed-precision variants count under names of their own
 (:data:`MIXED_NAMES`); the Mamba mixer's fused scan counts under
-``ssm_scan``, its convolution under ``causal_conv1d``.
+``ssm_scan``, its convolution under ``causal_conv1d``, and their backward
+kernels under ``mamba_scan_bwd`` and ``causal_conv1d_bwd`` (two launches a
+call each: the backward walk and the fixed-order sum of its partials).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BLOCKS", "LAUNCHES", "PLANS",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("tri_pack", "chol_blocked", "trsm", "poly_interp", "packed_trsm",
-           "ssm_scan", "causal_conv1d")
+           "ssm_scan", "ssm_scan_bwd", "causal_conv1d")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -73,7 +75,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in
                              "solve_lower_blocked", "interp_solve",
                              "unpack_tril", "interp_factors",
                              "solve_lower_packed", "ssm_scan",
-                             "causal_conv1d", *MIXED_NAMES.values())}
+                             "causal_conv1d", "mamba_scan_bwd",
+                             "causal_conv1d_bwd", *MIXED_NAMES.values())}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -52,3 +52,38 @@ __device__ __forceinline__ void store_packed(T* dst, const float (&v)[n]) {
   for (int i = 0; i < n; ++i) pk.e[i] = from_f32<T>(v[i]);
   *reinterpret_cast<Packed<T, n>*>(dst) = pk;
 }
+
+// --- the fused scan's math (ssm_scan.cu and its backward, ssm_scan_bwd.cu)
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softplus and silu of the mixer entry, written for the FMA pipe and two
+// MUFU operations each (ex2 and a reciprocal), not the math library's
+// expf, log1pf and IEEE division, which made the mixer entry ~15% slower on
+// this card (scripts/probe_ssm_scan.py, variant "libm").  softplus(v) =
+// max(v, 0) + log1p(u), u = exp(-|v|) in (0, 1], with log1p(u) = 2 atanh(s),
+// s = u / (2 + u) <= 1/3, its series to s^15 (truncation ~1e-9 relative);
+// both agree with torch's to a few float32 ulps, far below the bf16
+// rounding that follows.
+__device__ __forceinline__ float softplus_fast(float v) {
+  const float u = __expf(-fabsf(v));
+  const float s = __fdividef(u, 2.f + u), s2 = s * s;
+  float q = 1.f / 15;
+  q = fmaf(q, s2, 1.f / 13);
+  q = fmaf(q, s2, 1.f / 11);
+  q = fmaf(q, s2, 1.f / 9);
+  q = fmaf(q, s2, 1.f / 7);
+  q = fmaf(q, s2, 1.f / 5);
+  q = fmaf(q, s2, 1.f / 3);
+  q = fmaf(q, s2, 1.f);
+  return fmaxf(v, 0.f) + 2.f * s * q;
+}
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.f + __expf(-v));
+}

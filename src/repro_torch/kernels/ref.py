@@ -39,7 +39,8 @@ __all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
            "packed_diag_inverses", "interp_diag_inverses",
            "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
            "solve_right_looking",
-           "ssm_scan", "mamba_scan", "causal_conv1d", "causal_conv1d_silu"]
+           "ssm_scan", "mamba_scan", "mamba_scan_bwd", "causal_conv1d",
+           "causal_conv1d_silu", "causal_conv1d_silu_bwd"]
 
 
 def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -440,12 +441,19 @@ def solve_right_looking(tile, diag, g: torch.Tensor, nt: int, block: int,
     return slots[sweeps == 1]
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the Mamba plain versions compute in: float32 for float32
+    and bf16 activations (as the kernels), float64 for float64 ones (the
+    CPU tests hold the backward passes to autograd there)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0):
-    f32 = torch.float32
+    f = _acc_dtype(xc.dtype)
     xc, dt, b_mat, c_mat, a, d_skip = (
-        t.to(f32) for t in (xc, dt, b_mat, c_mat, a, d_skip))
+        t.to(f) for t in (xc, dt, b_mat, c_mat, a, d_skip))
     bsz, s, di = xc.shape
-    h = xc.new_zeros(bsz, di, a.shape[-1]) if h0 is None else h0.to(f32)
+    h = xc.new_zeros(bsz, di, a.shape[-1]) if h0 is None else h0.to(f)
     ys = []
     for t in range(s):
         a_bar = torch.exp(dt[:, t, :, None] * a)
@@ -485,9 +493,103 @@ def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
     times ``silu(z)`` in that dtype.  Returns (y (B, S, di) in xc's dtype,
     h_last (B, di, N) float32).
     """
-    dt = F.softplus(dt_lin + dt_bias.float())
+    dt = F.softplus(dt_lin + dt_bias.to(dt_lin.dtype))
     y, h_last = _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0)
     return y.to(xc.dtype) * F.silu(z), h_last
+
+
+#: time steps between the states the plain backward keeps (its segments)
+BWD_SEGMENT = 64
+
+
+def _silu_grad(ds: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """silu's backward as PyTorch's kernel writes it: in float32 (float64
+    for float64), ``ds·σ(z)·(1 + z·(1 − σ(z)))``, rounded to z's dtype."""
+    f = _acc_dtype(z.dtype)
+    zf = z.to(f)
+    sg = torch.reciprocal(1 + torch.exp(-zf))
+    return (ds.to(f) * sg * (1 + zf * (1 - sg))).to(z.dtype)
+
+
+def mamba_scan_bwd(xc: torch.Tensor, dt_lin: torch.Tensor,
+                   dt_bias: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                   z: torch.Tensor, dy: torch.Tensor,
+                   h0: torch.Tensor | None = None,
+                   dh_last: torch.Tensor | None = None,
+                   segment: int = BWD_SEGMENT) -> tuple:
+    """The backward of :func:`mamba_scan`: the gradients of
+    (xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0) given ``dy``
+    (the gradient of the gated y, in xc's dtype) and ``dh_last`` (of the
+    last state, or ``None``).
+
+    The adjoint of the recurrence is the recurrence run in reverse, as the
+    JAX package's ``_clr_bwd`` runs it (``src/repro/models/layers.py:
+    388-408``): with ``dy' = dy·silu(z)`` (the gate, in xc's dtype as the
+    forward rounds it), ``λ_t = C_t·dy'_t + ā_{t+1}·λ_{t+1}``, then
+    ``dā_t = λ_t·h_{t-1}``, ``dB_t = Σ_d λ_t·dt_t x_t``,
+    ``dC_t = Σ_d dy'_t·h_t``, through ``ā = exp(dt·A)`` to dt and A and
+    through softplus to dt_lin and dt_bias.  The float32 states are
+    recomputed from ``h0``: one walk forward keeps the state every
+    ``segment`` steps, then each segment, last first, is recomputed and
+    the adjoint run back through it; nothing of shape (B, S, d_inner, N) is
+    formed.  Returns xc's and z's gradients in xc's dtype, dt_lin's in its
+    dtype, the others in float32 (float64 for float64 inputs); h0's is
+    ``None`` without ``h0``.
+    """
+    f = _acc_dtype(xc.dtype)
+    act = xc.dtype
+    bsz, s, di = xc.shape
+    n = a.shape[-1]
+    xf, bf, cf, af, df = (t.to(f) for t in (xc, b_mat, c_mat, a, d_skip))
+    v = dt_lin.to(f) + dt_bias.to(f)
+    dt, sig = F.softplus(v), torch.sigmoid(v)
+    u = dt * xf
+
+    def step(h, t):
+        return (torch.exp(dt[:, t, :, None] * af) * h
+                + u[:, t, :, None] * bf[:, t, None, :])
+
+    h = xc.new_zeros(bsz, di, n, dtype=f) if h0 is None else h0.to(f)
+    starts = []
+    for t in range(s):
+        if t % segment == 0:
+            starts.append(h)
+        h = step(h, t)
+    lam = (xc.new_zeros(bsz, di, n, dtype=f) if dh_last is None
+           else dh_last.to(f).clone())
+    dxf = torch.zeros(bsz, s, di, dtype=f, device=xc.device)
+    ddt_lin = torch.zeros_like(dxf)
+    dz = torch.zeros_like(z)
+    db = torch.zeros(bsz, s, n, dtype=f, device=xc.device)
+    dc = torch.zeros_like(db)
+    da = torch.zeros(di, n, dtype=f, device=xc.device)
+    dd = torch.zeros(di, dtype=f, device=xc.device)
+    for k in reversed(range(len(starts))):
+        t0 = k * segment
+        hs = [starts[k]]
+        for t in range(t0, min(s, t0 + segment)):
+            hs.append(step(hs[-1], t))
+        for t in reversed(range(t0, min(s, t0 + segment))):
+            h_t, h_prev = hs[t - t0 + 1], hs[t - t0]
+            y = (h_t * cf[:, t, None, :]).sum(-1) + df * xf[:, t]
+            dy_t, z_t = dy[:, t].to(act), z[:, t]
+            dyp = (dy_t * F.silu(z_t)).to(f)             # through the gate
+            dz[:, t] = _silu_grad(dy_t * y.to(act), z_t)
+            lam = lam + cf[:, t, None, :] * dyp[..., None]
+            dc[:, t] = (h_t * dyp[..., None]).sum(1)
+            db[:, t] = (lam * u[:, t, :, None]).sum(1)
+            du = (lam * bf[:, t, None, :]).sum(-1)
+            a_bar = torch.exp(dt[:, t, :, None] * af)
+            g = lam * h_prev * a_bar
+            da += (g * dt[:, t, :, None]).sum(0)
+            ddt = (g * af).sum(-1) + du * xf[:, t]
+            dxf[:, t] = du * dt[:, t] + dyp * df
+            dd += (dyp * xf[:, t]).sum(0)
+            ddt_lin[:, t] = ddt * sig[:, t]
+            lam = a_bar * lam
+    return (dxf.to(act), ddt_lin.to(dt_lin.dtype), ddt_lin.sum((0, 1)), db,
+            dc, da, dd, dz, None if h0 is None else lam)
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -500,15 +602,15 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     Written as K shifted multiply-adds in float32, rounded once to
     ``x.dtype``: ``y_t = Σ_k xp_{t+k} w_k`` over ``xp = [state, x]``, the
     cross-correlation ``lax.conv_general_dilated`` computes
-    (``src/repro/models/layers.py:300-315``).  No cuDNN call, so no TF32 on
-    the card.
+    (``src/repro/models/layers.py:300-315``); float64 for float64 x.  No
+    cuDNN call, so no TF32 on the card.
     """
     k = w.shape[-1]
     bsz, s, c = x.shape
     if state is None:
         state = x.new_zeros(bsz, k - 1, c)
     xp = torch.cat([state.to(x.dtype), x], dim=1)
-    xf, wf = xp.float(), w.float()
+    xf, wf = xp.to(_acc_dtype(x.dtype)), w.to(_acc_dtype(x.dtype))
     y = xf[:, :s] * wf[:, 0]
     for j in range(1, k):
         y += xf[:, j:j + s] * wf[:, j]
@@ -524,3 +626,39 @@ def causal_conv1d_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Returns (xc, the new state)."""
     y, new_state = causal_conv1d(x, w.to(x.dtype), state)
     return F.silu(y + b.to(x.dtype)), new_state
+
+
+def causal_conv1d_silu_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           dout: torch.Tensor,
+                           state: torch.Tensor | None = None) -> tuple:
+    """The backward of :func:`causal_conv1d_silu` given ``dout``, the
+    gradient of xc: (dx, dw, db, dstate).
+
+    The pre-activation ``round(round(conv) + b)`` is recomputed as the
+    forward computes it; silu's gradient is taken as PyTorch's kernel takes
+    it (:func:`_silu_grad`, rounded to x's dtype).  Then, in float32
+    (float64 for float64 x), ``dxp_r = Σ_k dpre_{r-k}·w_k`` over the padded
+    input ``xp = [state, x]``, summed k = 0 .. K-1 as the plain forward sums
+    its taps and rounded once to x's dtype (dx its last S rows, dstate its
+    first K-1, ``None`` without a state), ``dw_k = Σ_{b,t} dpre_t·xp_{t+k}``
+    and ``db = Σ_{b,t} dpre_t`` in float32.  The new state's gradient is not
+    taken (the state is a copy of inputs that training discards).
+    """
+    k = w.shape[-1]
+    act, f = x.dtype, _acc_dtype(x.dtype)
+    bsz, s, c = x.shape
+    st = x.new_zeros(bsz, k - 1, c) if state is None else state.to(act)
+    xp = torch.cat([st, x], dim=1)
+    xf, wf = xp.to(f), w.to(act).to(f)
+    acc = xf[:, :s] * wf[:, 0]
+    for j in range(1, k):
+        acc += xf[:, j:j + s] * wf[:, j]
+    pre = acc.to(act) + b.to(act)
+    dpre = _silu_grad(dout.to(act), pre).to(f)
+    dxp = torch.zeros(bsz, s + k - 1, c, dtype=f, device=x.device)
+    for j in range(k):
+        dxp[:, j:j + s] += dpre * wf[:, j]
+    dw = torch.stack([(dpre * xf[:, j:j + s]).sum((0, 1)) for j in range(k)],
+                     -1)
+    return (dxp[:, k - 1:].to(act), dw, dpre.sum((0, 1)),
+            None if state is None else dxp[:, :k - 1].to(act))

@@ -20,9 +20,15 @@ scanned; what depends only on (t, d) is formed once per (t, d).  Bound by
 the exponentials; see the source.
 
 Unlike the TPU kernel it takes any S and any d_inner (no multiple of a
-chunk or a channel block), and N up to :data:`MAX_STATE`.  It has no
-backward: training waits for one (``ROADMAP.md`` queue 1 item 10).
-Both entry points count their launches under ``ssm_scan``.
+chunk or a channel block), and N up to :data:`MAX_STATE`.  Both entry
+points count their launches under ``ssm_scan``.
+
+:func:`mamba_scan` is differentiable: a CUDA tensor that needs a gradient
+goes through its backward kernel (:func:`mamba_scan_bwd`,
+``csrc/ssm_scan_bwd.cu``, counted under ``mamba_scan_bwd``), a CPU tensor
+through the plain backward :func:`repro_torch.kernels.ref.mamba_scan_bwd`.
+:func:`ssm_scan`, the Pallas signature, stays forward-only, as the Pallas
+kernel does (JAX cannot differentiate its ``pallas_call`` either).
 """
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ import torch
 from . import _build, ref
 from .causal_conv1d import causal_conv1d_silu
 
-__all__ = ["MAX_STATE", "SCANS", "ssm_scan", "mamba_scan", "resolve_scan",
-           "resolve_mixer"]
+__all__ = ["MAX_STATE", "SCANS", "ssm_scan", "mamba_scan", "mamba_scan_bwd",
+           "resolve_scan", "resolve_mixer"]
 
 MAX_STATE = 32
 #: ``scan=`` choices of the Mamba mixer (:func:`resolve_mixer`)
@@ -45,6 +51,19 @@ _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _MIXER_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
                + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                + [ctypes.c_void_p])
+# rt_mamba_scan_bwd_*: 5 inputs, the B/C strides, 4 inputs (a, d_skip, z,
+# h0), dy, dh_last, 5 outputs, 2 scratch, batch, S, di, N, stream
+_BWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+             + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
+# rt_mamba_scan_bwd_reduce: partials in, dB, dC, dA, dD, d dt_bias out
+_REDUCE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: time steps between the states the backward kernel keeps in its scratch
+#: (``kSeg`` of ``csrc/ssm_scan_bwd.cu``)
+BWD_SEGMENT = 8
+#: channels a block of the backward kernel owns (``kBwdChannels``), four
+#: lanes each
+BWD_CHANNELS = 64
 
 
 def _shapes(xc, dt, b_mat, c_mat, a, d_skip, what="ssm_scan"
@@ -78,13 +97,15 @@ def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
     bsz, s, di, n = _shapes(xc, dt, b_mat, c_mat, a, d_skip)
+    ins = [t.to(torch.float32) for t in (xc, dt, b_mat, c_mat, a, d_skip)]
     if xc.device.type == "cpu":
-        return ref.ssm_scan(xc, dt, b_mat, c_mat, a, d_skip)
-    ins = [t.to(torch.float32).contiguous()
-           for t in (xc, dt, b_mat, c_mat, a, d_skip)]
+        return ref.ssm_scan(*ins)
+    ins = [t.contiguous() for t in ins]
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        raise NotImplementedError("ssm_scan: the CUDA kernel has no backward "
-                                  "yet (ROADMAP.md queue 1 item 10)")
+        raise NotImplementedError(
+            "ssm_scan has no backward, as the Pallas ssm_scan has none; "
+            "the mixer trains through mamba_scan, whose backward is a "
+            "kernel of its own")
     for t, what in zip(ins, ("xc", "dt", "b_mat", "c_mat", "a", "d_skip")):
         _build.check_tensor(t, f"ssm_scan {what}", torch.float32)
         if t.device != xc.device:
@@ -101,25 +122,8 @@ def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     return y, h_last
 
 
-def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
-               b_mat: torch.Tensor, c_mat: torch.Tensor, a: torch.Tensor,
-               d_skip: torch.Tensor, z: torch.Tensor,
-               h0: Optional[torch.Tensor] = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The Mamba-1 mixer from the scan to the gate, fused
-    (:func:`repro_torch.kernels.ref.mamba_scan` is its plain version).
-
-    xc, z: (B, S, d_inner), float32 or bfloat16 (the activation dtype),
-    contiguous on the card; dt_lin: (B, S, d_inner) float32, the
-    ``dt_proj`` product before its bias; dt_bias, d_skip: (d_inner,);
-    b_mat, c_mat: (B, S, N) in xc's dtype, read in place: any strides with
-    a unit last one, the same for both (the slices of one ``x_proj``
-    output); a: (d_inner, N), negative; h0: (B, d_inner, N) or ``None``.
-    Returns (y (B, S, d_inner) in xc's dtype, gated; h_last (B, d_inner, N)
-    float32).  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel.
-    """
-    what = "mamba_scan"
+def _check_mixer(xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0,
+                 what: str = "mamba_scan") -> tuple[int, int, int, int]:
     bsz, s, di, n = _shapes(xc, dt_lin, b_mat, c_mat, a, d_skip, what)
     if tuple(z.shape) != (bsz, s, di) or tuple(dt_bias.shape) != (di,):
         raise ValueError(f"{what}: z must be {(bsz, s, di)} and dt_bias "
@@ -140,14 +144,13 @@ def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
         raise ValueError(f"{what}: b_mat and c_mat must share their strides, "
                          f"the last one 1; got {b_mat.stride()}, "
                          f"{c_mat.stride()}")
-    if xc.device.type == "cpu":
-        return ref.mamba_scan(xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z,
-                              h0)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0)):
-        raise NotImplementedError(f"{what}: the CUDA kernel has no backward "
-                                  "yet (ROADMAP.md queue 1 item 10)")
+    return bsz, s, di, n
+
+
+def _card_inputs(xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0,
+                 what: str):
+    """The float32 parameters made contiguous, every tensor checked for the
+    kernels: (dt_bias, a, d_skip, h0)."""
     f32 = torch.float32
     dt_bias, a, d_skip = (t.to(f32).contiguous() for t in (dt_bias, a, d_skip))
     if h0 is not None:
@@ -166,8 +169,22 @@ def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
         if t.device != xc.device:
             raise ValueError(f"{what}: {what_t} is on {t.device}, xc on "
                              f"{xc.device}")
+    return dt_bias, a, d_skip, h0
+
+
+def _mamba_scan_forward(xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0):
+    """The fused forward: the plain version on a CPU tensor, the kernel on
+    a CUDA one.  Builds no graph."""
+    if xc.device.type == "cpu":
+        with torch.no_grad():
+            return ref.mamba_scan(xc, dt_lin, dt_bias, b_mat, c_mat, a,
+                                  d_skip, z, h0)
+    what = "mamba_scan"
+    bsz, s, di, n = xc.shape[0], xc.shape[1], xc.shape[2], a.shape[-1]
+    dt_bias, a, d_skip, h0 = _card_inputs(xc, dt_lin, dt_bias, b_mat, c_mat,
+                                          a, d_skip, z, h0, what)
     y = torch.empty_like(xc)
-    h_last = torch.empty(bsz, di, n, dtype=f32, device=xc.device)
+    h_last = torch.empty(bsz, di, n, dtype=torch.float32, device=xc.device)
     if bsz and di:
         fn = _build.c_function("ssm_scan", _build.entry("mamba_scan", xc.dtype),
                                _MIXER_ARGS)
@@ -180,6 +197,134 @@ def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
         _build.check(rc, what)
         _build.count_launch("ssm_scan")
     return y, h_last
+
+
+def mamba_scan_bwd(xc: torch.Tensor, dt_lin: torch.Tensor,
+                   dt_bias: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                   z: torch.Tensor, dy: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None,
+                   dh_last: Optional[torch.Tensor] = None) -> tuple:
+    """The backward of :func:`mamba_scan` (its plain version is
+    :func:`repro_torch.kernels.ref.mamba_scan_bwd`, whose outputs it
+    returns in the same dtypes): the gradients of (xc, dt_lin, dt_bias,
+    b_mat, c_mat, a, d_skip, z, h0), the last ``None`` without ``h0``.
+    ``dy``: (B, S, d_inner) in xc's dtype; ``dh_last``: (B, d_inner, N) or
+    ``None``.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (``csrc/ssm_scan_bwd.cu``: the backward walk, then a second
+    launch that sums its per-block partials in a fixed order)."""
+    what = "mamba_scan_bwd"
+    bsz, s, di, n = _check_mixer(xc, dt_lin, dt_bias, b_mat, c_mat, a,
+                                 d_skip, z, h0, what)
+    if tuple(dy.shape) != (bsz, s, di) or dy.dtype != xc.dtype:
+        raise ValueError(f"{what}: dy must be {(bsz, s, di)} in {xc.dtype}, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    if dh_last is not None and tuple(dh_last.shape) != (bsz, di, n):
+        raise ValueError(f"{what}: dh_last has shape {tuple(dh_last.shape)}, "
+                         f"expected {(bsz, di, n)}")
+    if xc.device.type == "cpu":
+        return ref.mamba_scan_bwd(xc, dt_lin, dt_bias, b_mat, c_mat, a,
+                                  d_skip, z, dy, h0, dh_last)
+    f32 = torch.float32
+    dt_bias, a, d_skip, h0 = _card_inputs(xc, dt_lin, dt_bias, b_mat, c_mat,
+                                          a, d_skip, z, h0, what)
+    dy = dy.contiguous()
+    if dh_last is not None:
+        dh_last = dh_last.to(f32).contiguous()
+        _build.check_tensor(dh_last, f"{what} dh_last", f32)
+    dev = xc.device
+    dxc, dz = torch.empty_like(xc), torch.empty_like(xc)
+    ddt_lin = torch.empty(bsz, s, di, dtype=f32, device=dev)
+    dh0 = (torch.empty(bsz, di, n, dtype=f32, device=dev)
+           if h0 is not None else None)
+    groups = -(-di // BWD_CHANNELS)
+    nseg = -(-s // BWD_SEGMENT)
+    # the state at every segment's start; per block the partial sums of dB
+    # and dC over its channels, and of dA, dD and d dt_bias over its time
+    ckpt = torch.empty(bsz, max(nseg, 1), di, n, dtype=f32, device=dev)
+    part_bc = torch.empty(bsz, s, groups, 2 * n, dtype=f32, device=dev)
+    part_d = torch.empty(bsz, n + 2, di, dtype=f32, device=dev)
+    db = torch.zeros(bsz, s, n, dtype=f32, device=dev)
+    dc = torch.zeros_like(db)
+    da = torch.zeros(di, n, dtype=f32, device=dev)
+    dd = torch.zeros(di, dtype=f32, device=dev)
+    dbias = torch.zeros(di, dtype=f32, device=dev)
+    if bsz and di:
+        stream = _build.stream_ptr(dev)
+        fn = _build.c_function("ssm_scan_bwd",
+                               _build.entry("mamba_scan_bwd", xc.dtype),
+                               _BWD_ARGS)
+        rc = fn(_build.ptr(xc), _build.ptr(dt_lin), _build.ptr(dt_bias),
+                _build.ptr(b_mat), _build.ptr(c_mat), b_mat.stride(0),
+                b_mat.stride(1), _build.ptr(a), _build.ptr(d_skip),
+                _build.ptr(z), None if h0 is None else _build.ptr(h0),
+                _build.ptr(dy),
+                None if dh_last is None else _build.ptr(dh_last),
+                _build.ptr(dxc), _build.ptr(ddt_lin), _build.ptr(dz),
+                None if dh0 is None else _build.ptr(dh0),
+                _build.ptr(part_bc), _build.ptr(ckpt), _build.ptr(part_d),
+                bsz, s, di, n, stream)
+        _build.check(rc, what)
+        _build.count_launch(what)
+        fn = _build.c_function("ssm_scan_bwd", "rt_mamba_scan_bwd_reduce",
+                               _REDUCE_ARGS)
+        rc = fn(_build.ptr(part_bc), _build.ptr(part_d), _build.ptr(db),
+                _build.ptr(dc), _build.ptr(da), _build.ptr(dd),
+                _build.ptr(dbias), bsz, s, di, n, groups, stream)
+        _build.check(rc, f"{what} (reduce)")
+        _build.count_launch(what)
+    return dxc, ddt_lin, dbias, db, dc, da, dd, dz, dh0
+
+
+class _MambaScan(torch.autograd.Function):
+    """:func:`mamba_scan` with its backward: the kernel's on the card, the
+    plain version's on the CPU."""
+
+    @staticmethod
+    def forward(ctx, xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0):
+        y, h_last = _mamba_scan_forward(xc, dt_lin, dt_bias, b_mat, c_mat,
+                                        a, d_skip, z, h0)
+        ctx.save_for_backward(xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip,
+                              z, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        ins = ctx.saved_tensors
+        xc = ins[0]
+        if dy is None:
+            dy = torch.zeros_like(xc)
+        grads = mamba_scan_bwd(*ins[:8], dy.to(xc.dtype), ins[8], dh_last)
+        return tuple(None if g is None or not need else g.to(t.dtype)
+                     for g, t, need in zip(grads, ins, ctx.needs_input_grad))
+
+
+def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
+               b_mat: torch.Tensor, c_mat: torch.Tensor, a: torch.Tensor,
+               d_skip: torch.Tensor, z: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 mixer from the scan to the gate, fused
+    (:func:`repro_torch.kernels.ref.mamba_scan` is its plain version).
+
+    xc, z: (B, S, d_inner), float32 or bfloat16 (the activation dtype),
+    contiguous on the card; dt_lin: (B, S, d_inner) float32, the
+    ``dt_proj`` product before its bias; dt_bias, d_skip: (d_inner,);
+    b_mat, c_mat: (B, S, N) in xc's dtype, read in place: any strides with
+    a unit last one, the same for both (the slices of one ``x_proj``
+    output); a: (d_inner, N), negative; h0: (B, d_inner, N) or ``None``.
+    Returns (y (B, S, d_inner) in xc's dtype, gated; h_last (B, d_inner, N)
+    float32).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel.  When grad is enabled and an input needs one, the
+    call records its backward (:func:`mamba_scan_bwd`).
+    """
+    _check_mixer(xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0)
+    args = (xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in args):
+        return _MambaScan.apply(*args)
+    return _mamba_scan_forward(*args)
 
 
 def resolve_scan(scan: str, device) -> Callable:

@@ -1,0 +1,80 @@
+"""Training launcher (``src/repro/launch/train.py``) on one card: the
+model, the optimizer, the fault-tolerant loop over the synthetic token
+stream.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --steps 100 --ckpt-dir /path/to/ckpt [--batch 8 --seq 128] \\
+        [--microbatches 1] [--ckpt-every 50] [--reduced] [--device cpu]
+
+The optimizer follows the reference's rule: Adafactor above 3e11
+parameters, AdamW below.  So ``falcon-mamba-7b`` at full depth trains with
+AdamW, whose float32 moments with the bf16 weights and gradients need about
+87 GB: more than one 80 GB card (README).  ``--mesh`` other than ``1x1``
+raises: the parameter shardings are ``ROADMAP.md`` queue 1 item 4.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch import configs
+from repro_torch._device import resolve_device
+from repro_torch.data import token_stream
+from repro_torch.models import Model
+from repro_torch.optim import adafactor, adamw
+from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
+
+__all__ = ["main"]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="falcon-mamba-7b",
+                    choices=configs.names())
+    ap.add_argument("--mesh", default="1x1",
+                    help="1x1 only: one card (sharded meshes: ROADMAP.md "
+                    "queue 1 item 4)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the CPU-sized reduced config")
+    ap.add_argument("--device", default=None,
+                    help="the CUDA device unless given (e.g. cpu)")
+    args = ap.parse_args(argv)
+
+    if [int(x) for x in args.mesh.split("x")] != [1, 1]:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the port trains on one card; meshes with "
+            "sharded parameters are ROADMAP.md queue 1 item 4")
+    dev = resolve_device(args.device)
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = Model(cfg, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    opt = adafactor() if cfg.n_params() > 3e11 else adamw()
+    step = make_train_step(model, opt, microbatches=args.microbatches)
+    loop = TrainLoop(
+        TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                        ckpt_dir=args.ckpt_dir, log_every=10),
+        step, model, opt[0](model))
+    data = token_stream(torch.Generator(device=dev).manual_seed(1),
+                        cfg.vocab_size, args.batch, args.seq)
+    out = loop.run(itertools.islice(data, args.steps + 4))
+    for e in out["log"]:
+        print(f"step {e['step']:6d}  loss {e['loss']:.4f}  "
+              f"{e['sec_per_step']:.3f}s/step")
+    print(f"final step {out['final_step']}  stragglers "
+          f"{out['straggler_steps']}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,12 @@ The JAX package scans over parameter trees with a leading layer axis; here
 the layers are an ``nn.ModuleList``, one module per layer, and
 :func:`repro_torch.convert.model_from_numpy` unstacks that axis.  One card,
 no sharding.  Entry points, as in the JAX package: ``forward`` (logits),
-``loss`` (forward only), ``init_cache``, ``prefill`` and ``decode``.  Each
-runs under ``torch.no_grad``: the ``ssm_scan`` kernel has no backward yet.
+``loss``, ``init_cache``, ``prefill`` and ``decode``.  The parameters are
+trainable: ``forward`` and ``loss`` build a graph when grad is enabled
+(the mixer's two kernels have backward kernels of their own), with each
+layer recomputed in the backward when ``cfg.remat`` (the reference's
+``nothing_saveable`` per group, ``model.py:230-232``); ``prefill`` and
+``decode`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.ssm_scan import resolve_mixer
@@ -27,7 +32,7 @@ __all__ = ["Model"]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t, requires_grad=t.is_floating_point())
 
 
 def _placeholder(shape) -> nn.Parameter:
@@ -71,7 +76,7 @@ class Model(nn.Module):
         if cfg.family != "ssm":
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port runs the 'ssm' family only; "
-                "the others are queued in ROADMAP.md (queue 1 item 10)")
+                "the others are queued in ROADMAP.md (queue 1 item 4)")
         dev = resolve_device(device)
         resolve_mixer(scan, dev)
         self.cfg, self.scan, self._device = cfg, scan, dev
@@ -136,20 +141,31 @@ class Model(nn.Module):
         x = blocks.norm_apply(self.final_norm, x, self.cfg)
         return (x @ self.lm_head.to(x.dtype)).float()
 
-    @torch.no_grad()
-    def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) -> (logits (B, S, V) float32, aux loss 0)."""
-        cfg = self.cfg
+    def _layer(self, layer: _Layer, x: torch.Tensor) -> torch.Tensor:
+        h = blocks.norm_apply(layer.ln, x, self.cfg)
+        return x + blocks.mamba_apply(layer.mamba, h, self.cfg, self.scan)
+
+    def forward(self, tokens, extra: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens: (B, S) -> (logits (B, S, V) float32, aux loss 0).
+        ``extra`` is the reference's argument (encoder frames, image
+        embeddings) and unused by the ``ssm`` family.  With grad enabled
+        and ``cfg.remat``, each layer keeps only its input for the
+        backward and is run again there."""
         x = self._embed(tokens)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.groups:
-            h = blocks.norm_apply(layer.ln, x, cfg)
-            x = x + blocks.mamba_apply(layer.mamba, h, cfg, self.scan)
+            if remat:
+                x = checkpoint(self._layer, layer, x, use_reentrant=False)
+            else:
+                x = self._layer(layer, x)
         return self._head(x), torch.zeros((), device=x.device)
 
-    @torch.no_grad()
-    def loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
-        """Mean next-token NLL of ``batch["labels"]`` (forward only)."""
-        logits, aux = self.forward(batch["tokens"])
+    def loss(self, batch: Dict[str, Any], extra: Optional[Dict] = None
+             ) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token NLL of ``batch["labels"]`` plus 0.01 · aux, and
+        ``{"nll", "aux"}`` (``model.py:296-302``)."""
+        logits, aux = self.forward(batch["tokens"], extra)
         labels = self._tokens(batch["labels"])
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -158,9 +174,12 @@ class Model(nn.Module):
 
     # ---- serving ----
 
-    def init_cache(self, batch: int) -> Dict[str, Any]:
-        """An empty cache: per layer the conv tail and the scan state (their
-        size does not depend on a sequence length), and the position 0."""
+    def init_cache(self, batch: int, cache_len: Optional[int] = None,
+                   extra_len: int = 0) -> Dict[str, Any]:
+        """An empty cache: per layer the conv tail and the scan state, and
+        the position 0.  ``cache_len`` and ``extra_len`` are the reference's
+        arguments (``model.py:306``: the attention window and a cross-
+        attention source); an ``ssm`` cache does not depend on either."""
         cfg = self.cfg
         return {"pos": 0, "groups": [
             blocks.mamba_init_cache(cfg, batch, cfg.activation_dtype,

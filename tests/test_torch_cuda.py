@@ -15,7 +15,9 @@ the Gauss–Newton head under ``bf16_store``; the ``ssm_scan`` kernel at N
 8, 16 and 32 on ragged shapes, its fused entry ``mamba_scan`` (S 0, 1 from
 a state, 37, 100; d_inner 20, 130, 8100; N 4 to 32; float32 and bf16) and
 the fused causal convolution (bit for bit), the reduced Mamba model
-against the JAX fixture; the paper's other CV algorithms (warm-start,
+against the JAX fixture; the backward kernels of training (the fused
+scan's and the convolution's) and the reduced model's gradients against
+the JAX training fixture; the paper's other CV algorithms (warm-start,
 PINRMSE, MChol, the SVD family, low rank) on the kernel backend against the
 reference backend, ``select_interpolant`` and ``RidgeCV`` on the card, and
 ``kernels.ops`` (the kernels on CUDA tensors, ``REPRO_KERNELS=ref``
@@ -521,6 +523,60 @@ def test_reduced_mamba_matches_jax_fixture(dev, smoke):
     reproduce the JAX outputs of tests/data/torch_mamba.npz (1e-4)."""
     out = smoke.phase_mamba_fixture(dev)
     assert all(r["ok"] for r in out.values()), out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape, h0", [
+    ((2, 1, 20, 4), True), ((2, 37, 130, 8), True), ((1, 100, 8100, 16),
+                                                      False),
+    ((2, 9, 64, 32), True), ((3, 17, 70, 3), False), ((2, 0, 64, 16), True)],
+    ids=["decode", "ragged130", "ragged8100", "n32", "n3", "empty"])
+def test_mamba_scan_bwd_kernel_matches_plain_version(dev, smoke, shape, h0,
+                                                     dtype):
+    """The backward of the fused scan (kernel A) against
+    ref.mamba_scan_bwd, every gradient (chip_smoke.check_mamba_scan_bwd:
+    float32 1e-4 of max |plain|; bf16 dxc, dz per element as the forward's
+    y, the float32 gradients 2^-8 of max |plain|), the same bits on two
+    calls, two launches a call (the walk and the fixed-order sum)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    res = smoke.check_mamba_scan_bwd(dev, shape, dtype, h0=h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mamba_scan_bwd"] == 4
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape, state", [
+    ((3, 1, 8192), True), ((2, 2, 8192), True), ((2, 37, 20), True),
+    ((2, 70, 130), False), ((1, 130, 8100), True), ((2, 0, 64), True)],
+    ids=["decode", "short", "ragged20", "ragged130", "ragged8100", "empty"])
+def test_causal_conv1d_bwd_kernel_matches_plain_version(dev, smoke, shape,
+                                                        state, dtype):
+    """The convolution's backward (kernel B): dx and dstate bit for bit,
+    dw and db within 1e-5 of max |plain| (float32 sums over (B, S) in
+    another order), the same bits on two calls."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    res = smoke.check_conv_bwd(dev, shape, dtype, state)
+    torch.cuda.synchronize()
+    assert LAUNCHES["causal_conv1d_bwd"] == 4
+    assert res["ok"], res
+
+
+def test_training_on_the_card(dev, smoke):
+    """The reduced model's loss and gradients on the kernels reproduce
+    JAX's (tests/data/torch_mamba_train.npz, 1e-4), one AdamW update on
+    JAX's gradients JAX's parameters (1e-6); ssm_scan refuses a gradient on
+    the card."""
+    from repro_torch.kernels import ssm_scan
+    res = smoke.train_fixture(dev, "cuda")
+    assert res["ok"], res
+    ins = [t.requires_grad_() for t in smoke.scan_inputs(dev, 1, 4, 64, 16)]
+    with pytest.raises(NotImplementedError, match="mamba_scan"):
+        ssm_scan.ssm_scan(*ins)
 
 
 @pytest.fixture(scope="module")
