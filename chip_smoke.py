@@ -180,7 +180,9 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               ``token_stream`` through ``TrainLoop`` (step ms as the median
               of the last 4, tokens/s, peak memory, losses and gradient
               norms finite, launches: each of the four mixer kernels
-              2 × 64 a step), 3 steps on one repeated batch (its loss must
+              2 × 64 a step, kernel A on the segment states the remat
+              recompute's forward kept, ``mamba_scan_bwd_ckpt``), 3
+              steps on one repeated batch (its loss must
               fall) and one profiled step (device time of the GEMMs, the
               forward scan, kernel A, the forward convolution, kernel B
               and the rest; the idle share; no library convolution);
@@ -206,15 +208,21 @@ library call's.
 It also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one, its fused entry ``mamba_scan`` (softplus, scan and gate, bf16) at both
-and at one decode step from a state (both dtypes), and the fused causal
+and at one decode step from a state (both dtypes), with its segment states
+(``states=True``, the backward's checkpoints; timed with and without them
+at the serve shape), and the fused causal
 convolution with bias and silu bit for bit (serve shape, timed against
 ``F.conv1d``; ragged, decode and short from a state).  And the two
 backward kernels of training against their plain backward passes: kernel
 A (``mamba_scan_bwd``) at the training shape in bf16 (timed) and float32,
 ragged (S 999, d_inner 8100) and small from a state, every gradient within
-its stated tolerance; kernel B (``causal_conv1d_bwd``) with dx bit for
+its stated tolerance, in both modes (on the forward's segment states, as
+training runs it, timed as the row; on its own walk, ``walk_ms``), the
+two modes the same bits; kernel B (``causal_conv1d_bwd``) with dx bit for
 bit, timed against autograd of ``F.conv1d``; both the same bits on two
-calls; and ``ssm_scan``'s refusal of a gradient on the card.  Then one ``{"kernels": [...]}`` line, and last the device line
+calls; and ``ssm_scan``'s refusal of a gradient on the card.  Then one
+``{"kernels": [...]}`` line (kernel A's row sums both modes' launches,
+``launches_ckpt`` and ``launches_walk`` apart), and last the device line
 ``{"ok": true, "device": {...}}``.  Needs the repo checkout beside it and
 one CUDA card; imports nothing of JAX.  The ``kernels`` line carries, for
 the three cluster solves also ``kernel_ms`` (device time of the cluster
@@ -384,9 +392,15 @@ CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
                 "ptxas")
 # what the kernels line adds for the mixed variants
 MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape")
-# what the kernels line adds for ssm_scan's fused entry (mamba_scan)
+# what the kernels line adds for ssm_scan's fused entry (mamba_scan), with
+# and without its segment states (the backward's checkpoints)
 FUSED_KEYS = ("fused_ms", "fused_bound_ms", "fused_bound_by",
-              "fused_plain_ms", "fused_err")
+              "fused_plain_ms", "fused_err", "fused_states_ms",
+              "fused_states_bound_ms")
+# what the kernels line adds for kernel A: its self-walk mode's time, the
+# checkpoint mode against the self-walk bit for bit, launches by mode
+BWD_KEYS = ("walk_ms", "walk_plain_err", "ckpt_equals_walk",
+            "launches_ckpt", "launches_walk")
 # kernels that only move values: they must equal their plain versions
 EXACT_KERNELS = ("pack_tril", "unpack_tril")
 # The kernels each sweep of the main path launches; it launches no other.
@@ -989,9 +1003,8 @@ def check_ssm_scan(dev, shape, timing=None) -> dict:
                bytes_ms=t_bytes, exp_ms=exps / timing["sfu"] * 1e3,
                fp32_ms=flops / timing["fp32"] * 1e3, work_bytes=work_bytes,
                work_exps=exps, work_flops=flops,
-               **{k: fused[k] for k in ("fused_ms", "fused_bound_ms",
-                                        "fused_bound_by", "fused_plain_ms",
-                                        "fused_work")})
+               **{k: fused[k] for k in FUSED_KEYS if k in fused},
+               fused_work=fused["fused_work"])
     return res
 
 
@@ -1034,13 +1047,21 @@ def check_mamba_scan(dev, shape, dtype, h0: bool = False,
                      timing=None) -> dict:
     """``mamba_scan`` against its plain version on the card: y (float32:
     MAMBA_TOL of max |plain|; bf16: per element, MIXER_BF16_REL of |plain|
-    plus MAMBA_TOL of max |plain|) and h_last (MAMBA_TOL); with
-    ``timing``, its time and bound."""
+    plus MAMBA_TOL of max |plain|), h_last and the segment states
+    (``states=True``, MAMBA_TOL; y and h_last then the same bits as
+    without); with ``timing``, its time and bound without and with the
+    states."""
     from repro_torch.kernels import ref, ssm_scan
     ins = mixer_inputs(dev, *shape, dtype, h0=h0)
-    (y, h), (y_p, h_p) = ssm_scan.mamba_scan(*ins), ref.mamba_scan(*ins)
-    eh = errors(h, h_p)[1]
-    err = dict(h_last_rel=eh, tol_h_last=MAMBA_TOL)
+    (y, h, st), (y_p, h_p, st_p) = (ssm_scan.mamba_scan(*ins, states=True),
+                                    ref.mamba_scan(*ins, states=True))
+    y0, h0_ = ssm_scan.mamba_scan(*ins)
+    same = torch.equal(y, y0) and torch.equal(h, h0_)
+    del y0, h0_
+    eh, est = errors(h, h_p)[1], errors(st, st_p)[1]
+    del st, st_p
+    err = dict(h_last_rel=eh, tol_h_last=MAMBA_TOL, states_rel=est,
+               with_states_same_bits=same)
     if not torch.isfinite(y).all():
         raise AssertionError("mamba_scan: y is not finite")
     d, p = (y.float() - y_p.float()).abs(), y_p.float().abs()
@@ -1072,25 +1093,32 @@ def check_mamba_scan(dev, shape, dtype, h0: bool = False,
                    y_max_ulps=bf16_ulps(y, y_p), tol_y_elem_rel=MIXER_BF16_REL,
                    tol_y_abs_of_max=MAMBA_TOL)
         ok = err["y_over_limit"] == 0
-    ok = ok and eh <= MAMBA_TOL
+    ok = ok and eh <= MAMBA_TOL and est <= MAMBA_TOL and same
     res = dict(err=dict(err, shape=list(shape), dtype=str(dtype), h0=h0,
                         ok=ok), ok=ok)
     if timing is None:
         return res
     b, s, di, n = shape
     es = torch.empty((), dtype=dtype).element_size()
-    # read x, z, dt_lin, B, C, A, D, dt_bias once; write y and h_last once
+    # read x, z, dt_lin, B, C, A, D, dt_bias once; write y and h_last once;
+    # with the states, write them once too
     work_bytes = (3 * b * s * di * es + b * s * di * 4 + 2 * b * s * n * es
                   + (di * n + 2 * di + b * di * n) * 4)
+    states_bytes = b * -(-s // ssm_scan.BWD_SEGMENT) * di * n * 4
     mufu = b * s * di * (n + MIXER_EXTRA_MUFU)
     t_bytes = work_bytes / timing["bw"] * 1e3
     t_ops = mufu / timing["sfu"] * 1e3
     res.update(fused_ms=timed_ms(lambda: ssm_scan.mamba_scan(*ins), 10),
+               fused_states_ms=timed_ms(
+                   lambda: ssm_scan.mamba_scan(*ins, states=True), 10),
                fused_plain_ms=timed_ms(lambda: ref.mamba_scan(*ins), 1),
                fused_bound_ms=max(t_bytes, t_ops),
+               fused_states_bound_ms=max(
+                   t_bytes + states_bytes / timing["bw"] * 1e3, t_ops),
                fused_bound_by="bytes" if t_bytes >= t_ops else "operations",
                fused_work=dict(bytes=work_bytes, mufu=mufu,
-                               bytes_ms=t_bytes, mufu_ms=t_ops))
+                               bytes_ms=t_bytes, mufu_ms=t_ops,
+                               states_bytes=states_bytes))
     return res
 
 
@@ -1159,32 +1187,10 @@ SCAN_BWD_NAMES = ("dxc", "ddt_lin", "ddt_bias", "db_mat", "dc_mat", "da",
                   "dd_skip", "dz", "dh0")
 
 
-def check_mamba_scan_bwd(dev, shape, dtype, h0: bool = False,
-                         timing=None) -> dict:
-    """``mamba_scan_bwd`` (kernel A) against its plain version on the card,
-    every gradient: float32, max |Δ| ≤ MAMBA_BWD_TOL of max |plain| each;
-    bf16, dxc and dz per element within MIXER_BF16_REL of |plain| plus
-    MAMBA_BWD_TOL of max |plain|, the float32 gradients MAMBA_BWD_BF16_TOL
-    of max |plain| (see their comment); the same bits on two calls; with
-    ``timing``, its time, bound and plain time."""
-    from repro_torch.kernels import ref, ssm_scan
-    ins = mixer_inputs(dev, *shape, dtype, h0=h0)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    dy = torch.randn(*shape[:3], generator=gen, device=dev).to(dtype)
-    dh_last = torch.randn(shape[0], shape[2], shape[3], generator=gen,
-                          device=dev) if h0 else None
-    args = (*ins[:8], dy, ins[8], dh_last)
-
-    def kernel():
-        return ssm_scan.mamba_scan_bwd(*args)
-
-    def plain():
-        return ref.mamba_scan_bwd(*args)
-
-    got, want = kernel(), plain()
-    twice = _bitwise(got, kernel())
-    torch.cuda.synchronize()
-    err, ok = {}, twice
+def _bwd_errors(got, want, dtype) -> tuple[dict, bool]:
+    """Kernel A's gradients against the plain ones, with their limits
+    (see ``check_mamba_scan_bwd``)."""
+    err, ok = {}, True
     for name, g, w in zip(SCAN_BWD_NAMES, got, want):
         if g is None:
             continue
@@ -1207,8 +1213,51 @@ def check_mamba_scan_bwd(dev, shape, dtype, h0: bool = False,
         rec["ok"] = good
         err[name] = rec
         ok = ok and good
-    res = dict(err=err, bitwise_twice=twice, shape=list(shape),
-               dtype=str(dtype), h0=h0, ok=ok,
+    return err, ok
+
+
+def check_mamba_scan_bwd(dev, shape, dtype, h0: bool = False,
+                         timing=None) -> dict:
+    """``mamba_scan_bwd`` (kernel A) against its plain version on the card
+    in both modes: on the forward kernel's segment states
+    (``mamba_scan(states=True)``; the checkpoint mode, which training runs)
+    and on its own walk.  Every gradient: float32, max |Δ| ≤ MAMBA_BWD_TOL
+    of max |plain| each; bf16, dxc and dz per element within MIXER_BF16_REL
+    of |plain| plus MAMBA_BWD_TOL of max |plain|, the float32 gradients
+    MAMBA_BWD_BF16_TOL of max |plain| (see their comment); each mode the
+    same bits on two calls, and the two modes the same bits; with
+    ``timing``, the time of each mode, the bound and the plain time."""
+    from repro_torch.kernels import ref, ssm_scan
+    ins = mixer_inputs(dev, *shape, dtype, h0=h0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dy = torch.randn(*shape[:3], generator=gen, device=dev).to(dtype)
+    dh_last = torch.randn(shape[0], shape[2], shape[3], generator=gen,
+                          device=dev) if h0 else None
+    args = (*ins[:8], dy, ins[8], dh_last)
+    states = ssm_scan.mamba_scan(*ins, states=True)[2]
+
+    def kernel():
+        return ssm_scan.mamba_scan_bwd(*args, states=states)
+
+    def walk():
+        return ssm_scan.mamba_scan_bwd(*args)
+
+    def plain():
+        return ref.mamba_scan_bwd(*args)
+
+    got, want = kernel(), plain()
+    twice = _bitwise(got, kernel())
+    got_walk = walk()
+    walk_twice = _bitwise(got_walk, walk())
+    same = _bitwise(got, got_walk)
+    torch.cuda.synchronize()
+    err, ok = _bwd_errors(got, want, dtype)
+    err_walk, ok_walk = _bwd_errors(got_walk, want, dtype)
+    del got_walk
+    ok = ok and ok_walk and twice and walk_twice and same
+    res = dict(err=err, walk_plain_err=err_walk, bitwise_twice=twice,
+               walk_bitwise_twice=walk_twice, ckpt_equals_walk=same,
+               shape=list(shape), dtype=str(dtype), h0=h0, ok=ok,
                max_abs_err=max(float((g.float() - w.float()).abs().max())
                                for g, w in zip(got, want)
                                if g is not None and g.numel()))
@@ -1227,12 +1276,14 @@ def check_mamba_scan_bwd(dev, shape, dtype, h0: bool = False,
     mufu = b * s * di * (n + MIXER_EXTRA_MUFU)
     t_bytes = work_bytes / timing["bw"] * 1e3
     t_ops = mufu / timing["sfu"] * 1e3
-    res.update(ms=timed_ms(kernel, 5), plain_ms=timed_ms(plain, 1),
+    res.update(ms=timed_ms(kernel, 5), walk_ms=timed_ms(walk, 5),
+               plain_ms=timed_ms(plain, 1),
                library_ms=None, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                work=dict(bytes=work_bytes, mufu=mufu, bytes_ms=t_bytes,
                          mufu_ms=t_ops,
-                         mufu_issued=3 * b * s * di * n))
+                         states_bytes=states.numel() * 4,
+                         mufu_issued=b * s * di * n))
     return res
 
 
@@ -1316,8 +1367,8 @@ def phase_kernels_bwd(dev, peaks) -> tuple[dict, dict]:
     """Rows 11 and 12, the backward kernels of training, against their
     plain versions: at the training shape in bf16 (timed) and float32, at a
     ragged shape (odd S, d_inner not a multiple of a block) from a state,
-    and small from a state; then ``ssm_scan``'s refusal of a gradient on
-    the card."""
+    and small from a state, kernel A in both its modes; then
+    ``ssm_scan``'s refusal of a gradient on the card."""
     from repro_torch.kernels import ssm_scan
     rows = {"mamba_scan_bwd": check_mamba_scan_bwd(
                 dev, SCAN_SHAPE, torch.bfloat16, timing=peaks),
@@ -3547,11 +3598,14 @@ def _nonzero(counts: dict) -> dict:
 def _expect(layers: int, steps: int, remat: bool) -> dict:
     """Launches of a training run: per layer and step the two forward
     kernels (twice under remat: the backward runs each layer again) and
-    the two backward kernels (two launches a call each)."""
+    the two backward kernels (two launches a call each); under remat
+    kernel A runs on the segment states of the recompute's forward
+    (``mamba_scan_bwd_ckpt``), without it on its own walk."""
     fwd = layers * steps * (2 if remat else 1)
-    return dict(ssm_scan=fwd, causal_conv1d=fwd,
-                mamba_scan_bwd=2 * layers * steps,
-                causal_conv1d_bwd=2 * layers * steps)
+    scan_bwd = "mamba_scan_bwd_ckpt" if remat else "mamba_scan_bwd"
+    return {"ssm_scan": fwd, "causal_conv1d": fwd,
+            scan_bwd: 2 * layers * steps,
+            "causal_conv1d_bwd": 2 * layers * steps}
 
 
 def _train_split(by_name: dict) -> dict:
@@ -3811,7 +3865,16 @@ def main() -> None:
     rows = []
     for name in REPLACES:
         r = kern[name]
-        by_path = {tag: n[name] for tag, n in launches.items()}
+        # kernel A counts its two modes apart (the checkpoint mode under
+        # its own name); its row sums them
+        names = (name, f"{name}_ckpt") if name == "mamba_scan_bwd" else (name,)
+        by_path = {tag: sum(n.get(m, 0) for m in names)
+                   for tag, n in launches.items()}
+        if name == "mamba_scan_bwd":
+            r = dict(r, **{f"launches_{mode}": sum(n.get(m, 0) for n in
+                                                   launches.values())
+                           for mode, m in (("walk", name),
+                                           ("ckpt", names[1]))})
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],
                          replaces=REPLACES[name],
                          launches=sum(by_path.values()),
@@ -3821,7 +3884,8 @@ def main() -> None:
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          **{k: r[k] for k in CLUSTER_KEYS + MIXED_KEYS
-                            + FUSED_KEYS + ("tuned_block",) if k in r}))
+                            + FUSED_KEYS + BWD_KEYS + ("tuned_block",)
+                            if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")

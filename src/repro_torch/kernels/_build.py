@@ -19,7 +19,9 @@ mixed-precision variants count under names of their own
 (:data:`MIXED_NAMES`); the Mamba mixer's fused scan counts under
 ``ssm_scan``, its convolution under ``causal_conv1d``, and their backward
 kernels under ``mamba_scan_bwd`` and ``causal_conv1d_bwd`` (two launches a
-call each: the backward walk and the fixed-order sum of its partials).
+call each: the backward pass and the fixed-order sum of its partials); the
+scan's backward on the forward's segment states counts under
+``mamba_scan_bwd_ckpt``.
 """
 from __future__ import annotations
 
@@ -76,7 +78,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in
                              "unpack_tril", "interp_factors",
                              "solve_lower_packed", "ssm_scan",
                              "causal_conv1d", "mamba_scan_bwd",
-                             "causal_conv1d_bwd", *MIXED_NAMES.values())}
+                             "mamba_scan_bwd_ckpt", "causal_conv1d_bwd",
+                             *MIXED_NAMES.values())}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -71,8 +71,9 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // s = u / (2 + u) <= 1/3, its series to s^15 (truncation ~1e-9 relative);
 // both agree with torch's to a few float32 ulps, far below the bf16
 // rounding that follows.
-__device__ __forceinline__ float softplus_fast(float v) {
-  const float u = __expf(-fabsf(v));
+// softplus(v) given u = exp(-|v|) (the backward forms sigmoid(v) from the
+// same u)
+__device__ __forceinline__ float softplus_of(float v, float u) {
   const float s = __fdividef(u, 2.f + u), s2 = s * s;
   float q = 1.f / 15;
   q = fmaf(q, s2, 1.f / 13);
@@ -83,6 +84,9 @@ __device__ __forceinline__ float softplus_fast(float v) {
   q = fmaf(q, s2, 1.f / 3);
   q = fmaf(q, s2, 1.f);
   return fmaxf(v, 0.f) + 2.f * s * q;
+}
+__device__ __forceinline__ float softplus_fast(float v) {
+  return softplus_of(v, __expf(-fabsf(v)));
 }
 __device__ __forceinline__ float silu_fast(float v) {
   return __fdividef(v, 1.f + __expf(-v));

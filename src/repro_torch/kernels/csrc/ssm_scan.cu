@@ -18,6 +18,14 @@
 //                       times silu(z) rounded to T, the product rounded to T.
 //                       B and C are read in place from the x_proj output
 //                       (row strides given), x and z in T, dt_lin float32.
+//                       With a non-null `states` it also writes the float32
+//                       state at the start of every 8-step chunk, (batch,
+//                       ceil(S/8), di, N): the segment checkpoints of the
+//                       backward (ssm_scan_bwd.cu), which then skips its own
+//                       walk.  The training path asks for them only in
+//                       remat's recompute, right before the layer's
+//                       backward; a null pointer compiles the kernel without
+//                       the stores (the template's States = false).
 //
 // The TPU kernel keeps h in VMEM scratch across a grid axis over S that runs
 // in order; CUDA blocks run in no order, so the carry lives in registers of
@@ -96,6 +104,7 @@ struct ScanArgs {
   const float* h0;       // (batch, di, N) or null (zero state)
   void* y;               // (batch, S, di) T
   float* h_last;         // (batch, di, N)
+  float* states;         // (batch, ceil(S/8), di, N) or null, mixer only
   int S, di, N;
   int vec;       // x, dt, z, y 16-byte aligned and di % 8 == 0
   int bc_words;  // B/C rows 4-byte aligned and N * sizeof(T) % 4 == 0
@@ -247,7 +256,7 @@ struct Staged {
   }
 };
 
-template <typename T, bool Mixer, int NP>
+template <typename T, bool Mixer, int NP, bool States>
 __global__ void __launch_bounds__(ScanSmem<T, Mixer, NP>::kThreads,
                                   ScanSmem<T, Mixer, NP>::kBlocksPerSm)
 ssm_scan_kernel(const ScanArgs p) {
@@ -386,6 +395,24 @@ ssm_scan_kernel(const ScanArgs p) {
       prep_bc(k + 1, 1);
     }
 
+    if constexpr (States) {
+      // the state before chunk k, a float4 a channel when N fills the lanes
+      float* st = p.states + (b * n_chunks + k) * di * N;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = c0 + 2 * pi + j;
+        if (d >= di) continue;
+        if (N == NP) {
+          *reinterpret_cast<float4*>(st + (long long)d * N + 4 * l) =
+              make_float4(h[j][0], h[j][1], h[j][2], h[j][3]);
+        } else {
+#pragma unroll
+          for (int k2 = 0; k2 < 4; ++k2)
+            if (4 * l + k2 < N) st[(long long)d * N + 4 * l + k2] = h[j][k2];
+        }
+      }
+    }
+
     // the scan of chunk k: a partial y of two channels a lane and step
     const int Tk = steps_of(k);
     const float4* rec = reinterpret_cast<const float4*>(rec_of(k));
@@ -438,25 +465,26 @@ ssm_scan_kernel(const ScanArgs p) {
   }
 }
 
-template <typename T, bool Mixer, int NP>
+template <typename T, bool Mixer, int NP, bool States>
 static int launch(const ScanArgs& p, int batch, cudaStream_t stream) {
   using Sm = ScanSmem<T, Mixer, NP>;
   // let the blocks of the main shape share an SM's shared memory (and the
   // float32 mixer take more than the 48 KB a launch gets by default)
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        ssm_scan_kernel<T, Mixer, NP>,
+        ssm_scan_kernel<T, Mixer, NP, States>,
         cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(ssm_scan_kernel<T, Mixer, NP>,
+      e = cudaFuncSetAttribute(ssm_scan_kernel<T, Mixer, NP, States>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Sm::bytes);
     return e;
   }();
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.di + kScanChannels - 1) / kScanChannels, batch);
-  ssm_scan_kernel<T, Mixer, NP><<<grid, Sm::kThreads, Sm::bytes, stream>>>(p);
+  ssm_scan_kernel<T, Mixer, NP, States>
+      <<<grid, Sm::kThreads, Sm::bytes, stream>>>(p);
   RT_RETURN_IF_ERROR();
   return 0;
 }
@@ -478,8 +506,19 @@ static int run(ScanArgs p, int batch, void* stream) {
   };
   p.bc_words = rows(4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = p.N <= 4 ? launch<T, Mixer, 4> : p.N <= 8 ? launch<T, Mixer, 8>
-          : p.N <= 16 ? launch<T, Mixer, 16> : launch<T, Mixer, 32>;
+  if constexpr (Mixer) {
+    if (p.states) {
+      auto go = p.N <= 4 ? launch<T, Mixer, 4, true>
+              : p.N <= 8 ? launch<T, Mixer, 8, true>
+              : p.N <= 16 ? launch<T, Mixer, 16, true>
+                          : launch<T, Mixer, 32, true>;
+      return go(p, batch, st);
+    }
+  }
+  auto go = p.N <= 4 ? launch<T, Mixer, 4, false>
+          : p.N <= 8 ? launch<T, Mixer, 8, false>
+          : p.N <= 16 ? launch<T, Mixer, 16, false>
+                      : launch<T, Mixer, 32, false>;
   return go(p, batch, st);
 }
 
@@ -488,12 +527,14 @@ static int mamba_scan(const void* xc, const void* dt_lin, const void* dt_bias,
                       const void* bm, const void* cm, long long bc_sb,
                       long long bc_ss, const void* a, const void* dskip,
                       const void* z, const void* h0, void* y, void* h_last,
-                      int batch, int S, int di, int N, void* stream) {
+                      void* states, int batch, int S, int di, int N,
+                      void* stream) {
   ScanArgs p{xc, static_cast<const float*>(dt_lin),
              static_cast<const float*>(dt_bias), bm, cm, bc_sb, bc_ss,
              static_cast<const float*>(a), static_cast<const float*>(dskip),
              z, static_cast<const float*>(h0), y,
-             static_cast<float*>(h_last), S, di, N, 0, 0};
+             static_cast<float*>(h_last), static_cast<float*>(states), S, di,
+             N, 0, 0};
   return run<T, true>(p, batch, stream);
 }
 
@@ -507,7 +548,7 @@ int rt_ssm_scan_f32(const void* xc, const void* dt, const void* bm,
   ScanArgs p{xc, static_cast<const float*>(dt), nullptr, bm, cm,
              (long long)S * N, N, static_cast<const float*>(a),
              static_cast<const float*>(dskip), nullptr, nullptr, y,
-             static_cast<float*>(h_last), S, di, N, 0, 0};
+             static_cast<float*>(h_last), nullptr, S, di, N, 0, 0};
   return run<float, false>(p, batch, stream);
 }
 
@@ -515,23 +556,25 @@ int rt_ssm_scan_f32(const void* xc, const void* dt, const void* bm,
 // (batch, S, di) float32, contiguous; bm, cm: (batch, S, N) in the
 // activation type, element (b, t, n) at b * bc_sb + t * bc_ss + n;
 // dt_bias, dskip: (di,), a: (di, N), h0 (or null), h_last: (batch, di, N),
-// float32, contiguous.
+// states (or null): (batch, ceil(S/8), di, N), float32, contiguous.
 int rt_mamba_scan_f32(const void* xc, const void* dt_lin, const void* dt_bias,
                       const void* bm, const void* cm, long long bc_sb,
                       long long bc_ss, const void* a, const void* dskip,
                       const void* z, const void* h0, void* y, void* h_last,
-                      int batch, int S, int di, int N, void* stream) {
+                      void* states, int batch, int S, int di, int N,
+                      void* stream) {
   return mamba_scan<float>(xc, dt_lin, dt_bias, bm, cm, bc_sb, bc_ss, a,
-                           dskip, z, h0, y, h_last, batch, S, di, N, stream);
+                           dskip, z, h0, y, h_last, states, batch, S, di, N,
+                           stream);
 }
 int rt_mamba_scan_bf16(const void* xc, const void* dt_lin,
                        const void* dt_bias, const void* bm, const void* cm,
                        long long bc_sb, long long bc_ss, const void* a,
                        const void* dskip, const void* z, const void* h0,
-                       void* y, void* h_last, int batch, int S, int di, int N,
-                       void* stream) {
+                       void* y, void* h_last, void* states, int batch, int S,
+                       int di, int N, void* stream) {
   return mamba_scan<__nv_bfloat16>(xc, dt_lin, dt_bias, bm, cm, bc_sb, bc_ss,
-                                   a, dskip, z, h0, y, h_last, batch, S, di,
-                                   N, stream);
+                                   a, dskip, z, h0, y, h_last, states, batch,
+                                   S, di, N, stream);
 }
 }

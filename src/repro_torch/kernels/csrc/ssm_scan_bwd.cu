@@ -22,26 +22,47 @@
 // as the plain version (src/repro_torch/kernels/ref.py, mamba_scan_bwd)
 // computes them, in float32 (state and adjoint) from T or float32 inputs.
 //
-// The design, simple first:
+// The design:
 // - Four lanes per (batch row, channel), each with a quarter of the N
-//   states in its registers; a block owns 64 channels of one batch row
-//   (256 threads), so carried values never leave the block's loop and no
-//   order between blocks is assumed.  The sums over n (y, du, d dt) are a
-//   lane's own, then two shuffles within the channel's four lanes.  With
-//   64 registers a lane, four blocks (32 warps) share an SM; one lane a
-//   channel, all N states in it, ran eight warps an SM and was slower
-//   (PERF.md §6).
-// - Recompute, don't store.  The forward kept nothing per (t, d, n).  The
-//   block walks time forward from h0 once, writing the state at the start
-//   of every 8-step segment to a scratch tensor the wrapper allocates
-//   ((batch, S/8, di, N) float32).  Then it takes the segments last first:
-//   recomputes the segment's states into shared memory (with the gate's
-//   backward of each step) and runs the adjoint back through them.  So each
-//   exp(dt A) is formed three times (the walk, the recompute, the
-//   adjoint).  A segment's x, dt_lin, z and dy are loaded by the whole
-//   block, coalesced, before its first step, with dt, u = dt x and the
-//   softplus derivative formed once per (t, d).  Shared memory bounds the
-//   segment: 8 states of N floats a channel let four blocks share an SM.
+//   states; a block owns 64 channels of one batch row (256 threads), so
+//   carried values never leave the block's loop and no order between
+//   blocks is assumed.  Two blocks share an SM at up to 128 registers a
+//   thread (the forward's occupancy), not four at 64: the decays of a
+//   segment need the registers.  One lane a channel, all N states in it,
+//   ran eight warps an SM and was slower (PERF.md §6).
+// - The segment states.  The backward needs the float32 states in reverse
+//   and the forward keeps none per step: time goes in segments of 8 steps,
+//   and the state at each segment's start comes either from the forward
+//   kernel (rt_mamba_scan_* with its `states` output; the entry
+//   rt_mamba_scan_bwd_ckpt_*, which reads them), or from the kernel's own
+//   walk forward from h0 over the whole sequence (rt_mamba_scan_bwd_*,
+//   which writes them to the scratch `ckpt` first).  Both form a state
+//   with the same instructions (ex2.approx of dt A log2 e, an FFMA with
+//   u B, softplus_fast of mixer.cuh), so the two entries give the same
+//   bits.  Training asks the forward for them in remat's recompute, which
+//   runs right before the layer's backward; everywhere else the walk runs.
+// - Each decay formed once in the backward.  The segments go last first:
+//   the recompute runs the segment's 8 steps forward from its checkpoint,
+//   keeping each exp(dt A) in registers (8 steps x a lane's states) and
+//   the state before each step in shared memory (private to the lane),
+//   with y of each step; the adjoint runs back through the same steps and
+//   takes the decays from the registers.  So the adjoint's steps issue no
+//   exponential (the walk, when it runs, forms a second set).  The steps
+//   run all 8 unguarded (a segment's missing steps have dt = 0, a decay
+//   of 1, and no input), one basic block the compiler can schedule.
+// - Loads a segment ahead.  One barrier a segment.  Right after it, each
+//   thread issues the global loads of segment k-2 (x, dt_lin, z, dy per
+//   (t, d), a share of the B and C rows and of the checkpoints) into
+//   registers, which are stored a whole segment later.  Then, in one
+//   phase, it finishes segment k+1 (what depends on a whole segment: dx,
+//   dz, d dt_lin; the dB | dC sums over the block's warps, coalesced) and
+//   stores segment k-1, loaded the segment before, prepared into the
+//   buffer segment k+1 frees (dt = softplus, u = dt x, dy', the softplus
+//   and silu derivatives once per (t, d); B and C rows zero-padded to NP;
+//   the checkpoints into their slot): four independent items a thread
+//   between two barriers.  Then segment k's steps.  Item warps of their
+//   own beside the step warps (warp specialization) were slower: four of
+//   them could not keep up with eight step warps (PERF.md §6).
 // - Deterministic sums across blocks.  dB and dC (sums over d_inner) are
 //   reduced within a warp by a butterfly reduce-scatter over its eight
 //   channels (seven shuffles for a lane's eight values), then over the
@@ -57,9 +78,12 @@
 // N 16, bf16): the bytes the function must move (x, z, dy, dx, dz in bf16,
 // dt_lin and d dt_lin in float32; ~1.2 GB, ~0.36 ms at 3.35 TB/s), just
 // above its exponentials once each (1.07e9 on the special-function units,
-// 16 a clock an SM, ~0.32 ms with the per-(t, d) ones).  This design forms
-// each decay three times and moves the segment states' scratch besides
-// (~0.54 GB written and read).
+// 16 a clock an SM, ~0.32 ms with the per-(t, d) ones).  Besides, the
+// checkpoints are read once (~0.54 GB; the walk writes them first), and
+// each lane issues ~9 FP32 operations a state and step in the adjoint and
+// ~4 in the recompute, with the warp's dB | dC reduce-scatter; the
+// adjoint is the largest part of the time, then the per-(t, d) phases
+// (scripts/ab_mamba_scan_bwd.py's probes leave each out).
 
 #include <cstdint>
 
@@ -70,6 +94,8 @@ constexpr int kLanes = 4;         // lanes per channel
 constexpr int kBwdThreads = kBwdChannels * kLanes;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kSeg = 8;           // time steps per segment
+constexpr int kSegItems = kSeg * kBwdChannels;   // (t, d) of a segment
+constexpr int kItems = kSegItems / kBwdThreads;  // of them a thread
 constexpr int kBwdMaxState = 32;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -96,28 +122,38 @@ struct BwdArgs {
   int S, di, N, groups;
 };
 
-// A lane's states and values, and one block's shared memory in floats: the
-// segment's states (slot s the state before its step s; [s][c][n]), B and
-// C rows ([s][B | C], NP each, zero-padded), x, dt, u, the softplus
-// derivative, z (then dy') and dy per step and channel, and the warps'
-// dB | dC sums.
+// One block's shared memory in floats: the lanes' states (slot s the state
+// before step s; [s][c][n]) and checkpoints (two slots, segments of either
+// parity; [c][n]), then two buffers (segments of either parity), each with
+// per (step, channel) the float4 (dt, u, dy', x), the softplus derivative,
+// sigmoid(z) and 1 + z (1 - sigmoid(z)) (silu's derivative is their
+// product), dy, y, du and sum_n g A, then B and C rows ([s][B | C], NP
+// each, zero-padded) and the warps' dB | dC sums.
 template <int NP>
 struct BwdSmem {
   static constexpr int SPL = NP / kLanes;            // states a lane
   static constexpr int V = 2 * SPL > 8 ? 2 * SPL : 8;  // dB | dC a lane, padded
   static constexpr int VO = V / 8;                   // after the scatter
   static constexpr int sh = 0;
-  static constexpr int sbc = sh + kSeg * kBwdChannels * NP;
-  static constexpr int sx = sbc + kSeg * 2 * NP;
-  static constexpr int sdt = sx + kSeg * kBwdChannels;
-  static constexpr int su = sdt + kSeg * kBwdChannels;
-  static constexpr int ssig = su + kSeg * kBwdChannels;
-  static constexpr int sz = ssig + kSeg * kBwdChannels;
-  static constexpr int sdy = sz + kSeg * kBwdChannels;
-  static constexpr int sred = sdy + kSeg * kBwdChannels;
-  static constexpr int floats = sred + kSeg * kBwdWarps * kLanes * V;
+  static constexpr int ck = sh + kSeg * kBwdChannels * NP;
+  static constexpr int buf0 = ck + 2 * kBwdChannels * NP;
+  static constexpr int rec = 0;                      // within a buffer
+  static constexpr int sig = rec + 4 * kSegItems;
+  static constexpr int sz = sig + kSegItems;
+  static constexpr int wz = sz + kSegItems;
+  static constexpr int dy = wz + kSegItems;
+  static constexpr int y = dy + kSegItems;
+  static constexpr int du = y + kSegItems;
+  static constexpr int ga = du + kSegItems;
+  static constexpr int bc = ga + kSegItems;
+  static constexpr int red = bc + kSeg * 2 * NP;
+  static constexpr int buf = red + kSeg * kBwdWarps * kLanes * V;
+  static constexpr int floats = buf0 + 2 * buf;
   static constexpr int bytes = floats * 4;
+  static constexpr int kBlocksPerSm = NP <= 16 ? 2 : 1;
   static_assert(SPL >= 1 && NP % kLanes == 0, "N padded to whole lanes");
+  static_assert(buf0 % 4 == 0 && buf % 4 == 0 && bc % 4 == 0,
+                "16-byte aligned regions");
 };
 
 // One step of the reduce-scatter below, at lane distance O: the lane with
@@ -156,8 +192,123 @@ __device__ __forceinline__ float lanes_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// n consecutive floats of shared memory, 16 bytes a load where n allows
+template <int n>
+__device__ __forceinline__ void lds(const float* src, float (&v)[n]) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(src + i);
+      v[i] = q.x, v[i + 1] = q.y, v[i + 2] = q.z, v[i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; ++i) v[i] = src[i];
+  }
+}
+template <int n>
+__device__ __forceinline__ void sts(float* dst, const float (&v)[n]) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n; i += 4)
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; ++i) dst[i] = v[i];
+  }
+}
+
+// A thread's share of one segment's global loads, held in registers from
+// the fetch (right after a barrier) to the deposit (after the next
+// barrier): x, dt_lin, z, dy of its kItems (step, channel) items, kBc
+// values of the B | C rows, and its lane's checkpoint.
 template <typename T, int NP>
-__global__ void __launch_bounds__(kBwdThreads, NP <= 16 ? 4 : 2)
+struct Raw {
+  static constexpr int SPL = NP / kLanes;
+  static constexpr int kBc = (kSeg * 2 * NP + kBwdThreads - 1) / kBwdThreads;
+  float x[kItems], dtl[kItems], z[kItems], dy[kItems], bc[kBc], h[SPL];
+  int tk;   // the segment's steps
+
+  // segment k of batch row b, channels [c0, c0 + 64); `grad` false loads
+  // only what the walk needs (x, dt_lin, B)
+  __device__ __forceinline__ void fetch(const BwdArgs& p, long long b, int c0,
+                                        int k, int tid, bool grad) {
+    const int t0 = k * kSeg;
+    tk = min(kSeg, p.S - t0);
+    const int c = tid % kBwdChannels;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int s = (tid + j * kBwdThreads) / kBwdChannels;
+      x[j] = dtl[j] = z[j] = dy[j] = 0.f;
+      if (s < tk && c0 + c < p.di) {
+        const long long row = (b * p.S + t0 + s) * p.di + c0 + c;
+        x[j] = to_f32(static_cast<const T*>(p.x)[row]);
+        dtl[j] = p.dt_lin[row];
+        if (grad) {
+          z[j] = to_f32(static_cast<const T*>(p.z)[row]);
+          dy[j] = to_f32(static_cast<const T*>(p.dy)[row]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBc; ++i) {
+      const int e = tid + i * kBwdThreads;
+      const int s = e / (2 * NP), m = (e / NP) % 2, n = e % NP;
+      bc[i] = 0.f;
+      if (e < kSeg * 2 * NP && s < tk && n < p.N && (m == 0 || grad))
+        bc[i] = to_f32(static_cast<const T*>(m ? p.cm : p.bm)
+                           [b * p.bc_sb + (long long)(t0 + s) * p.bc_ss + n]);
+    }
+    if (grad) {
+      const int d = c0 + tid / kLanes, n0 = SPL * (tid % kLanes);
+      const int nseg = (p.S + kSeg - 1) / kSeg;
+#pragma unroll
+      for (int i = 0; i < SPL; ++i)
+        h[i] = (d < p.di && n0 + i < p.N)
+                   ? p.ckpt[((b * nseg + k) * p.di + d) * p.N + n0 + i] : 0.f;
+    }
+  }
+
+  // into buffer `buf`: (dt, u, dy', x), the softplus derivative, the
+  // factors of silu's derivative and dy per item, formed once per (t, d)
+  // (softplus and its derivative from one exponential, silu and its
+  // derivative from another); the B | C rows; the checkpoint into slot 0
+  // slot `ck` of the lane.  Steps past the segment's end get dt = 0
+  // (and u = dy' = 0, B = C = 0 from the fetch), so the steps run all
+  // kSeg of them unguarded: a decay of 1, no input, no gradient.
+  __device__ __forceinline__ void deposit(float* buf, float* ck, float bias,
+                                          int tid, bool grad) const {
+    using Sm = BwdSmem<NP>;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int e = tid + j * kBwdThreads;
+      const float v = bias + dtl[j];
+      const float ev = __expf(-fabsf(v));
+      const float dt = e / kBwdChannels < tk ? softplus_of(v, ev) : 0.f;
+      float dyp = 0.f;
+      if (grad) {
+        dyp = round_to<T>(dy[j] * round_to<T>(silu_fast(z[j])));
+        const float sg = __fdividef(1.f, 1.f + __expf(-z[j]));
+        buf[Sm::sig + e] = __fdividef(v >= 0.f ? 1.f : ev, 1.f + ev);
+        buf[Sm::sz + e] = sg;
+        buf[Sm::wz + e] = 1.f + z[j] * (1.f - sg);
+        buf[Sm::dy + e] = dy[j];
+      }
+      reinterpret_cast<float4*>(buf + Sm::rec)[e] =
+          make_float4(dt, dt * x[j], dyp, x[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kBc; ++i) {
+      const int e = tid + i * kBwdThreads;
+      if (e < kSeg * 2 * NP) buf[Sm::bc + e] = bc[i];
+    }
+    if (grad) sts(ck, h);
+  }
+};
+
+template <typename T, int NP, bool Walk>
+__global__ void __launch_bounds__(kBwdThreads, BwdSmem<NP>::kBlocksPerSm)
 mamba_scan_bwd_kernel(const BwdArgs p) {
   using Sm = BwdSmem<NP>;
   constexpr int SPL = Sm::SPL, V = Sm::V, VO = Sm::VO;
@@ -170,203 +321,168 @@ mamba_scan_bwd_kernel(const BwdArgs p) {
   const bool on = d < di;
   const int nseg = (S + kSeg - 1) / kSeg;
   const int n0 = SPL * l;            // this lane's first state
-  float* sh = smem + Sm::sh;
-  float* sbc = smem + Sm::sbc;
-  float* sx = smem + Sm::sx;
-  float* sdt = smem + Sm::sdt;
-  float* su = smem + Sm::su;
-  float* ssig = smem + Sm::ssig;
-  float* sz = smem + Sm::sz;
-  float* sdy = smem + Sm::sdy;
-  float* sred = smem + Sm::sred;
-
-  float a2[SPL], h[SPL];
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    const int n = n0 + i;
-    const bool live = on && n < N;
-    a2[i] = live ? p.a[(long long)d * N + n] * kLog2e : 0.f;
-    h[i] = (live && p.h0) ? p.h0[(b * di + d) * N + n] : 0.f;
-  }
-  const float dsk = on ? p.dskip[d] : 0.f;
-
-  // segment k into shared memory: B (and C) rows zero-padded to NP; per
-  // (step, channel) x, dt = softplus(dt_lin + bias), u = dt x, the
-  // softplus derivative (and z, dy), each formed once, loads coalesced
-  // and all in flight before the first is used
-  constexpr int kItems = kSeg * kBwdChannels / kBwdThreads;
-  const auto stage = [&](int k, bool grad) {
-    const int t0 = k * kSeg, tk = min(kSeg, S - t0);
-    for (int e = tid; e < kSeg * 2 * NP; e += kBwdThreads) {
-      const int s = e / (2 * NP), m = (e / NP) % 2, n = e % NP;
-      float v = 0.f;
-      if (s < tk && n < N && (m == 0 || grad))
-        v = to_f32(static_cast<const T*>(m ? p.cm : p.bm)
-                       [b * p.bc_sb + (long long)(t0 + s) * p.bc_ss + n]);
-      sbc[e] = v;
-    }
-    float rx[kItems], rd[kItems], rz[kItems], ry[kItems], rb[kItems];
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int e = tid + j * kBwdThreads, s = e / kBwdChannels,
-                cc = e % kBwdChannels;
-      rx[j] = rd[j] = rz[j] = ry[j] = rb[j] = 0.f;
-      if (c0 + cc < di) {
-        rb[j] = p.dt_bias[c0 + cc];
-        if (s < tk) {
-          const long long row = (b * S + t0 + s) * di + c0 + cc;
-          rx[j] = to_f32(static_cast<const T*>(p.x)[row]);
-          rd[j] = p.dt_lin[row];
-          if (grad) {
-            rz[j] = to_f32(static_cast<const T*>(p.z)[row]);
-            ry[j] = to_f32(static_cast<const T*>(p.dy)[row]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int e = tid + j * kBwdThreads;
-      const float v = rb[j] + rd[j];
-      const float dt = softplus_fast(v);
-      sx[e] = rx[j];
-      sdt[e] = dt;
-      su[e] = dt * rx[j];
-      if (grad) {
-        ssig[e] = 1.f / (1.f + __expf(-v));
-        sz[e] = rz[j];
-        sdy[e] = ry[j];
-      }
-    }
+  // this lane's states: slot s at hs + s * kBwdChannels * NP; its
+  // checkpoint of segment k
+  float* hs = smem + Sm::sh + c * NP + n0;
+  const auto ck_of = [&](int k) {
+    return smem + Sm::ck + ((k & 1) * kBwdChannels + c) * NP + n0;
   };
-  // this lane's SPL values of row r of sbc (B: r = 2 s, C: r = 2 s + 1)
-  const auto row_of = [&](int r, float (&out)[SPL]) {
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) out[i] = sbc[r * NP + n0 + i];
-  };
+  const auto buf_of = [&](int k) { return smem + Sm::buf0 + (k & 1) * Sm::buf; };
+  const auto steps_of = [&](int k) { return min(kSeg, S - k * kSeg); };
 
-  // 1. the walk forward from h0: the state at every segment's start
-  for (int k = 0; k < nseg - 1; ++k) {
-    if (on) {
+  float a2[SPL];
 #pragma unroll
-      for (int i = 0; i < SPL; ++i)
-        if (n0 + i < N)
-          p.ckpt[((b * nseg + k) * di + d) * N + n0 + i] = h[i];
-    }
-    __syncthreads();
-    stage(k, false);
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < kSeg; ++s) {
-      const float dt = sdt[s * kBwdChannels + c];
-      const float u = su[s * kBwdChannels + c];
-      float bq[SPL];
-      row_of(2 * s, bq);
-#pragma unroll
-      for (int i = 0; i < SPL; ++i)
-        h[i] = fmaf(ex2_approx(dt * a2[i]), h[i], u * bq[i]);
-    }
-  }
-  if (nseg > 0 && on) {
+  for (int i = 0; i < SPL; ++i)
+    a2[i] = (on && n0 + i < N) ? p.a[(long long)d * N + n0 + i] * kLog2e
+                               : 0.f;
+  // the channel of this thread's items in the deposit and the finish:
+  // tid % 64, the same for each item
+  const int df = c0 + tid % kBwdChannels;
+  const float bias = df < di ? p.dt_bias[df] : 0.f;
+  const float dski = df < di ? p.dskip[df] : 0.f;
+
+  if constexpr (Walk) {
+    // the walk forward from h0: the state at every segment's start
+    float h[SPL];
 #pragma unroll
     for (int i = 0; i < SPL; ++i)
-      if (n0 + i < N)
-        p.ckpt[((b * nseg + nseg - 1) * di + d) * N + n0 + i] = h[i];
+      h[i] = (on && p.h0 && n0 + i < N) ? p.h0[(b * di + d) * N + n0 + i]
+                                        : 0.f;
+    float* buf = buf_of(0);
+    for (int k = 0; k < nseg; ++k) {
+      if (on) {
+#pragma unroll
+        for (int i = 0; i < SPL; ++i)
+          if (n0 + i < N)
+            p.ckpt[((b * nseg + k) * di + d) * N + n0 + i] = h[i];
+      }
+      if (k == nseg - 1) break;
+      __syncthreads();
+      Raw<T, NP> rw;
+      rw.fetch(p, b, c0, k, tid, false);
+      rw.deposit(buf, ck_of(0), bias, tid, false);
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < kSeg; ++s) {
+        const float4 r = reinterpret_cast<const float4*>(buf + Sm::rec)
+            [s * kBwdChannels + c];
+        float bq[SPL];
+        lds(buf + Sm::bc + 2 * s * NP + n0, bq);
+#pragma unroll
+        for (int i = 0; i < SPL; ++i)
+          h[i] = fmaf(ex2_approx(r.x * a2[i]), h[i], r.y * bq[i]);
+      }
+    }
+    __syncthreads();
   }
 
-  // 2. the segments last first: recompute, then the adjoint back through
-  float lam[SPL], da[SPL], ht[SPL];
+  float lam[SPL], da[SPL];
 #pragma unroll
   for (int i = 0; i < SPL; ++i) {
-    const int n = n0 + i;
-    lam[i] = (on && n < N && p.dh_last) ? p.dh_last[(b * di + d) * N + n]
-                                        : 0.f;
+    lam[i] = (on && n0 + i < N && p.dh_last)
+                 ? p.dh_last[(b * di + d) * N + n0 + i] : 0.f;
     da[i] = 0.f;
   }
+  // dD and d dt_bias of channel df over this thread's items
   float dd = 0.f, dbias = 0.f;
-  for (int k = nseg - 1; k >= 0; --k) {
-    const int t0 = k * kSeg, tk = min(kSeg, S - t0);
-    __syncthreads();   // the previous segment's shared memory is free
-    stage(k, true);
+
+  // the recompute of segment k and the adjoint back through it, all kSeg
+  // steps straight (see the deposit), so the compiler can overlap them
+  const auto steps = [&](int k) {
+    float* buf = buf_of(k);
+    const float4* rec = reinterpret_cast<const float4*>(buf + Sm::rec);
+    float h[SPL], ab[kSeg][SPL];
+    lds(ck_of(k), h);
 #pragma unroll
-    for (int i = 0; i < SPL; ++i)
-      h[i] = (on && n0 + i < N)
-                 ? p.ckpt[((b * nseg + k) * di + d) * N + n0 + i] : 0.f;
-    __syncthreads();
-    for (int s = 0; s < tk; ++s) {
-      // step s forward, the state before it into shared memory; y, then
-      // the gate's backward (dz written, dy' kept in place of z)
-      const int e = s * kBwdChannels + c;
-      const float dt = sdt[e], u = su[e];
+    for (int s = 0; s < kSeg; ++s) {
+      // step s forward: its decays kept, the state before it stored; y
+      const float4 r = rec[s * kBwdChannels + c];
       float bq[SPL], cq[SPL];
-      row_of(2 * s, bq);
-      row_of(2 * s + 1, cq);
+      lds(buf + Sm::bc + 2 * s * NP + n0, bq);
+      lds(buf + Sm::bc + (2 * s + 1) * NP + n0, cq);
+      sts(hs + s * kBwdChannels * NP, h);
       float y = 0.f;
 #pragma unroll
       for (int i = 0; i < SPL; ++i) {
-        sh[e * NP + n0 + i] = h[i];
-        h[i] = fmaf(ex2_approx(dt * a2[i]), h[i], u * bq[i]);
+        ab[s][i] = ex2_approx(r.x * a2[i]);
+        h[i] = fmaf(ab[s][i], h[i], r.y * bq[i]);
         y = fmaf(h[i], cq[i], y);
       }
-      y = fmaf(dsk, sx[e], lanes_sum(y));
-      const float zv = sz[e], dyo = sdy[e];
-      const float dyp = round_to<T>(dyo * round_to<T>(silu_fast(zv)));
-      const float ds = round_to<T>(dyo * round_to<T>(y));
-      const float szv = 1.f / (1.f + __expf(-zv));
-      __syncwarp();
-      if (l == 0) {
-        sz[e] = dyp;
-        if (on)
-          static_cast<T*>(p.dz)[(b * S + t0 + s) * di + d] =
-              from_f32<T>(ds * szv * (1.f + zv * (1.f - szv)));
-      }
+      y = lanes_sum(y);
+      if (l == 0) buf[Sm::y + s * kBwdChannels + c] = y;
     }
-    __syncwarp();
+    // the adjoint back through the steps; h: the state after step s
 #pragma unroll
-    for (int i = 0; i < SPL; ++i) ht[i] = h[i];
-    for (int s = tk - 1; s >= 0; --s) {
-      // the adjoint back through step s; ht: the state after step s
+    for (int s = kSeg - 1; s >= 0; --s) {
       const int e = s * kBwdChannels + c;
-      const float x = sx[e], dt = sdt[e], u = su[e], sig = ssig[e];
-      const float dyp = sz[e];
-      float bq[SPL], cq[SPL], vals[V];
-      row_of(2 * s, bq);
-      row_of(2 * s + 1, cq);
-      float du = 0.f, ddt = 0.f;
+      const float4 r = rec[e];   // dt, u, dy', x
+      float bq[SPL], cq[SPL], hp[SPL], vals[V];
+      lds(buf + Sm::bc + 2 * s * NP + n0, bq);
+      lds(buf + Sm::bc + (2 * s + 1) * NP + n0, cq);
+      lds(hs + s * kBwdChannels * NP, hp);
+      float du = 0.f, ga = 0.f;
 #pragma unroll
       for (int i = 0; i < SPL; ++i) {
-        const float lv = fmaf(cq[i], dyp, lam[i]);
-        const float hprev = sh[e * NP + n0 + i];
-        vals[i] = lv * u;              // dB
-        vals[SPL + i] = ht[i] * dyp;   // dC
-        ht[i] = hprev;
+        const float lv = fmaf(cq[i], r.z, lam[i]);
+        vals[i] = lv * r.y;            // dB
+        vals[SPL + i] = h[i] * r.z;    // dC
+        h[i] = hp[i];
         du = fmaf(lv, bq[i], du);
-        const float abar = ex2_approx(dt * a2[i]);
-        const float gv = lv * hprev * abar;
-        da[i] = fmaf(gv, dt, da[i]);
-        ddt = fmaf(gv, a2[i], ddt);
+        const float abar = ab[s][i];
         lam[i] = abar * lv;
+        const float gv = lam[i] * hp[i];
+        da[i] = fmaf(gv, r.x, da[i]);
+        ga = fmaf(gv, a2[i], ga);
       }
 #pragma unroll
       for (int i = 2 * SPL; i < V; ++i) vals[i] = 0.f;
-      du = lanes_sum(du);
-      ddt = fmaf(du, x, lanes_sum(ddt) * kLn2);
-      const float dtl = ddt * sig;
-      dbias += dtl;
-      dd = fmaf(dyp, x, dd);
-      if (on && l == 0) {
-        const long long row = (b * S + t0 + s) * di + d;
-        static_cast<T*>(p.dx)[row] = from_f32<T>(fmaf(du, dt, dyp * dsk));
-        p.ddt_lin[row] = dtl;
-      }
+      // du to lanes 0 and 2, sum_n g A to lanes 1 and 3: over the
+      // channel's lanes, one shuffle each step
+      const float keep = l & 1 ? ga : du, send = l & 1 ? du : ga;
+      float v2 = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+      v2 += __shfl_xor_sync(0xffffffffu, v2, 2);
+      if (l < 2) buf[(l ? Sm::ga : Sm::du) + e] = v2;
       reduce_channels<V>(vals, lane);
-      float* out = sred + ((s * kBwdWarps + warp) * kLanes + l) * V +
+      float* out = buf + Sm::red +
+                   ((s * kBwdWarps + warp) * kLanes + l) * V +
                    ((lane >> 2) & 7) * VO;
 #pragma unroll
-      for (int r = 0; r < VO; ++r) out[r] = vals[r];
+      for (int q = 0; q < VO; ++q) out[q] = vals[q];
     }
-    __syncthreads();
-    // the block's dB | dC of the segment: its warps' sums, in warp order
+  };
+
+  // what segment k's steps left per (t, d) and per block, finished by
+  // every thread: dz, dx, d dt_lin, the dD and d dt_bias sums, and the
+  // block's dB | dC partials (its warps' sums, in warp order)
+  const auto finish = [&](int k) {
+    const float* buf = buf_of(k);
+    const float4* rec = reinterpret_cast<const float4*>(buf + Sm::rec);
+    const int t0 = k * kSeg, tk = steps_of(k);
+    // both items formed first, then stored where they exist
+    float dz[kItems], dx[kItems], dtl[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int e = tid + j * kBwdThreads;
+      const float4 r = rec[e];
+      const float y = fmaf(dski, r.w, buf[Sm::y + e]);
+      const float ds = round_to<T>(buf[Sm::dy + e] * round_to<T>(y));
+      const float du = buf[Sm::du + e];
+      dtl[j] = fmaf(du, r.w, buf[Sm::ga + e] * kLn2) * buf[Sm::sig + e];
+      dz[j] = ds * buf[Sm::sz + e] * buf[Sm::wz + e];
+      dx[j] = fmaf(du, r.x, r.z * dski);
+      dd = fmaf(r.z, r.w, dd);   // 0 past the segment's end: dy' = x = 0
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int s = (tid + j * kBwdThreads) / kBwdChannels;
+      if (s < tk && df < di) {
+        const long long row = (b * S + t0 + s) * di + df;
+        static_cast<T*>(p.dz)[row] = from_f32<T>(dz[j]);
+        static_cast<T*>(p.dx)[row] = from_f32<T>(dx[j]);
+        p.ddt_lin[row] = dtl[j];
+        dbias += dtl[j];
+      }
+    }
     for (int e = tid; e < tk * 2 * N; e += kBwdThreads) {
       const int s = e / (2 * N), j = e % (2 * N);
       const int n = j < N ? j : j - N;
@@ -374,10 +490,34 @@ mamba_scan_bwd_kernel(const BwdArgs p) {
       float v = 0.f;
 #pragma unroll
       for (int w = 0; w < kBwdWarps; ++w)
-        v += sred[((s * kBwdWarps + w) * kLanes + n / SPL) * V + idx];
+        v += buf[Sm::red + ((s * kBwdWarps + w) * kLanes + n / SPL) * V + idx];
       p.part_bc[((b * S + t0 + s) * p.groups + g) * 2 * N + j] = v;
     }
+  };
+
+  // the segments last first, one barrier each: after it, the loads of
+  // segment k-2 go out, segment k+1 is finished and segment k-1 (loaded a
+  // segment ago) deposited into the buffer segment k+1 frees, together,
+  // then segment k's steps run (the last pass, k = -1, only finishes
+  // segment 0)
+  Raw<T, NP> rw;
+  if (nseg > 0) {
+    rw.fetch(p, b, c0, nseg - 1, tid, true);
+    rw.deposit(buf_of(nseg - 1), ck_of(nseg - 1), bias, tid, true);
   }
+  if (nseg > 1) rw.fetch(p, b, c0, nseg - 2, tid, true);
+  for (int k = nseg - 1; k >= -1; --k) {
+    __syncthreads();
+    Raw<T, NP> ahead;
+    if (k > 1) ahead.fetch(p, b, c0, k - 2, tid, true);
+    if (k + 1 < nseg) finish(k + 1);
+    if (k > 0) rw.deposit(buf_of(k - 1), ck_of(k - 1), bias, tid, true);
+    if (k >= 0) steps(k);
+    rw = ahead;
+  }
+
+  // dA rows and dh0 per lane; dD and d dt_bias: the four threads of a
+  // channel (tid / 64) summed in their order
   if (on) {
 #pragma unroll
     for (int i = 0; i < SPL; ++i) {
@@ -387,10 +527,21 @@ mamba_scan_bwd_kernel(const BwdArgs p) {
         if (p.dh0) p.dh0[(b * di + d) * N + n] = lam[i];
       }
     }
-    if (l == 0) {
-      p.part_d[(b * (N + 2) + N) * di + d] = dd;
-      p.part_d[(b * (N + 2) + N + 1) * di + d] = dbias;
+  }
+  float* sums = smem + Sm::buf0;   // every buffer is free after the barrier
+  __syncthreads();
+  sums[tid] = dd;
+  sums[kBwdThreads + tid] = dbias;
+  __syncthreads();
+  if (tid < kBwdChannels && df < di) {
+    float vd = 0.f, vb = 0.f;
+#pragma unroll
+    for (int q = 0; q < kBwdThreads / kBwdChannels; ++q) {
+      vd += sums[q * kBwdChannels + tid];
+      vb += sums[kBwdThreads + q * kBwdChannels + tid];
     }
+    p.part_d[(b * (N + 2) + N) * di + df] = vd;
+    p.part_d[(b * (N + 2) + N + 1) * di + df] = vb;
   }
 }
 
@@ -428,22 +579,29 @@ mamba_scan_bwd_reduce_kernel(const float* __restrict__ part_bc,
   }
 }
 
-template <typename T, int NP>
+template <typename T, int NP, bool Walk>
 static int launch_bwd(const BwdArgs& p, int batch, cudaStream_t stream) {
   using Sm = BwdSmem<NP>;
   static const cudaError_t attr = [] {
-    return cudaFuncSetAttribute(mamba_scan_bwd_kernel<T, NP>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                Sm::bytes);
+    cudaError_t e = cudaFuncSetAttribute(
+        mamba_scan_bwd_kernel<T, NP, Walk>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mamba_scan_bwd_kernel<T, NP, Walk>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sm::bytes);
+    return e;
   }();
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(p.groups, batch);
-  mamba_scan_bwd_kernel<T, NP><<<grid, kBwdThreads, Sm::bytes, stream>>>(p);
+  mamba_scan_bwd_kernel<T, NP, Walk>
+      <<<grid, kBwdThreads, Sm::bytes, stream>>>(p);
   RT_RETURN_IF_ERROR();
   return 0;
 }
 
-template <typename T>
+template <typename T, bool Walk>
 static int mamba_scan_bwd(const void* xc, const void* dt_lin,
                           const void* dt_bias, const void* bm, const void* cm,
                           long long bc_sb, long long bc_ss, const void* a,
@@ -465,10 +623,23 @@ static int mamba_scan_bwd(const void* xc, const void* dt_lin,
             static_cast<float*>(part_bc), static_cast<float*>(ckpt),
             static_cast<float*>(part_d), S, di, N, groups};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = N <= 4 ? launch_bwd<T, 4> : N <= 8 ? launch_bwd<T, 8>
-          : N <= 16 ? launch_bwd<T, 16> : launch_bwd<T, 32>;
+  auto go = N <= 4 ? launch_bwd<T, 4, Walk> : N <= 8 ? launch_bwd<T, 8, Walk>
+          : N <= 16 ? launch_bwd<T, 16, Walk> : launch_bwd<T, 32, Walk>;
   return go(p, batch, st);
 }
+
+#define RT_MAMBA_SCAN_BWD(name, T, walk)                                     \
+  int name(const void* xc, const void* dt_lin, const void* dt_bias,         \
+           const void* bm, const void* cm, long long bc_sb, long long bc_ss, \
+           const void* a, const void* dskip, const void* z, const void* h0,  \
+           const void* dy, const void* dh_last, void* dx, void* ddt_lin,     \
+           void* dz, void* dh0, void* part_bc, void* ckpt, void* part_d,     \
+           int batch, int S, int di, int N, void* stream) {                  \
+    return mamba_scan_bwd<T, walk>(xc, dt_lin, dt_bias, bm, cm, bc_sb,       \
+                                   bc_ss, a, dskip, z, h0, dy, dh_last, dx,  \
+                                   ddt_lin, dz, dh0, part_bc, ckpt, part_d,  \
+                                   batch, S, di, N, stream);                 \
+  }
 
 extern "C" {
 // xc, z, dy, dx, dz: (batch, S, di) in the activation type, contiguous;
@@ -476,35 +647,15 @@ extern "C" {
 // N) in the activation type, element (b, t, n) at b * bc_sb + t * bc_ss + n;
 // dt_bias, dskip: (di,), a: (di, N), h0, dh_last, dh0 (each or null):
 // (batch, di, N), float32, contiguous; part_bc: (batch, S, ceil(di/64),
-// 2N), ckpt: (batch, ceil(S/8), di, N), part_d: (batch, N + 2, di),
-// float32 scratch.
-int rt_mamba_scan_bwd_f32(const void* xc, const void* dt_lin,
-                          const void* dt_bias, const void* bm, const void* cm,
-                          long long bc_sb, long long bc_ss, const void* a,
-                          const void* dskip, const void* z, const void* h0,
-                          const void* dy, const void* dh_last, void* dx,
-                          void* ddt_lin, void* dz, void* dh0, void* part_bc,
-                          void* ckpt, void* part_d, int batch, int S, int di,
-                          int N, void* stream) {
-  return mamba_scan_bwd<float>(xc, dt_lin, dt_bias, bm, cm, bc_sb, bc_ss, a,
-                               dskip, z, h0, dy, dh_last, dx, ddt_lin, dz,
-                               dh0, part_bc, ckpt, part_d, batch, S, di, N,
-                               stream);
-}
-int rt_mamba_scan_bwd_bf16(const void* xc, const void* dt_lin,
-                           const void* dt_bias, const void* bm,
-                           const void* cm, long long bc_sb, long long bc_ss,
-                           const void* a, const void* dskip, const void* z,
-                           const void* h0, const void* dy,
-                           const void* dh_last, void* dx, void* ddt_lin,
-                           void* dz, void* dh0, void* part_bc, void* ckpt,
-                           void* part_d, int batch, int S, int di, int N,
-                           void* stream) {
-  return mamba_scan_bwd<__nv_bfloat16>(xc, dt_lin, dt_bias, bm, cm, bc_sb,
-                                       bc_ss, a, dskip, z, h0, dy, dh_last,
-                                       dx, ddt_lin, dz, dh0, part_bc, ckpt,
-                                       part_d, batch, S, di, N, stream);
-}
+// 2N), part_d: (batch, N + 2, di), float32 scratch; ckpt: (batch,
+// ceil(S/8), di, N) float32, the states at the segment starts: scratch the
+// walk writes (rt_mamba_scan_bwd_*), or the forward's `states`
+// (rt_mamba_scan_bwd_ckpt_*).
+RT_MAMBA_SCAN_BWD(rt_mamba_scan_bwd_f32, float, true)
+RT_MAMBA_SCAN_BWD(rt_mamba_scan_bwd_bf16, __nv_bfloat16, true)
+RT_MAMBA_SCAN_BWD(rt_mamba_scan_bwd_ckpt_f32, float, false)
+RT_MAMBA_SCAN_BWD(rt_mamba_scan_bwd_ckpt_bf16, __nv_bfloat16, false)
+
 // part_bc, part_d as above; db, dc: (batch, S, N), da: (di, N), dd, dbias:
 // (di,), float32, contiguous.
 int rt_mamba_scan_bwd_reduce(const void* part_bc, const void* part_d,

@@ -448,19 +448,31 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0):
+#: time steps between the segment states the forward keeps for the backward
+#: (``kScanSteps`` of ``csrc/ssm_scan.cu``, ``kSeg`` of
+#: ``csrc/ssm_scan_bwd.cu``)
+STATE_EVERY = 8
+
+
+def _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0, states=False):
     f = _acc_dtype(xc.dtype)
     xc, dt, b_mat, c_mat, a, d_skip = (
         t.to(f) for t in (xc, dt, b_mat, c_mat, a, d_skip))
     bsz, s, di = xc.shape
-    h = xc.new_zeros(bsz, di, a.shape[-1]) if h0 is None else h0.to(f)
-    ys = []
+    n = a.shape[-1]
+    h = xc.new_zeros(bsz, di, n) if h0 is None else h0.to(f)
+    ys, kept = [], []
     for t in range(s):
+        if states and t % STATE_EVERY == 0:
+            kept.append(h)
         a_bar = torch.exp(dt[:, t, :, None] * a)
         h = a_bar * h + (dt[:, t] * xc[:, t])[..., None] * b_mat[:, t, None, :]
         ys.append((h * c_mat[:, t, None, :]).sum(-1))
     y = torch.stack(ys, 1) if ys else xc.new_zeros(bsz, 0, di)
-    return y + d_skip * xc, h
+    if not states:
+        return y + d_skip * xc, h
+    return (y + d_skip * xc, h, torch.stack(kept, 1) if kept
+            else xc.new_zeros(bsz, 0, di, n))
 
 
 def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
@@ -479,8 +491,8 @@ def ssm_scan(xc: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
 def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
                b_mat: torch.Tensor, c_mat: torch.Tensor, a: torch.Tensor,
                d_skip: torch.Tensor, z: torch.Tensor,
-               h0: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               h0: torch.Tensor | None = None, *, states: bool = False
+               ) -> tuple:
     """The Mamba-1 mixer from the scan to the gate (the JAX package's
     ``blocks.py:360-379`` and ``:391``; with ``h0``, the SSM step of
     ``mamba_decode``, ``:402-426``).
@@ -491,11 +503,13 @@ def mamba_scan(xc: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
     ``None`` (zero state).  ``dt = softplus(dt_lin + dt_bias)`` and the scan
     in float32 (:func:`ssm_scan`, from ``h0``), ``y`` rounded to xc's dtype,
     times ``silu(z)`` in that dtype.  Returns (y (B, S, di) in xc's dtype,
-    h_last (B, di, N) float32).
+    h_last (B, di, N) float32), and with ``states`` also the state before
+    steps 0, STATE_EVERY, 2·STATE_EVERY, … (B, ceil(S / STATE_EVERY), di,
+    N), the segment states :func:`mamba_scan_bwd` takes.
     """
     dt = F.softplus(dt_lin + dt_bias.to(dt_lin.dtype))
-    y, h_last = _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0)
-    return y.to(xc.dtype) * F.silu(z), h_last
+    y, *rest = _selective_scan(xc, dt, b_mat, c_mat, a, d_skip, h0, states)
+    return (y.to(xc.dtype) * F.silu(z), *rest)
 
 
 #: time steps between the states the plain backward keeps (its segments)
@@ -517,7 +531,8 @@ def mamba_scan_bwd(xc: torch.Tensor, dt_lin: torch.Tensor,
                    z: torch.Tensor, dy: torch.Tensor,
                    h0: torch.Tensor | None = None,
                    dh_last: torch.Tensor | None = None,
-                   segment: int = BWD_SEGMENT) -> tuple:
+                   segment: int = BWD_SEGMENT,
+                   states: torch.Tensor | None = None) -> tuple:
     """The backward of :func:`mamba_scan`: the gradients of
     (xc, dt_lin, dt_bias, b_mat, c_mat, a, d_skip, z, h0) given ``dy``
     (the gradient of the gated y, in xc's dtype) and ``dh_last`` (of the
@@ -531,7 +546,9 @@ def mamba_scan_bwd(xc: torch.Tensor, dt_lin: torch.Tensor,
     ``dC_t = Σ_d dy'_t·h_t``, through ``ā = exp(dt·A)`` to dt and A and
     through softplus to dt_lin and dt_bias.  The float32 states are
     recomputed from ``h0``: one walk forward keeps the state every
-    ``segment`` steps, then each segment, last first, is recomputed and
+    ``segment`` steps (or they are taken from ``states``, the forward's
+    state every STATE_EVERY steps, :func:`mamba_scan`; ``segment`` a
+    multiple of it), then each segment, last first, is recomputed and
     the adjoint run back through it; nothing of shape (B, S, d_inner, N) is
     formed.  Returns xc's and z's gradients in xc's dtype, dt_lin's in its
     dtype, the others in float32 (float64 for float64 inputs); h0's is
@@ -550,12 +567,19 @@ def mamba_scan_bwd(xc: torch.Tensor, dt_lin: torch.Tensor,
         return (torch.exp(dt[:, t, :, None] * af) * h
                 + u[:, t, :, None] * bf[:, t, None, :])
 
-    h = xc.new_zeros(bsz, di, n, dtype=f) if h0 is None else h0.to(f)
-    starts = []
-    for t in range(s):
-        if t % segment == 0:
-            starts.append(h)
-        h = step(h, t)
+    if states is not None:
+        if segment % STATE_EVERY:
+            raise ValueError(f"mamba_scan_bwd: segment {segment} is not a "
+                             f"multiple of STATE_EVERY={STATE_EVERY}")
+        starts = [states[:, t // STATE_EVERY].to(f)
+                  for t in range(0, s, segment)]
+    else:
+        h = xc.new_zeros(bsz, di, n, dtype=f) if h0 is None else h0.to(f)
+        starts = []
+        for t in range(s):
+            if t % segment == 0:
+                starts.append(h)
+            h = step(h, t)
     lam = (xc.new_zeros(bsz, di, n, dtype=f) if dh_last is None
            else dh_last.to(f).clone())
     dxf = torch.zeros(bsz, s, di, dtype=f, device=xc.device)

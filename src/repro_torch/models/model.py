@@ -9,10 +9,14 @@ no sharding.  Entry points, as in the JAX package: ``forward`` (logits),
 trainable: ``forward`` and ``loss`` build a graph when grad is enabled
 (the mixer's two kernels have backward kernels of their own), with each
 layer recomputed in the backward when ``cfg.remat`` (the reference's
-``nothing_saveable`` per group, ``model.py:230-232``); ``prefill`` and
-``decode`` run under ``torch.no_grad``.
+``nothing_saveable`` per group, ``model.py:230-232``); that recompute runs
+right before the layer's backward, so it keeps the fused scan's segment
+states for it (:func:`repro_torch.kernels.ssm_scan.segment_states`).
+``prefill`` and ``decode`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
+
+import contextlib
 
 from typing import Any, Dict, Optional, Tuple
 
@@ -22,7 +26,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.ssm_scan import resolve_mixer
+from repro_torch.kernels.ssm_scan import resolve_mixer, segment_states
 
 from . import blocks
 from .config import ModelConfig
@@ -54,6 +58,12 @@ class _Layer(nn.Module):
         super().__init__()
         self.ln = _Leaves(blocks.norm_spec(cfg))
         self.mamba = _Leaves(blocks.mamba_spec(cfg))
+
+
+def _keep_states_in_recompute():
+    """remat's (forward, recompute) contexts: the recompute keeps the
+    fused scan's segment states for the backward that follows it."""
+    return contextlib.nullcontext(), segment_states()
 
 
 class Model(nn.Module):
@@ -151,12 +161,14 @@ class Model(nn.Module):
         ``extra`` is the reference's argument (encoder frames, image
         embeddings) and unused by the ``ssm`` family.  With grad enabled
         and ``cfg.remat``, each layer keeps only its input for the
-        backward and is run again there."""
+        backward and is run again there, its fused scan keeping its
+        segment states for the backward that follows."""
         x = self._embed(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.groups:
             if remat:
-                x = checkpoint(self._layer, layer, x, use_reentrant=False)
+                x = checkpoint(self._layer, layer, x, use_reentrant=False,
+                               context_fn=_keep_states_in_recompute)
             else:
                 x = self._layer(layer, x)
         return self._head(x), torch.zeros((), device=x.device)

@@ -537,13 +537,16 @@ def test_mamba_scan_bwd_kernel_matches_plain_version(dev, smoke, shape, h0,
     """The backward of the fused scan (kernel A) against
     ref.mamba_scan_bwd, every gradient (chip_smoke.check_mamba_scan_bwd:
     float32 1e-4 of max |plain|; bf16 dxc, dz per element as the forward's
-    y, the float32 gradients 2^-8 of max |plain|), the same bits on two
-    calls, two launches a call (the walk and the fixed-order sum)."""
+    y, the float32 gradients 2^-8 of max |plain|), on the forward's segment
+    states and on its own walk, each the same bits on two calls and the two
+    modes the same bits; two launches a call (the backward pass and the
+    fixed-order sum), two calls a mode."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     reset_launches()
     res = smoke.check_mamba_scan_bwd(dev, shape, dtype, h0=h0)
     torch.cuda.synchronize()
     assert LAUNCHES["mamba_scan_bwd"] == 4
+    assert LAUNCHES["mamba_scan_bwd_ckpt"] == 4
     assert res["ok"], res
 
 
