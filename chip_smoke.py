@@ -211,15 +211,19 @@ one, its fused entry ``mamba_scan`` (softplus, scan and gate, bf16) at both
 and at one decode step from a state (both dtypes), with its segment states
 (``states=True``, the backward's checkpoints; timed with and without them
 at the serve shape), and the fused causal
-convolution with bias and silu bit for bit (serve shape, timed against
-``F.conv1d``; ragged, decode and short from a state).  And the two
+convolution with bias and silu bit for bit and the same bits twice
+(serve shape, timed against ``F.conv1d``; ragged, decode, short and the
+tile edges of ``CONV_EDGES`` from a state), with the variant that ran
+(the main shapes must run ``staged``), bytes over time and registers.  And
+the two
 backward kernels of training against their plain backward passes: kernel
 A (``mamba_scan_bwd``) at the training shape in bf16 (timed) and float32,
 ragged (S 999, d_inner 8100) and small from a state, every gradient within
 its stated tolerance, in both modes (on the forward's segment states, as
 training runs it, timed as the row; on its own walk, ``walk_ms``), the
 two modes the same bits; kernel B (``causal_conv1d_bwd``) with dx bit for
-bit, timed against autograd of ``F.conv1d``; both the same bits on two
+bit, timed against autograd of ``F.conv1d``, at the convolution's shapes
+and tile edges too; both the same bits on two
 calls; and ``ssm_scan``'s refusal of a gradient on the card.  Then one
 ``{"kernels": [...]}`` line (kernel A's row sums both modes' launches,
 ``launches_ckpt`` and ``launches_walk`` apart), and last the device line
@@ -334,6 +338,14 @@ MAMBA_BWD_BF16_TOL = 2.0 ** -8
 # Kernel B: dx bit for bit; dw and db are float32 sums over (B, S) in
 # another order than torch's sum.
 CONV_BWD_TOL = 1e-5
+# the convolution's tile edges (csrc/causal_conv1d.cu), each from a state,
+# in both directions and dtypes: (case, (B, S, C), offset of every base in
+# elements).  tile_edges: S not a multiple of a slot's rows, a segment
+# boundary inside a batch row, C a multiple of 8 but not of a channel tile
+# (staged); short: S < K-1 (staged); misaligned: a base off by one element
+# (generic)
+CONV_EDGES = (("tile_edges", (1, 300, 8200), 0), ("short", (2, 2, 8192), 0),
+              ("misaligned", (2, 530, 520), 1))
 SERVE_TOL = 5e-2           # bf16, 64 layers: decode vs forward logits at the
                            # last position, max |Δ| / max |forward|
 SERVE_REPEATS = 3
@@ -401,6 +413,9 @@ FUSED_KEYS = ("fused_ms", "fused_bound_ms", "fused_bound_by",
 # checkpoint mode against the self-walk bit for bit, launches by mode
 BWD_KEYS = ("walk_ms", "walk_plain_err", "ckpt_equals_walk",
             "launches_ckpt", "launches_walk")
+# what the kernels line adds for the convolution's two kernels: the variant
+# the main shape ran, bytes moved over time, the kernel's ptxas line
+CONV_KEYS = ("variant", "tb_s", "registers")
 # kernels that only move values: they must equal their plain versions
 EXACT_KERNELS = ("pack_tril", "unpack_tril")
 # The kernels each sweep of the main path launches; it launches no other.
@@ -1122,11 +1137,41 @@ def check_mamba_scan(dev, shape, dtype, h0: bool = False,
     return res
 
 
-def check_conv(dev, shape, dtype, state: bool, timing=None) -> dict:
+def offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values in a tensor whose base lies ``offset`` elements past
+    an allocation's (a base the bulk copies cannot take when ``offset``
+    is not a multiple of 16 bytes)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def conv_registers(bwd: bool, dtype, variant: str) -> list:
+    """``-Xptxas -v`` of the convolution's kernels that ``variant`` runs
+    in ``dtype`` (one line; the generic variant's vector and element
+    kernels: two): registers, shared memory."""
+    from repro_torch.kernels import _build
+    log = _build._target("causal_conv1d").with_suffix(".log")
+    name = ("causal_conv1d_silu_bwd_kernel" if bwd
+            else "causal_conv1d_silu_kernel")
+    name += "I13__nv_bfloat16" if dtype == torch.bfloat16 else "If"
+    rows = "RingRows" if variant == "staged" else "DirectRows"
+    return [r.get("used", "") for r in
+            (ptxas_lines(log.read_text()) if log.exists() else [])
+            if name in r["kernel"] and rows in r["kernel"]]
+
+
+def check_conv(dev, shape, dtype, state: bool, timing=None,
+               offset: int = 0) -> dict:
     """``causal_conv1d_silu`` against its plain version on the card, bit
-    for bit (output and new state); with ``timing``, its time, bound and
-    ``F.conv1d`` (cuDNN, TF32 off: conv and bias, no silu) on the same
-    input."""
+    for bit (output and new state), the same bits on two calls, the
+    variant that ran (``offset``: every input's base that many elements
+    past an allocation's); with ``timing``, its time, bound, bytes over
+    time, registers and ``F.conv1d`` (cuDNN, TF32 off: conv and bias, no
+    silu) on the same input."""
     from repro_torch.kernels import causal_conv1d, ref
     b, s, c = shape
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1136,6 +1181,8 @@ def check_conv(dev, shape, dtype, state: bool, timing=None) -> dict:
     bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(dtype)
     st = torch.randn(b, CONV_WIDTH - 1, c, generator=gen,
                      device=dev).to(dtype) if state else None
+    x = offset_view(x, offset)
+    st = None if st is None else offset_view(st, offset)
 
     def kernel():
         return causal_conv1d.causal_conv1d_silu(x, w, bias, st)
@@ -1143,15 +1190,20 @@ def check_conv(dev, shape, dtype, state: bool, timing=None) -> dict:
     def plain():
         return ref.causal_conv1d_silu(x, w, bias, st)
 
+    causal_conv1d.LAST_VARIANT.pop("causal_conv1d", None)
     (y, ns), (y_p, ns_p) = kernel(), plain()
+    ran = causal_conv1d.LAST_VARIANT.get("causal_conv1d")
+    twice = _bitwise((y, ns), kernel())
     if not torch.isfinite(y).all():
         raise AssertionError("causal_conv1d: output is not finite")
     diff = max(float((y.float() - y_p.float()).abs().max()) if y.numel()
                else 0.0, float((ns.float() - ns_p.float()).abs().max()))
+    exact = torch.equal(y, y_p) and torch.equal(ns, ns_p)
     res = dict(max_abs_err=diff, max_ulps=bf16_ulps(y, y_p)
                if dtype == torch.bfloat16 else None,
-               bit_exact=diff == 0.0, ok=diff == 0.0, shape=list(shape),
-               dtype=str(dtype), state=state)
+               bit_exact=exact, bitwise_twice=twice, ok=exact and twice,
+               variant=ran, shape=list(shape), dtype=str(dtype),
+               state=state, offset=offset)
     if timing is None:
         return res
     es = torch.empty((), dtype=dtype).element_size()
@@ -1170,11 +1222,14 @@ def check_conv(dev, shape, dtype, state: bool, timing=None) -> dict:
             x_ncw, w_lib, bias=bias, padding=CONV_WIDTH - 1, groups=c), 10)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    res.update(ms=timed_ms(kernel, 10), plain_ms=timed_ms(plain, 2),
+    ms = timed_ms(kernel, 10)
+    res.update(ms=ms, plain_ms=timed_ms(plain, 2),
                library_ms=library_ms, library="F.conv1d(groups=C, bias), "
                "cudnn.allow_tf32=False", bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               work_bytes=work_bytes, work_flops=flops)
+               work_bytes=work_bytes, work_flops=flops,
+               tb_s=work_bytes / ms / 1e9,
+               registers=conv_registers(False, dtype, ran))
     return res
 
 
@@ -1287,12 +1342,15 @@ def check_mamba_scan_bwd(dev, shape, dtype, h0: bool = False,
     return res
 
 
-def check_conv_bwd(dev, shape, dtype, state: bool, timing=None) -> dict:
+def check_conv_bwd(dev, shape, dtype, state: bool, timing=None,
+                   offset: int = 0) -> dict:
     """``causal_conv1d_silu_bwd`` (kernel B) against its plain version on
     the card: dx (and dstate) bit for bit, dw and db within CONV_BWD_TOL of
     max |plain| (float32 sums in another order); the same bits on two
-    calls; with ``timing``, its time, bound, plain time and the backward of
-    ``F.conv1d`` (groups = C, cuDNN, TF32 off) on the same input."""
+    calls; the variant that ran (``offset`` as for :func:`check_conv`);
+    with ``timing``, its time, bound, bytes over time, registers, plain
+    time and the backward of ``F.conv1d`` (groups = C, cuDNN, TF32 off) on
+    the same input."""
     from repro_torch.kernels import causal_conv1d, ref
     b, s, c = shape
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1303,6 +1361,8 @@ def check_conv_bwd(dev, shape, dtype, state: bool, timing=None) -> dict:
     dout = torch.randn(b, s, c, generator=gen, device=dev).to(dtype)
     st = torch.randn(b, CONV_WIDTH - 1, c, generator=gen,
                      device=dev).to(dtype) if state else None
+    x, dout = offset_view(x, offset), offset_view(dout, offset)
+    st = None if st is None else offset_view(st, offset)
 
     def kernel():
         return causal_conv1d.causal_conv1d_silu_bwd(x, w, bias, dout, st)
@@ -1310,7 +1370,9 @@ def check_conv_bwd(dev, shape, dtype, state: bool, timing=None) -> dict:
     def plain():
         return ref.causal_conv1d_silu_bwd(x, w, bias, dout, st)
 
+    causal_conv1d.LAST_VARIANT.pop("causal_conv1d_bwd", None)
     got, want = kernel(), plain()
+    ran = causal_conv1d.LAST_VARIANT.get("causal_conv1d_bwd")
     twice = _bitwise(got, kernel())
     torch.cuda.synchronize()
     err = {}
@@ -1326,8 +1388,9 @@ def check_conv_bwd(dev, shape, dtype, state: bool, timing=None) -> dict:
                 if k in err)
     sums_ok = all(err[k]["rel"] <= CONV_BWD_TOL for k in ("dw", "db"))
     res = dict(err=err, dx_bit_exact=exact, bitwise_twice=twice,
-               ok=exact and sums_ok and twice, shape=list(shape),
-               dtype=str(dtype), state=state, tol_sums=CONV_BWD_TOL,
+               ok=exact and sums_ok and twice, variant=ran,
+               shape=list(shape), dtype=str(dtype), state=state,
+               offset=offset, tol_sums=CONV_BWD_TOL,
                max_abs_err=max(e["max_abs"] for e in err.values()))
     if timing is None:
         return res
@@ -1354,12 +1417,15 @@ def check_conv_bwd(dev, shape, dtype, state: bool, timing=None) -> dict:
             yl, (xl, wl, bl), gl, retain_graph=True), 5)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    res.update(ms=timed_ms(kernel, 10), plain_ms=timed_ms(plain, 2),
+    ms = timed_ms(kernel, 10)
+    res.update(ms=ms, plain_ms=timed_ms(plain, 2),
                library_ms=library_ms,
                library="autograd of F.conv1d(groups=C, bias), "
                "cudnn.allow_tf32=False", bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               work_bytes=work_bytes, work_flops=flops)
+               work_bytes=work_bytes, work_flops=flops,
+               tb_s=work_bytes / ms / 1e9,
+               registers=conv_registers(True, dtype, ran))
     return res
 
 
@@ -1389,6 +1455,9 @@ def phase_kernels_bwd(dev, peaks) -> tuple[dict, dict]:
             dev, SCAN_RAGGED[:3], dtype, True)
         cases[f"causal_conv1d_bwd_small_{tag}"] = check_conv_bwd(
             dev, (2, 37, 130), dtype, True)
+        for case, shape, offset in CONV_EDGES:
+            cases[f"causal_conv1d_bwd_{case}_{tag}"] = check_conv_bwd(
+                dev, shape, dtype, True, offset=offset)
     ins = [t.requires_grad_() for t in scan_inputs(dev, 1, 4, 64, 16)]
     try:
         ssm_scan.ssm_scan(*ins)
@@ -1472,20 +1541,31 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
                       ("short", (2, 2, 8192), torch.bfloat16, True),
                       ("ragged_f32", (2, 37, 130), torch.float32, True),
                       ("decode_f32", (2, 1, 8100), torch.float32, True))}
+    for case, shape, offset in CONV_EDGES:
+        for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            conv_cases[f"causal_conv1d_{case}_{tag}"] = check_conv(
+                dev, shape, dtype, True, offset=offset)
     emit("kernels", shape="causal_conv1d", width=CONV_WIDTH,
          results=dict(conv, **conv_cases))
     bwd, bwd_cases = phase_kernels_bwd(dev, peaks)
     main.update(scan)
     main.update(conv)
     main.update(bwd)
-    bad = [(case, name) for case, res in
-           (("main", main), ("ragged", ragged), ("ragged_odd", odd),
-            ("float32", f32), ("mixed", mixed),
-            ("mixed_ragged", mixed_ragged), ("mixed_ragged_odd", mixed_odd),
-            ("ssm_scan_ragged", scan_ragged), ("mamba_scan", scan_decode),
-            ("causal_conv1d", conv_cases), ("backward", bwd),
-            ("backward_cases", bwd_cases))
-           for name, r in res.items() if not r["ok"]]
+    # the main path's shapes run the staged design
+    bad = [("not_staged", name) for name, r in (
+        ("causal_conv1d", conv["causal_conv1d"]),
+        ("causal_conv1d_bwd", bwd["causal_conv1d_bwd"]),
+        ("causal_conv1d_bwd_train_f32",
+         bwd_cases["causal_conv1d_bwd_train_f32"]))
+        if r["variant"] != "staged"]
+    bad += [(case, name) for case, res in
+            (("main", main), ("ragged", ragged), ("ragged_odd", odd),
+             ("float32", f32), ("mixed", mixed),
+             ("mixed_ragged", mixed_ragged), ("mixed_ragged_odd", mixed_odd),
+             ("ssm_scan_ragged", scan_ragged), ("mamba_scan", scan_decode),
+             ("causal_conv1d", conv_cases), ("backward", bwd),
+             ("backward_cases", bwd_cases))
+            for name, r in res.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
@@ -3884,8 +3964,8 @@ def main() -> None:
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          **{k: r[k] for k in CLUSTER_KEYS + MIXED_KEYS
-                            + FUSED_KEYS + BWD_KEYS + ("tuned_block",)
-                            if k in r}))
+                            + FUSED_KEYS + BWD_KEYS + CONV_KEYS
+                            + ("tuned_block",) if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels launched on no path: {idle}")

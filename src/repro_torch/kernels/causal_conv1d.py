@@ -1,14 +1,28 @@
 """The Mamba-1 mixer's depthwise causal convolution, bias and silu as one
-CUDA kernel.
+CUDA kernel, and its backward.
 
 Computes the JAX package's ``layers.causal_conv1d``
 (``src/repro/models/layers.py:300-315``) followed by ``+ conv_b`` and
 ``silu`` (``src/repro/models/blocks.py:387-388``) in one pass over the
 ``wx`` GEMM's output, rounded as the plain version
 (:func:`repro_torch.kernels.ref.causal_conv1d_silu`) rounds, so the two
-agree bit for bit.  Bound by its bytes; see ``csrc/causal_conv1d.cu``.
-The JAX package has no Pallas kernel for it (XLA fuses the convolution);
-the port's plain version took ~42 passes over the activation tensor.
+agree bit for bit.  The JAX package has no Pallas kernel for it (XLA fuses
+the convolution); the port's plain version took ~42 passes over the
+activation tensor.
+
+Both kernels are bound by their bytes (x read once, xc written once; the
+backward reads x and dout and writes dx), with the instruction floor of
+their exact rounding close behind, so loads have to overlap arithmetic.
+The first design walked each 16 bytes of channels with one thread, a load
+in flight at a time at 106 (backward 188) registers: 1.18 (0.65) TB/s.
+Now a block is a unit (batch row, 512 bytes of channels, :data:`SEGMENT`
+steps) whose rows the bulk-copy engine streams into a ring of
+shared-memory slots (the ``staged`` variant), and each thread walks its 2
+bf16 or 1 float32 channel out of the ring with its window in registers;
+``csrc/causal_conv1d.cu`` says what was measured and what lost.  Shapes the
+bulk copies cannot take run the ``generic`` variant, the same walk fed by
+the threads' own loads; :func:`variant` chooses from shape, dtype and
+alignment before the launch.
 
 :func:`causal_conv1d_silu` is differentiable: a CUDA tensor that needs a
 gradient goes through the backward kernel (:func:`causal_conv1d_silu_bwd`,
@@ -25,19 +39,51 @@ import torch
 
 from . import _build, ref
 
-__all__ = ["WIDTH", "causal_conv1d_silu", "causal_conv1d_silu_bwd"]
+__all__ = ["WIDTH", "SEGMENT", "VARIANTS", "LAST_VARIANT", "variant",
+           "bwd_parts", "causal_conv1d_silu", "causal_conv1d_silu_bwd"]
 
 #: the width K the kernel is compiled for (d_conv of every configuration)
 WIDTH = 4
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#: time steps a block of either kernel walks (``kSegment``)
+SEGMENT = 256
+#: the kernels' variants, by their number in the C entry points
+VARIANTS = ("generic", "staged")
+#: per wrapper (``causal_conv1d``, ``causal_conv1d_bwd``), the variant of
+#: its last launch (for reports only)
+LAST_VARIANT: dict = {}
+
+# rt_causal_conv1d_silu_*: x, w, b, state in; out, new_state out; batch, S,
+# C, K, variant; stream
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # rt_causal_conv1d_silu_bwd_*: x, w, b, state, dout in; dx, dstate, the
-# partials of dw and db out; batch, S, C, K; stream
-_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# partials of dw and db out; batch, S, C, K, variant; stream
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # rt_causal_conv1d_bwd_reduce: partials in, dw, db out; parts, C, K; stream
 _REDUCE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-#: time steps a thread of the backward kernel walks (``kBwdStrip``)
-BWD_STRIP = 64
+
+
+def variant(s: int, c: int, dtype, ptrs) -> str:
+    """The kernels' variant for S = ``s`` steps of ``c`` channels of
+    ``dtype`` at base addresses ``ptrs`` (every tensor the kernel reads or
+    writes, ``None`` for one absent): ``"staged"`` when the bulk-copy
+    engine can move the rows (S ≥ 1; C · itemsize a multiple of 16 bytes,
+    so every row slice of a 512-byte channel tile is whole 16-byte units;
+    every base 16-byte aligned), else ``"generic"``."""
+    if s >= 1 and c * dtype.itemsize % 16 == 0 and all(
+            p is None or p % 16 == 0 for p in ptrs):
+        return "staged"
+    return "generic"
+
+
+def bwd_parts(bsz: int, s: int) -> int:
+    """Partials of dw and db the backward writes: one a unit's (batch row,
+    segment), ``bsz`` rows of ``ceil(S / SEGMENT)`` (one at S = 0)."""
+    return bsz * max(-(-s // SEGMENT), 1)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(x, w, b, state, what="causal_conv1d_silu") -> None:
@@ -88,15 +134,17 @@ def _forward(x, w, b, state):
     out = torch.empty_like(x)
     new_state = torch.empty(bsz, k - 1, c, dtype=x.dtype, device=x.device)
     if bsz and c:
+        v = variant(s, c, x.dtype, [_ptr(t) for t in (x, state, out,
+                                                       new_state)])
         fn = _build.c_function("causal_conv1d",
                                _build.entry("causal_conv1d_silu", x.dtype),
                                _ARGS)
-        rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(b),
-                None if state is None else _build.ptr(state),
+        rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(b), _ptr(state),
                 _build.ptr(out), _build.ptr(new_state), bsz, s, c, k,
-                _build.stream_ptr(x.device))
+                VARIANTS.index(v), _build.stream_ptr(x.device))
         _build.check(rc, "causal_conv1d_silu")
         _build.count_launch("causal_conv1d")
+        LAST_VARIANT["causal_conv1d"] = v
     return out, new_state
 
 
@@ -108,9 +156,9 @@ def causal_conv1d_silu_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (C,) float32, dstate in x's dtype or ``None`` without a state); its
     plain version is :func:`repro_torch.kernels.ref.causal_conv1d_silu_bwd`.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one thread a 16-byte channel group and strip of :data:`BWD_STRIP`
-    steps, then a second launch that sums the strips' dw and db partials in
-    a fixed order)."""
+    (a block a unit of (batch row, channel tile, :data:`SEGMENT` steps),
+    then a second launch that sums the units' dw and db partials in a fixed
+    order)."""
     what = "causal_conv1d_silu_bwd"
     _check(x, w, b, state, what)
     if tuple(dout.shape) != tuple(x.shape) or dout.dtype != x.dtype:
@@ -125,28 +173,32 @@ def causal_conv1d_silu_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dev = x.device
     dx = torch.empty_like(x)
     dstate = torch.empty_like(state) if state is not None else None
-    parts = bsz * max(-(-s // BWD_STRIP), 1)
+    if not (bsz and c):
+        return (dx, torch.zeros(c, k, dtype=torch.float32, device=dev),
+                torch.zeros(c, dtype=torch.float32, device=dev), dstate)
+    parts = bwd_parts(bsz, s)
     part = torch.empty(parts, c, k + 1, dtype=torch.float32, device=dev)
-    dw = torch.zeros(c, k, dtype=torch.float32, device=dev)
-    db = torch.zeros(c, dtype=torch.float32, device=dev)
-    if bsz and c:
-        stream = _build.stream_ptr(dev)
-        fn = _build.c_function("causal_conv1d",
-                               _build.entry("causal_conv1d_silu_bwd",
-                                            x.dtype), _BWD_ARGS)
-        rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(b),
-                None if state is None else _build.ptr(state),
-                _build.ptr(dout), _build.ptr(dx),
-                None if dstate is None else _build.ptr(dstate),
-                _build.ptr(part), bsz, s, c, k, stream)
-        _build.check(rc, what)
-        _build.count_launch("causal_conv1d_bwd")
-        fn = _build.c_function("causal_conv1d", "rt_causal_conv1d_bwd_reduce",
-                               _REDUCE_ARGS)
-        rc = fn(_build.ptr(part), _build.ptr(dw), _build.ptr(db), parts, c,
-                k, stream)
-        _build.check(rc, f"{what} (reduce)")
-        _build.count_launch("causal_conv1d_bwd")
+    # the sum writes every element
+    dw = torch.empty(c, k, dtype=torch.float32, device=dev)
+    db = torch.empty(c, dtype=torch.float32, device=dev)
+    stream = _build.stream_ptr(dev)
+    v = variant(s, c, x.dtype, [_ptr(t) for t in (x, dout, state, dx,
+                                                   dstate)])
+    fn = _build.c_function("causal_conv1d",
+                           _build.entry("causal_conv1d_silu_bwd", x.dtype),
+                           _BWD_ARGS)
+    rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(b), _ptr(state),
+            _build.ptr(dout), _build.ptr(dx), _ptr(dstate), _build.ptr(part),
+            bsz, s, c, k, VARIANTS.index(v), stream)
+    _build.check(rc, what)
+    _build.count_launch("causal_conv1d_bwd")
+    LAST_VARIANT["causal_conv1d_bwd"] = v
+    fn = _build.c_function("causal_conv1d", "rt_causal_conv1d_bwd_reduce",
+                           _REDUCE_ARGS)
+    rc = fn(_build.ptr(part), _build.ptr(dw), _build.ptr(db), parts, c,
+            k, stream)
+    _build.check(rc, f"{what} (reduce)")
+    _build.count_launch("causal_conv1d_bwd")
     return dx, dw, db, dstate
 
 

@@ -348,13 +348,9 @@ def test_launch_counts_are_kernel_launches(dev, h, block):
     l = chol_blocked.cholesky_blocked(a.contiguous(), block)
     tri_pack.pack_tril(l, block)
     torch.cuda.synchronize()
-    assert LAUNCHES == dict(cholesky_blocked=3 * nt - 2, pack_tril=1,
-                            solve_lower_blocked=0, interp_solve=0,
-                            unpack_tril=0, interp_factors=0,
-                            solve_lower_packed=0, ssm_scan=0,
-                            causal_conv1d=0, cholesky_blocked_bf16=0,
-                            solve_lower_blocked_bf16=0, interp_solve_bf16=0,
-                            interp_factors_bf16=0, solve_lower_packed_bf16=0)
+    # every other counter (the backward kernels' too) stays at 0
+    assert {k: n for k, n in LAUNCHES.items() if n} == dict(
+        cholesky_blocked=3 * nt - 2, pack_tril=1)
 
 
 @pytest.mark.parametrize("h, block", [(40, 16), (200, 64), (1000, 128)])
@@ -475,24 +471,28 @@ def test_mamba_scan_kernel_matches_plain_version(dev, smoke, s, di, n,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape, state", [
-    ((3, 1, 8192), True), ((2, 2, 8192), True), ((2, 37, 20), True),
-    ((2, 70, 130), False), ((1, 33, 8100), True), ((2, 0, 64), True)],
-    ids=["decode", "short", "ragged20", "ragged130", "ragged8100", "empty"])
+@pytest.mark.parametrize("shape, state, offset", [
+    ((3, 1, 8192), True, 0), ((2, 2, 8192), True, 0), ((2, 37, 20), True, 0),
+    ((2, 70, 130), False, 0), ((1, 33, 8100), True, 0), ((2, 0, 64), True, 0),
+    ((1, 300, 8200), True, 0), ((2, 530, 520), True, 1)],
+    ids=["decode", "short", "ragged20", "ragged130", "ragged8100", "empty",
+         "tile_edges", "misaligned"])
 def test_causal_conv1d_kernel_matches_plain_version(dev, smoke, shape, state,
-                                                    dtype):
+                                                    offset, dtype):
     """The fused convolution, bias and silu equal ref.causal_conv1d_silu bit
     for bit (output and new state): the same float32 products and sums in
     the same order, rounded to the activation dtype where torch rounds, silu
     by the math library's expf and an IEEE division as torch's kernel.  S = 1
-    and S < K - 1 from a state, channels that are not a multiple of 8, one
-    launch."""
+    and S < K - 1 from a state, channels that are not a multiple of 8, the
+    tile edges (S not a multiple of a slot's rows, a segment boundary inside
+    a row, C not a multiple of a channel tile) and a base off by one element
+    (the generic variant); the same bits on two calls, one launch each."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     reset_launches()
-    res = smoke.check_conv(dev, shape, dtype, state)
+    res = smoke.check_conv(dev, shape, dtype, state, offset=offset)
     torch.cuda.synchronize()
-    assert LAUNCHES["causal_conv1d"] == 1      # the plain version adds none
-    assert res["bit_exact"], res
+    assert LAUNCHES["causal_conv1d"] == 2      # the plain version adds none
+    assert res["bit_exact"] and res["bitwise_twice"], res
 
 @pytest.mark.parametrize("scan", ["cuda", "reference"])
 def test_bf16_decode_reproduces_forward(dev, smoke, scan):
@@ -552,18 +552,22 @@ def test_mamba_scan_bwd_kernel_matches_plain_version(dev, smoke, shape, h0,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape, state", [
-    ((3, 1, 8192), True), ((2, 2, 8192), True), ((2, 37, 20), True),
-    ((2, 70, 130), False), ((1, 130, 8100), True), ((2, 0, 64), True)],
-    ids=["decode", "short", "ragged20", "ragged130", "ragged8100", "empty"])
+@pytest.mark.parametrize("shape, state, offset", [
+    ((3, 1, 8192), True, 0), ((2, 2, 8192), True, 0), ((2, 37, 20), True, 0),
+    ((2, 70, 130), False, 0), ((1, 130, 8100), True, 0),
+    ((2, 0, 64), True, 0), ((1, 300, 8200), True, 0),
+    ((2, 530, 520), True, 1)],
+    ids=["decode", "short", "ragged20", "ragged130", "ragged8100", "empty",
+         "tile_edges", "misaligned"])
 def test_causal_conv1d_bwd_kernel_matches_plain_version(dev, smoke, shape,
-                                                        state, dtype):
+                                                        state, offset, dtype):
     """The convolution's backward (kernel B): dx and dstate bit for bit,
     dw and db within 1e-5 of max |plain| (float32 sums over (B, S) in
-    another order), the same bits on two calls."""
+    another order), the same bits on two calls; the tile edges and a
+    misaligned base as for the forward."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     reset_launches()
-    res = smoke.check_conv_bwd(dev, shape, dtype, state)
+    res = smoke.check_conv_bwd(dev, shape, dtype, state, offset=offset)
     torch.cuda.synchronize()
     assert LAUNCHES["causal_conv1d_bwd"] == 4
     assert res["ok"], res
