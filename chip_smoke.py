@@ -204,7 +204,11 @@ packed trsm, the last also on float32 factors) and ``interp_factors`` on
 a bf16 Θ (bit for bit) against their plain versions at the main path's
 bf16 shapes and at h = 1000 and 999, with the variant's time beside its
 bound, its plain version's, its one-dtype float32 kernel's and the float32
-library call's.
+library call's.  The mixed Cholesky's row also gives the design that ran
+(``variant``: ``wgmma`` at B = 64, 128, ``mma_sync`` at 16, 32, read from
+the profiled kernels' names; the main shape must run ``wgmma``) and the
+``by_kernel`` split of its three kernels, and the Cholesky is held at
+every block at h = 1000, batch 1 and 20 (the same bits twice too).
 It also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one, its fused entry ``mamba_scan`` (softplus, scan and gate, bf16) at both
@@ -404,6 +408,10 @@ CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
                 "ptxas")
 # what the kernels line adds for the mixed variants
 MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape")
+# what the kernels line adds for the Cholesky's rows: device ms and
+# launches of its three kernels in one profiled call (and, for the mixed
+# variant, the design that ran: CONV_KEYS' ``variant``)
+CHOL_KEYS = ("by_kernel", "diag_ms_per_tile_column")
 # what the kernels line adds for ssm_scan's fused entry (mamba_scan), with
 # and without its segment states (the backward's checkpoints)
 FUSED_KEYS = ("fused_ms", "fused_bound_ms", "fused_bound_by",
@@ -813,6 +821,7 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
     l_p = ref.cholesky_blocked(anchors, block, bf)
     held("cholesky_blocked_bf16", l_k, l_p,
          torch.linalg.cholesky(anchors.double()))
+    res["cholesky_blocked_bf16"]["variant"] = chol_blocked.mixed_variant(block)
     # solve_lower_blocked, mixed: forward then transposed solve
     l_e = torch.linalg.cholesky(exact).contiguous()
 
@@ -960,8 +969,46 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
         res[name].update(cluster_split(name, fn, res[name]["ms"]))
     _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(
         anchors, block, compute_dtype=bf))
-    res["cholesky_blocked_bf16"]["by_kernel"] = chol_split(by_name)
+    row = res["cholesky_blocked_bf16"]
+    row["by_kernel"] = chol_split(by_name)
+    row["diag_ms_per_tile_column"] = \
+        row["by_kernel"]["diag_kernel"]["ms_per_launch"]
+    # the design that ran, from the kernels' names (the wgmma design's
+    # panel and trailing update are panel_kernel_tc and syrk_kernel_tc)
+    ran = "wgmma" if any("_kernel_tc" in n for n in by_name) else "mma_sync"
+    if ran != row["variant"]:
+        row["ok"] = False
+    row["variant"] = ran
     return res
+
+
+def check_chol_designs(dev, h: int, block: int, batch: int) -> dict:
+    """The mixed Cholesky at ``block`` (the design ``mixed_variant`` names)
+    against its plain version on ``batch`` SPD float32 matrices of ``h``:
+    max |Δ| / max |plain| within MIXED_TOL, the error against float64
+    within ERROR_RATIO of the plain version's, the same bits on two
+    calls."""
+    from repro_torch.kernels import chol_blocked, ref
+    gen = torch.Generator(device=dev).manual_seed(h + batch)
+    x = torch.randn(batch, 2 * h, h, generator=gen, device=dev,
+                    dtype=torch.float64)
+    a = (x.mT @ x / h + torch.eye(h, dtype=torch.float64, device=dev)
+         ).float().contiguous()
+    del x
+    bf = torch.bfloat16
+    got = chol_blocked.cholesky_blocked(a, block, compute_dtype=bf)
+    again = chol_blocked.cholesky_blocked(a, block, compute_dtype=bf)
+    plain = ref.cholesky_blocked(a, block, bf)
+    exact = torch.linalg.cholesky(a.double())
+    e_k = errors(got.double(), exact)[1]
+    e_p = errors(plain.double(), exact)[1]
+    out = dict(zip(("max_abs_err", "max_rel_err"), errors(got, plain)),
+               error_ratio=e_k / e_p, same_bits=torch.equal(got, again),
+               variant=chol_blocked.mixed_variant(block), h=h, block=block,
+               batch=batch, tol_rel=MIXED_TOL["cholesky_blocked_bf16"])
+    out["ok"] = (out["max_rel_err"] <= out["tol_rel"] and out["same_bits"]
+                 and ERROR_RATIO[0] <= out["error_ratio"] <= ERROR_RATIO[1])
+    return out
 
 
 def scan_inputs(dev, b: int, s: int, di: int, n: int, seed: int = 2):
@@ -1515,6 +1562,13 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
     mixed_odd = check_mixed(dev, 999, BLOCK, 4, 3, 3)
     emit("kernels", shape="mixed_ragged_odd", h=999, block=BLOCK,
          dtype="float32", compute="bfloat16", results=mixed_odd)
+    # the mixed Cholesky's two designs at every block (ragged h)
+    from repro_torch.kernels import _build
+    designs = {f"cholesky_blocked_bf16_b{block}_n{batch}":
+               check_chol_designs(dev, 1000, block, batch)
+               for block in _build.BLOCKS for batch in (1, 20)}
+    emit("kernels", shape="mixed_cholesky_blocks", h=1000,
+         dtype="float32", compute="bfloat16", results=designs)
     scan = {"ssm_scan": check_ssm_scan(dev, SCAN_SHAPE, timing=peaks)}
     scan_ragged = {"ssm_scan": check_ssm_scan(dev, SCAN_RAGGED)}
     for tag, shape, res in (("ssm_scan", SCAN_SHAPE, scan),
@@ -1558,10 +1612,13 @@ def phase_kernels(dev, folds, lams, peaks) -> dict:
         ("causal_conv1d_bwd_train_f32",
          bwd_cases["causal_conv1d_bwd_train_f32"]))
         if r["variant"] != "staged"]
+    if mixed["cholesky_blocked_bf16"]["variant"] != "wgmma":
+        bad.append(("not_wgmma", "cholesky_blocked_bf16"))
     bad += [(case, name) for case, res in
             (("main", main), ("ragged", ragged), ("ragged_odd", odd),
              ("float32", f32), ("mixed", mixed),
              ("mixed_ragged", mixed_ragged), ("mixed_ragged_odd", mixed_odd),
+             ("mixed_cholesky_blocks", designs),
              ("ssm_scan_ragged", scan_ragged), ("mamba_scan", scan_decode),
              ("causal_conv1d", conv_cases), ("backward", bwd),
              ("backward_cases", bwd_cases))
@@ -3964,7 +4021,7 @@ def main() -> None:
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          **{k: r[k] for k in CLUSTER_KEYS + MIXED_KEYS
-                            + FUSED_KEYS + BWD_KEYS + CONV_KEYS
+                            + FUSED_KEYS + BWD_KEYS + CONV_KEYS + CHOL_KEYS
                             + ("tuned_block",) if k in r}))
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:

@@ -13,9 +13,12 @@
             then the latency of a dependent ``__shfl_sync``, ``rsqrt`` (+ an
             add) and DFMA in cycles.
 ``stamps``  ``clock64`` at every block barrier (and around the look-ahead
-            potf2) of ``diag_kernel<double, 128>``, block 0, second tile
+            potf2) of the diagonal step at B = 128, block 0, second tile
             column (the one that applies the look-ahead update), in a
-            20 x 1024² float64 call: cycles since the first stamp.
+            20 x 1024² call: cycles since the first stamp.  Two
+            instantiations, one line each: ``<double, 128>`` (float64) and
+            ``<float, 128, __nv_bfloat16>`` (the mixed variant: float32
+            state, bf16 products), its scratch as the wrapper allocates it.
 
 Each probe compiles a patched copy of the kernel source with the port's
 nvcc flags into ``build/probe/`` and prints JSON lines; the card's
@@ -251,7 +254,16 @@ extern "C" int run_latency(double* out, long long* cyc, int n, int which) {
                               cycles=int(cyc.item()))), flush=True)
 
 
+#: the instantiations ``stamps`` runs: C entry, input dtype, compute dtype,
+#: and the kernel's (T, CT) as the stamp's condition tests them
+STAMPED = (("rt_chol_blocked_f64", torch.float64, None,
+            "sizeof(T) == 8"),
+           ("rt_chol_blocked_f32_bf16", torch.float32, torch.bfloat16,
+            "sizeof(T) == 4 && sizeof(CT) == 2"))
+
+
 def probe_stamps() -> None:
+    from repro_torch.kernels import chol_blocked, ref
     head, rest = SRC.split("diag_kernel(const T* src", 1)
     body, tail = rest.split("// ----", 1)
     body = re.sub(r"__syncthreads\(\);",
@@ -260,15 +272,23 @@ def probe_stamps() -> None:
     if look not in body:
         raise SystemExit("stamps: the source changed")
     body = body.replace(look, "STAMP(-1); " + look + " STAMP(-2);")
+    want = " : ".join(f"g_want == {i} ? ({cond})"
+                      for i, (*_, cond) in enumerate(STAMPED)) + " : false"
     stamp = (
         "__device__ long long g_stamp[256][2];\n__device__ int g_count;\n"
+        "__device__ int g_want;\n"
         "#define STAMP(tag) do { if (threadIdx.x == 0 && blockIdx.x == 0 && "
-        "lo == B && sizeof(T) == 8 && B == 128) { const int n_ = g_count++; "
+        f"lo == B && B == 128 && ({want})) {{ const int n_ = g_count++; "
         "if (n_ < 256) { g_stamp[n_][0] = clock64(); g_stamp[n_][1] = tag; } "
         "} } while (0)\n")
-    code = (head.replace('#include "common.cuh"',
-                         '#include "common.cuh"\n' + stamp)
+    code = (head.replace("namespace {", stamp + "namespace {", 1)
             + "diag_kernel(const T* src" + body + "// ----" + tail + r"""
+extern "C" int rt_reset_stamps(int want) {
+  const int zero = 0;
+  cudaMemcpyToSymbol(g_count, &zero, sizeof(int));
+  cudaMemcpyToSymbol(g_want, &want, sizeof(int));
+  return (int)cudaDeviceSynchronize();
+}
 extern "C" int rt_read_stamps(long long* out, int* count) {
   cudaMemcpyFromSymbol(out, g_stamp, sizeof(g_stamp));
   cudaMemcpyFromSymbol(count, g_count, sizeof(int));
@@ -279,34 +299,44 @@ extern "C" int rt_read_stamps(long long* out, int* count) {
     sites = sorted(int(m.group(1)) for m in re.finditer(r"STAMP\((\d+)\)",
                                                        body))
     lib = compile_lib("chol_stamps", code)
-    fn = lib.rt_chol_blocked_f64
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(20, 2048, 1024, generator=gen, device=dev,
                     dtype=torch.float64)
-    a = (x.mT @ x / 1024 + torch.eye(1024, device=dev, dtype=torch.float64)
-         ).contiguous()
-    work = torch.empty_like(a)
-    inv = torch.empty(20, 128, 128, dtype=torch.float64, device=dev)
-    w = torch.empty(20, 1024, 128, dtype=torch.float64, device=dev)
-    launched = ctypes.c_int(0)
-    rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (a, work, inv, w)), 20,
-            1024, 128, ctypes.byref(launched), stream())
-    torch.cuda.synchronize()
-    err = float((work - torch.linalg.cholesky(a)).abs().max())
-    st = (ctypes.c_longlong * 512)()
-    count = ctypes.c_int(0)
-    lib.rt_read_stamps(st, ctypes.byref(count))
-    n = min(count.value, 256)
-    t0 = st[0]
-    seq = [(sites.index(st[2 * i + 1]) if st[2 * i + 1] >= 0
-            else ("potf2_start" if st[2 * i + 1] == -1 else "potf2_end"),
-            st[2 * i] - t0) for i in range(n)]
-    print(json.dumps(dict(probe="stamps", rc=rc, launches=launched.value,
-                          max_abs_err_vs_torch=err, barrier_sites=len(sites),
-                          stamps=seq)), flush=True)
+    a64 = (x.mT @ x / 1024 + torch.eye(1024, device=dev, dtype=torch.float64)
+           ).contiguous()
+    del x
+    for i, (entry, dtype, cd, _) in enumerate(STAMPED):
+        a = a64.to(dtype)
+        work = torch.empty_like(a)
+        # the scratch the wrapper gives this variant at B = 128 (float32
+        # where the wrapper has no ``scratch``: the design before wgmma)
+        if hasattr(chol_blocked, "scratch"):
+            inv, w = chol_blocked.scratch(a, 20, 1024, 128, cd)
+        else:
+            inv, w = a.new_empty((20, 128, 128)), a.new_empty((20, 1024, 128))
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        lib.rt_reset_stamps(i)
+        launched = ctypes.c_int(0)
+        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (a, work, inv, w)),
+                20, 1024, 128, ctypes.byref(launched), stream())
+        torch.cuda.synchronize()
+        err = float((work - ref.cholesky_blocked(a, 128, cd)).abs().max())
+        st = (ctypes.c_longlong * 512)()
+        count = ctypes.c_int(0)
+        lib.rt_read_stamps(st, ctypes.byref(count))
+        n = min(count.value, 256)
+        t0 = st[0]
+        seq = [(sites.index(st[2 * k + 1]) if st[2 * k + 1] >= 0
+                else ("potf2_start" if st[2 * k + 1] == -1 else "potf2_end"),
+                st[2 * k] - t0) for k in range(n)]
+        print(json.dumps(dict(probe="stamps", entry=entry, rc=rc,
+                              launches=launched.value,
+                              max_abs_err_vs_plain=err,
+                              barrier_sites=len(sites), stamps=seq)),
+              flush=True)
 
 
 def main() -> None:

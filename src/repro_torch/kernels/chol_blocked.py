@@ -14,11 +14,16 @@ parameter of the kernels: one of :data:`_build.BLOCKS`.
 With ``compute_dtype=bfloat16`` (the mixed variant, float32 state) the
 operands of the panel product (A_i1 and L11⁻¹) and of the trailing update
 (the panel W, also where the diagonal step applies it to its own tile)
-are rounded to bf16 as their fragments are formed and multiplied on the
-bf16 tensor cores (``mma.sync`` m16n8k16) into float32 sums, as the
-Pallas kernels cast them (``chol_blocked.py:80-82``, ``:98-100``); the
-diagonal factor and its inverse stay float32.  It counts under
-``cholesky_blocked_bf16``.
+are bf16 and their products float32 sums, as the Pallas kernels cast
+them (``chol_blocked.py:80-82``, ``:98-100``); the diagonal factor and
+its inverse stay float32.  Two designs, by block (:func:`mixed_variant`):
+``wgmma`` at B = 64 and 128 rounds each operand once where it is stored
+(the inverse and a copy of the panel in bf16 scratch, :func:`scratch`),
+brings the strips in by the tensor memory accelerator and multiplies them
+with ``wgmma``; ``mma_sync`` at B = 16 and 32 rounds the float32 operands
+as the ``mma.sync`` fragments are formed.  The job map of either
+design's panel and trailing-update launches is :func:`column_jobs`.  It
+counts under ``cholesky_blocked_bf16``.
 
 When h % B = 0 the kernels read the input and write the factor into a new
 tensor (no copy of the input is made); otherwise they factor an
@@ -36,10 +41,81 @@ from repro_torch.core import packing
 
 from . import _build, ref
 
-__all__ = ["cholesky_blocked"]
+__all__ = ["cholesky_blocked", "scratch", "mixed_variant", "column_jobs",
+           "WGMMA_BLOCKS"]
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
          + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+
+
+#: the blocks at which the mixed variant runs its ``wgmma`` design (the
+#: tensor memory accelerator's 128-byte swizzle takes strips of 64 bf16
+#: columns); the others run ``mma_sync``
+WGMMA_BLOCKS = (64, 128)
+
+
+def mixed_variant(block: int) -> str:
+    """The design the mixed variant runs at ``block``, as the C side
+    chooses it: ``"wgmma"`` or ``"mma_sync"``.  Raises for a block the
+    kernels are not compiled for."""
+    _build.check_block(block, "cholesky_blocked")
+    return "wgmma" if block in WGMMA_BLOCKS else "mma_sync"
+
+
+def scratch(a: torch.Tensor, batch: int, hp: int, block: int,
+            compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' scratch for ``batch`` matrices of ``hp`` rows at
+    ``block``: the diagonal inverse (batch, B, B) and the panel
+    (batch, hp, B), at ``a``'s dtype, or in ``compute_dtype`` where the
+    mixed variant runs its wgmma design (each stored rounded once)."""
+    dtype = a.dtype
+    if (compute_dtype is not None and compute_dtype != a.dtype
+            and mixed_variant(block) == "wgmma"):
+        dtype = compute_dtype
+    return (a.new_empty((batch, block, block), dtype=dtype),
+            a.new_empty((batch, hp, block), dtype=dtype))
+
+
+def _pair(p: int) -> tuple[int, int]:
+    """Lower tile pair p → (ti, tj), tj ≤ ti, row-major: the C side's
+    arithmetic (a double square root, then integer corrections)."""
+    ti = int((math.sqrt(8.0 * p + 1.0) - 1.0) * 0.5)
+    while (ti + 1) * (ti + 2) // 2 <= p:
+        ti += 1
+    while ti * (ti + 1) // 2 > p:
+        ti -= 1
+    return ti, p - ti * (ti + 1) // 2
+
+
+def column_jobs(nt: int, j: int, block: int) -> dict:
+    """The mixed variant's jobs for tile column ``j`` of ``nt`` (j < nt −
+    1) at ``block``, launch index → job, as ``csrc/chol_blocked.cu`` maps
+    them in the design :func:`mixed_variant` names, in tile coordinates of
+    the whole matrix.  ``panel``: block b is ``(ti, j, r0)``, rows [r0, r0
+    + R) of the factor's tile (ti, j), R = 64 in the wgmma design (B / 64
+    blocks a tile row) and B in mma_sync.  ``syrk``: block p is
+    ``("pair", ti, tj)``, C −= W_ti W_tjᵀ on that lower tile, for p <
+    n_pairs − 1 (pair 0, the tile (j + 1, j + 1), is the next diagonal
+    step's), else ``("zero", j, tj)``, zeroing the mirrored upper tile —
+    in mma_sync ``("copy_zero", j, tj)``, which also copies the panel's
+    tile into the factor's tile (tj, j), since its panel writes only the
+    scratch panel."""
+    m = nt - 1 - j
+    n_pairs = m * (m + 1) // 2
+    wgmma = mixed_variant(block) == "wgmma"
+    rows = 64 if wgmma else block
+    parts = block // rows
+    panel = [(j + 1 + b // parts, j, rows * (b % parts))
+             for b in range(m * parts)]
+    syrk = []
+    for job in range(n_pairs - 1 + m):
+        if job < n_pairs - 1:
+            ti, tj = _pair(job + 1)
+            syrk.append(("pair", j + 1 + ti, j + 1 + tj))
+        else:
+            syrk.append(("zero" if wgmma else "copy_zero", j,
+                         j + 1 + job - (n_pairs - 1)))
+    return dict(panel=panel, rows=rows, syrk=syrk, diag=(j + 1, j + 1))
 
 
 def cholesky_blocked(a: torch.Tensor, block: int = 128, *,
@@ -83,8 +159,7 @@ def cholesky_blocked(a: torch.Tensor, block: int = 128, *,
         work[:, idx, idx] = 1
         src = work
     if batch and h:
-        inv = a.new_empty((batch, block, block))
-        panel = a.new_empty((batch, hp, block))
+        inv, panel = scratch(a, batch, hp, block, cd if mixed else None)
         fn = _build.c_function("chol_blocked",
                                _build.entry("chol_blocked", ad, cd), _ARGS)
         launched = ctypes.c_int(0)

@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import packing
 
-__all__ = ["cholesky_blocked", "factor_diag_tile", "solve_lower_blocked",
-           "solve_lower_packed", "solve_packed",
+__all__ = ["cholesky_blocked", "cholesky_blocked_stored", "factor_diag_tile",
+           "solve_lower_blocked", "solve_lower_packed", "solve_packed",
            "interp_solve", "interp_factors", "dense_diag_inverses",
            "packed_diag_inverses", "interp_diag_inverses",
            "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
@@ -145,6 +145,50 @@ def cholesky_blocked(a: torch.Tensor, block: int,
             out[..., hi:, lo:hi] = sub
             w = _rounded(sub, compute_dtype)
             out[..., hi:, hi:] -= w @ w.mT
+    return torch.tril(out[..., :h, :h])
+
+
+def cholesky_blocked_stored(a: torch.Tensor, block: int,
+                            compute_dtype) -> torch.Tensor:
+    """:func:`cholesky_blocked` with ``compute_dtype`` products in the
+    dataflow of the kernel's wgmma design (``csrc/chol_blocked.cu``): each
+    operand rounded once, where it is stored, and kept in
+    ``compute_dtype`` — the diagonal inverse as the diagonal step writes
+    it, A_i1 as the panel job stages it, the panel W as the bf16 copy the
+    panel job writes beside the unrounded W it puts into the factor — then
+    the trailing update one lower tile pair a job, the next diagonal tile
+    (pair 0) left to the next diagonal step, which applies it before its
+    factorization.  A value rounded once where it is stored is the operand
+    that rounding it wherever it is read gives, so this is
+    :func:`cholesky_blocked` (``compute_dtype``) value for value."""
+    h = a.shape[-1]
+    nt = packing.num_tiles(h, block)
+    out = _identity_padded(a, block)
+    tile = [slice(k * block, (k + 1) * block) for k in range(nt)]
+    wb = None                      # the bf16 panel of the previous column
+    for j in range(nt):
+        d = out[..., tile[j], tile[j]]
+        if wb is not None:         # the look-ahead: pair 0, W0 W0ᵀ
+            w0 = wb[0].to(out.dtype)
+            d = d - w0 @ w0.mT
+        l11 = _potf2(d)
+        out[..., tile[j], tile[j]] = l11
+        if j + 1 == nt:
+            break
+        xb = _inv_lower(l11).to(compute_dtype).to(out.dtype)
+        wb = []
+        for i in range(j + 1, nt):                  # a panel job a tile row
+            w = out[..., tile[i], tile[j]].to(compute_dtype).to(out.dtype) \
+                @ xb.mT
+            out[..., tile[i], tile[j]] = w          # unrounded, the factor
+            wb.append(w.to(compute_dtype))          # the bf16 copy
+        for ti in range(j + 1, nt):                 # lower pairs but pair 0
+            for tj in range(j + 1, ti + 1):
+                if ti == tj == j + 1:
+                    continue
+                out[..., tile[ti], tile[tj]] -= (
+                    wb[ti - j - 1].to(out.dtype)
+                    @ wb[tj - j - 1].to(out.dtype).mT)
     return torch.tril(out[..., :h, :h])
 
 

@@ -10,7 +10,9 @@ against the reference backend; the three cluster solves (dense trsm,
 and at one tile row; the packed trsm at every block, one and both sweeps,
 in float64, float32 and under bf16 products (bf16 and float32 factors);
 ``interp_factors`` on a bf16 Θ bit for bit; the mixed-precision variants
-(bf16 products, float32 sums) against their plain versions, nt = 17 too;
+(bf16 products, float32 sums) against their plain versions, nt = 17 too,
+the mixed Cholesky's two designs at every block, batch 1 and 20, the same
+bits twice;
 the Gauss–Newton head under ``bf16_store``; the ``ssm_scan`` kernel at N
 8, 16 and 32 on ragged shapes, its fused entry ``mamba_scan`` (S 0, 1 from
 a state, 37, 100; d_inner 20, 130, 8100; N 4 to 32; float32 and bf16) and
@@ -76,6 +78,21 @@ def test_mixed_variants_match_plain_versions(dev, smoke, block, h):
     res = smoke.check_mixed(dev, h, block, 4, 3, 3)
     torch.cuda.synchronize()
     assert all(r["ok"] for r in res.values()), res
+
+
+@pytest.mark.parametrize("batch", [1, 20])
+@pytest.mark.parametrize("h", [200, 1000])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_mixed_cholesky_designs_match_plain_version(dev, smoke, block, h,
+                                                    batch):
+    """The mixed Cholesky in the design its block runs (``wgmma`` at 64 and
+    128: operands stored once in bf16, TMA and wgmma; ``mma_sync`` at 16
+    and 32) against its plain version on ragged h, within
+    ``chip_smoke.MIXED_TOL`` and ``ERROR_RATIO``, and the same bits on two
+    calls."""
+    res = smoke.check_chol_designs(dev, h, block, batch)
+    torch.cuda.synchronize()
+    assert res["ok"], res
 
 
 def test_mixed_cluster_solves_at_17_tile_rows(dev, smoke):
