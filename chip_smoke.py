@@ -208,7 +208,11 @@ library call's.  The mixed Cholesky's row also gives the design that ran
 (``variant``: ``wgmma`` at B = 64, 128, ``mma_sync`` at 16, 32, read from
 the profiled kernels' names; the main shape must run ``wgmma``) and the
 ``by_kernel`` split of its three kernels, and the Cholesky is held at
-every block at h = 1000, batch 1 and 20 (the same bits twice too).
+every block at h = 1000, batch 1 and 20 (the same bits twice too).  The
+three mixed cluster solves' rows give theirs (``design``:
+``stored_bf16``, from the profiled kernels' names: the operands rounded
+to bf16 once where they are stored, ``tri_solve_mixed_kernel``; any other
+fails the row) with their plan and ``ptxas`` lines.
 It also holds ``ssm_scan`` against its plain version at
 the serve prefill's shape (B=4, S=2048, d_inner=8192, N=16) and at a ragged
 one, its fused entry ``mamba_scan`` (softplus, scan and gate, bf16) at both
@@ -406,8 +410,9 @@ POLICY_RUNS = (("picholesky", "fp32"), ("picholesky", "bf16_store"),
 # what the kernels line adds for the three cluster solves (tri_solve.cuh)
 CLUSTER_KEYS = ("kernel_ms", "outside_kernel_ms", "other_device_ms", "plan",
                 "ptxas")
-# what the kernels line adds for the mixed variants
-MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape")
+# what the kernels line adds for the mixed variants (``design``: the
+# mixed cluster solves' design that ran)
+MIXED_KEYS = ("fp32_kernel_ms", "error_ratio", "shape", "design")
 # what the kernels line adds for the Cholesky's rows: device ms and
 # launches of its three kernels in one profiled call (and, for the mixed
 # variant, the design that ran: CONV_KEYS' ``variant``)
@@ -967,6 +972,8 @@ def check_mixed(dev, h: int, block: int, n_anchor: int, n_exact: int,
                      ("interp_solve_bf16", interp_kernel),
                      ("solve_lower_packed_bf16", psolve_kernel)):
         res[name].update(cluster_split(name, fn, res[name]["ms"]))
+        if res[name]["design"] != MIXED_SOLVE_DESIGN:
+            res[name]["ok"] = False
     _, by_name = profiled(lambda: chol_blocked.cholesky_blocked(
         anchors, block, compute_dtype=bf))
     row = res["cholesky_blocked_bf16"]
@@ -1775,27 +1782,33 @@ def chol_split(by_name: dict) -> dict:
     return out
 
 
-SOLVE_KERNEL = "tri_solve_kernel"      # the three cluster solves' kernel
-# its Source template argument (csrc/tri_solve.cuh: kDense, kInterp,
+SOLVE_KERNEL = "tri_solve_kernel"      # the one-dtype cluster solves' kernel
+MIXED_SOLVE_KERNEL = "tri_solve_mixed_kernel"   # and the mixed variants'
+# their Source template argument (csrc/tri_solve.cuh: kDense, kInterp,
 # kPacked) → the wrapper
 SOLVE_SOURCES = {"0": "solve_lower_blocked", "1": "interp_solve",
                  "2": "solve_lower_packed"}
 # the library of each cluster-solve wrapper
 SOLVE_LIBS = {"solve_lower_blocked": "trsm", "interp_solve": "poly_interp",
               "solve_lower_packed": "packed_trsm"}
+# the design of the mixed cluster solves: each operand rounded to
+# bf16 once where it is stored, A fragments by ldmatrix, a ring fed by the
+# bulk-copy engine, two blocks an SM where the shared memory allows
+MIXED_SOLVE_DESIGN = "stored_bf16"
 
 
 def solve_kind(name: str) -> str | None:
     """Which wrapper a profiled kernel name belongs to: the cluster solve
-    ``tri_solve_kernel<T, B, Source, CT, Src>`` instantiated for the dense
-    trsm, ``interp_solve`` or the packed trsm (Source 0, 1, 2), with
-    ``_bf16`` for the mixed variants (CT = bf16)."""
-    if SOLVE_KERNEL not in name:
-        return None
-    args = name.split(SOLVE_KERNEL, 1)[1].split(">", 1)[0].lstrip("<")
-    parts = [a.strip() for a in args.split(",")]
-    kind = SOLVE_SOURCES[parts[2]]
-    return kind + "_bf16" if "bfloat16" in parts[3] else kind
+    ``tri_solve_kernel<T, B, Source>`` instantiated for the dense trsm,
+    ``interp_solve`` or the packed trsm (Source 0, 1, 2), or its mixed
+    variant ``tri_solve_mixed_kernel<B, Source, Src>`` (with ``_bf16``)."""
+    for kern, pos, suffix in ((MIXED_SOLVE_KERNEL, 1, "_bf16"),
+                              (SOLVE_KERNEL, 2, "")):
+        if kern in name:
+            args = name.split(kern, 1)[1].split(">", 1)[0].lstrip("<")
+            parts = [a.strip() for a in args.split(",")]
+            return SOLVE_SOURCES[parts[pos]] + suffix
+    return None
 
 
 # the PyTorch calls that inverted diagonal tiles outside the kernels
@@ -1809,7 +1822,7 @@ TRIANGULAR_SOLVE_OPS = ("aten::linalg_solve_triangular",
 def is_library_trsm(name: str) -> bool:
     """A cuBLAS/cuSOLVER triangular solve (of a ``torch.linalg`` call), not
     one of the port's kernels."""
-    return "trsm" in name.lower() and SOLVE_KERNEL not in name
+    return "trsm" in name.lower() and solve_kind(name) is None
 
 
 def cluster_split(name: str, fn, ms: float) -> dict:
@@ -1825,13 +1838,17 @@ def cluster_split(name: str, fn, ms: float) -> dict:
     mixed = name.endswith("_bf16")
     lib = SOLVE_LIBS[name[:-len("_bf16")] if mixed else name]
     log = _build._target(lib).with_suffix(".log")
+    kernel = MIXED_SOLVE_KERNEL if mixed else SOLVE_KERNEL
     ptx = [f"{r['kernel']}: {r.get('used', '')}; {r.get('spills', '')}"
            for r in (ptxas_lines(log.read_text()) if log.exists() else [])
-           if SOLVE_KERNEL in r["kernel"] and "Li128E" in r["kernel"]
-           and ("bfloat16" in r["kernel"]) == mixed]
-    return dict(kernel_ms=kern / max(n_kern, 1), kernel_launches=n_kern,
-                other_device_ms=other, outside_kernel_ms=ms - kern,
-                plan=dict(_build.PLANS.get(name, {})), ptxas=ptx)
+           if kernel in r["kernel"] and "Li128E" in r["kernel"]]
+    out = dict(kernel_ms=kern / max(n_kern, 1), kernel_launches=n_kern,
+               other_device_ms=other, outside_kernel_ms=ms - kern,
+               plan=dict(_build.PLANS.get(name, {})), ptxas=ptx)
+    if mixed:       # the design that ran, from the profiled kernels' names
+        out["design"] = MIXED_SOLVE_DESIGN if any(
+            MIXED_SOLVE_KERNEL in n for n in by_name) else "unknown"
+    return out
 
 
 # the factor routes the trace phase profiles (and holds to no library trsm)

@@ -26,12 +26,24 @@ engines' wall ms, the mean ms of each wrapper over 10 calls after a
 warm-up (CUDA events), the Cholesky's launches per call, and a SHA-256
 digest of the wrappers' outputs in float64 and float32 and of both
 engines' curves; the last line gives the median per side and whether
-every run of both sides gave one digest (the same bits).
+every run of both sides gave one digest (the same bits).  Then, per
+one-dtype instantiation of the cluster solve (``tri_solve_kernel`` at
+float64 and float32, every block and tile source, in the libraries of
+``trsm.cu``, ``poly_interp.cu`` and ``packed_trsm.cu`` each side built),
+whether the two sides compiled it to the same machine code (``cuobjdump
+-sass``, addresses and encodings stripped), its instruction count on each
+side and how many instructions the two differ by when counted per opcode
+(0: the same instructions, scheduled or allocated otherwise); one JSON
+line.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -152,6 +164,59 @@ def run(side: str, root: Path) -> dict:
     return rec
 
 
+# a one-dtype tri_solve_kernel<T, B, Source> (this tree's mangling, or the
+# earlier <T, B, Source, T, T>): T, B, Source
+ONE_DTYPE = re.compile(r"tri_solve_kernelI([df])Li(\d+)ELi(\d+)E(?:\1\1)?E")
+
+
+def sass(root: Path) -> dict:
+    """(T, B, Source) -> the instructions of that one-dtype cluster-solve
+    kernel in the newest libraries ``root`` built, addresses and
+    encodings stripped."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    out = {}
+    for lib in ("trsm", "poly_interp", "packed_trsm"):
+        built = sorted((root / "build" / "repro_torch_kernels").glob(
+            f"lib{lib}-*.so"), key=lambda f: f.stat().st_mtime)
+        if not built:
+            raise SystemExit(f"{root}: no lib{lib} built")
+        text = subprocess.run([tool, "-sass", str(built[-1])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        key = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                m = ONE_DTYPE.search(line)
+                key = m.groups() if m else None
+                if key:
+                    out[key] = []
+                continue
+            ins = re.sub(r"/\*.*?\*/", "", line).strip()
+            if key and ins and not ins.startswith("."):
+                out[key].append(ins)
+    return out
+
+
+def opcodes(code: list) -> collections.Counter:
+    """How many times each opcode (predicate dropped) occurs."""
+    return collections.Counter(
+        next(t for t in ins.split() if not t.startswith("@")) for ins in code)
+
+
+def same_code(other: Path) -> dict:
+    mine, theirs = sass(ROOT), sass(other)
+    rows = {}
+    for key in sorted(set(mine) | set(theirs)):
+        a, b = mine.get(key, []), theirs.get(key, [])
+        ca, cb = opcodes(a), opcodes(b)
+        rows["%s_B%s_src%s" % key] = dict(
+            same=a == b, this=len(a), other=len(b),
+            opcodes_moved=sum(((ca - cb) + (cb - ca)).values()))
+    return dict(sass=rows, all_same=all(r["same"] for r in rows.values()))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path)
@@ -167,6 +232,7 @@ def main() -> None:
                for side in ("other", "this")}
     print(json.dumps(dict(median=summary, same_outputs=len(
         {r["digest"] for r in recs}) == 1)), flush=True)
+    print(json.dumps(same_code(args.other)), flush=True)
 
 
 if __name__ == "__main__":

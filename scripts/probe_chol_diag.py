@@ -7,7 +7,7 @@
             m16n8k4 and m16n8k8: 8 warps per block, 2 to 8 blocks per SM,
             independent accumulators, TFLOP/s.
 ``potf2``   cycles per call of ``warp_potf2_inv`` (one warp factors and
-            inverts a 16 x 16 block, ``csrc/chol_blocked.cu``) and of three
+            inverts a 16 x 16 block, ``csrc/tri_solve.cuh``) and of three
             variants: without the inverse, with ``sqrt`` and a divide in
             place of ``rsqrt``, with the shuffles issued after the ``rsqrt``;
             then the latency of a dependent ``__shfl_sync``, ``rsqrt`` (+ an
@@ -141,24 +141,28 @@ def probe_mma() -> None:
 
 
 def potf2_variants() -> dict:
-    fn = SRC[SRC.index("template <typename T, int LD>\n__device__ void "
-                       "warp_potf2_inv("):SRC.index("// (a) the diagonal step")]
+    tri = (_build.CSRC / "tri_solve.cuh").read_text()
+    head = "template <typename T, int LD, bool Factor = true>\n__device__ void " \
+        "warp_potf2_inv("
+    fn = tri[tri.index(head):tri.index("// =====", tri.index(head))]
     shuffles_first = fn[fn.index("    // every shuffle first"):
-                        fn.index("#pragma unroll\n    for (int q = k / 2; q < 8; "
-                                 "++q) {")]
+                        fn.index("      for (int q = k / 2; q < 8; ++q) "
+                                 "lr[q] *= rp;")]
     shuffles_after = """    const T d = __shfl_sync(0xffffffffu, v[k >> 1], k + 16 * (k & 1));
-    const T rp = rsqrt(d), piv = d * rp;
-    const T lc = __shfl_sync(0xffffffffu, v[k >> 1], owner) * rp;
-    const T xk = __shfl_sync(0xffffffffu, w[k >> 1], owner) * rp;
+    const T xk0 = T(0);
     T lr[8];
+    if constexpr (Factor) {
+      const T rp = rsqrt(d), piv = d * rp;
+      const T lc = __shfl_sync(0xffffffffu, v[k >> 1], owner) * rp;
+      const T xk = __shfl_sync(0xffffffffu, w[k >> 1], owner) * rp;
 #pragma unroll
-    for (int q = k / 2; q < 8; ++q)
-      lr[q] = __shfl_sync(0xffffffffu, v[q], k + 16 * half) * rp;
+      for (int q = k / 2; q < 8; ++q)
+        lr[q] = __shfl_sync(0xffffffffu, v[q], k + 16 * half);
 """
     rsq = "const T rp = rsqrt(d), piv = d * rp;"
     out = {"kernel": fn,
-           "no_inverse": fn.replace("        w[q] -= lr[q] * xk;\n", "")
-           .replace("        w[q] = xk;\n", ""),
+           "no_inverse": fn.replace("          w[q] -= lr[q] * xk;\n", "")
+           .replace("          w[q] = xk;\n", ""),
            "sqrt_divide": fn.replace(rsq, "const T piv = sqrt(d); "
                                           "const T rp = T(1) / piv;"),
            "shuffles_after_rsqrt": fn.replace(shuffles_first,
@@ -172,9 +176,8 @@ def potf2_variants() -> dict:
 
 def probe_potf2() -> None:
     variants = potf2_variants()
-    code = SRC[:SRC.index("namespace {")] + (
-        "namespace {\nconstexpr int kNb = 16;\nconstexpr int kLdSub = kNb + 4;"
-        "\n" + "".join(variants.values()) + "}\n")
+    code = ('#include "tri_solve.cuh"\nnamespace {\n'
+            + "".join(variants.values()) + "}\n")
     for name in variants:
         code += f"""
 __global__ void bench_{name}(const double* in, long long* cyc, double* out,

@@ -120,7 +120,8 @@
 #include <cstdint>
 #include <mutex>
 
-#include "tri_solve.cuh"   // the warp products, cp.async, warp_potf2_inv
+#include "tri_solve.cuh"   // the warp products, cp.async, the mbarrier
+                           // helpers, warp_potf2_inv
 
 #ifndef CHOL_MIXED_MMA_SYNC
 #define CHOL_MIXED_MMA_SYNC 0
@@ -142,49 +143,10 @@ constexpr bool kWgmma =
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // p moved forward to the next shared address that is a multiple of 1024
 // (the 128-byte swizzle repeats every 8 rows of 128 bytes)
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024u - smem_addr(p) % 1024u) % 1024u);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the phase; a copy that never lands (some 2 s of cycles) traps,
-// so a fault shows as a launch error and not as a hung card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > 4000000000LL) __trap();
-  } while (!done);
 }
 
 // box (c0, c1, c2) of a tensor map into shared memory, counted on bar

@@ -29,9 +29,10 @@
 // with fp32 sums, the tiles, the solved segments, the inverses and
 // g_i - acc_i rounded to bf16; the inverses (formed at fp32 from the
 // factor's own values), g, the sums and the solution are float32.
-// rt_packed_trsm_bf16 reads a bf16-stored factor (staged in bf16, half the
-// bytes); rt_packed_trsm_f32_bf16 a float32 factor, rounded to bf16 as the
-// fragments are formed.
+// rt_packed_trsm_bf16 reads a bf16-stored factor (staged in bf16 by bulk
+// copies, half the bytes); rt_packed_trsm_f32_bf16 a float32 factor, each
+// staged chunk rounded once into a bf16 tile (tri_solve.cuh,
+// tri_solve_mixed_kernel).
 
 #include <cstdint>
 

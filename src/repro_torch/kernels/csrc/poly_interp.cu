@@ -49,12 +49,13 @@
 //
 // rt_interp_solve_f32_bf16 is the mixed-precision variant (poly_interp.py
 // under a bf16 compute dtype): Θ stays bf16 in device memory and is staged
-// as bf16, half the bytes of the sweep; each off-diagonal tile is
-// Horner-evaluated in bf16 as it streams (x rounded to bf16, every step
-// rounded, :128-131), the diagonal tiles at float32 from Θ and inverted
-// there (:245-255); λ - center, g, the sums and the solutions are float32,
-// and every product runs on the bf16 tensor cores (tri_solve.cuh, CT =
-// bf16).
+// as bf16 by bulk copies, half the bytes of the sweep; each staged chunk
+// of an off-diagonal tile is Horner-evaluated once in bf16 pairs into a
+// bf16 tile (x rounded to bf16, every step rounded, :128-131), the
+// diagonal tiles at float32 from Θ, inverted there (:245-255) and kept in
+// bf16; λ - center, g, the sums and the solutions are float32, and every
+// product runs on the bf16 tensor cores (tri_solve.cuh,
+// tri_solve_mixed_kernel).
 
 #include <cstdint>
 

@@ -22,12 +22,13 @@
 // per sweep; 2 flops per value read), and the chain of nt dependent solves.
 //
 // rt_trsm_f32_bf16 is the mixed-precision variant (trsm.py:42-51 under a
-// bf16 compute dtype): L, the inverses (formed at fp32) and the solution
-// are float32, and every product runs on the bf16 tensor cores with fp32
-// sums, L_ji and the solved w_i, the inverse and g_i - acc_i rounded to
-// bf16 (tri_solve.cuh, CT = bf16).  It reads the float32 factor as the
-// float32 kernel does, so its bound (bytes) and its chain are that
-// kernel's.
+// bf16 compute dtype): L and the solution are float32, and every product
+// runs on the bf16 tensor cores with fp32 sums, L_ji and the solved w_i,
+// the inverse and g_i - acc_i rounded to bf16 (tri_solve.cuh,
+// tri_solve_mixed_kernel: each staged chunk of L rounded once into a bf16
+// tile, the inverses formed at fp32 and kept in bf16, two blocks an SM).
+// It reads the float32 factor as the float32 kernel does, so its bound
+// (bytes) and its chain are that kernel's.
 
 #include <cstdint>
 

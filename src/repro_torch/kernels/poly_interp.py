@@ -29,12 +29,15 @@ by bytes (Θ); see ``csrc/poly_interp.cu``.
 
 ``interp_solve`` with a bf16 Θ and ``compute_dtype=bfloat16`` (the mixed
 variant, float32 sums, inverses and solutions) reads Θ in bf16, half the
-bytes: each off-diagonal tile is Horner-evaluated in bf16 as it streams
-(x rounded to bf16, each step rounded), and every product runs on the
-bf16 tensor cores (``mma.sync`` m16n8k16) with float32 sums, the solved
-segments, the inverses and g_i − acc_i rounded to bf16 (``:128-150``).
-The diagonal tiles are Horner-evaluated at float32 from Θ and inverted
-there (``:245-255``).  It counts under ``interp_solve_bf16``.
+bytes: each off-diagonal tile is Horner-evaluated in bf16 once as it
+streams (x rounded to bf16, each step rounded) into a bf16 tile, and
+every product runs on the bf16 tensor cores (``mma.sync`` m16n8k16) with
+float32 sums, the solved segments, the inverses and g_i − acc_i rounded
+to bf16 (``:128-150``).  The diagonal tiles are Horner-evaluated at
+float32 from Θ, inverted there (``:245-255``) and kept in bf16
+(``tri_solve_mixed_kernel``; its plain dataflow is
+:func:`~repro_torch.kernels.ref.interp_solve_stored`).  It counts under
+``interp_solve_bf16``.
 """
 from __future__ import annotations
 

@@ -34,8 +34,10 @@ import torch.nn.functional as F
 from repro_torch.core import packing
 
 __all__ = ["cholesky_blocked", "cholesky_blocked_stored", "factor_diag_tile",
-           "solve_lower_blocked", "solve_lower_packed", "solve_packed",
-           "interp_solve", "interp_factors", "dense_diag_inverses",
+           "solve_lower_blocked", "solve_lower_blocked_stored",
+           "solve_lower_packed", "solve_packed", "interp_solve",
+           "interp_solve_stored", "horner_stored", "interp_factors",
+           "dense_diag_inverses",
            "packed_diag_inverses", "interp_diag_inverses",
            "invert_lower_tile", "CLUSTER_SIZES", "cluster_plan",
            "solve_right_looking",
@@ -250,6 +252,39 @@ def solve_lower_blocked(l: torch.Tensor, g: torch.Tensor, block: int, *,
     return w[..., :h, :]
 
 
+def solve_lower_blocked_stored(l: torch.Tensor, g: torch.Tensor, block: int,
+                               compute_dtype, *,
+                               transpose: bool = False) -> torch.Tensor:
+    """:func:`solve_lower_blocked` with ``compute_dtype`` products in the
+    dataflow of the mixed cluster solve (``csrc/tri_solve.cuh``
+    ``tri_solve_mixed_kernel``): each operand rounded once, where it is
+    stored, and kept in ``compute_dtype`` — the factor as each staged chunk
+    of it becomes a bf16 tile, the inverses of the diagonal tiles (formed
+    at ``l``'s dtype) as the prologue stores them — then the same products
+    in the same order.  A value rounded once where it is stored is the
+    operand that rounding it wherever it is read gives, so this is
+    :func:`solve_lower_blocked` (``compute_dtype``) value for value."""
+    cd, dt = compute_dtype, l.dtype
+    h = l.shape[-1]
+    nt = packing.num_tiles(h, block)
+    hp = nt * block
+    xs = dense_diag_inverses(l, block).to(cd)       # the stored inverses
+    lb = _identity_padded(l, block).to(cd)          # the stored tiles
+    gp = torch.nn.functional.pad(g, (0, 0, 0, hp - h))
+    w = torch.zeros_like(gp)
+    for step in range(nt):
+        i = nt - 1 - step if transpose else step
+        lo, hi = i * block, (i + 1) * block
+        if transpose:
+            s = lb[..., hi:, lo:hi].mT.to(dt) @ _rounded(w[..., hi:, :], cd)
+            x = xs[..., i, :, :].mT
+        else:
+            s = lb[..., lo:hi, :lo].to(dt) @ _rounded(w[..., :lo, :], cd)
+            x = xs[..., i, :, :]
+        w[..., lo:hi, :] = x.to(dt) @ _rounded(gp[..., lo:hi, :] - s, cd)
+    return w[..., :h, :]
+
+
 def solve_lower_packed(vec: torch.Tensor, g: torch.Tensor, h: int,
                        block: int, *, transpose: bool = False,
                        compute_dtype=None) -> torch.Tensor:
@@ -380,6 +415,70 @@ def interp_solve(theta: torch.Tensor, x: torch.Tensor, inv_diag: torch.Tensor,
         for t in range(i + 1, nt):
             acc = acc + tile(int(pmap[t, i])).mT @ seg(w, t)
         w[..., lo:hi, :] = _rounded(inv_diag[:, :, i].mT, cd) @ _rounded(
+            w[..., lo:hi, :] - acc, cd)
+    return w
+
+
+def horner_stored(planes: torch.Tensor, x: torch.Tensor,
+                  compute_dtype) -> torch.Tensor:
+    """Horner of coefficient planes (r+1, …) at ``x`` as the mixed cluster
+    solve turns a staged chunk of a bf16 Θ into a bf16 tile: x rounded to
+    ``compute_dtype``, then every product and every sum a float32
+    operation rounded to it (the kernel's bf16 pairs, whose one rounding
+    of the exact result gives the same values).  Returns the values in
+    ``compute_dtype``."""
+    def rnd(t):
+        return t.to(compute_dtype).float()
+    xb = rnd(x.float())
+    v = planes[-1].float()
+    for k in range(planes.shape[0] - 2, -1, -1):
+        v = rnd(rnd(v * xb) + planes[k].float())
+    return v.to(compute_dtype)
+
+
+def interp_solve_stored(theta: torch.Tensor, x: torch.Tensor,
+                        inv_diag: torch.Tensor, g: torch.Tensor, h: int,
+                        block: int, compute_dtype) -> torch.Tensor:
+    """:func:`interp_solve` with ``compute_dtype`` products in the dataflow
+    of the mixed cluster solve (``tri_solve_mixed_kernel``): every
+    off-diagonal tile Horner-evaluated once into ``compute_dtype``
+    (:func:`horner_stored`, the order of the kernel's tiles and of the
+    Pallas kernel's casts) and kept, the inverses rounded once where they
+    are stored, then the same products in the same order as
+    :func:`interp_solve`, which it gives value for value: theta (n, r+1,
+    P) in ``compute_dtype``, x (q,), inv_diag (n, q, nt, B, B), g (n, hp,
+    m) shared or (n, q, hp, m) per λ → (n, q, hp, m) at g's dtype."""
+    cd, dt = compute_dtype, g.dtype
+    n, r1, _ = theta.shape
+    nt = packing.num_tiles(h, block)
+    pmap = packing.tile_pos_map(h, block)
+    planes = theta.reshape(n, r1, -1, block, block).movedim(1, 0)
+    xs = x[None, :, None, None]
+    stored = {}                                  # tile -> (n, q, B, B) in cd
+    for a in range(nt):
+        for b in range(a):
+            p = int(pmap[a, b])
+            stored[p] = horner_stored(planes[:, :, p, None], xs, cd)
+    xinv = inv_diag.to(cd)                       # the stored inverses
+    q = x.shape[0]
+    g = g if g.ndim == 4 else g[:, None].expand(-1, q, -1, -1)
+    w = g.new_zeros(g.shape)
+
+    def seg(t):
+        return _rounded(w[..., t * block:(t + 1) * block, :], cd)
+    for i in range(nt):
+        lo, hi = i * block, (i + 1) * block
+        acc = torch.zeros_like(g[..., lo:hi, :])
+        for t in range(i):
+            acc = acc + stored[int(pmap[i, t])].to(dt) @ seg(t)
+        w[..., lo:hi, :] = xinv[:, :, i].to(dt) @ _rounded(
+            g[..., lo:hi, :] - acc, cd)
+    for i in range(nt - 1, -1, -1):
+        lo, hi = i * block, (i + 1) * block
+        acc = torch.zeros_like(g[..., lo:hi, :])
+        for t in range(i + 1, nt):
+            acc = acc + stored[int(pmap[t, i])].to(dt).mT @ seg(t)
+        w[..., lo:hi, :] = xinv[:, :, i].to(dt).mT @ _rounded(
             w[..., lo:hi, :] - acc, cd)
     return w
 

@@ -8,12 +8,14 @@ diagonal tiles read and inverted in the kernel (``csrc/tri_solve.cuh``).  The bl
 parameter, one of :data:`_build.BLOCKS`.  Bound by bytes; see
 ``csrc/trsm.cu``.
 
-With ``compute_dtype=bfloat16`` (the mixed variant; L, the inverses and
-the solution float32) every product runs on the bf16 tensor cores
-(``mma.sync`` m16n8k16) with float32 sums: the update rounds L_ji and the
-solved segment, the solve the inverse (formed at float32) and
-g_i − acc_i, as the Pallas kernel casts them (``trsm.py:42-51``).  It
-counts under ``solve_lower_blocked_bf16``.
+With ``compute_dtype=bfloat16`` (the mixed variant; L and the solution
+float32) every product runs on the bf16 tensor cores (``mma.sync``
+m16n8k16) with float32 sums: the update rounds L_ji and the solved
+segment, the solve the inverse (formed at float32) and g_i − acc_i, as
+the Pallas kernel casts them (``trsm.py:42-51``); the kernel rounds each
+operand once where it stores it (``tri_solve_mixed_kernel``; its plain
+dataflow is :func:`~repro_torch.kernels.ref.solve_lower_blocked_stored`).
+It counts under ``solve_lower_blocked_bf16``.
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ and at one tile row; the packed trsm at every block, one and both sweeps,
 in float64, float32 and under bf16 products (bf16 and float32 factors);
 ``interp_factors`` on a bf16 Θ bit for bit; the mixed-precision variants
 (bf16 products, float32 sums) against their plain versions, nt = 17 too,
+the mixed cluster solves the same bits twice at every block (h 1000, 999),
 the mixed Cholesky's two designs at every block, batch 1 and 20, the same
 bits twice;
 the Gauss–Newton head under ``bf16_store``; the ``ssm_scan`` kernel at N
@@ -103,6 +104,43 @@ def test_mixed_cluster_solves_at_17_tile_rows(dev, smoke):
     torch.cuda.synchronize()
     assert all(r["ok"] for r in res.values()), res
     assert _build.PLANS["interp_solve_bf16"]["inv_in_smem"] == 0
+
+
+@pytest.mark.parametrize("h", [1000, 999])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_mixed_cluster_solves_give_the_same_bits_twice(dev, block, h):
+    """The three mixed cluster solves (the dense trsm pair, interp_solve on
+    a bf16 Θ, the packed trsm on bf16 and float32 factors) give the same
+    bits on two calls, finite, at every block (h = 999: the dense factor's
+    rows not 16-byte aligned, read from global memory)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import packed_trsm, poly_interp, trsm
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(h + block)
+    x = torch.randn(6, 2 * h, h, generator=gen, device=dev,
+                    dtype=torch.float64)
+    l64 = torch.linalg.cholesky(x.mT @ x / h + torch.eye(
+        h, device=dev, dtype=torch.float64))
+    del x
+    l = l64.float().contiguous()
+    g = torch.randn(6, h, generator=gen, device=dev, dtype=f32)
+    v = packing.pack_tril(l64, block)
+    theta = torch.stack([v[:2], 0.1 * v[2:4], 0.01 * v[4:6]], 1).to(bf)
+    lams = torch.logspace(-3, -1, 5, device=dev)
+    calls = dict(
+        trsm=lambda: trsm.solve_lower_blocked(
+            l, trsm.solve_lower_blocked(l, g, block, compute_dtype=bf), block,
+            transpose=True, compute_dtype=bf),
+        interp_solve=lambda: poly_interp.interp_solve(
+            theta, lams, g[:2], h, block, compute_dtype=bf, accum_dtype=f32),
+        packed_bf16=lambda: packed_trsm.solve_packed(v.to(bf), g, h, block),
+        packed_f32=lambda: packed_trsm.solve_packed(v.float(), g, h, block,
+                                                    compute_dtype=bf))
+    for name, fn in calls.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("h", [1024, 1000])
