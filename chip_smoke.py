@@ -193,9 +193,37 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               resumed from a checkpoint after 6 steps, its parameters and
               AdamW state bit for bit.  One ``train`` line per part.
 
+21. dense_fixture — the reduced Qwen2 and H2O-Danube3 models of
+              ``tests/data/torch_dense.npz`` (JAX's weights, inputs and
+              logits) on the card in float32: forward, prefill and decode
+              within 1e-4 relative, H2O-Danube3 also past its window (a
+              48-token prompt, its ring buffer wrapping).
+22. dense_serve — each dense configuration (SmolLM-360M, Qwen2-1.5B,
+              MiniCPM-2B, H2O-Danube3-4B) as published (bf16, seeded
+              weights) served as ``serve`` serves Falcon-Mamba-7B: 4
+              prompts of 2048 tokens, 32 greedy decodes, a forward over
+              the extended sequences, decode against forward at the last
+              position within ``SERVE_TOL``; walls (median of 3), tokens/s,
+              peak memory, weight and cache bytes (each decode step copies
+              the cache); one profiled prefill (device time of the port's
+              attention, its float32 chunk products and the rest of it,
+              the other GEMMs and the rest), one profiled decode step
+              (busy time, idle share) and one layer's attention
+              against ``scaled_dot_product_attention`` at the same shapes
+              (a yardstick only: the path runs the port's
+              ``flash_attention``).  Then H2O-Danube3 with one prompt of
+              6144 tokens, beyond its window of 4096.
+23. dense_train — Qwen2-1.5B as published (bf16, remat), AdamW (the
+              launcher's rule), 5 steps of 4 × 2048 tokens through
+              ``TrainLoop``: finite losses and gradient norms, the
+              parameters moving, step ms, tokens/s, peak memory, one
+              profiled step split as ``dense_serve``'s prefill.
+Every dense path launches none of the port's kernels: each counter 0.
+
 Phases 15–19 run after ``baselines`` and before ``mamba_fixture`` (19
 before ``cv_serve``); each adds its paths to ``launches_by_path``, and
 their failures are collected and raised after the ``kernels`` line.
+Phases 21–23 run after ``train``; their failures too.
 
 The ``kernels`` phase also holds the mixed-precision variants (bf16
 products on the tensor cores, float32 sums and state, Θ and packed factors
@@ -357,6 +385,21 @@ CONV_EDGES = (("tile_edges", (1, 300, 8200), 0), ("short", (2, 2, 8192), 0),
 SERVE_TOL = 5e-2           # bf16, 64 layers: decode vs forward logits at the
                            # last position, max |Δ| / max |forward|
 SERVE_REPEATS = 3
+# the dense family (phases dense_fixture, dense_serve, dense_train): the
+# port's four dense configurations at their published widths, each served
+# as phase serve serves Falcon-Mamba-7B (same batch, prompt, decode steps
+# and SERVE_TOL), H2O-Danube3 also with one prompt beyond its window;
+# Qwen2-1.5B trained as phase train trains Falcon-Mamba-7B
+DENSE_ARCHS = ("smollm-360m", "qwen2-1.5b", "minicpm-2b", "h2o-danube-3-4b")
+DENSE_FIXTURE = ROOT / "tests" / "data" / "torch_dense.npz"
+DENSE_FIXTURE_ARCHS = ("qwen2-1.5b", "h2o-danube-3-4b")
+DENSE_TOL = 1e-4           # max |Δ| / max |JAX|, float32: card vs fixture
+WINDOWED_ARCH, LONG_PROMPT = "h2o-danube-3-4b", 6144   # window 4096
+DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen2-1.5b", 5
+YARDSTICK_REPEATS = 5
+# the port's attention in a profile: layers.flash_attention's range and
+# its backward's autograd node
+ATTENTION_RANGE, ATTENTION_BWD = "flash_attention", "_FlashCoreBackward"
 
 # The card's published peaks (bytes/s, FP64 on tensor cores, FP64 and
 # FP32 outside them, bf16 on tensor cores, ``sfu`` exponentials/s) are
@@ -1727,11 +1770,39 @@ def host_drivers(folds, lams) -> dict:
     }
 
 
-def profiled(fn) -> tuple[dict, dict]:
+def range_kernels(events, names: tuple) -> dict:
+    """Device ms by kernel name of the kernels launched inside the CPU
+    events named in ``names`` (a ``record_function`` range, an autograd
+    node) and their children, each range counted once."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+
+    def inside(e) -> bool:
+        return any(n in e.name for n in names)
+
+    def walk(e) -> None:
+        for k in e.kernels:
+            out[k.name[:80]] = out.get(k.name[:80], 0.0) + k.duration / 1e3
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.device_type != DeviceType.CPU or not inside(e):
+            continue
+        parent = e.cpu_parent
+        while parent is not None and not inside(parent):
+            parent = parent.cpu_parent
+        if parent is None:
+            walk(e)
+    return out
+
+
+def profiled(fn, ranges: tuple = ()) -> tuple[dict, dict]:
     """One profiled call of ``fn`` (after a warm call): device busy time
     (union of kernel intervals), its share of the host wall time, and the
     kernels that take the most device time; also the device ms by kernel
-    name."""
+    name.  With ``ranges``, the trace's ``ranges`` holds the device ms by
+    kernel name of what ran inside them (:func:`range_kernels`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1742,7 +1813,8 @@ def profiled(fn) -> tuple[dict, dict]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     by_name: dict = {}
     for e in kern:
         rec = by_name.setdefault(e.name[:80], [0.0, 0])
@@ -1759,12 +1831,14 @@ def profiled(fn) -> tuple[dict, dict]:
     conv_ops = sum(1 for e in prof.events()
                    if e.device_type == DeviceType.CPU
                    and e.name in CONVOLUTION_OPS)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
-                device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
-                n_kernels=len(kern), triangular_solve_ops=tri_ops,
-                convolution_ops=conv_ops,
-                top=[dict(name=n, ms=ms, count=c)
-                     for n, (ms, c) in top]), by_name
+    trace = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                 device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
+                 n_kernels=len(kern), triangular_solve_ops=tri_ops,
+                 convolution_ops=conv_ops,
+                 top=[dict(name=n, ms=ms, count=c) for n, (ms, c) in top])
+    if ranges:
+        trace["ranges"] = range_kernels(prof.events(), ranges)
+    return trace, by_name
 
 
 CHOL_KERNELS = ("diag_kernel", "panel_kernel", "syrk_kernel")
@@ -3449,15 +3523,7 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def fixture_params(data) -> dict:
     """The nested parameter tree of the JAX ``Model.init`` from the flat
     ``param/<dotted name>`` entries of a fixture."""
-    params: dict = {}
-    for key in data.files:
-        if key.startswith("param/"):
-            *path, leaf = key[len("param/"):].split(".")
-            node = params
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = data[key]
-    return params
+    return _tree(data, "param/")
 
 
 @torch.no_grad()
@@ -3571,6 +3637,68 @@ def gemm_like(name: str) -> bool:
                                             "cutlass", "splitk"))
 
 
+def greedy(model, cache, first, steps: int):
+    """``steps`` greedy decode steps from ``cache``, the first fed
+    ``first``: (their logits (B, steps, V), the tokens fed (B, steps))."""
+    toks, logits = [first], []
+    for _ in range(steps):
+        step, cache = model.decode(cache, toks[-1])
+        logits.append(step)
+        toks.append(step[:, -1].argmax(-1, keepdim=True))
+    return torch.cat(logits, 1), torch.cat(toks[:-1], 1)
+
+
+def serve_run(model, prompts, steps: int, prefix: str) -> tuple:
+    """A serve run: the prompts prefilled, ``steps`` greedy decodes, a
+    forward over the extended sequences, each path counted
+    (``<prefix>_prefill``, ``_decode``, ``_forward``).  Returns (finite
+    logits, decode against forward at each position from the prefill's
+    last: max |Δ| / max |forward|, the counts, the prefill's cache, the
+    first decoded token)."""
+    counts = {}
+    (logits_p, cache), counts[f"{prefix}_prefill"] = counted_call(
+        lambda: model.prefill(prompts))
+    first = logits_p[:, -1].argmax(-1, keepdim=True)
+    (logits_d, gen_toks), counts[f"{prefix}_decode"] = counted_call(
+        lambda: greedy(model, cache, first, steps))
+    ext = torch.cat([prompts, gen_toks], 1)
+    (logits_f, _), counts[f"{prefix}_forward"] = counted_call(
+        lambda: model(ext))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (logits_p, logits_d, logits_f))
+    pos = logits_f[:, prompts.shape[1] - 1:]          # prefill, then decodes
+    mine = torch.cat([logits_p, logits_d], 1)
+    per_pos = [float((mine[:, j] - pos[:, j]).abs().max()
+                     / pos[:, j].abs().max()) for j in range(pos.shape[1])]
+    agree = float((mine.argmax(-1) == pos.argmax(-1)).float().mean())
+    del logits_f, pos, mine
+    stats = dict(finite=finite, decode_vs_forward_last=per_pos[-1],
+                 decode_vs_forward_max=max(per_pos),
+                 decode_vs_forward_median=float(np.median(per_pos)),
+                 bit_equal_positions=sum(v == 0.0 for v in per_pos),
+                 prefill_vs_forward=per_pos[0], greedy_agreement=agree)
+    return stats, counts, cache, first
+
+
+def serve_walls(model, prompts, first, steps: int, repeats: int) -> tuple:
+    """Prefill and decode walls, ``repeats`` times after the warm run:
+    (the walls, their medians)."""
+    walls = dict(prefill_ms=[], decode_ms_per_step=[])
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, c = model.prefill(prompts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        greedy(model, c, first, steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        walls["prefill_ms"].append((t1 - t0) * 1e3)
+        walls["decode_ms_per_step"].append((t2 - t1) * 1e3 / steps)
+        del c
+    return walls, {k: float(np.median(v)) for k, v in walls.items()}
+
+
 @torch.no_grad()
 def phase_serve(dev) -> dict:
     """Falcon-Mamba-7B as published (bf16, 64 layers): 4 prompts of 2048
@@ -3592,59 +3720,19 @@ def phase_serve(dev) -> dict:
                        for p in model.parameters())
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                             generator=gen, device=dev)
-
-    def decode_loop(cache, first):
-        toks, logits = [first], []
-        for _ in range(SERVE_DECODE):
-            step, cache = model.decode(cache, toks[-1])
-            logits.append(step)
-            toks.append(step[:, -1].argmax(-1, keepdim=True))
-        return torch.cat(logits, 1), torch.cat(toks[:-1], 1)
-
-    counts = {}
-    (logits_p, cache), counts["mamba_prefill"] = counted_call(
-        lambda: model.prefill(prompts))
-    first = logits_p[:, -1].argmax(-1, keepdim=True)
-    (logits_d, gen_toks), counts["mamba_decode"] = counted_call(
-        lambda: decode_loop(cache, first))
-    ext = torch.cat([prompts, gen_toks], 1)
-    (logits_f, _), counts["mamba_forward"] = counted_call(lambda: model(ext))
+    stats, counts, cache, first = serve_run(model, prompts, SERVE_DECODE,
+                                            "mamba")
     for tag, n in (("mamba_prefill", n_layers), ("mamba_forward", n_layers),
                    ("mamba_decode", n_layers * SERVE_DECODE)):
         check_counts(f"serve {tag}", counts[tag],
                      dict(ssm_scan=n, causal_conv1d=n))
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in (logits_p, logits_d, logits_f))
-    pos = logits_f[:, SERVE_PROMPT - 1:]              # prefill, then decodes
-    mine = torch.cat([logits_p, logits_d], 1)
-    per_pos = [float((mine[:, j] - pos[:, j]).abs().max()
-                     / pos[:, j].abs().max()) for j in range(pos.shape[1])]
-    agree = float((mine.argmax(-1) == pos.argmax(-1)).float().mean())
-    del logits_f, pos, mine
-    walls = dict(prefill_ms=[], decode_ms_per_step=[])
-    for _ in range(SERVE_REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, c = model.prefill(prompts)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        decode_loop(c, first)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        walls["prefill_ms"].append((t1 - t0) * 1e3)
-        walls["decode_ms_per_step"].append((t2 - t1) * 1e3 / SERVE_DECODE)
-        del c
-    med = {k: float(np.median(v)) for k, v in walls.items()}
+    walls, med = serve_walls(model, prompts, first, SERVE_DECODE,
+                             SERVE_REPEATS)
     out = dict(
         layers=n_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
         state=cfg.ssm_state, vocab=cfg.vocab_size, dtype=cfg.dtype,
         batch=SERVE_BATCH, prompt=SERVE_PROMPT, decode_steps=SERVE_DECODE,
-        init_s=init_s, weight_bytes=weight_bytes, finite=finite,
-        decode_vs_forward_last=per_pos[-1],
-        decode_vs_forward_max=max(per_pos),
-        decode_vs_forward_median=float(np.median(per_pos)),
-        bit_equal_positions=sum(v == 0.0 for v in per_pos),
-        prefill_vs_forward=per_pos[0], greedy_agreement=agree,
+        init_s=init_s, weight_bytes=weight_bytes, **stats,
         tol=SERVE_TOL, walls=walls, median=med,
         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT
         / (med["prefill_ms"] / 1e3),
@@ -3652,10 +3740,11 @@ def phase_serve(dev) -> dict:
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         launches=counts)
     emit("serve", **out)
-    if not finite or per_pos[-1] > SERVE_TOL:
+    finite, last = stats["finite"], stats["decode_vs_forward_last"]
+    if not finite or last > SERVE_TOL:
         # the run fails at its end, after the trace and the kernels line
         FAILED.append(f"serve: finite={finite}, decode vs forward at the "
-                      f"last position {per_pos[-1]} > {SERVE_TOL}")
+                      f"last position {last} > {SERVE_TOL}")
 
     traces = {}
     for tag, fn in (("mamba_prefill", lambda: model.prefill(prompts)),
@@ -3732,8 +3821,9 @@ def train_fixture(dev, scan: str) -> dict:
                           / kv[1]["tol"])[0])
 
 
-def _tree(data, prefix: str) -> dict:
-    """The nested tree of a fixture's ``<prefix><dotted name>`` entries."""
+def _tree(data, prefix: str, decode=None) -> dict:
+    """The nested tree of a fixture's ``<prefix><dotted name>`` entries,
+    each passed through ``decode`` when given."""
     tree: dict = {}
     for key in data.files:
         if key.startswith(prefix):
@@ -3741,7 +3831,7 @@ def _tree(data, prefix: str) -> dict:
             node = tree
             for part in path:
                 node = node.setdefault(part, {})
-            node[leaf] = data[key]
+            node[leaf] = data[key] if decode is None else decode(data[key])
     return tree
 
 
@@ -3991,6 +4081,247 @@ def phase_train(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- dense
+
+
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """The float32 values of bfloat16 bit patterns (uint16)."""
+    return (a.astype(np.uint32) << 16).view(np.float32)
+
+
+@torch.no_grad()
+def dense_fixture(dev) -> dict:
+    """The reduced Qwen2 and H2O-Danube3 of ``tests/data/torch_dense.npz``
+    (JAX's weights, inputs and logits) on ``dev``: forward, prefill and
+    decode logits within DENSE_TOL of JAX's, and H2O-Danube3's prompt
+    beyond its window (its ring buffer wrapping) too.  The CPU test runs
+    it as well."""
+    from repro_torch import configs, convert
+    data = np.load(DENSE_FIXTURE)
+    results = {}
+    for arch in DENSE_FIXTURE_ARCHS:
+        cfg = configs.get(arch).reduced()
+        model = convert.model_from_numpy(
+            cfg, _tree(data, f"{arch}/param/", bf16_bits), device=dev)
+
+        def arr(key):
+            return torch.as_tensor(data[f"{arch}/{key}"], device=dev)
+
+        got = {"forward": model(arr("tokens"))[0]}
+        for run in ("", "long_"):
+            if f"{arch}/{run}tokens" not in data.files:
+                continue
+            got[f"{run}prefill"], cache = model.prefill(arr(f"{run}tokens"))
+            steps = []
+            for tok in arr(f"{run}steps"):
+                logits, cache = model.decode(cache, tok)
+                steps.append(logits)
+            got[f"{run}decode"] = torch.stack(steps)
+        for key, t in got.items():
+            rel = rel_err(t, arr(key))
+            results[f"{arch}/{key}"] = dict(rel_err=rel, tol=DENSE_TOL,
+                                            ok=rel <= DENSE_TOL)
+    return dict(results=results, ok=all(r["ok"] for r in results.values()))
+
+
+def phase_dense_fixture(dev) -> None:
+    res, counts = counted_call(lambda: dense_fixture(dev))
+    emit("dense_fixture", launches=_nonzero(counts), **res)
+    check_counts("dense_fixture", counts, {})
+    if not res["ok"]:
+        FAILED.append(f"dense_fixture: off JAX's: {res['results']}")
+
+
+def attention_split(trace: dict, by_name: dict) -> dict:
+    """Device ms of a profiled dense run: the port's attention
+    (``flash_attention``'s range and its backward's node: its float32
+    chunk products, and the rest of it: masks, softmax, casts, layout
+    copies), the other GEMMs and the rest; each also as a share of the
+    busy time."""
+    inside = trace.pop("ranges")
+    att_gemm = sum(ms for n, ms in inside.items() if gemm_like(n))
+    split = dict(attention_ms=sum(inside.values()),
+                 attention_products_ms=att_gemm,
+                 attention_other_ms=sum(inside.values()) - att_gemm,
+                 gemm_ms=sum(ms for n, (ms, _) in by_name.items()
+                             if gemm_like(n)) - att_gemm)
+    split["rest_ms"] = (sum(ms for ms, _ in by_name.values())
+                        - split["attention_ms"] - split["gemm_ms"])
+    busy = trace["device_busy_ms"]
+    return dict(split, **{k.replace("_ms", "_share"): split[k] / busy
+                          for k in ("attention_ms", "gemm_ms", "rest_ms")})
+
+
+def attention_yardstick(dev, cfg, batch: int, seq: int) -> dict:
+    """One layer's attention at a prefill's shapes (bf16, causal): the
+    port's ``flash_attention`` against ``scaled_dot_product_attention``
+    (the library's, timed here only as the yardstick for later work; it
+    never runs on the path), CUDA events, mean of YARDSTICK_REPEATS;
+    max |Δ| / max |port| between them."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v = (torch.randn((batch, seq, n, hd), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for n in (h, kv, kv))
+    if cfg.sliding_window and cfg.sliding_window < seq:
+        raise ValueError("the yardstick times attention the window does "
+                         "not bind on")
+
+    def port():
+        return layers.flash_attention(q, k, v, causal=True,
+                                      window=cfg.sliding_window,
+                                      chunk=cfg.attn_chunk)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    ms = timed_ms(port, YARDSTICK_REPEATS)
+    lib_ms = timed_ms(library, YARDSTICK_REPEATS)
+    # causal: half of the QKᵀ and PV products' 4 · B · H · S² · hd
+    flops = 2 * batch * h * seq * seq * hd
+    return dict(port_ms=ms, library_ms=lib_ms, library_over_port=lib_ms / ms,
+                causal_flops=flops, port_tflop_s=flops / ms / 1e9,
+                library_tflop_s=flops / lib_ms / 1e9,
+                library_vs_port=rel_err(library(), port()),
+                shape=[batch, seq, h, kv, hd], chunk=cfg.attn_chunk)
+
+
+@torch.no_grad()
+def dense_serve(dev, arch: str, batch: int, prompt: int, repeats: int,
+                profile: bool) -> dict:
+    """One dense configuration as published (bf16, seeded weights):
+    ``batch`` prompts of ``prompt`` tokens, SERVE_DECODE greedy decodes, a
+    forward over the extended sequences (:func:`serve_run`); every path
+    launching none of the port's kernels; walls, memory, the bytes each
+    decode step copies (decode keeps the cache it is given: every layer's
+    k and v cloned, one slot replaced); with ``profile``, one profiled
+    prefill (:func:`attention_split`), one profiled decode step (its
+    device busy time and idle share) and the attention's yardstick."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, device=dev, generator=gen)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev)
+    stats, counts, cache, first = serve_run(model, prompts, SERVE_DECODE,
+                                            "dense")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in cache["groups"] for t in c.values())
+    walls, med = serve_walls(model, prompts, first, SERVE_DECODE, repeats)
+    out = dict(
+        arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, window=cfg.sliding_window,
+        qkv_bias=cfg.qkv_bias, dtype=cfg.dtype, batch=batch, prompt=prompt,
+        decode_steps=SERVE_DECODE, weight_bytes=weight_bytes,
+        cache_slots=cache["groups"][0]["k"].shape[1], cache_bytes=cache_bytes,
+        decode_cache_copy_bytes_per_step=cache_bytes, **stats,
+        tol=SERVE_TOL, walls=walls, median=med,
+        prefill_tokens_per_s=batch * prompt / (med["prefill_ms"] / 1e3),
+        decode_tokens_per_s=batch / (med["decode_ms_per_step"] / 1e3),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: _nonzero(v) for k, v in counts.items()})
+    for tag, n in counts.items():
+        check_counts(f"{arch} {tag}", n, {})
+    if profile:
+        trace, by_name = profiled(lambda: model.prefill(prompts),
+                                  ranges=(ATTENTION_RANGE,))
+        out["trace"] = dict(trace, **attention_split(trace, by_name))
+        out["trace_decode"] = profiled(lambda: model.decode(cache, first))[0]
+        out["yardstick"] = attention_yardstick(dev, cfg, batch, prompt)
+        out["yardstick"]["port_ms_all_layers"] = \
+            out["yardstick"]["port_ms"] * cfg.n_layers
+    del model, cache, first
+    torch.cuda.empty_cache()
+    if not stats["finite"] or stats["decode_vs_forward_last"] > SERVE_TOL:
+        FAILED.append(f"dense_serve {arch} ({batch} × {prompt}): finite="
+                      f"{stats['finite']}, decode vs forward at the last "
+                      f"position {stats['decode_vs_forward_last']} > "
+                      f"{SERVE_TOL}")
+    return out
+
+
+def phase_dense_serve(dev) -> None:
+    """Each dense configuration as published, SERVE_BATCH prompts of
+    SERVE_PROMPT tokens, profiled; then H2O-Danube3 with one prompt of
+    LONG_PROMPT tokens, beyond its window."""
+    for arch in DENSE_ARCHS:
+        emit("dense_serve", **dense_serve(dev, arch, SERVE_BATCH,
+                                          SERVE_PROMPT, SERVE_REPEATS, True))
+    emit("dense_serve", part="beyond_window", **dense_serve(
+        dev, WINDOWED_ARCH, 1, LONG_PROMPT, 1, False))
+
+
+def phase_dense_train(dev) -> None:
+    """Qwen2-1.5B as published (bf16, remat) with the launcher's optimizer
+    (AdamW below 3e11 parameters), TRAIN_BATCH × TRAIN_SEQ tokens of
+    ``token_stream``, DENSE_TRAIN_STEPS through ``TrainLoop``: losses and
+    gradient norms finite, the parameters moving, step ms (median of all
+    but the first), tokens/s, peak memory, no launch of the port's
+    kernels; one profiled step (:func:`attention_split`)."""
+    import itertools
+    from repro_torch import configs
+    from repro_torch.data import token_stream
+    from repro_torch.models import Model
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.train import make_train_step
+    cfg = configs.get(DENSE_TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    named = dict(model.named_parameters())
+    watched = ("embed", "groups.0.attn.wq", "groups.0.attn.bq",
+               f"groups.{cfg.n_layers - 1}.mlp.wo", "lm_head")
+    before = {n: named[n].detach().clone() for n in watched}
+    opt = adafactor() if cfg.n_params() > 3e11 else adamw()
+    data = token_stream(torch.Generator(device=dev).manual_seed(1),
+                        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    (res, losses, norms, loop), counts = counted_call(
+        lambda: _run_loop(model, opt, DENSE_TRAIN_STEPS,
+                          itertools.islice(data, DENSE_TRAIN_STEPS)))
+    moved = {n: float((named[n].detach() - before[n]).abs().max())
+             for n in watched}
+    secs = [e["sec_per_step"] for e in res["log"]]
+    step_ms = float(np.median(secs[1:])) * 1e3
+    out = dict(arch=DENSE_TRAIN_ARCH, layers=cfg.n_layers, dtype=cfg.dtype,
+               remat=cfg.remat, params=sum(p.numel() for p in
+                                           model.parameters()),
+               optimizer=type(loop.opt_state).__name__, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=DENSE_TRAIN_STEPS, losses=losses,
+               grad_norms=norms, moved=moved,
+               step_ms_each=[x * 1e3 for x in secs], step_ms=step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=_nonzero(counts))
+    check_counts("dense_train", counts, {})
+    step = make_train_step(model, opt)
+    batch = next(data)
+    holder = {"state": loop.opt_state}
+
+    def one_step():
+        _, holder["state"], m = step(model, holder["state"], batch)
+        return m
+
+    trace, by_name = profiled(one_step, ranges=(ATTENTION_RANGE,
+                                                ATTENTION_BWD))
+    out["trace"] = dict(trace, **attention_split(trace, by_name))
+    emit("dense_train", **out)
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    if not finite or not all(v > 0 for v in moved.values()):
+        FAILED.append(f"dense_train: finite={finite}, moved={moved}")
+    del model, loop, holder, step, opt, named, before
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -4016,6 +4347,9 @@ def main() -> None:
     phase_mamba(dev)
     launches.update(phase_serve(dev))
     launches.update(phase_train(dev))
+    phase_dense_fixture(dev)
+    phase_dense_serve(dev)
+    phase_dense_train(dev)
     rows = []
     for name in REPLACES:
         r = kern[name]

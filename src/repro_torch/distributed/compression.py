@@ -5,7 +5,7 @@ Classic EF-SGD: the residual between the true gradient and its quantized
 transport is carried to the next step, so the compression error does not
 bias the trajectory.  These are the local transforms; the reference's
 ``compressed_psum_tree`` (the int8 all-reduce inside ``shard_map``) waits
-for the LM's sharded path (``ROADMAP.md`` queue 1 item 4).  Trees are
+for the LM's sharded path (``ROADMAP.md`` queue 1 item 6).  Trees are
 mappings of tensors by name.
 """
 from __future__ import annotations

@@ -6,11 +6,16 @@ stream.
         --steps 100 --ckpt-dir /path/to/ckpt [--batch 8 --seq 128] \\
         [--microbatches 1] [--ckpt-every 50] [--reduced] [--device cpu]
 
+``--arch`` is any name of ``repro_torch.configs.names()``: the dense
+configurations (``smollm-360m``, ``qwen2-1.5b``, ``minicpm-2b``,
+``h2o-danube-3-4b``) and ``falcon-mamba-7b``; with ``--reduced --device
+cpu`` each trains its CPU-sized variant on the CPU.
+
 The optimizer follows the reference's rule: Adafactor above 3e11
 parameters, AdamW below.  So ``falcon-mamba-7b`` at full depth trains with
 AdamW, whose float32 moments with the bf16 weights and gradients need about
 87 GB: more than one 80 GB card (README).  ``--mesh`` other than ``1x1``
-raises: the parameter shardings are ``ROADMAP.md`` queue 1 item 4.
+raises: the parameter shardings are ``ROADMAP.md`` queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     choices=configs.names())
     ap.add_argument("--mesh", default="1x1",
                     help="1x1 only: one card (sharded meshes: ROADMAP.md "
-                    "queue 1 item 4)")
+                    "queue 1 item 6)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -52,7 +57,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if [int(x) for x in args.mesh.split("x")] != [1, 1]:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the port trains on one card; meshes with "
-            "sharded parameters are ROADMAP.md queue 1 item 4")
+            "sharded parameters are ROADMAP.md queue 1 item 6")
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:

@@ -83,13 +83,13 @@ class TrainLoop:
     metrics)`` (``make_train_step``'s); ``params`` the model (or a mapping
     of named tensors).  ``shardings`` is the reference's argument and must
     be ``None``: the port trains on one card (``ROADMAP.md`` queue 1
-    item 4)."""
+    item 6)."""
 
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable, params: Any,
                  opt_state: Any, shardings: Any = None):
         if shardings is not None:
             raise NotImplementedError("TrainLoop: parameter shardings come "
-                                      "with ROADMAP.md queue 1 item 4")
+                                      "with ROADMAP.md queue 1 item 6")
         self.cfg = cfg
         self.step_fn = step_fn
         self.params = params
