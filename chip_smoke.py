@@ -400,6 +400,24 @@ YARDSTICK_REPEATS = 5
 # the port's attention in a profile: layers.flash_attention's range and
 # its backward's autograd node
 ATTENTION_RANGE, ATTENTION_BWD = "flash_attention", "_FlashCoreBackward"
+# the MoE and hybrid families (phases moe_fixture, moe_serve,
+# moe_consistency, moe_train, hybrid_fixture, hybrid_serve, hybrid_train):
+# the fixtures' configurations (reduced, at these depths) and tolerance
+MOE_FIXTURE = ROOT / "tests" / "data" / "torch_moe.npz"
+MOE_FIXTURE_LAYERS = {"mixtral-8x7b": 1, "kimi-k2-1t-a32b": 1}
+HYBRID_FIXTURE = ROOT / "tests" / "data" / "torch_hybrid.npz"
+HYBRID_ARCH, HYBRID_FIXTURE_LAYERS = "recurrentgemma-2b", 5
+FIXTURE_TOL = 1e-4         # max |Δ| / max |JAX|, float32: card vs fixture
+# served at the published widths, bf16, cut in depth to fit one card (the
+# weights: Mixtral 70.2 GB of 93.4, Kimi-K2 38.8 GB of 2.08 TB)
+MOE_SERVE = (("mixtral-8x7b", 24), ("kimi-k2-1t-a32b", 1))
+# decode against forward at drop-free capacity (capacity_factor = E): a
+# prompt short enough that the (E, C, D) buffers fit beside the weights
+MOE_CONSISTENCY_PROMPT = {"mixtral-8x7b": 512, "kimi-k2-1t-a32b": 64}
+CONSISTENCY_DECODE = 8
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "mixtral-8x7b", 2, 3
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_STEPS = 2, 5
+RGLRU_RANGE = "linear_recurrence"      # layers.chunked_linear_recurrence
 
 # The card's published peaks (bytes/s, FP64 on tensor cores, FP64 and
 # FP32 outside them, bf16 on tensor cores, ``sfu`` exponentials/s) are
@@ -1797,12 +1815,14 @@ def range_kernels(events, names: tuple) -> dict:
     return out
 
 
-def profiled(fn, ranges: tuple = ()) -> tuple[dict, dict]:
+def profiled(fn, ranges: tuple = (), split: bool = False
+             ) -> tuple[dict, dict]:
     """One profiled call of ``fn`` (after a warm call): device busy time
     (union of kernel intervals), its share of the host wall time, and the
     kernels that take the most device time; also the device ms by kernel
     name.  With ``ranges``, the trace's ``ranges`` holds the device ms by
-    kernel name of what ran inside them (:func:`range_kernels`)."""
+    kernel name of what ran inside them (:func:`range_kernels`); with
+    ``split``, one such dict per range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1837,7 +1857,9 @@ def profiled(fn, ranges: tuple = ()) -> tuple[dict, dict]:
                  convolution_ops=conv_ops,
                  top=[dict(name=n, ms=ms, count=c) for n, (ms, c) in top])
     if ranges:
-        trace["ranges"] = range_kernels(prof.events(), ranges)
+        trace["ranges"] = ({r: range_kernels(prof.events(), (r,))
+                            for r in ranges} if split else
+                           range_kernels(prof.events(), ranges))
     return trace, by_name
 
 
@@ -3648,13 +3670,15 @@ def greedy(model, cache, first, steps: int):
     return torch.cat(logits, 1), torch.cat(toks[:-1], 1)
 
 
-def serve_run(model, prompts, steps: int, prefix: str) -> tuple:
+def serve_run(model, prompts, steps: int, prefix: str,
+              each: bool = False) -> tuple:
     """A serve run: the prompts prefilled, ``steps`` greedy decodes, a
     forward over the extended sequences, each path counted
     (``<prefix>_prefill``, ``_decode``, ``_forward``).  Returns (finite
     logits, decode against forward at each position from the prefill's
-    last: max |Δ| / max |forward|, the counts, the prefill's cache, the
-    first decoded token)."""
+    last: max |Δ| / max |forward|, with ``each`` also every position's as
+    ``decode_vs_forward_each``, the counts, the prefill's cache, the first
+    decoded token)."""
     counts = {}
     (logits_p, cache), counts[f"{prefix}_prefill"] = counted_call(
         lambda: model.prefill(prompts))
@@ -3677,6 +3701,8 @@ def serve_run(model, prompts, steps: int, prefix: str) -> tuple:
                  decode_vs_forward_median=float(np.median(per_pos)),
                  bit_equal_positions=sum(v == 0.0 for v in per_pos),
                  prefill_vs_forward=per_pos[0], greedy_agreement=agree)
+    if each:
+        stats["decode_vs_forward_each"] = per_pos
     return stats, counts, cache, first
 
 
@@ -3867,9 +3893,11 @@ def _train_split(by_name: dict) -> dict:
     return split
 
 
-def _run_loop(model, opt, steps: int, data, ckpt_dir=None, every=None):
+def _run_loop(model, opt, steps: int, data, ckpt_dir=None, every=None,
+              record: list | None = None):
     """``steps`` of TrainLoop over ``data``; returns (the loop's result,
-    per-step losses and gradient norms, the loop)."""
+    per-step losses and gradient norms, the loop).  ``record`` receives
+    each step's metrics as floats."""
     from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
     step = make_train_step(model, opt)
     norms = []
@@ -3877,6 +3905,8 @@ def _run_loop(model, opt, steps: int, data, ckpt_dir=None, every=None):
     def recorded(params, state, batch, extra=None):
         out = step(params, state, batch, extra)
         norms.append(float(out[2]["grad_norm"]))
+        if record is not None:
+            record.append({k: float(v) for k, v in out[2].items()})
         return out
 
     loop = TrainLoop(TrainLoopConfig(
@@ -4124,6 +4154,87 @@ def dense_fixture(dev) -> dict:
     return dict(results=results, ok=all(r["ok"] for r in results.values()))
 
 
+@torch.no_grad()
+def fixture_run(dev, data, prefix: str, cfg,
+                weights: str | None = None) -> dict:
+    """A reduced model of a fixture (JAX's weights under ``<weights>param/``,
+    ``weights`` the ``prefix`` unless given) on ``dev``: its forward
+    (logits and aux) and, for each prompt the fixture has decode steps for
+    (``tokens`` with ``steps``, ``long_tokens`` with ``long_steps``),
+    prefill and decode logits, each against the fixture's within
+    FIXTURE_TOL."""
+    from repro_torch import convert
+    model = convert.model_from_numpy(
+        cfg, _tree(data, f"{prefix if weights is None else weights}param/",
+                   bf16_bits), device=dev)
+
+    def arr(key):
+        return torch.as_tensor(data[f"{prefix}{key}"], device=dev)
+
+    got = dict(zip(("forward", "aux"), model(arr("tokens"))))
+    for run in ("", "long_"):
+        if f"{prefix}{run}steps" not in data.files:
+            continue
+        got[f"{run}prefill"], cache = model.prefill(arr(f"{run}tokens"))
+        steps = []
+        for tok in arr(f"{run}steps"):
+            logits, cache = model.decode(cache, tok)
+            steps.append(logits)
+        got[f"{run}decode"] = torch.stack(steps)
+    out = {}
+    for key, t in got.items():
+        if f"{prefix}{key}" in data.files:
+            rel = rel_err(t, arr(key))
+            out[key] = dict(rel_err=rel, tol=FIXTURE_TOL,
+                            ok=rel <= FIXTURE_TOL)
+    return out
+
+
+def moe_fixture(dev) -> dict:
+    """The reduced Mixtral (1 layer: drop-free, and at capacity_factor 0.5
+    with choices dropped) and Kimi-K2 (1 layer, its shared expert) of
+    ``tests/data/torch_moe.npz`` on ``dev``: logits and aux within
+    FIXTURE_TOL of JAX's.  The CPU test runs it as well."""
+    from repro_torch import configs
+    data = np.load(MOE_FIXTURE)
+    results = {}
+    for arch, layers in MOE_FIXTURE_LAYERS.items():
+        cfg = dataclasses.replace(configs.get(arch).reduced(),
+                                  n_layers=layers)
+        for key, r in fixture_run(dev, data, f"{arch}/", cfg).items():
+            results[f"{arch}/{key}"] = r
+    arch = "mixtral-8x7b"
+    tight = dataclasses.replace(configs.get(arch).reduced(),
+                                n_layers=MOE_FIXTURE_LAYERS[arch],
+                                capacity_factor=0.5)
+    for key, r in fixture_run(dev, data, f"{arch}/tight_", tight,
+                              weights=f"{arch}/").items():
+        results[f"{arch}/tight_{key}"] = r
+    return dict(results=results, ok=all(r["ok"] for r in results.values()))
+
+
+def hybrid_fixture(dev) -> dict:
+    """The reduced RecurrentGemma-2B at 5 layers (one group and a tail of
+    two RG-LRU sublayers) of ``tests/data/torch_hybrid.npz`` on ``dev``:
+    forward, prefill and decode logits within FIXTURE_TOL of JAX's, also
+    for a prompt beyond its local window of 32.  The CPU test runs it as
+    well."""
+    from repro_torch import configs
+    data = np.load(HYBRID_FIXTURE)
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH).reduced(),
+                              n_layers=HYBRID_FIXTURE_LAYERS)
+    results = fixture_run(dev, data, "", cfg)
+    return dict(results=results, ok=all(r["ok"] for r in results.values()))
+
+
+def fixture_phase(name: str, fn, dev) -> None:
+    res, counts = counted_call(lambda: fn(dev))
+    emit(name, launches=_nonzero(counts), **res)
+    check_counts(name, counts, {})
+    if not res["ok"]:
+        FAILED.append(f"{name}: off JAX's: {res['results']}")
+
+
 def phase_dense_fixture(dev) -> None:
     res, counts = counted_call(lambda: dense_fixture(dev))
     emit("dense_fixture", launches=_nonzero(counts), **res)
@@ -4322,6 +4433,365 @@ def phase_dense_train(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- MoE, hybrid
+
+
+def range_split(trace: dict, by_name: dict, ranges: dict) -> dict:
+    """Device ms of a profiled run split by profiler range (``ranges``:
+    key → range name, as :func:`profiled` with ``split`` gives them), the
+    GEMMs outside every range and the rest; each also as a share of the
+    busy time."""
+    inside = trace.pop("ranges")
+    split = {f"{key}_ms": sum(inside[name].values())
+             for key, name in ranges.items()}
+    in_gemm = sum(ms for r in inside.values() for n, ms in r.items()
+                  if gemm_like(n))
+    split["gemm_ms"] = sum(ms for n, (ms, _) in by_name.items()
+                           if gemm_like(n)) - in_gemm
+    split["rest_ms"] = sum(ms for ms, _ in by_name.values()) - sum(
+        split.values())
+    busy = trace["device_busy_ms"]
+    return dict(split, **{k.replace("_ms", "_share"): v / busy
+                          for k, v in list(split.items())})
+
+
+MOE_RANGES = {"attention": ATTENTION_RANGE, "experts": "moe_experts",
+              "route": "moe_route"}
+HYBRID_RANGES = {"attention": ATTENTION_RANGE, "recurrence": RGLRU_RANGE,
+                 "conv": "rglru_conv"}
+# a training step's: the backward nodes of attention and the recurrence too
+HYBRID_TRAIN_RANGES = dict(HYBRID_RANGES, attention_bwd=ATTENTION_BWD,
+                           recurrence_bwd="_LinearRecurrenceBackward")
+
+
+def per_call(stats: list, layers: int) -> list:
+    """Routing records (``blocks.routing_stats``, one per MoE layer and
+    call) summed per call of ``layers`` layers: [(dropped (token, choice)
+    pairs, experts used, each summed over the layers)]."""
+    rows = [(int(r["dropped"]), int(r["used"])) for r in stats]
+    return [tuple(sum(v) for v in zip(*rows[i:i + layers]))
+            for i in range(0, len(rows), layers)]
+
+
+def routing_flips(stats: list, layers: int, prompt: int, k: int) -> list:
+    """For one sequence served as :func:`serve_run` serves it (records of
+    the prefill, each decode step, the forward): per position from the
+    prefill's last, the layers whose serving call chose other experts than
+    the forward at that position, each with the forward's router margin
+    there (its k-th largest logit minus its (k+1)-th) and ``drift``, the
+    largest change of any router logit between the two.  Two experts'
+    ranks can swap only when their gap is at most twice that drift."""
+    calls = [stats[i:i + layers] for i in range(0, len(stats), layers)]
+    fwd = calls[-1]
+    served = [(calls[0], prompt - 1)] + [(c, 0) for c in calls[1:-1]]
+    out = []
+    for j, (call, row) in enumerate(served):
+        flips = []
+        for layer, (mine, ref) in enumerate(zip(call, fwd)):
+            q = prompt - 1 + j
+            if set(mine["topi"][row].tolist()) == set(ref["topi"][q]
+                                                       .tolist()):
+                continue
+            top = ref["logits"][q].topk(k + 1).values
+            flips.append(dict(layer=layer, margin=float(top[k - 1] - top[k]),
+                              drift=float((mine["logits"][row]
+                                           - ref["logits"][q]).abs().max())))
+        out.append(flips)
+    return out
+
+
+@torch.no_grad()
+def moe_serve(dev, arch: str, layers: int) -> None:
+    """One MoE configuration at its published widths, ``layers`` deep (bf16,
+    seeded, published capacity): SERVE_BATCH prompts of SERVE_PROMPT
+    tokens, SERVE_DECODE greedy decodes and the forward (:func:`serve_run`;
+    decode against forward reported, not held: at capacity_factor 1.25 a
+    decode step of 4 tokens drops choices the forward keeps); dropped pairs
+    per prefill, decode step and forward; walls, memory; the expert bytes a
+    decode step reads (every expert: the reference's einsum over all E)
+    against its time and against the active experts' bytes; a profiled
+    prefill (:func:`range_split`) and a profiled decode step.  Then
+    ``moe_consistency``: the same weights at drop-free capacity
+    (capacity_factor = E), one prompt of MOE_CONSISTENCY_PROMPT tokens,
+    CONSISTENCY_DECODE decodes, nothing dropped, and every position whose
+    experts are the forward's in every layer within SERVE_TOL of the
+    forward.  A position where a layer chose other experts than the
+    forward is reported, not held to SERVE_TOL (one swapped expert changes
+    the layer's output wholesale); each such swap must be one the router
+    logits' drift between the two can make (:func:`routing_flips`)."""
+    from repro_torch import configs
+    from repro_torch.models import Model, blocks
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, device=dev, generator=gen)
+    named = dict(model.named_parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in named.values())
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in named.items()
+                       if n.endswith((".moe.wi", ".moe.wg", ".moe.wo")))
+    expert_one = expert_bytes / (layers * cfg.n_experts)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    with blocks.routing_stats() as st:
+        stats, counts, cache, first = serve_run(model, prompts, SERVE_DECODE,
+                                                "moe")
+    calls = per_call(st, layers)       # prefill, the decodes, the forward
+    del st
+    dec = calls[1:-1]
+    walls, med = serve_walls(model, prompts, first, SERVE_DECODE,
+                             SERVE_REPEATS)
+    peaks = peaks_for(torch.cuda.get_device_name(0))
+    step_ms = med["decode_ms_per_step"]
+    active_bytes = float(np.mean([used for _, used in dec])) * expert_one
+    out = dict(
+        arch=arch, layers=layers, published_layers=configs.get(arch).n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        experts=cfg.n_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff,
+        shared_experts=cfg.n_shared_experts, window=cfg.sliding_window,
+        capacity_factor=cfg.capacity_factor, dtype=cfg.dtype,
+        batch=SERVE_BATCH, prompt=SERVE_PROMPT, decode_steps=SERVE_DECODE,
+        capacity_prefill=int(SERVE_BATCH * SERVE_PROMPT * cfg.top_k
+                             / cfg.n_experts * cfg.capacity_factor) + 1,
+        capacity_decode=int(SERVE_BATCH * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor) + 1,
+        weight_bytes=weight_bytes, expert_bytes=expert_bytes,
+        dropped_prefill=calls[0][0], dropped_forward=calls[-1][0],
+        dropped_decode_per_step=[d for d, _ in dec],
+        choices_prefill=SERVE_BATCH * SERVE_PROMPT * cfg.top_k * layers,
+        choices_decode_step=SERVE_BATCH * cfg.top_k * layers,
+        experts_used_decode_mean=float(np.mean([u for _, u in dec])) / layers,
+        **stats, walls=walls, median=med,
+        prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT
+        / (med["prefill_ms"] / 1e3),
+        decode_tokens_per_s=SERVE_BATCH / (step_ms / 1e3),
+        decode_expert_bound_ms=expert_bytes / peaks["bw"] * 1e3,
+        decode_active_bound_ms=active_bytes / peaks["bw"] * 1e3,
+        decode_expert_bytes_per_s=expert_bytes / (step_ms / 1e3),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: _nonzero(v) for k, v in counts.items()})
+    for tag, n in counts.items():
+        check_counts(f"{arch} {tag}", n, {})
+    trace, by_name = profiled(lambda: model.prefill(prompts),
+                              ranges=tuple(MOE_RANGES.values()), split=True)
+    out["trace"] = dict(trace, **range_split(trace, by_name, MOE_RANGES))
+    out["trace_decode"] = profiled(lambda: model.decode(cache, first))[0]
+    emit("moe_serve", **out)
+    if not stats["finite"]:
+        FAILED.append(f"moe_serve {arch}: logits not finite")
+    del cache, first, prompts
+    torch.cuda.empty_cache()
+
+    # drop-free: the same weights, capacity_factor = E
+    free = Model(dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts)), device=dev, params={n: p.detach() for n, p in
+                                             named.items()})
+    del model, named
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (1, MOE_CONSISTENCY_PROMPT[arch]), generator=gen,
+                           device=dev)
+    with blocks.routing_stats() as st:
+        stats, counts, _, _ = serve_run(free, prompt, CONSISTENCY_DECODE,
+                                        "moe_consistency", each=True)
+    dropped = sum(d for d, _ in per_call(st, layers))
+    flips = routing_flips(st, layers, prompt.shape[1], cfg.top_k)
+    del st
+    each = stats["decode_vs_forward_each"]
+    same = [e for e, f in zip(each, flips) if not f]
+    unexplained = [f for fl in flips for f in fl
+                   if f["margin"] > 2 * f["drift"]]
+    ok = (stats["finite"] and dropped == 0 and not unexplained
+          and max(same, default=0.0) <= SERVE_TOL)
+    emit("moe_consistency", arch=arch, layers=layers,
+         capacity_factor=float(cfg.n_experts), prompt=prompt.shape[1],
+         decode_steps=CONSISTENCY_DECODE, dropped=dropped, tol=SERVE_TOL,
+         **stats, flips=flips, positions_flipped=len(each) - len(same),
+         same_routing_max=max(same, default=None),
+         flipped_max=max((e for e, f in zip(each, flips) if f),
+                         default=None),
+         unexplained_flips=unexplained,
+         launches={k: _nonzero(v) for k, v in counts.items()}, ok=ok)
+    for tag, n in counts.items():
+        check_counts(f"{arch} {tag}", n, {})
+    if not ok:
+        FAILED.append(f"moe_consistency {arch}: dropped {dropped}, decode "
+                      f"vs forward at same-routed positions {same} (tol "
+                      f"{SERVE_TOL}), flips not explained by the router's "
+                      f"drift {unexplained}, finite {stats['finite']}")
+    del free
+    torch.cuda.empty_cache()
+
+
+def lm_train(dev, cfg, batch: int, steps: int, watched: tuple,
+             ranges: dict | None = None, reported: tuple = ()) -> dict:
+    """``cfg`` as given (bf16, remat, seeded) with the launcher's optimizer
+    (AdamW below 3e11 parameters), ``batch`` × TRAIN_SEQ tokens of
+    ``token_stream``, ``steps`` through ``TrainLoop``: every step's
+    metrics, the ``watched`` parameters' largest change (``params_moved``:
+    all of them moved) and the ``reported`` ones', step ms (median of all
+    but the first), tokens/s, peak memory, no launch of the port's
+    kernels; with ``ranges`` one profiled step (:func:`range_split`)."""
+    import itertools
+    from repro_torch.data import token_stream
+    from repro_torch.models import Model
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.train import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    named = dict(model.named_parameters())
+    before = {n: named[n].detach().clone() for n in watched + reported}
+    opt = adafactor() if cfg.n_params() > 3e11 else adamw()
+    data = token_stream(torch.Generator(device=dev).manual_seed(1),
+                        cfg.vocab_size, batch, TRAIN_SEQ)
+    metrics: list = []
+    (res, losses, norms, loop), counts = counted_call(
+        lambda: _run_loop(model, opt, steps, itertools.islice(data, steps),
+                          record=metrics))
+    moved = {n: float((named[n].detach() - before[n]).abs().max())
+             for n in watched + reported}
+    secs = [e["sec_per_step"] for e in res["log"]]
+    step_ms = float(np.median(secs[1:])) * 1e3
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               remat=cfg.remat, params=sum(p.numel() for p in
+                                           model.parameters()),
+               optimizer=type(loop.opt_state).__name__, batch=batch,
+               seq=TRAIN_SEQ, steps=steps, losses=losses, grad_norms=norms,
+               aux=[m["aux"] for m in metrics], moved=moved,
+               step_ms_each=[x * 1e3 for x in secs], step_ms=step_ms,
+               tokens_per_s=batch * TRAIN_SEQ / (step_ms / 1e3),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=_nonzero(counts))
+    check_counts(f"{cfg.name} train", counts, {})
+    if ranges:
+        step = make_train_step(model, opt)
+        nxt = next(data)
+        holder = {"state": loop.opt_state}
+
+        def one_step():
+            _, holder["state"], m = step(model, holder["state"], nxt)
+            return m
+
+        trace, by_name = profiled(one_step, ranges=tuple(ranges.values()),
+                                  split=True)
+        out["trace"] = dict(trace, **range_split(trace, by_name, ranges))
+        del step, holder
+    out["finite"] = bool(all(np.isfinite(losses)) and all(np.isfinite(norms))
+                         and all(np.isfinite(out["aux"])))
+    out["params_moved"] = all(moved[n] > 0 for n in watched)
+    del model, loop, opt, named, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train(dev) -> None:
+    """Mixtral-8x7B at its published widths cut to MOE_TRAIN_LAYERS layers
+    (6.3 GB of bf16 weights), MOE_TRAIN_STEPS steps of TRAIN_BATCH ×
+    TRAIN_SEQ: losses, aux (finite and > 0) and gradient norms finite, the
+    router and every expert leaf moving."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    watched = ("embed", "lm_head", "groups.0.attn.wq") + tuple(
+        f"groups.{i}.moe.{leaf}" for i in range(MOE_TRAIN_LAYERS)
+        for leaf in ("router", "wi", "wg", "wo"))
+    out = lm_train(dev, cfg, TRAIN_BATCH, MOE_TRAIN_STEPS, watched)
+    emit("moe_train", published_layers=configs.get(MOE_TRAIN_ARCH).n_layers,
+         **out)
+    if not (out["finite"] and out["params_moved"]
+            and all(a > 0 for a in out["aux"])):
+        FAILED.append(f"moe_train: finite={out['finite']}, aux={out['aux']}, "
+                      f"moved={out['moved']}")
+
+
+@torch.no_grad()
+def hybrid_serve(dev, batch: int, prompt: int, repeats: int,
+                 profile: bool) -> dict:
+    """RecurrentGemma-2B as published (26 layers: 8 groups of two RG-LRU
+    sublayers and a local-attention layer, a tail of two; bf16, seeded):
+    ``batch`` prompts of ``prompt`` tokens, SERVE_DECODE greedy decodes
+    and the forward (:func:`serve_run`), decode against forward at the last
+    position within SERVE_TOL; walls, memory; with ``profile`` a profiled
+    prefill (:func:`range_split`) and a profiled decode step."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(HYBRID_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, device=dev, generator=gen)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev)
+    stats, counts, cache, first = serve_run(model, prompts, SERVE_DECODE,
+                                            "hybrid")
+    walls, med = serve_walls(model, prompts, first, SERVE_DECODE, repeats)
+    out = dict(
+        arch=HYBRID_ARCH, layers=cfg.n_layers, groups=len(cache["groups"]),
+        tail=len(cache.get("tail", ())), d_model=cfg.d_model,
+        lru_width=cfg.lru_width_, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, local_window=cfg.local_window,
+        vocab=cfg.vocab_size, dtype=cfg.dtype, batch=batch, prompt=prompt,
+        decode_steps=SERVE_DECODE, weight_bytes=weight_bytes,
+        ring_slots=cache["groups"][0]["attn"]["k"].shape[1], **stats,
+        tol=SERVE_TOL, walls=walls, median=med,
+        prefill_tokens_per_s=batch * prompt / (med["prefill_ms"] / 1e3),
+        decode_tokens_per_s=batch / (med["decode_ms_per_step"] / 1e3),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: _nonzero(v) for k, v in counts.items()})
+    for tag, n in counts.items():
+        check_counts(f"{HYBRID_ARCH} {tag}", n, {})
+    if profile:
+        trace, by_name = profiled(lambda: model.prefill(prompts),
+                                  ranges=tuple(HYBRID_RANGES.values()),
+                                  split=True)
+        out["trace"] = dict(trace, **range_split(trace, by_name,
+                                                 HYBRID_RANGES))
+        out["trace_decode"] = profiled(lambda: model.decode(cache, first))[0]
+    del model, cache, first
+    torch.cuda.empty_cache()
+    if not stats["finite"] or stats["decode_vs_forward_last"] > SERVE_TOL:
+        FAILED.append(f"hybrid_serve ({batch} × {prompt}): finite="
+                      f"{stats['finite']}, decode vs forward at the last "
+                      f"position {stats['decode_vs_forward_last']} > "
+                      f"{SERVE_TOL}")
+    return out
+
+
+def phase_hybrid_serve(dev) -> None:
+    """SERVE_BATCH prompts of SERVE_PROMPT tokens (they fill the 2048-slot
+    ring buffer, so the first decode wraps it), profiled; then one prompt
+    of LONG_PROMPT tokens, beyond the window."""
+    emit("hybrid_serve", **hybrid_serve(dev, SERVE_BATCH, SERVE_PROMPT,
+                                        SERVE_REPEATS, True))
+    emit("hybrid_serve", part="beyond_window",
+         **hybrid_serve(dev, 1, LONG_PROMPT, 1, False))
+
+
+def phase_hybrid_train(dev) -> None:
+    """RecurrentGemma-2B as published, HYBRID_TRAIN_STEPS steps of
+    HYBRID_TRAIN_BATCH × TRAIN_SEQ, one profiled step."""
+    from repro_torch import configs
+    from repro_torch.models.model import stack_sizes
+    cfg = configs.get(HYBRID_ARCH)
+    sizes = stack_sizes(cfg)
+    watched = ("embed", "lm_head", "groups.0.rnn.0.mix.w_rec",
+               "groups.0.rnn.0.mix.w_input", "groups.0.rnn.1.mix.conv_w",
+               "groups.0.attn.wq", f"groups.{sizes['groups'] - 1}.amlp.wo"
+               ) + tuple(f"tail.{i}.mix.wx" for i in range(sizes.get("tail",
+                                                                     0)))
+    # λ (about -4 to -8) is reported, not required to move: an AdamW step
+    # of ~lr = 3e-4 is below half a bf16 ulp there (2⁻⁶ to 2⁻⁵)
+    out = lm_train(dev, cfg, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_STEPS, watched,
+                   HYBRID_TRAIN_RANGES, reported=("groups.0.rnn.0.mix.lam",))
+    emit("hybrid_train", **out)
+    if not (out["finite"] and out["params_moved"]):
+        FAILED.append(f"hybrid_train: finite={out['finite']}, "
+                      f"moved={out['moved']}")
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -4350,6 +4820,13 @@ def main() -> None:
     phase_dense_fixture(dev)
     phase_dense_serve(dev)
     phase_dense_train(dev)
+    fixture_phase("moe_fixture", moe_fixture, dev)
+    for arch, layers in MOE_SERVE:
+        moe_serve(dev, arch, layers)
+    phase_moe_train(dev)
+    fixture_phase("hybrid_fixture", hybrid_fixture, dev)
+    phase_hybrid_serve(dev)
+    phase_hybrid_train(dev)
     rows = []
     for name in REPLACES:
         r = kern[name]

@@ -17,7 +17,7 @@ from .core.folds import FoldData
 from .core.packing import PackedFactor
 from .core.picholesky import PiCholesky
 from .models.config import ModelConfig
-from .models.model import Model
+from .models.model import Model, stack_sizes
 from .models.params import flatten
 from .optim.adafactor import AdafactorState
 from .optim.adamw import AdamWState
@@ -65,20 +65,23 @@ def params_from_numpy(cfg: ModelConfig, params, device=None
                       ) -> dict:
     """A reference ``Model(cfg)`` tree (nested dicts of arrays: parameters,
     or gradients of the same shapes) by the port's dotted names: the
-    leading layer axis of ``groups`` unstacked (``groups.mamba.wx`` (L, d,
-    di) becomes ``groups.<i>.mamba.wx`` (d, di)), every leaf keeping its
-    values."""
+    leading group axis of ``groups`` (and of the hybrid's ``tail``)
+    unstacked (``groups.mamba.wx`` (L, d, di) becomes ``groups.<i>.mamba.
+    wx`` (d, di), ``groups.rnn.0.mix.wx`` (G, d, W) ``groups.<i>.rnn.0.
+    mix.wx``, ``groups.moe.shared.wi`` ``groups.<i>.moe.shared.wi``),
+    every leaf keeping its values."""
     dev = resolve_device(device)
+    sizes = stack_sizes(cfg)
     flat = {}
     for name, leaf in flatten(params):
         head, _, rest = name.partition(".")
-        if head == "groups":
+        if head in sizes:
             stacked = np.asarray(leaf)
-            if stacked.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: {stacked.shape[0]} layers, the "
-                                 f"configuration has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                flat[f"groups.{i}.{rest}"] = _tensor(stacked[i], dev)
+            if stacked.shape[0] != sizes[head]:
+                raise ValueError(f"{name}: {stacked.shape[0]} entries, the "
+                                 f"configuration has {sizes[head]}")
+            for i in range(sizes[head]):
+                flat[f"{head}.{i}.{rest}"] = _tensor(stacked[i], dev)
         else:
             flat[name] = _tensor(leaf, dev)
     return flat

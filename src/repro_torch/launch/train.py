@@ -8,8 +8,10 @@ stream.
 
 ``--arch`` is any name of ``repro_torch.configs.names()``: the dense
 configurations (``smollm-360m``, ``qwen2-1.5b``, ``minicpm-2b``,
-``h2o-danube-3-4b``) and ``falcon-mamba-7b``; with ``--reduced --device
-cpu`` each trains its CPU-sized variant on the CPU.
+``h2o-danube-3-4b``), ``falcon-mamba-7b``, ``recurrentgemma-2b`` and the
+MoE ``mixtral-8x7b`` and ``kimi-k2-1t-a32b``; with ``--reduced --device
+cpu`` each trains its CPU-sized variant on the CPU.  Mixtral (93.4 GB of
+bf16 weights) and Kimi-K2 (2.08 TB) do not fit one card as published.
 
 The optimizer follows the reference's rule: Adafactor above 3e11
 parameters, AdamW below.  So ``falcon-mamba-7b`` at full depth trains with

@@ -1,7 +1,8 @@
 """The per-family blocks of the port, from the JAX package's
 ``models/blocks.py``: the norm (``:500-505``), attention and the dense MLP
-(``:63-197``) for the ``dense`` family, and the Mamba-1 mixer
-(``:340-425``) for the ``ssm`` family.
+(``:63-197``) for the ``dense`` family, the mixture of experts
+(``:200-337``) for ``moe``, the Mamba-1 mixer (``:340-425``) for ``ssm``
+and the RG-LRU (``:431-497``) for ``hybrid``.
 
 Every block takes ``p``, a module (or any object) with the parameters as
 attributes under the JAX package's leaf names and layouts (attention: ``wq``
@@ -16,10 +17,18 @@ card pads no query heads, so query head j reads kv head j // (H / KV)
 convolution with its bias and silu, and ``mamba_scan`` (softplus, the
 selective scan and the gate); the JAX package computes the recurrence
 through ``layers.chunked_linear_recurrence``.
+
+The MoE layer (``router`` (d, E), ``wi``/``wg`` (E, d, f), ``wo`` (E, f,
+d), ``shared`` an MLP) and the RG-LRU (``wx``, ``wy`` (d, W), ``conv_w``
+(W, K), ``w_input``/``w_rec`` (W, W), ``lam``, ``out_proj`` (W, d), …) run
+no kernel of the port: the reference computes them with XLA, and so does
+the port with PyTorch's operations (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +40,11 @@ from .config import ModelConfig
 from .params import Spec
 
 __all__ = ["attention_spec", "attention_apply", "attention_prefill",
-           "attention_decode", "mlp_spec", "mlp_apply", "mamba_spec",
+           "attention_decode", "mlp_spec", "mlp_apply", "moe_spec",
+           "moe_apply", "dispatch_slots", "routing_stats", "mamba_spec",
            "mamba_apply", "mamba_prefill", "mamba_init_cache",
-           "mamba_decode", "norm_spec", "norm_apply"]
+           "mamba_decode", "rglru_spec", "rglru_apply", "rglru_prefill",
+           "rglru_init_cache", "rglru_decode", "norm_spec", "norm_apply"]
 
 
 # On the card each of these products runs on at least this many rows (zero
@@ -225,6 +236,182 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _on_rows(lambda t: layers.mlp(t, wi, wo, wg, cfg.act), x, "mlp")
 
 
+# ---------------------------------------------------------------- MoE
+
+
+def moe_spec(cfg: ModelConfig) -> Dict:
+    """``blocks.py:200-216``: the float32-routed experts and, with
+    ``n_shared_experts``, one shared MLP of ``moe_d_ff · n_shared`` width."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    spec: Dict = {"router": Spec((d, e), scale=0.02 / math.sqrt(d)),
+                  "wi": Spec((e, d, f)), "wg": Spec((e, d, f)),
+                  "wo": Spec((e, f, d))}
+    if cfg.n_shared_experts:
+        spec["shared"] = mlp_spec(cfg, d_ff=f * cfg.n_shared_experts)
+    return spec
+
+
+# the profiler ranges of an MoE layer: the router, the dispatch and the
+# combine; the experts' three products with their activation and gate
+MOE_ROUTE, MOE_EXPERTS = "moe_route", "moe_experts"
+_STATS: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def routing_stats():
+    """Within the block, every MoE layer appends to the list it yields a
+    record of tensors on the layer's device (no host sync): ``dropped``,
+    the (token, choice) pairs its capacity dropped; ``used``, the experts
+    that received a choice; ``topi`` (T, k), each token's experts;
+    ``logits`` (T, E), the float32 router logits."""
+    global _STATS
+    outer, _STATS = _STATS, []
+    try:
+        yield _STATS
+    finally:
+        _STATS = outer
+
+
+def dispatch_slots(flat_e: torch.Tensor, n_experts: int, capacity: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The capacity-limited routing of ``blocks.py:234-247``.  ``flat_e``
+    (T·k,): the expert of each (token, choice), flattened token-major.
+    Expert e takes the first ``min(count_e, capacity)`` entries of its run
+    in the stable order of ``flat_e`` (``jnp.argsort`` is stable: a
+    token's choice over capacity is dropped, the earlier tokens kept).
+    Returns (idx (E, C): the flat index each slot holds, T·k when empty;
+    valid (E, C); counts (E,); slot (T·k,): each entry's place among its
+    expert's, kept when below ``capacity``)."""
+    n = flat_e.numel()
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    c = torch.arange(capacity, device=flat_e.device)
+    valid = c[None, :] < counts[:, None]
+    held = order[(starts[:, None] + c[None, :]).clamp(max=n - 1)]
+    idx = torch.where(valid, held, n)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=flat_e.device)
+    return idx, valid, counts, rank - starts[flat_e]
+
+
+def _gather_rows(src: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``src[rows]``, a row index of ``len(src)`` giving zeros
+    (``mode="fill"``)."""
+    return F.pad(src, (0, 0, 0, 1))[rows]
+
+
+def _sum_choices(buf: torch.Tensor, pos: torch.Tensor, kept: torch.Tensor
+                 ) -> torch.Tensor:
+    """out[t] = Σ_j buf[pos[t, j]] over the kept choices j of token t, in
+    ascending column order, in buf's dtype, starting from zero: the
+    reference's scatter-add of (E, C) rows in ascending expert order
+    (``blocks.py:265-266``), as gathers and adds, without atomics."""
+    out = buf.new_zeros((pos.shape[0], buf.shape[1]))
+    for j in range(pos.shape[1]):
+        rows = buf[pos[:, j]]
+        out = out + torch.where(kept[:, j, None], rows, rows.new_zeros(()))
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """The tokens into the experts' (E·C, D) buffer, ``tok`` (E·C,) the
+    token of each slot (T for an empty one, a zero row); its backward is
+    the combine of the gradient (:func:`_sum_choices`): each token's slots
+    in ascending expert order, the reference's scatter-add order."""
+
+    @staticmethod
+    def forward(ctx, x, tok, pos, kept):
+        ctx.save_for_backward(pos, kept)
+        return _gather_rows(x, tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, kept = ctx.saved_tensors
+        return _sum_choices(g, pos, kept), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each token's kept expert outputs summed in ascending expert order
+    (:func:`_sum_choices`); its backward is the dispatch of the gradient
+    (the gradient of an empty slot is zero)."""
+
+    @staticmethod
+    def forward(ctx, buf, tok, pos, kept):
+        ctx.save_for_backward(tok)
+        return _sum_choices(buf, pos, kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        tok, = ctx.saved_tensors
+        return _gather_rows(g, tok), None, None, None
+
+
+def _moe_local(x: torch.Tensor, p, cfg: ModelConfig, capacity: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``blocks.py:219-267`` on one card, all experts local.  x: (T, D).
+    Returns (out (T, D) in x's dtype, the load-balance aux loss).
+
+    The router in float32 (TF32 off, :func:`repro_torch._device.
+    resolve_device`), softmax, top-k renormalised; aux = E · Σ_e mean
+    prob_e · (choices of e)/(T·k).  Each expert takes its first
+    ``capacity`` choices (:func:`dispatch_slots`); the (E, C, D) buffer
+    runs silu(x·wi) ⊙ (x·wg), then ·wo, as three batched products in x's
+    dtype; each slot is scaled by its gate (float32, cast to x's dtype) and
+    summed into its token in ascending expert order.  The router, the
+    dispatch and the combine are the profiler range ``moe_route``, the
+    experts ``moe_experts``."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    with torch.profiler.record_function(MOE_ROUTE):
+        logits = x.float() @ p.router.float()
+        probs = torch.softmax(logits, -1)                         # (T, E)
+        topv, topi = torch.topk(probs, k, dim=-1)                 # (T, k)
+        topv = topv / topv.sum(-1, keepdim=True)
+        flat_e = topi.reshape(-1)
+        ce = torch.bincount(flat_e, minlength=e).float() / (t * k)
+        aux = e * (probs.mean(0) * ce).sum()
+        idx, valid, counts, slot = dispatch_slots(flat_e, e, capacity)
+        if _STATS is not None:
+            _STATS.append(dict(
+                dropped=t * k - counts.clamp(max=capacity).sum(),
+                used=(counts > 0).sum(), topi=topi, logits=logits.detach()))
+        tok = torch.where(valid, idx // k, t).reshape(-1)          # (E·C,)
+        gate = torch.where(valid, topv.reshape(-1)[idx.clamp(max=t * k - 1)],
+                           0.0)                                   # (E, C)
+        # each (token, choice)'s row in the flat buffer, the choices of a
+        # token in ascending expert order; kept when within capacity
+        pos = (flat_e * capacity + slot.clamp(max=capacity - 1)).view(t, k)
+        kept = (slot < capacity).view(t, k)
+        order = torch.argsort(topi, dim=-1)
+        pos, kept = pos.gather(1, order), kept.gather(1, order)
+        xg = _Dispatch.apply(x, tok, pos, kept).view(e, capacity, d)
+    with torch.profiler.record_function(MOE_EXPERTS):
+        wi, wg, wo = p.wi.to(x.dtype), p.wg.to(x.dtype), p.wo.to(x.dtype)
+        hidden = F.silu(torch.bmm(xg, wi)) * torch.bmm(xg, wg)
+        ye = torch.bmm(hidden, wo) * gate[..., None].to(x.dtype)  # (E,C,D)
+    with torch.profiler.record_function(MOE_ROUTE):
+        out = _Combine.apply(ye.view(e * capacity, d), tok, pos, kept)
+    return out, aux
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) → (out, aux loss), the reference's single-device branch
+    (``blocks.py:270-281``, ``:334-337``): capacity ``int(B·S·k / E ·
+    capacity_factor) + 1`` from this call's own tokens, so a decode step
+    of 4 tokens gets a capacity of its own; then the shared expert's MLP
+    added."""
+    b, s, d = x.shape
+    cap = int(b * s * cfg.top_k / cfg.n_experts * cfg.capacity_factor) + 1
+    out, aux = _moe_local(x.reshape(b * s, d), p, cfg, cap)
+    out = out.view(b, s, d).to(x.dtype)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(p.shared, x, cfg)
+    return out, aux
+
+
 # ---------------------------------------------------------------- Mamba
 
 
@@ -309,6 +496,104 @@ def mamba_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y, h = _mamba_core(p, xc, z, cfg, scan, h0=cache["h"])
     out = _product(y, p.out_proj.to(x.dtype), "out_proj")
     return out, {"conv": conv_state, "h": h}
+
+
+# ---------------------------------------------------------------- RG-LRU
+
+
+def rglru_spec(cfg: ModelConfig) -> Dict[str, Spec]:
+    """``blocks.py:431-446``."""
+    d, w = cfg.d_model, cfg.lru_width_
+    return {
+        "wx": Spec((d, w)),
+        "wy": Spec((d, w)),                      # the gate branch
+        "conv_w": Spec((w, cfg.d_conv)),
+        "conv_b": Spec((w,), init="zeros"),
+        "w_input": Spec((w, w)),
+        "b_input": Spec((w,), init="zeros"),
+        "w_rec": Spec((w, w)),
+        "b_rec": Spec((w,), init="zeros"),
+        "lam": Spec((w,), init="rglru_a"),
+        "out_proj": Spec((w, d)),
+    }
+
+
+_RGLRU_C = 8.0
+# the profiler range of the RG-LRU's convolution
+RGLRU_CONV = "rglru_conv"
+
+
+def _rglru_gates(p, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``blocks.py:448-461``, all in float32: the input and recurrence
+    gates, a = exp(-8 · softplus(λ) · r), b = sqrt(max(1 - a², 1e-12)) ·
+    x · i."""
+    xf = xc.float()
+    i_gate = torch.sigmoid(xf @ p.w_input.float() + p.b_input.float())
+    r_gate = torch.sigmoid(xf @ p.w_rec.float() + p.b_rec.float())
+    a = torch.exp(-_RGLRU_C * F.softplus(p.lam.float()) * r_gate)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (xf * i_gate)
+    return a, b
+
+
+def _rglru_in(p, x: torch.Tensor, state=None):
+    """The two input projections, the convolution (no silu; the profiler
+    range ``rglru_conv``) from ``state`` plus its bias, and the gates: (a,
+    b, the gate branch, conv state)."""
+    xz = x @ p.wx.to(x.dtype)
+    gate = x @ p.wy.to(x.dtype)
+    with torch.profiler.record_function(RGLRU_CONV):
+        xc, conv_state = layers.causal_conv1d(xz, p.conv_w.to(x.dtype),
+                                              state)
+    a, b = _rglru_gates(p, xc + p.conv_b.to(x.dtype))
+    return a, b, gate, conv_state
+
+
+def _rglru_out(p, hs: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """h in the activation dtype times gelu(gate) (the tanh form,
+    ``jax.nn.gelu``'s default), then ``out_proj``."""
+    y = hs.to(gate.dtype) * F.gelu(gate, approximate="tanh")
+    return y @ p.out_proj.to(gate.dtype)
+
+
+def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``blocks.py:464-474``."""
+    return rglru_prefill(p, x, cfg)[0]
+
+
+def rglru_prefill(p, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The RG-LRU over a whole sequence from h0 = 0, the recurrence chunked
+    at ``cfg.scan_chunk``, and the cache a decode continues from: the conv
+    tail (B, K-1, W) and the last state (B, W) float32
+    (``model.py:496-512``)."""
+    a, b, gate, conv_state = _rglru_in(p, x)
+    h0 = torch.zeros(a.shape[0], a.shape[2], device=x.device)
+    hs, h_last = layers.chunked_linear_recurrence(a, b, h0, cfg.scan_chunk)
+    return _rglru_out(p, hs, gate), {"conv": conv_state, "h": h_last}
+
+
+def rglru_init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    return {
+        "conv": torch.zeros(batch, cfg.d_conv - 1, cfg.lru_width_,
+                            dtype=dtype, device=device),
+        "h": torch.zeros(batch, cfg.lru_width_, dtype=torch.float32,
+                         device=device),
+    }
+
+
+def rglru_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step (``blocks.py:483-497``) from the cache's conv tail and
+    state.  x: (B, 1, D).  Returns the output and a new cache; ``cache`` is
+    not modified."""
+    a, b, gate, conv_state = _rglru_in(p, x, cache["conv"])
+    h = a[:, 0] * cache["h"] + b[:, 0]
+    return _rglru_out(p, h[:, None], gate), {"conv": conv_state, "h": h}
+
+
+# ---------------------------------------------------------------- norms
 
 
 def norm_spec(cfg: ModelConfig) -> Dict[str, Spec]:

@@ -8,7 +8,11 @@ softmax in float32, whose backward recomputes the score blocks chunk by
 chunk from (q, k, v, o, m, l) and never keeps a score-sized tensor.
 ``rope``, ``decode_attention`` and ``mlp`` are the reference's formulas.
 ``causal_conv1d`` is the plain version the ``causal_conv1d`` kernel is held
-to (:mod:`repro_torch.kernels.ref`), re-exported here.
+to (:mod:`repro_torch.kernels.ref`), re-exported here: the depthwise causal
+convolution with its carried state and no silu, which the RG-LRU runs as it
+is (``layers.py:300-316``).  ``chunked_linear_recurrence`` (``layers.py:
+318-410``) is a ``torch.autograd.Function`` too, with the reference's
+reverse-scan backward.
 
 Query heads and kv heads (GQA): the reference repeats each kv head for its
 ``H / KV`` query heads (``_repeat_kv``, ``blocks._kv_index``: query head j
@@ -31,7 +35,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ref import causal_conv1d
 
 __all__ = ["rms_norm", "rope", "rope_freqs", "flash_attention",
-           "decode_attention", "mlp", "causal_conv1d"]
+           "decode_attention", "mlp", "causal_conv1d",
+           "chunked_linear_recurrence"]
 
 
 def _rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -290,3 +295,100 @@ def mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     else:
         hidden = F.gelu(x @ wi, approximate="tanh")
     return hidden @ wo
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive scan over axis 2 of (a, b) under (a₁, b₁) ∘ (a₂, b₂) =
+    (a₁a₂, a₂b₁ + b₂), by doubling: log₂ of the axis's length steps, each
+    combining every position with the one 2ʲ before it."""
+    n, d = a.shape[2], 1
+    while d < n:
+        a_lo, b_lo = a[:, :, :n - d], b[:, :, :n - d]
+        a_hi, b_hi = a[:, :, d:], b[:, :, d:]
+        b = torch.cat([b[:, :, :d], a_hi * b_lo + b_hi], 2)
+        a = torch.cat([a[:, :, :d], a_hi * a_lo], 2)
+        d *= 2
+    return a, b
+
+
+def _recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                chunk: int, cd: torch.dtype
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_chunked_recurrence_impl`` (``layers.py:318-360``): (every h_t in
+    ``cd``, h_S float32).  ``chunk = 0`` steps through time one position at
+    a time in float32.  Otherwise the sequence is padded with identity steps
+    (a = 1, b = 0) to a multiple of the chunk; within a chunk an
+    associative scan in ``cd``, between chunks the state carried in
+    float32, each chunk's h = (scanned a) · carry + (scanned b)."""
+    if chunk == 0:
+        h, hs = h0.float(), []
+        for t in range(a.shape[1]):
+            h = a[:, t].float() * h + b[:, t].float()
+            hs.append(h.to(cd))
+        return torch.stack(hs, 1), h
+    bsz, s0, rest = a.shape[0], a.shape[1], a.shape[2:]
+    chunk = min(chunk, s0)
+    s = -(-s0 // chunk) * chunk
+    if s != s0:
+        pad = (0, 0) * len(rest) + (0, s - s0)
+        a, b = F.pad(a, pad, value=1.0), F.pad(b, pad)
+    nc = s // chunk
+    a_sc, b_sc = _associative_scan(a.reshape(bsz, nc, chunk, *rest).to(cd),
+                                   b.reshape(bsz, nc, chunk, *rest).to(cd))
+    carries = [h0.float()]
+    for c in range(nc):
+        carries.append((a_sc[:, c, -1] * carries[-1].to(cd)
+                        + b_sc[:, c, -1]).float())
+    prev = torch.stack(carries[:-1], 1).to(cd).unsqueeze(2)
+    hs = a_sc * prev + b_sc
+    return hs.reshape(bsz, s, *rest)[:, :s0], carries[-1]
+
+
+class _LinearRecurrence(torch.autograd.Function):
+    """``chunked_linear_recurrence`` with the reference's ``custom_vjp``
+    (``_clr_fwd``/``_clr_bwd``, ``layers.py:384-410``): the forward saves
+    only (a, hs, h0); the backward is the same recurrence run in reverse on
+    a shifted by one (λ_t = g_t + a_{t+1} λ_{t+1}), then da = λ · h_{t-1},
+    db = λ, dh0 = a_0 · λ_0.  Autograd never records the scan."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, chunk, cd):
+        hs, h_last = _recurrence(a, b, h0, chunk, cd)
+        ctx.save_for_backward(a, hs, h0)
+        ctx.args = (chunk, cd)
+        return hs, h_last
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        a, hs, h0 = ctx.saved_tensors
+        chunk, cd = ctx.args
+        g = dhs.to(cd)
+        if dh_last is not None:
+            g = g.clone()
+            g[:, -1] += dh_last.to(cd)
+        ar = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1).to(cd)
+        lam_rev, _ = _recurrence(ar.flip(1), g.flip(1),
+                                 torch.zeros(h0.shape, device=h0.device),
+                                 chunk, cd)
+        lam = lam_rev.flip(1)
+        h_prev = torch.cat([h0.to(hs.dtype)[:, None], hs[:, :-1]], 1)
+        da = (lam * h_prev.float()).to(a.dtype)
+        db = lam.to(a.dtype)
+        dh0 = (a[:, 0].float() * lam[:, 0]).to(h0.dtype)
+        return da, db, dh0, None, None
+
+
+def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor,
+                              h0: torch.Tensor, chunk: int,
+                              compute_dtype: torch.dtype = torch.float32
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t ⊙ h_{t-1} + b_t over axis 1 of (B, S, …) from ``h0``
+    (``layers.py:363-381``): (every h_t in ``compute_dtype``, h_S float32).
+    Chunks of ``chunk`` steps scanned associatively in ``compute_dtype``,
+    the state between them in float32; ``chunk = 0`` the sequential mode.
+    Differentiable in a, b and h0 by the reverse scan
+    (:class:`_LinearRecurrence`).  The call is a profiler range named
+    ``linear_recurrence``."""
+    with torch.profiler.record_function("linear_recurrence"):
+        return _LinearRecurrence.apply(a, b, h0, chunk, compute_dtype)

@@ -1,28 +1,35 @@
-"""Model assembly for the ``dense`` (attention) and ``ssm`` (Mamba-1)
-families: embedding, one module per layer, head; from the JAX package's
-``models/model.py``.
+"""Model assembly for the ``dense`` (attention), ``moe`` (attention and a
+mixture of experts), ``ssm`` (Mamba-1) and ``hybrid`` (RG-LRU and local
+attention) families: embedding, one module per group, head; from the JAX
+package's ``models/model.py``.
 
-The JAX package scans over parameter trees with a leading layer axis; here
-the layers are an ``nn.ModuleList``, one module per layer, and
+The JAX package scans over parameter trees with a leading group axis; here
+the groups are an ``nn.ModuleList``, one module per group, and
 :func:`repro_torch.convert.model_from_numpy` unstacks that axis.  A dense
-layer holds ``ln1``, ``attn``, ``ln2`` and ``mlp`` (``_dense_group_spec``,
-``model.py:39-49``), a Mamba layer ``ln`` and ``mamba``.  One card, no
-sharding.  Entry points, as in the JAX package: ``forward`` (logits),
+layer holds ``ln1``, ``attn``, ``ln2`` and ``mlp``, an MoE layer ``moe``
+(with ``moe.shared`` where the configuration has a shared expert) in place
+of ``mlp`` (``_dense_group_spec``, ``model.py:39-49``), a Mamba layer
+``ln`` and ``mamba``; a hybrid group holds ``rnn`` (a list of
+``pattern_rnn`` RG-LRU sublayers: ``ln1``, ``mix``, ``ln2``, ``mlp``) and
+a local-attention layer (``aln1``, ``attn``, ``aln2``, ``amlp``), and the
+layers past the last full group form ``tail``, a list of RG-LRU sublayers
+(``model.py:102-118``, ``:180-185``).  One card, no sharding.  Entry
+points, as in the JAX package: ``forward`` (logits and the MoE aux loss),
 ``loss``, ``init_cache``, ``prefill`` and ``decode``.  The parameters are
 trainable: ``forward`` and ``loss`` build a graph when grad is enabled
-(attention has its recompute backward, the mixer's two kernels have
-backward kernels of their own), with each layer recomputed in the backward
-when ``cfg.remat`` (the reference's ``nothing_saveable`` per group,
-``model.py:230-232``); that recompute runs right before the layer's
-backward, so it keeps the fused scan's segment states for it
-(:func:`repro_torch.kernels.ssm_scan.segment_states`).  ``prefill`` and
-``decode`` run under ``torch.no_grad``.  The other families of the JAX
-package are ``ROADMAP.md`` queue 1 items 2-5.
+(attention and the RG-LRU's recurrence have their custom backwards, the
+mixer's two kernels have backward kernels of their own), with each group
+recomputed in the backward when ``cfg.remat`` (the reference's
+``nothing_saveable`` per group, ``model.py:230-232``); that recompute runs
+right before the group's backward, so it keeps the fused scan's segment
+states for it (:func:`repro_torch.kernels.ssm_scan.segment_states`).
+``prefill`` and ``decode`` run under ``torch.no_grad``.  The audio and VLM
+families of the JAX package are ``ROADMAP.md`` queue 1 items 4-5.
 """
 from __future__ import annotations
 
 import contextlib
-
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -37,13 +44,12 @@ from . import blocks
 from .config import ModelConfig
 from .params import Spec, flatten, init_params
 
-__all__ = ["Model"]
+__all__ = ["Model", "stack_sizes"]
 
 # the families the port runs, and the JAX package's others by their item of
 # ROADMAP.md queue 1
-_FAMILIES = ("dense", "ssm")
-_QUEUED = {"moe": "queue 1 item 2", "hybrid": "queue 1 item 3",
-          "audio": "queue 1 item 4", "vlm": "queue 1 item 5"}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_QUEUED = {"audio": "queue 1 item 4", "vlm": "queue 1 item 5"}
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -55,42 +61,106 @@ def _placeholder(shape) -> nn.Parameter:
     return _param(torch.empty(shape, device="meta"))
 
 
-class _Leaves(nn.Module):
-    """A group of named parameters (a norm, a Mamba mixer)."""
+class _Group(nn.Module):
+    """A spec tree's dict as a module: a parameter per :class:`Spec`, a
+    sub-group per dict, an ``nn.ModuleList`` of groups per list, under
+    their keys, so that ``named_parameters`` gives the spec tree's dotted
+    names (``groups.<i>.moe.shared.wi``, ``groups.<i>.rnn.<j>.mix.wx``)."""
 
-    def __init__(self, specs: Dict[str, Spec]):
+    def __init__(self, specs: Dict[str, Any]):
         super().__init__()
         for name, spec in specs.items():
-            setattr(self, name, _placeholder(spec.shape))
+            if isinstance(spec, Spec):
+                setattr(self, name, _placeholder(spec.shape))
+            elif isinstance(spec, dict):
+                setattr(self, name, _Group(spec))
+            else:
+                setattr(self, name, nn.ModuleList(_Group(s) for s in spec))
 
 
-class _Layer(nn.Module):
-    """One layer: a :class:`_Leaves` per group of its spec."""
+def _attention_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """``_dense_group_spec`` (``model.py:39-49``): an MoE layer has ``moe``
+    where a dense one has ``mlp``."""
+    spec = {"ln1": blocks.norm_spec(cfg), "attn": blocks.attention_spec(cfg),
+            "ln2": blocks.norm_spec(cfg)}
+    if cfg.family == "moe":
+        spec["moe"] = blocks.moe_spec(cfg)
+    else:
+        spec["mlp"] = blocks.mlp_spec(cfg)
+    return spec
 
-    def __init__(self, specs: Dict[str, Dict[str, Spec]]):
-        super().__init__()
-        for name, group in specs.items():
-            setattr(self, name, _Leaves(group))
+
+def _rnn_sublayer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """``model.py:102-108``."""
+    return {"ln1": blocks.norm_spec(cfg), "mix": blocks.rglru_spec(cfg),
+            "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg)}
 
 
-def _layer_spec(cfg: ModelConfig) -> Dict[str, Dict[str, Spec]]:
-    if cfg.family == "dense":
-        return {"ln1": blocks.norm_spec(cfg),
+def _layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """One entry of ``groups``: a layer, or for ``hybrid`` a group of
+    ``pattern_rnn`` RG-LRU sublayers and one local-attention layer
+    (``_hybrid_group_spec``, ``model.py:111-118``)."""
+    if cfg.family == "ssm":
+        return {"ln": blocks.norm_spec(cfg), "mamba": blocks.mamba_spec(cfg)}
+    if cfg.family == "hybrid":
+        return {"rnn": [_rnn_sublayer_spec(cfg)
+                        for _ in range(cfg.pattern_rnn)],
+                "aln1": blocks.norm_spec(cfg),
                 "attn": blocks.attention_spec(cfg),
-                "ln2": blocks.norm_spec(cfg),
-                "mlp": blocks.mlp_spec(cfg)}
-    return {"ln": blocks.norm_spec(cfg), "mamba": blocks.mamba_spec(cfg)}
+                "aln2": blocks.norm_spec(cfg),
+                "amlp": blocks.mlp_spec(cfg)}
+    return _attention_layer_spec(cfg)
 
 
-def _dense_layer(layer: _Layer, x: torch.Tensor, cfg: ModelConfig, attend
-                 ) -> Tuple[torch.Tensor, Any]:
-    """A dense layer (``_dense_group_apply``/``_prefill``/``_decode``,
-    ``model.py:59-95``): ``attend(p, h)`` (the attention and its cache) and
-    the MLP, each on the normed residual stream.  Returns (x, the cache)."""
-    y, cache = attend(layer.attn, blocks.norm_apply(layer.ln1, x, cfg))
+def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
+    """The entries of each stacked list of the spec tree (the reference's
+    leading axes): ``groups`` one per layer; for ``hybrid`` one per full
+    group of ``pattern_rnn + 1`` layers and, when ``n_layers`` leaves a
+    remainder, a ``tail`` of that many RG-LRU sublayers
+    (``model.py:180-185``)."""
+    if cfg.family != "hybrid":
+        return {"groups": cfg.n_layers}
+    n_full, rem = divmod(cfg.n_layers, cfg.pattern_rnn + 1)
+    return {"groups": n_full, "tail": rem} if rem else {"groups": n_full}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Pass:
+    """Which entry point runs a layer: ``forward`` (no cache), ``prefill``
+    (returns the cache) or ``decode`` (from a cache, at ``pos``)."""
+    kind: str
+    pos: int = 0
+    cache_len: Optional[int] = None
+
+
+def _attend(p, h, cfg: ModelConfig, run: _Pass, cache, window):
+    """Attention of the pass: (y, its cache; None for ``forward``)."""
+    if run.kind == "forward":
+        return blocks.attention_apply(p, h, cfg, window=window), None
+    if run.kind == "prefill":
+        return blocks.attention_prefill(p, h, cfg, window=window,
+                                        cache_len=run.cache_len)
+    return blocks.attention_decode(p, h, cache, run.pos, cfg, window=window)
+
+
+def _recur(p, h, cfg: ModelConfig, run: _Pass, cache):
+    """The RG-LRU of the pass: (y, its cache; None for ``forward``)."""
+    if run.kind == "forward":
+        return blocks.rglru_apply(p, h, cfg), None
+    if run.kind == "prefill":
+        return blocks.rglru_prefill(p, h, cfg)
+    return blocks.rglru_decode(p, h, cache, cfg)
+
+
+def _rnn_sublayer(sub, x, cfg: ModelConfig, run: _Pass, cache=None):
+    """``_apply_rnn_sublayer``/``_prefill_``/``_decode_rnn_sublayer``
+    (``model.py:492-522``): the RG-LRU and the MLP, each on the normed
+    residual stream.  Returns (x, the cache)."""
+    y, cache = _recur(sub.mix, blocks.norm_apply(sub.ln1, x, cfg), cfg, run,
+                      cache)
     x = x + y
-    h = blocks.norm_apply(layer.ln2, x, cfg)
-    return x + blocks.mlp_apply(layer.mlp, h, cfg), cache
+    h = blocks.norm_apply(sub.ln2, x, cfg)
+    return x + blocks.mlp_apply(sub.mlp, h, cfg), cache
 
 
 def _keep_states_in_recompute():
@@ -100,17 +170,18 @@ def _keep_states_in_recompute():
 
 
 class Model(nn.Module):
-    """A ``dense`` (attention) or ``ssm`` (Mamba-1) language model on one
-    device.
+    """A language model of the ``dense`` (attention), ``moe`` (attention
+    and a mixture of experts), ``ssm`` (Mamba-1) or ``hybrid`` (RG-LRU and
+    local attention) family on one device.
 
     ``device=None`` is the CUDA device (``RuntimeError`` without one).
     ``scan`` picks the Mamba mixer's two kernels (the causal convolution
     and the fused scan): ``"auto"`` the kernels for CUDA tensors and their
     plain versions for CPU ones, ``"reference"`` the plain versions
-    anywhere, ``"cuda"`` the kernels (``ValueError`` off the card); a dense
-    model runs none of the port's kernels and checks the value alike.  The
-    weights are ``params`` (dotted name → tensor, see :meth:`load_params`)
-    when given, else drawn by
+    anywhere, ``"cuda"`` the kernels (``ValueError`` off the card); the
+    other families run none of the port's kernels and check the value
+    alike.  The weights are ``params`` (dotted name → tensor, see
+    :meth:`load_params`) when given, else drawn by
     :func:`~repro_torch.models.params.init_params` from ``generator``
     (default: a generator on the device seeded with 0), on the device.
     """
@@ -130,10 +201,11 @@ class Model(nn.Module):
         self.cfg, self.scan, self._device = cfg, scan, dev
         v, d = cfg.vocab_size, cfg.d_model
         self.embed = _placeholder((v, d))
-        self.final_norm = _Leaves(blocks.norm_spec(cfg))
+        self.final_norm = _Group(blocks.norm_spec(cfg))
         self.lm_head = _placeholder((d, v))
-        self.groups = nn.ModuleList(_Layer(_layer_spec(cfg))
-                                    for _ in range(cfg.n_layers))
+        for name, specs in self.param_specs().items():
+            if isinstance(specs, list):
+                setattr(self, name, nn.ModuleList(_Group(s) for s in specs))
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -146,15 +218,22 @@ class Model(nn.Module):
         return self._device
 
     def param_specs(self) -> Dict[str, Any]:
-        """The spec tree; its dotted names are ``named_parameters``'s."""
+        """The spec tree; its dotted names are ``named_parameters``'s.  The
+        reference stacks each list (``groups``, ``tail``) along a leading
+        axis (:func:`stack_sizes`)."""
         cfg = self.cfg
         v, d = cfg.vocab_size, cfg.d_model
-        return {
+        tree: Dict[str, Any] = {
             "embed": Spec((v, d)),
             "final_norm": blocks.norm_spec(cfg),
             "lm_head": Spec((d, v)),
-            "groups": [_layer_spec(cfg) for _ in range(cfg.n_layers)],
         }
+        sizes = stack_sizes(cfg)
+        tree["groups"] = [_layer_spec(cfg) for _ in range(sizes["groups"])]
+        if "tail" in sizes:
+            tree["tail"] = [_rnn_sublayer_spec(cfg)
+                            for _ in range(sizes["tail"])]
+        return tree
 
     @torch.no_grad()
     def load_params(self, params: Dict[str, torch.Tensor]) -> "Model":
@@ -174,7 +253,7 @@ class Model(nn.Module):
             setattr(mod, leaf, _param(t.to(self._device)))
         return self
 
-    # ---- forward ----
+    # ---- layers ----
 
     def _tokens(self, tokens) -> torch.Tensor:
         if isinstance(tokens, np.ndarray):
@@ -188,32 +267,78 @@ class Model(nn.Module):
         x = blocks.norm_apply(self.final_norm, x, self.cfg)
         return (x @ self.lm_head.to(x.dtype)).float()
 
-    def _layer(self, layer: _Layer, x: torch.Tensor) -> torch.Tensor:
+    def _group(self, layer: _Group, x: torch.Tensor, run: _Pass,
+               cache=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+        """One entry of ``groups`` in the pass ``run``
+        (``Model._group_apply``/``_group_prefill``/``_group_decode``,
+        ``model.py:270-290``, ``:370-395``, ``:422-470``).  Returns (x, its
+        cache; None for ``forward``, the MoE aux loss; None for the other
+        families)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             h = blocks.norm_apply(layer.ln, x, cfg)
-            return x + blocks.mamba_apply(layer.mamba, h, cfg, self.scan)
-        return _dense_layer(layer, x, cfg, lambda p, h: (
-            blocks.attention_apply(p, h, cfg, window=cfg.sliding_window),
-            None))[0]
+            if run.kind == "forward":
+                y, c = blocks.mamba_apply(layer.mamba, h, cfg, self.scan), None
+            elif run.kind == "prefill":
+                y, c = blocks.mamba_prefill(layer.mamba, h, cfg, self.scan)
+            else:
+                y, c = blocks.mamba_decode(layer.mamba, h, cache, cfg,
+                                           self.scan)
+            return x + y, c, None
+        if cfg.family == "hybrid":
+            caches = {"rnn": []}
+            for j, sub in enumerate(layer.rnn):
+                x, c = _rnn_sublayer(sub, x, cfg, run, None if cache is None
+                                     else cache["rnn"][j])
+                caches["rnn"].append(c)
+            y, caches["attn"] = _attend(
+                layer.attn, blocks.norm_apply(layer.aln1, x, cfg), cfg, run,
+                None if cache is None else cache["attn"], cfg.local_window)
+            x = x + y
+            h = blocks.norm_apply(layer.aln2, x, cfg)
+            x = x + blocks.mlp_apply(layer.amlp, h, cfg)
+            return x, None if run.kind == "forward" else caches, None
+        y, c = _attend(layer.attn, blocks.norm_apply(layer.ln1, x, cfg), cfg,
+                       run, cache, cfg.sliding_window)
+        x = x + y
+        h = blocks.norm_apply(layer.ln2, x, cfg)
+        if cfg.family == "moe":
+            y, aux = blocks.moe_apply(layer.moe, h, cfg)
+        else:
+            y, aux = blocks.mlp_apply(layer.mlp, h, cfg), None
+        return x + y, c, aux
+
+    def _layer(self, layer: _Group, x: torch.Tensor):
+        """A ``forward`` group: (x, the MoE aux loss or None)."""
+        x, _, aux = self._group(layer, x, _Pass("forward"))
+        return x, aux
+
+    # ---- forward ----
 
     def forward(self, tokens, extra: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) -> (logits (B, S, V) float32, aux loss 0).
-        ``extra`` is the reference's argument (encoder frames, image
-        embeddings) and unused by the ``dense`` and ``ssm`` families.  With
-        grad enabled and ``cfg.remat``, each layer keeps only its input for
-        the backward and is run again there (a Mamba layer's fused scan
-        keeping its segment states for the backward that follows)."""
+        """tokens: (B, S) -> (logits (B, S, V) float32, aux loss float32:
+        the MoE layers' sum, 0 for the other families).  ``extra`` is the
+        reference's argument (encoder frames, image embeddings), unused by
+        these families.  With grad enabled and ``cfg.remat``, each entry of
+        ``groups`` keeps only its input for the backward and is run again
+        there (a Mamba layer's fused scan keeping its segment states for
+        the backward that follows); the hybrid's ``tail`` is not
+        recomputed, as in the reference (``model.py:240-245``)."""
         x = self._embed(tokens)
+        aux = torch.zeros((), device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.groups:
             if remat:
-                x = checkpoint(self._layer, layer, x, use_reentrant=False,
-                               context_fn=_keep_states_in_recompute)
+                x, a = checkpoint(self._layer, layer, x, use_reentrant=False,
+                                  context_fn=_keep_states_in_recompute)
             else:
-                x = self._layer(layer, x)
-        return self._head(x), torch.zeros((), device=x.device)
+                x, a = self._layer(layer, x)
+            if a is not None:
+                aux = aux + a
+        for sub in getattr(self, "tail", ()):
+            x = _rnn_sublayer(sub, x, self.cfg, _Pass("forward"))[0]
+        return self._head(x), aux
 
     def loss(self, batch: Dict[str, Any], extra: Optional[Dict] = None
              ) -> Tuple[torch.Tensor, Dict]:
@@ -230,68 +355,81 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, cache_len: Optional[int] = None,
                    extra_len: int = 0) -> Dict[str, Any]:
-        """An empty cache at position 0 (``model.py:306-352``): per dense
-        layer zero k and v of ``min(cache_len, sliding_window)`` slots
-        (``cache_len`` required), per Mamba layer the conv tail and the
-        scan state (which depend on neither ``cache_len`` nor
-        ``extra_len``, the reference's cross-attention source length)."""
-        cfg, dev = self.cfg, self.device
+        """An empty cache at position 0 (``model.py:306-352``): per
+        attention layer zero k and v of ``min(cache_len, window)`` slots
+        (the sliding window, or the hybrid's local window; ``cache_len``
+        required), per Mamba layer the conv tail and the scan state, per
+        RG-LRU sublayer its conv tail and state (which depend on neither
+        ``cache_len`` nor ``extra_len``, the reference's cross-attention
+        source length)."""
+        cfg, dev, dt = self.cfg, self.device, self.cfg.activation_dtype
         if cfg.family == "ssm":
             return {"pos": 0, "groups": [
-                blocks.mamba_init_cache(cfg, batch, cfg.activation_dtype,
-                                        dev)
+                blocks.mamba_init_cache(cfg, batch, dt, dev)
                 for _ in range(cfg.n_layers)]}
         if cache_len is None:
-            raise ValueError("a dense model's cache needs cache_len")
-        attn_len = min(cache_len, cfg.sliding_window or cache_len)
-        shape = (batch, attn_len, cfg.n_kv_heads, cfg.head_dim_)
-        return {"pos": 0, "groups": [
-            {"k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
-             "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)}
-            for _ in range(cfg.n_layers)]}
+            raise ValueError(f"a {cfg.family} model's cache needs cache_len")
+        window = (cfg.local_window if cfg.family == "hybrid"
+                  else cfg.sliding_window)
+        shape = (batch, min(cache_len, window or cache_len), cfg.n_kv_heads,
+                 cfg.head_dim_)
+
+        def kv():
+            return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+        sizes = stack_sizes(cfg)
+        if cfg.family != "hybrid":
+            return {"pos": 0, "groups": [kv() for _ in range(cfg.n_layers)]}
+        cache = {"pos": 0, "groups": [
+            {"rnn": [blocks.rglru_init_cache(cfg, batch, dt, dev)
+                     for _ in range(cfg.pattern_rnn)], "attn": kv()}
+            for _ in range(sizes["groups"])]}
+        if "tail" in sizes:
+            cache["tail"] = [blocks.rglru_init_cache(cfg, batch, dt, dev)
+                             for _ in range(sizes["tail"])]
+        return cache
 
     @torch.no_grad()
     def prefill(self, tokens, extra: Optional[Dict] = None,
                 cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Full-sequence forward that also returns the serving cache.
-        Returns (last-position logits (B, 1, V) float32, cache).  A dense
-        model's cache has ``cache_len`` slots (default S + 128), or the
-        sliding window's ring buffer; ``extra`` and, for ``ssm``,
-        ``cache_len`` are unused (``model.py:354``)."""
-        cfg = self.cfg
+        Returns (last-position logits (B, 1, V) float32, cache).  An
+        attention layer's cache has ``cache_len`` slots (default S + 128),
+        or its window's ring buffer; ``extra`` and, for ``ssm``,
+        ``cache_len`` are unused (``model.py:354``).  The MoE aux loss is
+        dropped."""
         x = self._embed(tokens)
+        run = _Pass("prefill", cache_len=cache_len)
         caches = []
         for layer in self.groups:
-            if cfg.family == "ssm":
-                h = blocks.norm_apply(layer.ln, x, cfg)
-                y, cache = blocks.mamba_prefill(layer.mamba, h, cfg,
-                                                self.scan)
-                x = x + y
-            else:
-                x, cache = _dense_layer(
-                    layer, x, cfg, lambda p, h: blocks.attention_prefill(
-                        p, h, cfg, window=cfg.sliding_window,
-                        cache_len=cache_len))
-            caches.append(cache)
-        return self._head(x[:, -1:]), {"groups": caches, "pos": x.shape[1]}
+            x, c, _ = self._group(layer, x, run)
+            caches.append(c)
+        cache = {"groups": caches, "pos": x.shape[1]}
+        if hasattr(self, "tail"):
+            cache["tail"] = []
+            for sub in self.tail:
+                x, c = _rnn_sublayer(sub, x, self.cfg, run)
+                cache["tail"].append(c)
+        return self._head(x[:, -1:]), cache
 
     @torch.no_grad()
     def decode(self, cache: Dict[str, Any], tokens
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One-token step.  tokens: (B, 1).  Returns (logits (B, 1, V)
         float32, the next cache); ``cache`` is not modified."""
-        cfg, pos = self.cfg, cache["pos"]
+        pos = cache["pos"]
         x = self._embed(tokens)
+        run = _Pass("decode", pos=pos)
         new = []
         for layer, c in zip(self.groups, cache["groups"]):
-            if cfg.family == "ssm":
-                h = blocks.norm_apply(layer.ln, x, cfg)
-                y, c = blocks.mamba_decode(layer.mamba, h, c, cfg, self.scan)
-                x = x + y
-            else:
-                x, c = _dense_layer(
-                    layer, x, cfg, lambda p, h, c=c: blocks.attention_decode(
-                        p, h, c, pos, cfg, window=cfg.sliding_window))
+            x, c, _ = self._group(layer, x, run, c)
             new.append(c)
-        return self._head(x), {"groups": new, "pos": pos + 1}
+        out = {"groups": new, "pos": pos + 1}
+        if hasattr(self, "tail"):
+            out["tail"] = []
+            for sub, c in zip(self.tail, cache["tail"]):
+                x, c = _rnn_sublayer(sub, x, self.cfg, run, c)
+                out["tail"].append(c)
+        return self._head(x), out

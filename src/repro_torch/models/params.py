@@ -22,6 +22,7 @@ __all__ = ["Spec", "init_params", "flatten"]
 class Spec:
     shape: Tuple[int, ...]
     init: str = "normal"     # normal | zeros | ones | mamba_a | dt_bias
+                             # | rglru_a
     scale: float = 0.02
 
 
@@ -44,6 +45,12 @@ def _init_leaf(spec: Spec, generator: torch.Generator, dtype: torch.dtype,
             math.log(1e-3), math.log(1e-1), generator=generator)
         dt = torch.exp(u)
         return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if spec.init == "rglru_a":
+        # the RG-LRU's λ, so that its decay exp(-8·softplus(λ)) at r = 1
+        # is u² with u ~ U(0.9, 0.999) (``params.py:53-57``)
+        u = torch.empty(spec.shape, dtype=f32, device=device).uniform_(
+            0.9, 0.999, generator=generator)
+        return torch.log(torch.expm1(-torch.log(u * u) / 8.0)).to(dtype)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
     return (spec.scale * torch.randn(spec.shape, generator=generator,

@@ -1,8 +1,8 @@
 """The reference's parameter tree over the port's per-layer parameters.
 
 The JAX package keeps each layer leaf stacked along a leading layer axis
-(``groups.mamba.wx`` (L, d, di)); the port keeps one module per layer
-(``groups.<i>.mamba.wx`` (d, di)).  The optimizers work on the reference's
+(``groups.mamba.wx`` (L, d, di); the hybrid's ``tail`` alike); the port
+keeps one module per layer (``groups.<i>.mamba.wx`` (d, di)).  The optimizers work on the reference's
 leaves, so that a rule that depends on a leaf's shape (Adafactor's factored
 second moment, its update clipping) sees what the reference sees: a
 :class:`Leaf` is one reference leaf, the port's tensors of it in layer
@@ -20,7 +20,7 @@ import torch.nn as nn
 
 __all__ = ["Leaf", "named_tensors", "leaves", "zeros_like_tree"]
 
-_LAYER = re.compile(r"^groups\.(\d+)\.(.+)$")
+_LAYER = re.compile(r"^(groups|tail)\.(\d+)\.(.+)$")
 
 
 @dataclasses.dataclass
@@ -59,11 +59,11 @@ def leaves(named: Mapping[str, torch.Tensor]) -> List[Leaf]:
         if m is None:
             out[name] = Leaf(name, [(name, t)], False)
             continue
-        key = f"groups.{m.group(2)}"
+        key = f"{m.group(1)}.{m.group(3)}"
         if key not in out:
             out[key] = Leaf(key, [], True)
             layers[key] = {}
-        layers[key][int(m.group(1))] = (name, t)
+        layers[key][int(m.group(2))] = (name, t)
     for key, by_layer in layers.items():
         if sorted(by_layer) != list(range(len(by_layer))):
             raise ValueError(f"{key}: layers {sorted(by_layer)} are not "

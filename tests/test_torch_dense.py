@@ -379,7 +379,9 @@ def test_launcher_trains_qwen2_reduced_on_cpu(capsys):
 
 
 def test_registry_lists_the_dense_configs():
-    assert configs.names() == list(DENSE) + ["falcon-mamba-7b"]
+    assert configs.names() == list(DENSE) + [
+        "falcon-mamba-7b", "recurrentgemma-2b", "mixtral-8x7b",
+        "kimi-k2-1t-a32b"]
     for name in DENSE:
         want = jconfigs.get(name)
         assert dataclasses.asdict(configs.get(name)) == \
@@ -387,8 +389,7 @@ def test_registry_lists_the_dense_configs():
 
 
 @pytest.mark.parametrize("family, item", [
-    ("moe", "item 2"), ("hybrid", "item 3"), ("audio", "item 4"),
-    ("vlm", "item 5")])
+    ("audio", "item 4"), ("vlm", "item 5")])
 def test_other_families_name_their_queue_item(family, item):
     cfg = dataclasses.replace(_cfgs("qwen2-1.5b")[1], family=family)
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):

@@ -310,7 +310,7 @@ def test_scan_choice_and_devices():
     with pytest.raises(ValueError, match="unknown scan"):
         Model(cfg, device="cpu", scan="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dataclasses.replace(cfg, family="moe"), device="cpu")
+        Model(dataclasses.replace(cfg, family="audio"), device="cpu")
     a = Model(cfg, device="cpu", scan="reference")
     b = Model(cfg, device="cpu", scan="auto")
     tokens = np.arange(10).reshape(1, 10)
