@@ -418,6 +418,39 @@ CONSISTENCY_DECODE = 8
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "mixtral-8x7b", 2, 3
 HYBRID_TRAIN_BATCH, HYBRID_TRAIN_STEPS = 2, 5
 RGLRU_RANGE = "linear_recurrence"      # layers.chunked_linear_recurrence
+# the audio and VLM families (phases audio_fixture, vlm_fixture,
+# audio_serve, vlm_serve, audio_train, vlm_train)
+CROSS_ARCHS = {"audio": "whisper-base", "vlm": "llama-3.2-vision-11b"}
+CROSS_FIXTURES = {f: ROOT / "tests" / "data" / f"torch_{f}.npz"
+                  for f in CROSS_ARCHS}
+# Whisper's own window: 1500 encoder frames (30 s of audio) and a decoder
+# context of 448, a prompt of 416 tokens and SERVE_DECODE decodes
+WHISPER_WINDOW = (1500, 416)
+# another source must move the prefill's logits by more than this share of
+# their largest (max |Δ| / max |logits|)
+CROSS_RESPONSE = 1e-3
+# bf16 decode against forward at the last position, max |Δ| / max
+# |forward|, held per family: Whisper-base to SERVE_TOL (7.5e-3 measured);
+# Llama-3.2-Vision-11B's 40 layers of width 4096 amplify one-ulp
+# differences of a decode step's products and attention past SERVE_TOL
+# (scripts/probe_cross_consistency.py, PERF.md): 5.61e-2 at the last
+# position and 7.54e-2 at the worst, 4.62e-2 with every gate closed, so
+# its bound is 1e-1; the probe's faulty cross caches (another prompt's,
+# or one rounded through float8) are what it must still catch.  Both
+# families' weights are also served in float32 and held to F32_SERVE_TOL
+# at every position
+BF16_SERVE_TOL = {"audio": SERVE_TOL, "vlm": 1e-1}
+F32_SERVE_TOL = 1e-3       # max |Δ| / max |forward|, float32 (the bound of
+                           # tests/test_models.py:80 for decode vs forward)
+# the VLM trains cut to 2 groups (two cross layers run their backward):
+# AdamW's float32 moments of all 10.1 B parameters (81 GB) do not fit
+VLM_TRAIN_GROUPS, CROSS_TRAIN_STEPS = 2, 4
+CROSS_TRAIN_BATCH = {"audio": TRAIN_BATCH, "vlm": 2}
+# the profile's split: the encoder, the cross-attention (with its norm),
+# the self-attention, each kernel under the outermost range it runs in
+CROSS_RANGES = {"encoder": "encoder", "cross": "cross_attention",
+                "self_attention": ATTENTION_RANGE}
+CROSS_TRAIN_RANGES = dict(CROSS_RANGES, attention_bwd=ATTENTION_BWD)
 
 # The card's published peaks (bytes/s, FP64 on tensor cores, FP64 and
 # FP32 outside them, bf16 on tensor cores, ``sfu`` exponentials/s) are
@@ -1791,27 +1824,30 @@ def host_drivers(folds, lams) -> dict:
 def range_kernels(events, names: tuple) -> dict:
     """Device ms by kernel name of the kernels launched inside the CPU
     events named in ``names`` (a ``record_function`` range, an autograd
-    node) and their children, each range counted once."""
+    node) and their children, one dict per name: each kernel counted once,
+    under the outermost of those events it runs in (an event matching
+    several names goes to the first)."""
     from torch.autograd import DeviceType
-    out: dict = {}
+    out: dict = {n: {} for n in names}
 
-    def inside(e) -> bool:
-        return any(n in e.name for n in names)
+    def match(e):
+        return next((n for n in names if n in e.name), None)
 
-    def walk(e) -> None:
+    def walk(e, into: dict) -> None:
         for k in e.kernels:
-            out[k.name[:80]] = out.get(k.name[:80], 0.0) + k.duration / 1e3
+            into[k.name[:80]] = into.get(k.name[:80], 0.0) + k.duration / 1e3
         for c in e.cpu_children:
-            walk(c)
+            walk(c, into)
 
     for e in events:
-        if e.device_type != DeviceType.CPU or not inside(e):
+        name = match(e) if e.device_type == DeviceType.CPU else None
+        if name is None:
             continue
         parent = e.cpu_parent
-        while parent is not None and not inside(parent):
+        while parent is not None and match(parent) is None:
             parent = parent.cpu_parent
         if parent is None:
-            walk(e)
+            walk(e, out[name])
     return out
 
 
@@ -1857,9 +1893,12 @@ def profiled(fn, ranges: tuple = (), split: bool = False
                  convolution_ops=conv_ops,
                  top=[dict(name=n, ms=ms, count=c) for n, (ms, c) in top])
     if ranges:
-        trace["ranges"] = ({r: range_kernels(prof.events(), (r,))
-                            for r in ranges} if split else
-                           range_kernels(prof.events(), ranges))
+        inside = range_kernels(prof.events(), ranges)
+        merged: dict = {}
+        for by_kernel in inside.values():
+            for k, ms in by_kernel.items():
+                merged[k] = merged.get(k, 0.0) + ms
+        trace["ranges"] = inside if split else merged
     return trace, by_name
 
 
@@ -3671,23 +3710,24 @@ def greedy(model, cache, first, steps: int):
 
 
 def serve_run(model, prompts, steps: int, prefix: str,
-              each: bool = False) -> tuple:
+              each: bool = False, extra: dict | None = None) -> tuple:
     """A serve run: the prompts prefilled, ``steps`` greedy decodes, a
     forward over the extended sequences, each path counted
-    (``<prefix>_prefill``, ``_decode``, ``_forward``).  Returns (finite
+    (``<prefix>_prefill``, ``_decode``, ``_forward``); ``extra`` the
+    prefill's and the forward's cross-attention source.  Returns (finite
     logits, decode against forward at each position from the prefill's
     last: max |Δ| / max |forward|, with ``each`` also every position's as
     ``decode_vs_forward_each``, the counts, the prefill's cache, the first
     decoded token)."""
     counts = {}
     (logits_p, cache), counts[f"{prefix}_prefill"] = counted_call(
-        lambda: model.prefill(prompts))
+        lambda: model.prefill(prompts, extra))
     first = logits_p[:, -1].argmax(-1, keepdim=True)
     (logits_d, gen_toks), counts[f"{prefix}_decode"] = counted_call(
         lambda: greedy(model, cache, first, steps))
     ext = torch.cat([prompts, gen_toks], 1)
     (logits_f, _), counts[f"{prefix}_forward"] = counted_call(
-        lambda: model(ext))
+        lambda: model(ext, extra))
     finite = all(bool(torch.isfinite(t).all())
                  for t in (logits_p, logits_d, logits_f))
     pos = logits_f[:, prompts.shape[1] - 1:]          # prefill, then decodes
@@ -3706,14 +3746,15 @@ def serve_run(model, prompts, steps: int, prefix: str,
     return stats, counts, cache, first
 
 
-def serve_walls(model, prompts, first, steps: int, repeats: int) -> tuple:
+def serve_walls(model, prompts, first, steps: int, repeats: int,
+                extra: dict | None = None) -> tuple:
     """Prefill and decode walls, ``repeats`` times after the warm run:
     (the walls, their medians)."""
     walls = dict(prefill_ms=[], decode_ms_per_step=[])
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, c = model.prefill(prompts)
+        _, c = model.prefill(prompts, extra)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         greedy(model, c, first, steps)
@@ -3894,8 +3935,9 @@ def _train_split(by_name: dict) -> dict:
 
 
 def _run_loop(model, opt, steps: int, data, ckpt_dir=None, every=None,
-              record: list | None = None):
-    """``steps`` of TrainLoop over ``data``; returns (the loop's result,
+              record: list | None = None, extra: dict | None = None):
+    """``steps`` of TrainLoop over ``data`` (with ``extra``, the
+    cross-attention source, in every step); returns (the loop's result,
     per-step losses and gradient norms, the loop).  ``record`` receives
     each step's metrics as floats."""
     from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
@@ -3912,7 +3954,7 @@ def _run_loop(model, opt, steps: int, data, ckpt_dir=None, every=None,
     loop = TrainLoop(TrainLoopConfig(
         total_steps=steps, log_every=1, ckpt_dir=ckpt_dir,
         ckpt_every=every or steps), recorded, model, opt[0](model))
-    res = loop.run(data)
+    res = loop.run(data, extra)
     return res, [e["loss"] for e in res["log"]], norms, loop
 
 
@@ -4171,11 +4213,14 @@ def fixture_run(dev, data, prefix: str, cfg,
     def arr(key):
         return torch.as_tensor(data[f"{prefix}{key}"], device=dev)
 
-    got = dict(zip(("forward", "aux"), model(arr("tokens"))))
+    extra = {k: arr(k) for k in ("enc_frames", "image_embeds")
+             if f"{prefix}{k}" in data.files}
+    got = dict(zip(("forward", "aux"), model(arr("tokens"), extra)))
     for run in ("", "long_"):
         if f"{prefix}{run}steps" not in data.files:
             continue
-        got[f"{run}prefill"], cache = model.prefill(arr(f"{run}tokens"))
+        got[f"{run}prefill"], cache = model.prefill(arr(f"{run}tokens"),
+                                                    extra)
         steps = []
         for tok in arr(f"{run}steps"):
             logits, cache = model.decode(cache, tok)
@@ -4223,6 +4268,19 @@ def hybrid_fixture(dev) -> dict:
     data = np.load(HYBRID_FIXTURE)
     cfg = dataclasses.replace(configs.get(HYBRID_ARCH).reduced(),
                               n_layers=HYBRID_FIXTURE_LAYERS)
+    results = fixture_run(dev, data, "", cfg)
+    return dict(results=results, ok=all(r["ok"] for r in results.values()))
+
+
+def cross_fixture(dev, family: str) -> dict:
+    """The reduced Whisper-base (2 encoder, 4 decoder layers, 40 frames) or
+    Llama-3.2-Vision (2 groups, 16 image tokens) of
+    ``tests/data/torch_<family>.npz`` on ``dev``, gates and norm scales
+    drawn: forward, prefill and decode logits within FIXTURE_TOL of JAX's.
+    The CPU test runs it as well."""
+    from repro_torch import configs
+    data = np.load(CROSS_FIXTURES[family])
+    cfg = configs.get(CROSS_ARCHS[family]).reduced()
     results = fixture_run(dev, data, "", cfg)
     return dict(results=results, ok=all(r["ok"] for r in results.values()))
 
@@ -4624,15 +4682,17 @@ def moe_serve(dev, arch: str, layers: int) -> None:
 
 def lm_train(dev, cfg, batch: int, steps: int, watched: tuple,
              ranges: dict | None = None, reported: tuple = ()) -> dict:
-    """``cfg`` as given (bf16, remat, seeded) with the launcher's optimizer
-    (AdamW below 3e11 parameters), ``batch`` × TRAIN_SEQ tokens of
-    ``token_stream``, ``steps`` through ``TrainLoop``: every step's
+    """``cfg`` as given (bf16, remat, seeded; cross-attention gates
+    opened, :func:`open_gates`) with the launcher's optimizer (AdamW below
+    3e11 parameters), ``batch`` × TRAIN_SEQ tokens of ``token_stream`` and,
+    for the audio and VLM families, the launcher's ``cross_source`` as
+    ``extra``, ``steps`` through ``TrainLoop``: every step's
     metrics, the ``watched`` parameters' largest change (``params_moved``:
     all of them moved) and the ``reported`` ones', step ms (median of all
     but the first), tokens/s, peak memory, no launch of the port's
     kernels; with ``ranges`` one profiled step (:func:`range_split`)."""
     import itertools
-    from repro_torch.data import token_stream
+    from repro_torch.data import cross_source, token_stream
     from repro_torch.models import Model
     from repro_torch.optim import adafactor, adamw
     from repro_torch.train import make_train_step
@@ -4640,15 +4700,18 @@ def lm_train(dev, cfg, batch: int, steps: int, watched: tuple,
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device=dev,
                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    open_gates(model)
     named = dict(model.named_parameters())
     before = {n: named[n].detach().clone() for n in watched + reported}
     opt = adafactor() if cfg.n_params() > 3e11 else adamw()
     data = token_stream(torch.Generator(device=dev).manual_seed(1),
                         cfg.vocab_size, batch, TRAIN_SEQ)
+    extra = cross_source(cfg, torch.Generator(device=dev).manual_seed(2),
+                         batch, TRAIN_SEQ)
     metrics: list = []
     (res, losses, norms, loop), counts = counted_call(
         lambda: _run_loop(model, opt, steps, itertools.islice(data, steps),
-                          record=metrics))
+                          record=metrics, extra=extra))
     moved = {n: float((named[n].detach() - before[n]).abs().max())
              for n in watched + reported}
     secs = [e["sec_per_step"] for e in res["log"]]
@@ -4662,6 +4725,7 @@ def lm_train(dev, cfg, batch: int, steps: int, watched: tuple,
                step_ms_each=[x * 1e3 for x in secs], step_ms=step_ms,
                tokens_per_s=batch * TRAIN_SEQ / (step_ms / 1e3),
                max_memory_allocated=torch.cuda.max_memory_allocated(),
+               source={k: list(v.shape) for k, v in (extra or {}).items()},
                launches=_nonzero(counts))
     check_counts(f"{cfg.name} train", counts, {})
     if ranges:
@@ -4670,7 +4734,7 @@ def lm_train(dev, cfg, batch: int, steps: int, watched: tuple,
         holder = {"state": loop.opt_state}
 
         def one_step():
-            _, holder["state"], m = step(model, holder["state"], nxt)
+            _, holder["state"], m = step(model, holder["state"], nxt, extra)
             return m
 
         trace, by_name = profiled(one_step, ranges=tuple(ranges.values()),
@@ -4792,6 +4856,235 @@ def phase_hybrid_train(dev) -> None:
                       f"moved={out['moved']}")
 
 
+# ---------------------------------------------------------------- audio, VLM
+
+
+def open_gates(model) -> None:
+    """Each cross-attention gate drawn from U(0.5, 1) (seeded): the
+    reference initialises them to 0, where tanh(gate) = 0 and the logits
+    ignore the source.  No-op for the families without gates."""
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate"):
+                p.copy_(0.5 + 0.5 * torch.rand((), generator=gen,
+                                               device=p.device))
+
+
+def cross_cache_check(model, cache, first) -> dict:
+    """One decode step from ``cache``: the cross k and v it returns are the
+    given tensors (same ``data_ptr``), unchanged bit for bit, and no
+    operation of the step made a tensor of their shape and dtype (a clone
+    or a copy).  Tensors of their shape in another dtype (decode_attention
+    reads the cache through a float32 cast, written once a step) are
+    counted apart, with their bytes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    given = [t for g in cache["groups"] for t in (g["cross"]["k"],
+                                                  g["cross"]["v"])]
+    kept = [t.clone() for t in given]
+    shape, dtype = given[0].shape, given[0].dtype
+    made = dict(copies=0, casts=0, cast_bytes=0)
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.shape == shape:
+                    if t.dtype == dtype:
+                        made["copies"] += 1
+                    else:
+                        made["casts"] += 1
+                        made["cast_bytes"] += t.numel() * t.element_size()
+            return out
+
+    with Watch():
+        _, nxt = model.decode(cache, first)
+    got = [t for g in nxt["groups"] for t in (g["cross"]["k"],
+                                              g["cross"]["v"])]
+    same = all(a.data_ptr() == b.data_ptr() for a, b in zip(got, given))
+    unchanged = all(torch.equal(a, b) for a, b in zip(given, kept))
+    return dict(tensors=len(given), bytes=sum(t.numel() * t.element_size()
+                                              for t in given),
+                same_data_ptr=same, unchanged=unchanged, **made,
+                ok=same and unchanged and made["copies"] == 0)
+
+
+@torch.no_grad()
+def float32_consistency(dev, cfg, params: dict, prompts, extra,
+                        tag: str) -> dict:
+    """``cfg`` in float32 (activations and parameters) on ``params`` (the
+    served weights cast to float32; the dict is emptied, so that the
+    weights go with the model), the same prompts and source:
+    CONSISTENCY_DECODE greedy decodes and the forward (:func:`serve_run`),
+    decode against forward at every position within F32_SERVE_TOL."""
+    from repro_torch.models import Model
+    wide = Model(dataclasses.replace(cfg, dtype="float32",
+                                     param_dtype="float32"),
+                 device=dev, params=params)
+    params.clear()
+    stats, counts, cache, _ = serve_run(
+        wide, prompts, CONSISTENCY_DECODE, tag, each=True,
+        extra={k: v.float() for k, v in extra.items()})
+    for name, n in counts.items():
+        check_counts(name, n, {})
+    del wide, cache
+    torch.cuda.empty_cache()
+    worst = stats["decode_vs_forward_max"]
+    return dict(stats, decode_steps=CONSISTENCY_DECODE, tol=F32_SERVE_TOL,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches={k: _nonzero(v) for k, v in counts.items()},
+                ok=stats["finite"] and worst <= F32_SERVE_TOL)
+
+
+@torch.no_grad()
+def cross_serve(dev, family: str, batch: int, prompt: int, n_src: int,
+                repeats: int) -> dict:
+    """Whisper-base or Llama-3.2-Vision-11B as published (bf16, seeded,
+    gates opened): ``batch`` prompts of ``prompt`` tokens over ``n_src``
+    encoder frames or image embeddings (seeded normal), SERVE_DECODE greedy
+    decodes and the forward (:func:`serve_run`), decode against forward at
+    the last position held within the family's BF16_SERVE_TOL; every path
+    launching none of
+    the port's kernels; walls, memory; the logits' response to another
+    source (max |Δ| / max |logits| of the prefill's); the cross cache
+    through a decode step (:func:`cross_cache_check`); a profiled prefill
+    and decode step split into the encoder, the cross-attention, the
+    self-attention, the other GEMMs and the rest (:func:`range_split`,
+    each kernel under its outermost range); last the same weights in
+    float32 (:func:`float32_consistency`; for Llama-3.2-Vision-11B 40.4 GB,
+    beside the bf16 copy while it is cast)."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    arch = CROSS_ARCHS[family]
+    cfg = configs.get(arch)
+    key = "enc_frames" if family == "audio" else "image_embeds"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, device=dev, generator=gen)
+    open_gates(model)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev)
+
+    def source():
+        return {key: torch.randn((batch, n_src, cfg.d_model), generator=gen,
+                                 device=dev).to(cfg.activation_dtype)}
+
+    extra, other = source(), source()
+    stats, counts, cache, first = serve_run(model, prompts, SERVE_DECODE,
+                                            family, extra=extra)
+    walls, med = serve_walls(model, prompts, first, SERVE_DECODE, repeats,
+                             extra)
+    (mine, theirs), counts[f"{family}_other_source"] = counted_call(
+        lambda: (model.prefill(prompts, extra)[0],
+                 model.prefill(prompts, other)[0]))
+    response = float((mine - theirs).abs().max() / mine.abs().max())
+    check = cross_cache_check(model, cache, first)
+    tol = BF16_SERVE_TOL[family]
+    out = dict(
+        arch=arch, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+        groups=len(cache["groups"]), d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype, batch=batch,
+        prompt=prompt, source=key, source_len=n_src,
+        decode_steps=SERVE_DECODE, weight_bytes=weight_bytes,
+        gates=[float(p) for n, p in model.named_parameters()
+               if n.endswith(".gate")], **stats, tol=tol,
+        source_response=response,
+        cross_cache=check, walls=walls, median=med,
+        prefill_tokens_per_s=batch * prompt / (med["prefill_ms"] / 1e3),
+        decode_tokens_per_s=batch / (med["decode_ms_per_step"] / 1e3),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: _nonzero(v) for k, v in counts.items()})
+    for tag, n in counts.items():
+        check_counts(f"{arch} {tag}", n, {})
+    ranges = tuple(CROSS_RANGES.values())
+    for tag, fn in (("trace", lambda: model.prefill(prompts, extra)),
+                    ("trace_decode", lambda: model.decode(cache, first))):
+        trace, by_name = profiled(fn, ranges=ranges, split=True)
+        out[tag] = dict(trace, **range_split(trace, by_name, CROSS_RANGES))
+    params = {n: p.detach().float() for n, p in model.named_parameters()}
+    del model, cache, first, mine, theirs
+    torch.cuda.empty_cache()
+    out["float32"] = float32_consistency(dev, cfg, params, prompts, extra,
+                                         f"{family}_float32")
+    bad = []
+    if not stats["finite"] or not stats["decode_vs_forward_last"] <= tol:
+        bad.append(f"finite={stats['finite']}, decode vs forward at the "
+                   f"last position {stats['decode_vs_forward_last']} > "
+                   f"{tol}")
+    if not out["float32"]["ok"]:
+        bad.append(f"float32 decode vs forward: {out['float32']}")
+    if not response > CROSS_RESPONSE:
+        bad.append(f"another {key} moved the logits by {response}")
+    if not check["ok"]:
+        bad.append(f"the decode step touched the cross cache: {check}")
+    if bad:
+        FAILED.append(f"{family}_serve ({batch} × {prompt}, {n_src} "
+                      f"{key}): " + "; ".join(bad))
+    return out
+
+
+def phase_audio_serve(dev) -> None:
+    """Whisper-base at SERVE_BATCH × SERVE_PROMPT over SERVE_PROMPT //
+    enc_seq_ratio frames (the reference's ``extra_specs``), then at
+    Whisper's own window (WHISPER_WINDOW)."""
+    from repro_torch import configs
+    ratio = configs.get(CROSS_ARCHS["audio"]).enc_seq_ratio
+    emit("audio_serve", **cross_serve(dev, "audio", SERVE_BATCH, SERVE_PROMPT,
+                                      SERVE_PROMPT // ratio, SERVE_REPEATS))
+    frames, prompt = WHISPER_WINDOW
+    emit("audio_serve", part="whisper_window", **cross_serve(
+        dev, "audio", SERVE_BATCH, prompt, frames, SERVE_REPEATS))
+
+
+def phase_vlm_serve(dev) -> None:
+    """Llama-3.2-Vision-11B as published, SERVE_BATCH × SERVE_PROMPT over
+    its n_image_tokens image embeddings."""
+    from repro_torch import configs
+    n_img = configs.get(CROSS_ARCHS["vlm"]).n_image_tokens
+    emit("vlm_serve", **cross_serve(dev, "vlm", SERVE_BATCH, SERVE_PROMPT,
+                                    n_img, SERVE_REPEATS))
+
+
+def phase_cross_train(dev, family: str) -> None:
+    """Whisper-base as published, or Llama-3.2-Vision-11B at its published
+    widths cut to VLM_TRAIN_GROUPS groups (AdamW's float32 moments of the
+    whole model do not fit the card), CROSS_TRAIN_STEPS steps with the
+    launcher's source: losses and gradient norms finite, the encoder's
+    (audio) or the cross layers' leaves, the embedding and the head
+    moving; the gates reported (an AdamW step of ~lr is below half a bf16
+    ulp at 0.5-1); one profiled step."""
+    from repro_torch import configs
+    cfg = configs.get(CROSS_ARCHS[family])
+    if family == "audio":
+        last = cfg.n_enc_layers - 1
+        watched = ("embed", "lm_head", "enc_norm.scale",
+                   "enc_groups.0.attn.wq", f"enc_groups.{last}.mlp.wo",
+                   "groups.0.xattn.wk", f"groups.{cfg.n_layers - 1}.xattn.wv",
+                   "groups.0.attn.wq", "groups.0.lnx.scale")
+        reported = ("groups.0.xattn.gate",)
+    else:
+        cfg = dataclasses.replace(
+            cfg, n_layers=VLM_TRAIN_GROUPS * cfg.cross_attn_every)
+        last = VLM_TRAIN_GROUPS - 1
+        watched = ("embed", "lm_head", "groups.0.cross.xattn.wk",
+                   f"groups.{last}.cross.xattn.wv", "groups.0.cross.xattn.wq",
+                   "groups.0.cross.lnx.scale",
+                   f"groups.{last}.self.{cfg.cross_attn_every - 2}.mlp.wo")
+        reported = ("groups.0.cross.xattn.gate",)
+    out = lm_train(dev, cfg, CROSS_TRAIN_BATCH[family], CROSS_TRAIN_STEPS,
+                   watched, CROSS_TRAIN_RANGES, reported=reported)
+    emit(f"{family}_train", published_layers=configs.get(
+        CROSS_ARCHS[family]).n_layers, **out)
+    if not (out["finite"] and out["params_moved"]):
+        FAILED.append(f"{family}_train: finite={out['finite']}, "
+                      f"moved={out['moved']}")
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -4827,6 +5120,13 @@ def main() -> None:
     fixture_phase("hybrid_fixture", hybrid_fixture, dev)
     phase_hybrid_serve(dev)
     phase_hybrid_train(dev)
+    for family in CROSS_ARCHS:
+        fixture_phase(f"{family}_fixture",
+                      lambda d, f=family: cross_fixture(d, f), dev)
+    phase_audio_serve(dev)
+    phase_vlm_serve(dev)
+    for family in CROSS_ARCHS:
+        phase_cross_train(dev, family)
     rows = []
     for name in REPLACES:
         r = kern[name]

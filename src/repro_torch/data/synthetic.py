@@ -1,5 +1,5 @@
 """Synthetic data: the JAX package's constructions on a ``torch.Generator``
-(ridge designs, and the LM token stream).
+(ridge designs, the LM token stream and the stub frontends' inputs).
 
 Two-class Gaussian-mixture data pushed through the Kar–Karnick random
 polynomial feature map, with labels from a planted linear model plus noise
@@ -11,14 +11,15 @@ arrays instead.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 from .._device import resolve_device
 
 __all__ = ["make_classification", "random_polynomial_features",
-           "make_regression_dataset", "make_low_rank_dataset", "token_stream"]
+           "make_regression_dataset", "make_low_rank_dataset", "token_stream",
+           "cross_source"]
 
 
 def make_classification(gen: torch.Generator, n: int, raw_dim: int, *,
@@ -122,3 +123,23 @@ def token_stream(generator: torch.Generator, vocab_size: int, batch: int,
                                    replacement=True, generator=generator
                                    ).view(batch, seq_len + 1)
         yield {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def cross_source(cfg, generator: torch.Generator, batch: int,
+                 seq_len: int) -> Optional[Dict[str, torch.Tensor]]:
+    """The ``extra`` of a model's batch, at the sizes of the reference's
+    ``extra_specs`` (``src/repro/launch/specs.py:52-65``): for ``audio``
+    ``enc_frames`` (batch, seq_len // enc_seq_ratio, d_model), for ``vlm``
+    ``image_embeds`` (batch, n_image_tokens, d_model), standard normal in
+    the activation dtype on the generator's device (the frontends that
+    would make them are stubs in both packages); None for the other
+    families."""
+    if cfg.family == "audio":
+        key, n = "enc_frames", seq_len // cfg.enc_seq_ratio
+    elif cfg.family == "vlm":
+        key, n = "image_embeds", cfg.n_image_tokens
+    else:
+        return None
+    x = torch.randn((batch, n, cfg.d_model), generator=generator,
+                    device=generator.device)
+    return {key: x.to(cfg.activation_dtype)}

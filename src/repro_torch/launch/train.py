@@ -1,6 +1,7 @@
 """Training launcher (``src/repro/launch/train.py``) on one card: the
 model, the optimizer, the fault-tolerant loop over the synthetic token
-stream.
+stream (and, for the audio and VLM families, seeded frame or image
+embeddings: their frontends are stubs in both packages).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --steps 100 --ckpt-dir /path/to/ckpt [--batch 8 --seq 128] \\
@@ -8,15 +9,17 @@ stream.
 
 ``--arch`` is any name of ``repro_torch.configs.names()``: the dense
 configurations (``smollm-360m``, ``qwen2-1.5b``, ``minicpm-2b``,
-``h2o-danube-3-4b``), ``falcon-mamba-7b``, ``recurrentgemma-2b`` and the
-MoE ``mixtral-8x7b`` and ``kimi-k2-1t-a32b``; with ``--reduced --device
-cpu`` each trains its CPU-sized variant on the CPU.  Mixtral (93.4 GB of
-bf16 weights) and Kimi-K2 (2.08 TB) do not fit one card as published.
+``h2o-danube-3-4b``), ``falcon-mamba-7b``, ``recurrentgemma-2b``, the
+MoE ``mixtral-8x7b`` and ``kimi-k2-1t-a32b``, ``whisper-base`` and
+``llama-3.2-vision-11b``; with ``--reduced --device cpu`` each trains its
+CPU-sized variant on the CPU.  Mixtral (93.4 GB of bf16 weights) and
+Kimi-K2 (2.08 TB) do not fit one card as published.
 
 The optimizer follows the reference's rule: Adafactor above 3e11
 parameters, AdamW below.  So ``falcon-mamba-7b`` at full depth trains with
 AdamW, whose float32 moments with the bf16 weights and gradients need about
-87 GB: more than one 80 GB card (README).  ``--mesh`` other than ``1x1``
+87 GB: more than one 80 GB card (README); ``llama-3.2-vision-11b`` (10.1 B
+parameters) needs about 121 GB so.  ``--mesh`` other than ``1x1``
 raises: the parameter shardings are ``ROADMAP.md`` queue 1 item 6.
 """
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
-from repro_torch.data import token_stream
+from repro_torch.data import cross_source, token_stream
 from repro_torch.models import Model
 from repro_torch.optim import adafactor, adamw
 from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
@@ -74,7 +77,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         step, model, opt[0](model))
     data = token_stream(torch.Generator(device=dev).manual_seed(1),
                         cfg.vocab_size, args.batch, args.seq)
-    out = loop.run(itertools.islice(data, args.steps + 4))
+    extra = cross_source(cfg, torch.Generator(device=dev).manual_seed(2),
+                         args.batch, args.seq)
+    out = loop.run(itertools.islice(data, args.steps + 4), extra)
     for e in out["log"]:
         print(f"step {e['step']:6d}  loss {e['loss']:.4f}  "
               f"{e['sec_per_step']:.3f}s/step")

@@ -39,10 +39,10 @@ from . import layers
 from .config import ModelConfig
 from .params import Spec
 
-__all__ = ["attention_spec", "attention_apply", "attention_prefill",
-           "attention_decode", "mlp_spec", "mlp_apply", "moe_spec",
-           "moe_apply", "dispatch_slots", "routing_stats", "mamba_spec",
-           "mamba_apply", "mamba_prefill", "mamba_init_cache",
+__all__ = ["attention_spec", "attention_apply", "cross_attention",
+           "attention_prefill", "attention_decode", "mlp_spec", "mlp_apply",
+           "moe_spec", "moe_apply", "dispatch_slots", "routing_stats",
+           "mamba_spec", "mamba_apply", "mamba_prefill", "mamba_init_cache",
            "mamba_decode", "rglru_spec", "rglru_apply", "rglru_prefill",
            "rglru_init_cache", "rglru_decode", "norm_spec", "norm_apply"]
 
@@ -134,23 +134,31 @@ def _gated(p, y: torch.Tensor) -> torch.Tensor:
 
 def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
                     causal: bool = True, window: Optional[int] = None,
-                    kv_src: Optional[torch.Tensor] = None,
                     use_rope: bool = True,
                     positions: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """``blocks.py:93-116``: self-attention over x, or cross-attention over
-    ``kv_src`` (no RoPE, not causal, gated)."""
-    cross = kv_src is not None
-    q, k, v = _qkv(p, x, kv_src if cross else x)
-    if use_rope and not cross:
+    """``blocks.py:93-116``: self-attention over x (the reference's
+    ``kv_src`` case is :func:`cross_attention`)."""
+    q, k, v = _qkv(p, x, x)
+    if use_rope:
         pos = positions if positions is not None else torch.arange(
             x.shape[1], device=x.device)
         q = layers.rope(q, pos, cfg.rope_theta)
         k = layers.rope(k, pos, cfg.rope_theta)
-    out = layers.flash_attention(q, k, v, causal=causal and not cross,
-                                 window=window, chunk=cfg.attn_chunk)
-    y = _out(p, out, x)
-    return _gated(p, y) if cross else y
+    out = layers.flash_attention(q, k, v, causal=causal, window=window,
+                                 chunk=cfg.attn_chunk)
+    return _out(p, out, x)
+
+
+def cross_attention(p, x: torch.Tensor, src: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-attention of x over ``src`` (no RoPE, not causal, gated;
+    ``blocks.py:93-116`` with ``kv_src``), and the k and v of ``src``
+    (B, S_src, KV, hd): the cross cache that a prefill keeps for its decode
+    steps (``model.py:562-567``)."""
+    q, k, v = _qkv(p, x, src)
+    out = layers.flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return _gated(p, _out(p, out, x)), {"k": k, "v": v}
 
 
 def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, *,

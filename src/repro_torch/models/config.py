@@ -2,8 +2,9 @@
 
 One frozen dataclass covers all 10 families of the reference; family-specific
 fields are zero/None when unused.  ``reduced()`` derives the CPU test config.
-The port runs the ``ssm`` family so far (``ROADMAP.md``); the other fields
-are kept so that a configuration reads the same in both packages.
+The port runs all six families; the fields the port does not read (the TP
+head padding) are kept so that a configuration reads the same in both
+packages.
 """
 from __future__ import annotations
 

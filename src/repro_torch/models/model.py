@@ -1,7 +1,9 @@
-"""Model assembly for the ``dense`` (attention), ``moe`` (attention and a
-mixture of experts), ``ssm`` (Mamba-1) and ``hybrid`` (RG-LRU and local
-attention) families: embedding, one module per group, head; from the JAX
-package's ``models/model.py``.
+"""Model assembly for the six families of the JAX package's
+``models/model.py``: ``dense`` (attention), ``moe`` (attention and a mixture
+of experts), ``ssm`` (Mamba-1), ``hybrid`` (RG-LRU and local attention),
+``audio`` (an encoder and cross-attention decoder layers) and ``vlm``
+(groups of one gated cross-attention layer and dense layers): embedding,
+one module per group, head.
 
 The JAX package scans over parameter trees with a leading group axis; here
 the groups are an ``nn.ModuleList``, one module per group, and
@@ -13,18 +15,24 @@ of ``mlp`` (``_dense_group_spec``, ``model.py:39-49``), a Mamba layer
 ``pattern_rnn`` RG-LRU sublayers: ``ln1``, ``mix``, ``ln2``, ``mlp``) and
 a local-attention layer (``aln1``, ``attn``, ``aln2``, ``amlp``), and the
 layers past the last full group form ``tail``, a list of RG-LRU sublayers
-(``model.py:102-118``, ``:180-185``).  One card, no sharding.  Entry
-points, as in the JAX package: ``forward`` (logits and the MoE aux loss),
-``loss``, ``init_cache``, ``prefill`` and ``decode``.  The parameters are
-trainable: ``forward`` and ``loss`` build a graph when grad is enabled
-(attention and the RG-LRU's recurrence have their custom backwards, the
-mixer's two kernels have backward kernels of their own), with each group
-recomputed in the backward when ``cfg.remat`` (the reference's
-``nothing_saveable`` per group, ``model.py:230-232``); that recompute runs
-right before the group's backward, so it keeps the fused scan's segment
-states for it (:func:`repro_torch.kernels.ssm_scan.segment_states`).
-``prefill`` and ``decode`` run under ``torch.no_grad``.  The audio and VLM
-families of the JAX package are ``ROADMAP.md`` queue 1 items 4-5.
+(``model.py:102-118``, ``:180-185``).  A cross-decoder layer holds ``ln1``,
+``attn``, ``lnx``, ``xattn`` (gated cross-attention), ``ln2`` and ``mlp``
+(``model.py:130-139``): ``audio`` has ``n_layers`` of them over an encoder
+of ``n_enc_layers`` dense layers (``enc_groups``) and ``enc_norm``; a
+``vlm`` group holds one as ``cross`` and ``cross_attn_every - 1`` dense
+layers as ``self`` (``model.py:142-146``).  The cross-attention source is
+``extra["enc_frames"]`` through the encoder, or ``extra["image_embeds"]``
+as it is (``model.py:222-225``).  One card, no sharding.  Entry points, as
+in the JAX package: ``forward`` (logits and the MoE aux loss), ``loss``,
+``init_cache``, ``prefill`` and ``decode``.  The parameters are trainable:
+``forward`` and ``loss`` build a graph when grad is enabled (attention and
+the RG-LRU's recurrence have their custom backwards, the mixer's two
+kernels have backward kernels of their own), with each group recomputed in
+the backward when ``cfg.remat`` (the reference's ``nothing_saveable`` per
+group, ``model.py:230-232``); that recompute runs right before the group's
+backward, so it keeps the fused scan's segment states for it
+(:func:`repro_torch.kernels.ssm_scan.segment_states`).  ``prefill`` and
+``decode`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -46,10 +54,12 @@ from .params import Spec, flatten, init_params
 
 __all__ = ["Model", "stack_sizes"]
 
-# the families the port runs, and the JAX package's others by their item of
-# ROADMAP.md queue 1
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_QUEUED = {"audio": "queue 1 item 4", "vlm": "queue 1 item 5"}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the cross-attention source of each family that has one: its key of
+# ``extra``
+_SOURCES = {"audio": "enc_frames", "vlm": "image_embeds"}
+# the profiler ranges of the audio encoder and of each cross-attention
+ENCODER_RANGE, CROSS_RANGE = "encoder", "cross_attention"
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -96,10 +106,21 @@ def _rnn_sublayer_spec(cfg: ModelConfig) -> Dict[str, Any]:
             "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg)}
 
 
+def _xdec_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """A decoder layer with cross-attention (``_xdec_group_spec``,
+    ``model.py:130-139``)."""
+    return {"ln1": blocks.norm_spec(cfg), "attn": blocks.attention_spec(cfg),
+            "lnx": blocks.norm_spec(cfg),
+            "xattn": blocks.attention_spec(cfg, cross=True),
+            "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg)}
+
+
 def _layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """One entry of ``groups``: a layer, or for ``hybrid`` a group of
+    """One entry of ``groups``: a layer; for ``hybrid`` a group of
     ``pattern_rnn`` RG-LRU sublayers and one local-attention layer
-    (``_hybrid_group_spec``, ``model.py:111-118``)."""
+    (``_hybrid_group_spec``, ``model.py:111-118``); for ``vlm`` one
+    cross-decoder layer and ``cross_attn_every - 1`` dense layers
+    (``_vlm_group_spec``, ``model.py:142-146``)."""
     if cfg.family == "ssm":
         return {"ln": blocks.norm_spec(cfg), "mamba": blocks.mamba_spec(cfg)}
     if cfg.family == "hybrid":
@@ -109,6 +130,12 @@ def _layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
                 "attn": blocks.attention_spec(cfg),
                 "aln2": blocks.norm_spec(cfg),
                 "amlp": blocks.mlp_spec(cfg)}
+    if cfg.family == "audio":
+        return _xdec_layer_spec(cfg)
+    if cfg.family == "vlm":
+        return {"cross": _xdec_layer_spec(cfg),
+                "self": [_attention_layer_spec(cfg)
+                         for _ in range(cfg.cross_attn_every - 1)]}
     return _attention_layer_spec(cfg)
 
 
@@ -117,7 +144,13 @@ def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
     leading axes): ``groups`` one per layer; for ``hybrid`` one per full
     group of ``pattern_rnn + 1`` layers and, when ``n_layers`` leaves a
     remainder, a ``tail`` of that many RG-LRU sublayers
-    (``model.py:180-185``)."""
+    (``model.py:180-185``); for ``audio`` also ``enc_groups``, one per
+    encoder layer; for ``vlm`` one per ``cross_attn_every`` layers
+    (``model.py:186-192``)."""
+    if cfg.family == "audio":
+        return {"groups": cfg.n_layers, "enc_groups": cfg.n_enc_layers}
+    if cfg.family == "vlm":
+        return {"groups": cfg.n_layers // cfg.cross_attn_every}
     if cfg.family != "hybrid":
         return {"groups": cfg.n_layers}
     n_full, rem = divmod(cfg.n_layers, cfg.pattern_rnn + 1)
@@ -163,6 +196,48 @@ def _rnn_sublayer(sub, x, cfg: ModelConfig, run: _Pass, cache=None):
     return x + blocks.mlp_apply(sub.mlp, h, cfg), cache
 
 
+def _attention_layer(layer, x, cfg: ModelConfig, run: _Pass, cache=None):
+    """``_dense_group_apply``/``_prefill``/``_decode`` (``model.py:
+    59-95``): attention with ``cfg.sliding_window``, then the MLP or the
+    MoE layer.  Returns (x, the cache, the MoE aux loss or None)."""
+    y, c = _attend(layer.attn, blocks.norm_apply(layer.ln1, x, cfg), cfg,
+                   run, cache, cfg.sliding_window)
+    x = x + y
+    h = blocks.norm_apply(layer.ln2, x, cfg)
+    if cfg.family == "moe":
+        y, aux = blocks.moe_apply(layer.moe, h, cfg)
+    else:
+        y, aux = blocks.mlp_apply(layer.mlp, h, cfg), None
+    return x + y, c, aux
+
+
+def _xdec_layer(layer, x, src, cfg: ModelConfig, run: _Pass, cache=None):
+    """``_apply_``/``_prefill_``/``_decode_xdec_layer`` (``model.py:
+    553-592``): self-attention with ``cfg.sliding_window``, gated
+    cross-attention over ``src`` (the encoder's output or the image
+    embeddings), the MLP.  Prefill's cache is ``{"self", "cross"}``, the
+    cross k and v of ``src`` computed once; decode attends over that cross
+    cache and returns it as it is, neither cloned nor copied.  The
+    cross-attention, with its norm, is the profiler range
+    ``cross_attention``."""
+    y, self_c = _attend(layer.attn, blocks.norm_apply(layer.ln1, x, cfg),
+                        cfg, run, None if cache is None else cache["self"],
+                        cfg.sliding_window)
+    x = x + y
+    with torch.profiler.record_function(CROSS_RANGE):
+        h = blocks.norm_apply(layer.lnx, x, cfg)
+        if run.kind == "decode":
+            y, cross_c = blocks.attention_decode(
+                layer.xattn, h, cache["cross"], run.pos, cfg, cross=True)
+        else:
+            y, cross_c = blocks.cross_attention(layer.xattn, h, src, cfg)
+    x = x + y
+    h = blocks.norm_apply(layer.ln2, x, cfg)
+    x = x + blocks.mlp_apply(layer.mlp, h, cfg)
+    return x, None if run.kind == "forward" else {"self": self_c,
+                                                  "cross": cross_c}
+
+
 def _keep_states_in_recompute():
     """remat's (forward, recompute) contexts: the recompute keeps the
     fused scan's segment states for the backward that follows it."""
@@ -171,8 +246,10 @@ def _keep_states_in_recompute():
 
 class Model(nn.Module):
     """A language model of the ``dense`` (attention), ``moe`` (attention
-    and a mixture of experts), ``ssm`` (Mamba-1) or ``hybrid`` (RG-LRU and
-    local attention) family on one device.
+    and a mixture of experts), ``ssm`` (Mamba-1), ``hybrid`` (RG-LRU and
+    local attention), ``audio`` (an encoder and cross-attention decoder
+    layers) or ``vlm`` (gated cross-attention over image embeddings)
+    family on one device (``ValueError`` for another family).
 
     ``device=None`` is the CUDA device (``RuntimeError`` without one).
     ``scan`` picks the Mamba mixer's two kernels (the causal convolution
@@ -191,21 +268,18 @@ class Model(nn.Module):
                  params: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
         if cfg.family not in _FAMILIES:
-            where = _QUEUED.get(cfg.family)
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port runs {_FAMILIES}"
-                + (f"; {cfg.family!r} is ROADMAP.md {where}" if where
-                   else ""))
+            raise ValueError(f"family {cfg.family!r}: the families are "
+                             f"{_FAMILIES}")
         dev = resolve_device(device)
         resolve_mixer(scan, dev)
         self.cfg, self.scan, self._device = cfg, scan, dev
-        v, d = cfg.vocab_size, cfg.d_model
-        self.embed = _placeholder((v, d))
-        self.final_norm = _Group(blocks.norm_spec(cfg))
-        self.lm_head = _placeholder((d, v))
-        for name, specs in self.param_specs().items():
-            if isinstance(specs, list):
-                setattr(self, name, nn.ModuleList(_Group(s) for s in specs))
+        for name, spec in self.param_specs().items():
+            if isinstance(spec, Spec):
+                setattr(self, name, _placeholder(spec.shape))
+            elif isinstance(spec, dict):
+                setattr(self, name, _Group(spec))
+            else:
+                setattr(self, name, nn.ModuleList(_Group(s) for s in spec))
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -219,8 +293,8 @@ class Model(nn.Module):
 
     def param_specs(self) -> Dict[str, Any]:
         """The spec tree; its dotted names are ``named_parameters``'s.  The
-        reference stacks each list (``groups``, ``tail``) along a leading
-        axis (:func:`stack_sizes`)."""
+        reference stacks each list (``groups``, ``tail``, ``enc_groups``)
+        along a leading axis (:func:`stack_sizes`)."""
         cfg = self.cfg
         v, d = cfg.vocab_size, cfg.d_model
         tree: Dict[str, Any] = {
@@ -233,6 +307,10 @@ class Model(nn.Module):
         if "tail" in sizes:
             tree["tail"] = [_rnn_sublayer_spec(cfg)
                             for _ in range(sizes["tail"])]
+        if cfg.family == "audio":
+            tree["enc_groups"] = [_attention_layer_spec(cfg)
+                                  for _ in range(sizes["enc_groups"])]
+            tree["enc_norm"] = blocks.norm_spec(cfg)
         return tree
 
     @torch.no_grad()
@@ -267,13 +345,45 @@ class Model(nn.Module):
         x = blocks.norm_apply(self.final_norm, x, self.cfg)
         return (x @ self.lm_head.to(x.dtype)).float()
 
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder (``Model._encode``, ``model.py:255-267``): per
+        layer non-causal self-attention with RoPE and the MLP, each on the
+        normed residual stream; then ``enc_norm``.  The profiler range
+        ``encoder``."""
+        cfg = self.cfg
+        h = frames
+        with torch.profiler.record_function(ENCODER_RANGE):
+            for layer in self.enc_groups:
+                n = blocks.norm_apply(layer.ln1, h, cfg)
+                h = h + blocks.attention_apply(layer.attn, n, cfg,
+                                               causal=False)
+                n = blocks.norm_apply(layer.ln2, h, cfg)
+                h = h + blocks.mlp_apply(layer.mlp, n, cfg)
+            return blocks.norm_apply(self.enc_norm, h, cfg)
+
+    def _source(self, extra: Optional[Dict]) -> Optional[torch.Tensor]:
+        """The cross-attention source of a call (``model.py:221-225``):
+        ``extra["enc_frames"]`` (B, S_enc, D) through the encoder, or
+        ``extra["image_embeds"]`` (B, N_img, D) as it is, each cast to the
+        activation dtype first; None for the families without one."""
+        key = _SOURCES.get(self.cfg.family)
+        if key is None:
+            return None
+        if not extra or key not in extra:
+            raise ValueError(f"a {self.cfg.family} model needs "
+                             f"extra[{key!r}]")
+        src = torch.as_tensor(extra[key], device=self.device).to(
+            self.cfg.activation_dtype)
+        return self._encode(src) if self.cfg.family == "audio" else src
+
     def _group(self, layer: _Group, x: torch.Tensor, run: _Pass,
-               cache=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
-        """One entry of ``groups`` in the pass ``run``
-        (``Model._group_apply``/``_group_prefill``/``_group_decode``,
-        ``model.py:270-290``, ``:370-395``, ``:422-470``).  Returns (x, its
-        cache; None for ``forward``, the MoE aux loss; None for the other
-        families)."""
+               cache=None, src: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+        """One entry of ``groups`` in the pass ``run``, ``src`` the
+        cross-attention source (``Model._group_apply``/``_group_prefill``/
+        ``_group_decode``, ``model.py:270-292``, ``:370-420``,
+        ``:422-486``).  Returns (x, its cache; None for ``forward``, the MoE
+        aux loss; None for the other families)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             h = blocks.norm_apply(layer.ln, x, cfg)
@@ -298,19 +408,28 @@ class Model(nn.Module):
             h = blocks.norm_apply(layer.aln2, x, cfg)
             x = x + blocks.mlp_apply(layer.amlp, h, cfg)
             return x, None if run.kind == "forward" else caches, None
-        y, c = _attend(layer.attn, blocks.norm_apply(layer.ln1, x, cfg), cfg,
-                       run, cache, cfg.sliding_window)
-        x = x + y
-        h = blocks.norm_apply(layer.ln2, x, cfg)
-        if cfg.family == "moe":
-            y, aux = blocks.moe_apply(layer.moe, h, cfg)
-        else:
-            y, aux = blocks.mlp_apply(layer.mlp, h, cfg), None
-        return x + y, c, aux
+        if cfg.family == "audio":
+            return (*_xdec_layer(layer, x, src, cfg, run, cache), None)
+        if cfg.family == "vlm":
+            x, xc = _xdec_layer(layer.cross, x, src, cfg, run,
+                                None if cache is None else
+                                {"self": cache["xself"],
+                                 "cross": cache["cross"]})
+            selfs = []
+            for j, sub in enumerate(layer.self):
+                x, c, _ = _attention_layer(sub, x, cfg, run, None if cache
+                                           is None else cache["self"][j])
+                selfs.append(c)
+            if run.kind == "forward":
+                return x, None, None
+            return x, {"cross": xc["cross"], "xself": xc["self"],
+                       "self": selfs}, None
+        return _attention_layer(layer, x, cfg, run, cache)
 
-    def _layer(self, layer: _Group, x: torch.Tensor):
+    def _layer(self, layer: _Group, x: torch.Tensor,
+               src: Optional[torch.Tensor] = None):
         """A ``forward`` group: (x, the MoE aux loss or None)."""
-        x, _, aux = self._group(layer, x, _Pass("forward"))
+        x, _, aux = self._group(layer, x, _Pass("forward"), src=src)
         return x, aux
 
     # ---- forward ----
@@ -318,22 +437,26 @@ class Model(nn.Module):
     def forward(self, tokens, extra: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B, S, V) float32, aux loss float32:
-        the MoE layers' sum, 0 for the other families).  ``extra`` is the
-        reference's argument (encoder frames, image embeddings), unused by
-        these families.  With grad enabled and ``cfg.remat``, each entry of
-        ``groups`` keeps only its input for the backward and is run again
-        there (a Mamba layer's fused scan keeping its segment states for
-        the backward that follows); the hybrid's ``tail`` is not
-        recomputed, as in the reference (``model.py:240-245``)."""
+        the MoE layers' sum, 0 for the other families).  ``extra`` holds
+        the cross-attention source: ``enc_frames`` (B, S_enc, D) for
+        ``audio``, ``image_embeds`` (B, N_img, D) for ``vlm``; the other
+        families do not read it.  With grad enabled and ``cfg.remat``, each
+        entry of ``groups`` keeps only its inputs (x and the source) for
+        the backward and is run again there (a Mamba layer's fused scan
+        keeping its segment states for the backward that follows); the
+        hybrid's ``tail`` and the audio encoder are not recomputed, as in
+        the reference (``model.py:227-245``)."""
         x = self._embed(tokens)
+        src = self._source(extra)
         aux = torch.zeros((), device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.groups:
             if remat:
-                x, a = checkpoint(self._layer, layer, x, use_reentrant=False,
+                x, a = checkpoint(self._layer, layer, x, src,
+                                  use_reentrant=False,
                                   context_fn=_keep_states_in_recompute)
             else:
-                x, a = self._layer(layer, x)
+                x, a = self._layer(layer, x, src)
             if a is not None:
                 aux = aux + a
         for sub in getattr(self, "tail", ()):
@@ -359,9 +482,13 @@ class Model(nn.Module):
         attention layer zero k and v of ``min(cache_len, window)`` slots
         (the sliding window, or the hybrid's local window; ``cache_len``
         required), per Mamba layer the conv tail and the scan state, per
-        RG-LRU sublayer its conv tail and state (which depend on neither
-        ``cache_len`` nor ``extra_len``, the reference's cross-attention
-        source length)."""
+        RG-LRU sublayer its conv tail and state; per cross-decoder layer
+        also zero cross k and v of ``extra_len`` slots (the source's
+        length), under the reference's keys: ``{"self", "cross"}`` per
+        audio layer, ``{"cross", "xself", "self": [...]}`` per vlm group.
+        The zero cross k and v are not a source's: decoding from this cache
+        does not give the forward's cross-attention, in the reference
+        either."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.activation_dtype
         if cfg.family == "ssm":
             return {"pos": 0, "groups": [
@@ -371,14 +498,23 @@ class Model(nn.Module):
             raise ValueError(f"a {cfg.family} model's cache needs cache_len")
         window = (cfg.local_window if cfg.family == "hybrid"
                   else cfg.sliding_window)
-        shape = (batch, min(cache_len, window or cache_len), cfg.n_kv_heads,
-                 cfg.head_dim_)
+        slots = min(cache_len, window or cache_len)
 
-        def kv():
+        def kv(length: int = slots):
+            shape = (batch, length, cfg.n_kv_heads, cfg.head_dim_)
             return {"k": torch.zeros(shape, dtype=dt, device=dev),
                     "v": torch.zeros(shape, dtype=dt, device=dev)}
 
         sizes = stack_sizes(cfg)
+        if cfg.family == "audio":
+            return {"pos": 0, "groups": [
+                {"self": kv(), "cross": kv(extra_len)}
+                for _ in range(sizes["groups"])]}
+        if cfg.family == "vlm":
+            return {"pos": 0, "groups": [
+                {"cross": kv(extra_len), "xself": kv(),
+                 "self": [kv() for _ in range(cfg.cross_attn_every - 1)]}
+                for _ in range(sizes["groups"])]}
         if cfg.family != "hybrid":
             return {"pos": 0, "groups": [kv() for _ in range(cfg.n_layers)]}
         cache = {"pos": 0, "groups": [
@@ -397,14 +533,16 @@ class Model(nn.Module):
         """Full-sequence forward that also returns the serving cache.
         Returns (last-position logits (B, 1, V) float32, cache).  An
         attention layer's cache has ``cache_len`` slots (default S + 128),
-        or its window's ring buffer; ``extra`` and, for ``ssm``,
-        ``cache_len`` are unused (``model.py:354``).  The MoE aux loss is
-        dropped."""
+        or its window's ring buffer; a cross-decoder layer's also holds the
+        cross k and v of the source (``extra`` as for :meth:`forward`,
+        through the encoder once a call).  For ``ssm`` ``cache_len`` is
+        unused (``model.py:354``).  The MoE aux loss is dropped."""
         x = self._embed(tokens)
+        src = self._source(extra)
         run = _Pass("prefill", cache_len=cache_len)
         caches = []
         for layer in self.groups:
-            x, c, _ = self._group(layer, x, run)
+            x, c, _ = self._group(layer, x, run, src=src)
             caches.append(c)
         cache = {"groups": caches, "pos": x.shape[1]}
         if hasattr(self, "tail"):
@@ -418,7 +556,8 @@ class Model(nn.Module):
     def decode(self, cache: Dict[str, Any], tokens
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One-token step.  tokens: (B, 1).  Returns (logits (B, 1, V)
-        float32, the next cache); ``cache`` is not modified."""
+        float32, the next cache); ``cache`` is not modified, and the next
+        cache holds its cross k and v tensors themselves."""
         pos = cache["pos"]
         x = self._embed(tokens)
         run = _Pass("decode", pos=pos)

@@ -1,7 +1,8 @@
 """The reference's parameter tree over the port's per-layer parameters.
 
 The JAX package keeps each layer leaf stacked along a leading layer axis
-(``groups.mamba.wx`` (L, d, di); the hybrid's ``tail`` alike); the port
+(``groups.mamba.wx`` (L, d, di); the hybrid's ``tail`` and the audio
+encoder's ``enc_groups`` alike); the port
 keeps one module per layer (``groups.<i>.mamba.wx`` (d, di)).  The optimizers work on the reference's
 leaves, so that a rule that depends on a leaf's shape (Adafactor's factored
 second moment, its update clipping) sees what the reference sees: a
@@ -20,7 +21,7 @@ import torch.nn as nn
 
 __all__ = ["Leaf", "named_tensors", "leaves", "zeros_like_tree"]
 
-_LAYER = re.compile(r"^(groups|tail)\.(\d+)\.(.+)$")
+_LAYER = re.compile(r"^(groups|tail|enc_groups)\.(\d+)\.(.+)$")
 
 
 @dataclasses.dataclass

@@ -235,8 +235,9 @@ def _attn_params(cfg, cross, seed):
                            "window-positions", "cross"])
 def test_attention_apply_matches_jax(kw):
     """blocks.attention_apply with the arguments the later families use
-    (causal, window, use_rope, positions, a cross-attention source and its
-    gate) against the JAX package's, on Qwen2 reduced (q/k/v biases)."""
+    (causal, window, use_rope, positions) and blocks.cross_attention (a
+    cross-attention source and its gate) against the JAX package's
+    attention_apply, on Qwen2 reduced (q/k/v biases)."""
     import types
     from repro import configs as jconfigs
     from repro.distributed.context import MeshCtx
@@ -249,17 +250,19 @@ def test_attention_apply_matches_jax(kw):
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 19, cfg.d_model)).astype(np.float32)
     jkw, tkw = dict(kw), dict(kw)
+    tp = types.SimpleNamespace(**{k: _t(v) for k, v in p.items()})
     if cross:
         src = rng.standard_normal((2, kw["kv_src"], cfg.d_model)).astype(
             np.float32)
-        jkw["kv_src"], tkw["kv_src"] = jnp.asarray(src), _t(src)
+        jkw["kv_src"] = jnp.asarray(src)
     if "positions" in kw:
         pos = np.arange(19) + kw["positions"]
         jkw["positions"], tkw["positions"] = jnp.asarray(pos), \
             torch.from_numpy(pos)
-    got = blocks.attention_apply(
-        types.SimpleNamespace(**{k: _t(v) for k, v in p.items()}), _t(x),
-        cfg, **tkw)
+    # the port's cross-attention is blocks.cross_attention, the reference's
+    # attention_apply(kv_src=)
+    got = (blocks.cross_attention(tp, _t(x), _t(src), cfg)[0] if cross else
+           blocks.attention_apply(tp, _t(x), cfg, **tkw))
     want = jblocks.attention_apply({k: jnp.asarray(v) for k, v in p.items()},
                                    jnp.asarray(x), jcfg, MeshCtx(None),
                                    **jkw)
@@ -269,8 +272,7 @@ def test_attention_apply_matches_jax(kw):
         ck, cv = (np.einsum("bsd,dhk->bshk", src, p[w]) for w in ("wk",
                                                                   "wv"))
         y, cache = blocks.attention_decode(
-            types.SimpleNamespace(**{k: _t(v) for k, v in p.items()}),
-            _t(x[:, :1]), {"k": _t(ck), "v": _t(cv)}, 3, cfg, cross=True)
+            tp, _t(x[:, :1]), {"k": _t(ck), "v": _t(cv)}, 3, cfg, cross=True)
         want_y, _ = jblocks.attention_decode(
             {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x[:, :1]),
             {"k": jnp.asarray(ck), "v": jnp.asarray(cv)}, 3, jcfg,

@@ -381,7 +381,8 @@ def test_launcher_trains_qwen2_reduced_on_cpu(capsys):
 def test_registry_lists_the_dense_configs():
     assert configs.names() == list(DENSE) + [
         "falcon-mamba-7b", "recurrentgemma-2b", "mixtral-8x7b",
-        "kimi-k2-1t-a32b"]
+        "kimi-k2-1t-a32b", "whisper-base", "llama-3.2-vision-11b"]
+    assert sorted(configs.names()) == sorted(jconfigs.names())
     for name in DENSE:
         want = jconfigs.get(name)
         assert dataclasses.asdict(configs.get(name)) == \
@@ -391,9 +392,17 @@ def test_registry_lists_the_dense_configs():
 @pytest.mark.parametrize("family, item", [
     ("audio", "item 4"), ("vlm", "item 5")])
 def test_other_families_name_their_queue_item(family, item):
-    cfg = dataclasses.replace(_cfgs("qwen2-1.5b")[1], family=family)
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-        Model(cfg, device="cpu")
+    """The families of ROADMAP.md queue 1 items 4 and 5 run: their
+    reduced configuration builds and gives finite logits over a source."""
+    arch = {"audio": "whisper-base", "vlm": "llama-3.2-vision-11b"}[family]
+    cfg = configs.get(arch).reduced()
+    model = Model(cfg, device="cpu")
+    key = {"audio": "enc_frames", "vlm": "image_embeds"}[family]
+    extra = {key: torch.randn(1, 8, cfg.d_model)}
+    with torch.no_grad():
+        logits, _ = model(np.zeros((1, 4), np.int64), extra)
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------- fixture

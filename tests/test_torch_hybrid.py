@@ -429,9 +429,11 @@ def test_remat_gives_the_same_bits(depth, grad_reference):
 
 
 def test_model_refuses_the_queued_families():
+    """No family is queued any more: a family outside the six raises
+    ValueError naming it, as the reference's ``param_specs`` does."""
     cfg = _cfgs()[1]
-    for family, item in (("audio", "item 4"), ("vlm", "item 5")):
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+    for family in ("encoder_only", "diffusion"):
+        with pytest.raises(ValueError, match=repr(family)):
             Model(dataclasses.replace(cfg, family=family), device="cpu")
 
 

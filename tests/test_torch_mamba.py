@@ -309,8 +309,8 @@ def test_scan_choice_and_devices():
         Model(cfg, device="cpu", scan="cuda")
     with pytest.raises(ValueError, match="unknown scan"):
         Model(cfg, device="cpu", scan="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dataclasses.replace(cfg, family="audio"), device="cpu")
+    with pytest.raises(ValueError, match="'speech'"):
+        Model(dataclasses.replace(cfg, family="speech"), device="cpu")
     a = Model(cfg, device="cpu", scan="reference")
     b = Model(cfg, device="cpu", scan="auto")
     tokens = np.arange(10).reshape(1, 10)

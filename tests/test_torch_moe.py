@@ -467,7 +467,8 @@ def test_launcher_trains_the_reduced_config_on_cpu(arch, capsys):
 
 
 def test_registry_carries_the_moe_and_hybrid_configs():
-    for name in ("recurrentgemma-2b", "mixtral-8x7b", "kimi-k2-1t-a32b"):
+    for name in ("recurrentgemma-2b", "mixtral-8x7b", "kimi-k2-1t-a32b",
+                 "whisper-base", "llama-3.2-vision-11b"):
         assert dataclasses.asdict(configs.get(name)) == \
             dataclasses.asdict(jconfigs.get(name)), name
         Model(configs.get(name).reduced(), device="cpu")
