@@ -220,6 +220,23 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero:
               profiled step split as ``dense_serve``'s prefill.
 Every dense path launches none of the port's kernels: each counter 0.
 
+Last, the LM under a mesh (meshes of the one card repeated: what as many
+cards would compute, computed on one): ``mesh_dryrun`` (the dry run of
+every configuration × shape cell at both production meshes on the meta
+device: status, the fullest device's argument bytes, whether they fit the
+card), ``mesh_serve`` (Qwen2-1.5B and SmolLM-360M under (1, 16), their
+query heads padded to 16: decode against forward; with the padded heads'
+``wo`` rows zeroed, against the unsharded model on the real heads' weights
+in bf16 and float32; walls and peak memory beside the unsharded model's),
+``mesh_moe`` (Mixtral-8x7B at 2 layers under (1, 8), (2, 4) and (1, 16):
+dropped choices per data shard, aux and logits against the unsharded model
+at capacity 1.25, then drop-free in bf16 and float32), ``mesh_ssm``
+(Falcon-Mamba-7B under (1, 16): its prefill the unsharded bits; the path
+``mesh_ssm`` of ``launches_by_path``) and ``mesh_train`` (the launcher
+``--mesh 1x1``, a second run resumed from its step-2 checkpoint through
+``TrainLoop(shardings=)`` ending on its loss bit for bit;
+``compressed_psum_tree`` against float64).
+
 Phases 15–19 run after ``baselines`` and before ``mamba_fixture`` (19
 before ``cv_serve``); each adds its paths to ``launches_by_path``, and
 their failures are collected and raised after the ``kernels`` line.
@@ -451,6 +468,24 @@ CROSS_TRAIN_BATCH = {"audio": TRAIN_BATCH, "vlm": 2}
 CROSS_RANGES = {"encoder": "encoder", "cross": "cross_attention",
                 "self_attention": ATTENTION_RANGE}
 CROSS_TRAIN_RANGES = dict(CROSS_RANGES, attention_bwd=ATTENTION_BWD)
+# the LM under a mesh (phases mesh_dryrun, mesh_serve, mesh_moe, mesh_ssm,
+# mesh_train).  The port runs one card: a mesh over [cuda:0] * n computes
+# what n cards would (padded heads, the MoE per shard), on one.
+MESH_TP = 16                     # the production meshes' "model" axis
+# 12 → 16 and 15 → 16 query heads under a "model" axis of 16
+MESH_SERVE_ARCHS = ("qwen2-1.5b", "smollm-360m")
+MESH_SERVE_DECODE, MESH_REPEATS = 8, 2
+# Mixtral-8x7B cut to 2 layers (FSDP on, as above 2e9 parameters) under
+# (1, 8): one expert a shard; (2, 4): EP with two data shards; (1, 16):
+# 8 experts do not divide 16, so each shard takes a slice of every
+# expert's width
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "mixtral-8x7b", 2
+MESH_MOE_SHAPES = ((1, 8), (2, 4), (1, 16))
+# the launcher on Qwen2-1.5B as published: a checkpoint (bf16 weights,
+# float32 AdamW moments) is 17.8 GB, and the phase writes two
+MESH_TRAIN_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY = "qwen2-1.5b", 4, 2
+PSUM_TOL = 1e-6    # compressed_psum_tree against a float64 evaluation of
+                   # the reference's formula on its codes: of max |g|
 
 # The card's published peaks (bytes/s, FP64 on tensor cores, FP64 and
 # FP32 outside them, bf16 on tensor cores, ``sfu`` exponentials/s) are
@@ -5085,6 +5120,430 @@ def phase_cross_train(dev, family: str) -> None:
                       f"moved={out['moved']}")
 
 
+# ---------------------------------------------------------------- mesh
+
+
+def _mesh_ctx(dev, shape, fsdp: bool = False):
+    """A MeshCtx over a (data, model) mesh of ``dev`` repeated."""
+    from repro_torch.distributed.context import MeshCtx
+    from repro_torch.launch.mesh import make_debug_mesh
+    n = shape[0] * shape[1]
+    return MeshCtx.from_mesh(make_debug_mesh(*shape, devices=[dev] * n),
+                             fsdp=fsdp)
+
+
+def phase_mesh_dryrun() -> None:
+    """The port's dry run (``repro_torch.launch.dryrun``) of every cell at
+    both production meshes, on the meta device: one line per mesh with
+    each cell's status and the fullest device's argument bytes, and which
+    cells' arguments fit the card's memory."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        res = [dryrun.run_cell(a, s, multi_pod=multi_pod, verbose=False)
+               for a, s, _, _ in configs.cells()]
+        cells = {r["cell"].rsplit("×", 1)[0]: dict(
+            status=r["status"],
+            argument_bytes=r.get("memory", {}).get("argument_size_in_bytes"),
+            fits=r.get("fits")) for r in res}
+        emit("mesh_dryrun", mesh="2x16x16" if multi_pod else "16x16",
+             seconds=time.perf_counter() - t0,
+             card_bytes=dryrun.card_memory(), cells=cells,
+             fit=[c for c, v in cells.items() if v["fits"]],
+             do_not_fit=[c for c, v in cells.items() if v["fits"] is False])
+        bad = [r["cell"] for r in res if r["status"] not in ("ok", "skip")
+               or (r["status"] == "ok" and r["fits"] is None)]
+        if bad:
+            FAILED.append(f"mesh_dryrun: {bad}")
+
+
+def _real_heads(name: str, t: torch.Tensor, h: int) -> torch.Tensor:
+    """The real query heads' part of a parameter of a padded model."""
+    if name.endswith("attn.wq"):
+        return t[:, :h].contiguous()
+    if name.endswith(("attn.wo", "attn.bq")):
+        return t[:h].contiguous()
+    return t
+
+
+@torch.no_grad()
+def _unpadded_logits(model, h: int, prompts, first) -> dict:
+    """The padded heads' ``wo`` rows of ``model`` zeroed; its prefill and
+    first decode against the unsharded model carrying the real heads'
+    weights (max |Δ| / max |unsharded|)."""
+    from repro_torch.models import Model
+    named = dict(model.named_parameters())
+    for n, t in named.items():
+        if n.endswith("attn.wo"):
+            t[h:] = 0
+    plain = Model(model.cfg, device=model.device, params={
+        n: _real_heads(n, t, h) for n, t in named.items()})
+    out = {}
+    for key, m in (("mesh", model), ("plain", plain)):
+        logits, cache = m.prefill(prompts)
+        out[key] = (logits, m.decode(cache, first)[0])
+        del cache
+    del plain
+    return dict(prefill=rel_err(out["mesh"][0], out["plain"][0]),
+                decode=rel_err(out["mesh"][1], out["plain"][1]))
+
+
+@torch.no_grad()
+def mesh_serve(dev, arch: str) -> None:
+    """``arch`` as published (bf16, seeded) under a (1, MESH_TP) mesh: its
+    query heads padded to a multiple of MESH_TP.  Prefill of SERVE_BATCH ×
+    SERVE_PROMPT, MESH_SERVE_DECODE greedy decodes, a forward over the
+    extended sequences (decode against forward at the last position
+    within SERVE_TOL); walls (median of MESH_REPEATS) and the peak memory
+    of those prefills and decodes, beside the unsharded model's.  Then,
+    the padded heads' ``wo`` rows zeroed, the prefill and first decode
+    against the unsharded model on the real heads' weights: within SERVE_TOL in bf16 and F32_SERVE_TOL
+    with the same weights in float32."""
+    from repro_torch import configs
+    from repro_torch.models import Model, blocks
+    cfg = configs.get(arch)
+    ctx = _mesh_ctx(dev, (1, MESH_TP), fsdp=cfg.n_params() > 2e9)
+    h, hp = cfg.n_heads, blocks._padded_heads(cfg, ctx)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, ctx, generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    stats, counts, cache, first = serve_run(model, prompts,
+                                            MESH_SERVE_DECODE, "mesh_serve")
+    del cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, med = serve_walls(model, prompts, first, MESH_SERVE_DECODE,
+                             MESH_REPEATS)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    named = dict(model.named_parameters())
+    plain = Model(cfg, device=dev, params={n: _real_heads(n, t, h)
+                                            for n, t in named.items()})
+    walls_p, med_p = serve_walls(plain, prompts, first, MESH_SERVE_DECODE,
+                                 MESH_REPEATS)
+    peak_p = torch.cuda.max_memory_allocated()
+    del plain, named
+    bf16 = _unpadded_logits(model, h, prompts, first)
+    f32_params = {n: t.float() for n, t in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    f32 = _unpadded_logits(Model(cfg32, ctx, params=f32_params), h, prompts,
+                           first)
+    del f32_params
+    torch.cuda.empty_cache()
+    for tag, n in counts.items():
+        check_counts(f"mesh_serve {arch} {tag}", n, {})
+    ok = (stats["finite"] and stats["decode_vs_forward_last"] <= SERVE_TOL
+          and max(bf16.values()) <= SERVE_TOL
+          and max(f32.values()) <= F32_SERVE_TOL)
+    emit("mesh_serve", arch=arch, mesh=[1, MESH_TP], heads=h,
+         padded_heads=hp, kv_heads=cfg.n_kv_heads,
+         kv_index=blocks._kv_index(cfg, ctx), layers=cfg.n_layers,
+         batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+         decode_steps=MESH_SERVE_DECODE, **stats, tol=SERVE_TOL,
+         zero_rows_vs_unsharded_bf16=bf16, zero_rows_vs_unsharded_f32=f32,
+         f32_tol=F32_SERVE_TOL, walls=walls, median=med,
+         unsharded_walls=walls_p, unsharded_median=med_p,
+         max_memory_allocated=peak, unsharded_max_memory_allocated=peak_p,
+         launches={k: _nonzero(v) for k, v in counts.items()}, ok=ok)
+    if not ok:
+        FAILED.append(f"mesh_serve {arch}: finite={stats['finite']}, "
+                      f"decode vs forward {stats['decode_vs_forward_last']}"
+                      f", zero rows vs unsharded bf16 {bf16}, f32 {f32}")
+
+
+def _routing(stats: list, layers: int) -> list:
+    """Per layer (topi (T, k), router logits (T, E)) of one forward's
+    records: under a mesh each data shard's, in order, from its model
+    shard 0 (every model shard routes alike)."""
+    per = len(stats) // layers
+    out = []
+    for i in range(layers):
+        recs = [r for r in stats[i * per:(i + 1) * per]
+                if r.get("model_shard", 0) == 0]
+        out.append((torch.cat([r["topi"] for r in recs]),
+                    torch.cat([r["logits"] for r in recs])))
+    return out
+
+
+def _dropped_per_data_shard(stats: list, layers: int) -> list:
+    """Dropped (token, choice) pairs per data shard, over the layers: each
+    record counts its own experts' drops, so each (layer, data shard,
+    experts) once (without expert parallelism every model shard holds
+    every expert)."""
+    per, seen = {}, set()
+    n = len(stats) // layers
+    for i, r in enumerate(stats):
+        key = (i // n, r.get("data_shard", 0), r.get("experts"))
+        if key not in seen:
+            seen.add(key)
+            per[key[1]] = per.get(key[1], 0) + int(r["dropped"])
+    return [per[k] for k in sorted(per)]
+
+
+def _routed_alike(mine: list, ref: list, k: int) -> tuple:
+    """(tokens routed to the same experts in every layer, the swaps: per
+    token and layer that differ, the unsharded router's margin between its
+    k-th and (k+1)-th logit and ``drift``, the largest change of that
+    token's router logits; a swap is explained when margin ≤ 2 · drift)."""
+    alike = None
+    swaps = []
+    for layer, ((ti, lo), (tr, lr)) in enumerate(zip(mine, ref)):
+        same = (ti.sort(-1).values == tr.sort(-1).values).all(-1)
+        alike = same if alike is None else alike & same
+        for t in (~same).nonzero().flatten().tolist():
+            top = lr[t].topk(k + 1).values
+            swaps.append(dict(layer=layer, token=t,
+                              margin=float(top[k - 1] - top[k]),
+                              drift=float((lo[t] - lr[t]).abs().max())))
+    return alike, swaps
+
+
+@torch.no_grad()
+def phase_mesh_moe(dev) -> None:
+    """Mixtral-8x7B at its published widths, MESH_MOE_LAYERS layers (bf16,
+    seeded), a forward over SERVE_BATCH × SERVE_PROMPT under each mesh of
+    MESH_MOE_SHAPES (FSDP on) against the unsharded model on the same
+    weights.  At the published capacity: each mesh's dropped choices per
+    data shard, aux and logits against the unsharded (reported: each data
+    shard has a capacity of its own).  Drop-free (capacity factor E): no
+    drop anywhere.  In float32 every token routes as unsharded and every
+    logit lies within F32_SERVE_TOL of the unsharded.  In bf16 the tokens
+    routed to the same experts in every layer hold their logits within
+    SERVE_TOL, and every token routed otherwise lies on a tie within twice
+    the drift of its router logits (the sharded partial sums round
+    otherwise in bf16)."""
+    from repro_torch import configs
+    from repro_torch.models import Model, blocks
+    cfg = dataclasses.replace(configs.get(MESH_MOE_ARCH),
+                              n_layers=MESH_MOE_LAYERS)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = dict(Model(cfg, device=dev, generator=gen).named_parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    k, e = cfg.top_k, cfg.n_experts
+
+    def forward(model):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with blocks.routing_stats() as st:
+            logits, aux = model(prompts)
+        torch.cuda.synchronize()
+        return logits, float(aux), st, (time.perf_counter() - t0) * 1e3
+
+    out, ok = {}, True
+    for label, dtype, cf in (("published", "bfloat16", cfg.capacity_factor),
+                             ("drop_free", "bfloat16", float(e)),
+                             ("drop_free_f32", "float32", float(e))):
+        c = dataclasses.replace(cfg, capacity_factor=cf, dtype=dtype,
+                                param_dtype=dtype)
+        ps = params if dtype == "bfloat16" else {
+            n: t.float() for n, t in params.items()}
+        ref_logits, ref_aux, ref_st, ref_ms = forward(
+            Model(c, device=dev, params=ps))
+        ref_route = _routing(ref_st, c.n_layers)
+        rows = {"unsharded": dict(aux=ref_aux, ms=ref_ms,
+                                  dropped=_dropped_per_data_shard(
+                                      ref_st, c.n_layers))}
+        tol = F32_SERVE_TOL if dtype == "float32" else SERVE_TOL
+        for shape in MESH_MOE_SHAPES:
+            model = Model(c, _mesh_ctx(dev, shape, fsdp=True), params=ps)
+            logits, aux, st, ms = forward(model)
+            del model
+            alike, swaps = _routed_alike(_routing(st, c.n_layers),
+                                         ref_route, k)
+            flat, ref_flat = (t.view(-1, t.shape[-1])
+                              for t in (logits, ref_logits))
+            row = dict(aux=aux, ms=ms,
+                       dropped=_dropped_per_data_shard(st, c.n_layers),
+                       vs_unsharded=rel_err(logits, ref_logits),
+                       tokens_routed_otherwise=int((~alike).sum()),
+                       swaps_explained=all(w["margin"] <= 2 * w["drift"]
+                                           for w in swaps),
+                       largest_swap_margin=max(
+                           (w["margin"] for w in swaps), default=None))
+            if label != "published":
+                row["vs_unsharded_routed_alike"] = errors(
+                    flat[alike].float(), ref_flat[alike].float())[1]
+                row["tol"] = tol
+                # float32 holds every token: no swap, all logits in tol;
+                # bf16 the tokens routed alike, the others explained ties
+                held = (row["vs_unsharded"] <= tol
+                        and row["tokens_routed_otherwise"] == 0
+                        if dtype == "float32" else
+                        row["vs_unsharded_routed_alike"] <= tol
+                        and row["swaps_explained"])
+                row["ok"] = (sum(row["dropped"]) == 0 and held
+                             and bool(torch.isfinite(logits).all()))
+                ok = ok and row["ok"]
+            rows[f"{shape[0]}x{shape[1]}"] = row
+            del logits, flat, st
+        if label != "published" and sum(rows["unsharded"]["dropped"]):
+            ok = False
+        out[label] = dict(capacity_factor=cf, dtype=dtype, **rows)
+        del ref_logits, ref_st, ref_route, ps
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    emit("mesh_moe", arch=MESH_MOE_ARCH, layers=MESH_MOE_LAYERS,
+         experts=e, top_k=k, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+         meshes=[list(m) for m in MESH_MOE_SHAPES], fsdp=True, runs=out,
+         ok=ok)
+    if not ok:
+        FAILED.append(f"mesh_moe: {out}")
+
+
+@torch.no_grad()
+def phase_mesh_ssm(dev) -> dict:
+    """Falcon-Mamba-7B as published (bf16, 64 layers, seeded) under a (1,
+    MESH_TP) mesh (d_inner 8192 over "model", FSDP on): a prefill of 1 ×
+    SERVE_PROMPT, its logits and cache bit for bit the unsharded model's
+    on the same weights; the path counted (``mesh_ssm``: the scan and the
+    causal convolution once a layer)."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(MAMBA_ARCH)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    plain = Model(cfg, device=dev, generator=gen)
+    model = Model(cfg, _mesh_ctx(dev, (1, MESH_TP), fsdp=True),
+                  params=dict(plain.named_parameters()))
+    prompts = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    want, want_cache = plain.prefill(prompts)
+    (got, cache), counts = counted_call(lambda: model.prefill(prompts))
+    same = torch.equal(got, want) and all(
+        torch.equal(a[key], b[key]) for a, b in zip(
+            cache["groups"], want_cache["groups"]) for key in ("conv", "h"))
+    del plain, model, cache, want_cache
+    torch.cuda.empty_cache()
+    check_counts("mesh_ssm", counts, dict(ssm_scan=cfg.n_layers,
+                                          causal_conv1d=cfg.n_layers))
+    emit("mesh_ssm", arch=MAMBA_ARCH, layers=cfg.n_layers,
+         mesh=[1, MESH_TP], prompt=SERVE_PROMPT, bit_for_bit=same,
+         launches=_nonzero(counts))
+    if not same:
+        FAILED.append("mesh_ssm: the prefill under the mesh is not the "
+                      "unsharded prefill bit for bit")
+    return {"mesh_ssm": counts}
+
+
+def _launch_quiet(argv: list) -> tuple:
+    """``repro_torch.launch.train.main(argv)`` with its printout captured:
+    (its result, the printout's lines)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = launch_train.main(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def phase_mesh_train(dev) -> None:
+    """``repro_torch.launch.train.main`` for MESH_TRAIN_ARCH as published,
+    ``--mesh 1x1``, TRAIN_BATCH × TRAIN_SEQ: (a) MESH_TRAIN_STEPS steps
+    with no checkpoint; (b) MESH_TRAIN_EVERY steps, checkpointed at the
+    last; (c) MESH_TRAIN_STEPS steps resumed from (b)'s checkpoint
+    (restored through ``TrainLoop(shardings=)``), whose last loss must be
+    (a)'s bit for bit.  Then ``compressed_psum_tree`` over a data axis of
+    2 positions on the float32 gradients of two batches of the seeded
+    model, leaf by leaf: within PSUM_TOL of max |g| of a float64
+    evaluation of the reference's formula on the same int8 codes and
+    scales, and its error against the exact mean."""
+    import os
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import token_stream
+    from repro_torch.distributed import compression
+    from repro_torch.models import Model
+    argv = ["--arch", MESH_TRAIN_ARCH, "--mesh", "1x1",
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-every", str(MESH_TRAIN_EVERY)]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        first, lines = _launch_quiet(argv + ["--steps",
+                                             str(MESH_TRAIN_STEPS)])
+        t1 = time.perf_counter()
+        part, lines_b = _launch_quiet(argv + [
+            "--steps", str(MESH_TRAIN_EVERY), "--ckpt-dir", d])
+        mgr = CheckpointManager(d)
+        saved = mgr.all_steps()
+        # (c) resumed only if it left (b)'s checkpoint unwritten: a run
+        # from step 0 writes its own at MESH_TRAIN_EVERY
+        manifest = os.path.join(mgr.step_dir(MESH_TRAIN_EVERY),
+                                "manifest.json")
+        stamp = os.stat(manifest).st_mtime_ns
+        t2 = time.perf_counter()
+        second, lines_c = _launch_quiet(argv + [
+            "--steps", str(MESH_TRAIN_STEPS), "--ckpt-dir", d])
+        t3 = time.perf_counter()
+        saved_after = mgr.all_steps()
+        kept = os.stat(manifest).st_mtime_ns == stamp
+    torch.cuda.empty_cache()
+    resumed = (saved == [MESH_TRAIN_EVERY] and kept
+               and saved_after == [MESH_TRAIN_EVERY, MESH_TRAIN_STEPS]
+               and part["final_step"] == MESH_TRAIN_EVERY
+               and second["final_step"] == first["final_step"]
+               == MESH_TRAIN_STEPS
+               and second["log"][-1]["loss"] == first["log"][-1]["loss"])
+    cfg = configs.get(MESH_TRAIN_ARCH)
+    model = Model(cfg, _mesh_ctx(dev, (1, 1)),
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    data = token_stream(torch.Generator(device=dev).manual_seed(3),
+                        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    named = dict(model.named_parameters())
+    grads = []
+    for _ in range(2):
+        loss, _ = model.loss(next(data))
+        grads.append({n: g.float() for n, g in zip(
+            named, torch.autograd.grad(loss, list(named.values())))})
+    del model, named
+    torch.cuda.empty_cache()
+    mesh2 = _mesh_ctx(dev, (2, 1)).mesh
+    worst = worst_mean = 0.0
+    for name in list(grads[0]):
+        g = [grads[0].pop(name), grads[1].pop(name)]
+        zero = torch.zeros_like(g[0])
+        out, res = compression.compressed_psum_tree(
+            [{name: g[0]}, {name: g[1]}], [{name: zero}, {name: zero}],
+            "data", mesh2)
+        codes = [compression.quantize_int8(x) for x in g]
+        want = ((codes[0][0].double() + codes[1][0].double())
+                * ((codes[0][1].double() + codes[1][1].double()) / 2) / 2)
+        scale = max(float(x.abs().max()) for x in g) or 1.0
+        for i in range(2):
+            worst = max(worst, float((out[i][name].double() - want).abs()
+                                     .max()) / scale)
+        worst_mean = max(worst_mean, float(
+            (out[0][name].double() - (g[0].double() + g[1].double()) / 2)
+            .abs().max()) / scale)
+        del g, zero, out, res, codes, want
+    del grads
+    torch.cuda.empty_cache()
+    ok = resumed and worst <= PSUM_TOL
+    emit("mesh_train", arch=MESH_TRAIN_ARCH, mesh="1x1",
+         layers=cfg.n_layers, steps=MESH_TRAIN_STEPS,
+         ckpt_every=MESH_TRAIN_EVERY, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         checkpoints=saved_after, first_loss=first["log"][-1]["loss"],
+         resumed_loss=second["log"][-1]["loss"], resumed_bit_for_bit=resumed,
+         first_s=t1 - t0, checkpointed_s=t2 - t1, resumed_s=t3 - t2,
+         printout=lines + lines_b + lines_c, psum_positions=2,
+         psum_vs_float64=worst, psum_tol=PSUM_TOL,
+         psum_vs_exact_mean=worst_mean, ok=ok)
+    if not ok:
+        FAILED.append(f"mesh_train: resumed bit for bit {resumed}, psum "
+                      f"against float64 {worst} (tol {PSUM_TOL})")
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -5127,6 +5586,12 @@ def main() -> None:
     phase_vlm_serve(dev)
     for family in CROSS_ARCHS:
         phase_cross_train(dev, family)
+    phase_mesh_dryrun()
+    for arch in MESH_SERVE_ARCHS:
+        mesh_serve(dev, arch)
+    phase_mesh_moe(dev)
+    launches.update(phase_mesh_ssm(dev))
+    phase_mesh_train(dev)
     rows = []
     for name in REPLACES:
         r = kern[name]

@@ -91,9 +91,9 @@ def variant(name: str, model):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     elif name in ("cross_cache_other", "cross_cache_e4m3"):
-        def cross(p, x, src, cfg):
+        def cross(p, x, src, cfg, ctx=None):
             # the prefill's cross cache only: the forward's output is kept
-            y, kv = saved_cross(p, x, src, cfg)
+            y, kv = saved_cross(p, x, src, cfg, ctx)
             if name == "cross_cache_other":
                 return y, {k: t.roll(1, 0) for k, t in kv.items()}
             return y, {k: t.to(torch.float8_e4m3fn).to(t.dtype)

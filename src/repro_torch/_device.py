@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "canonical"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,4 +23,13 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: a CUDA device named without one is the
+    current one (``cuda`` and ``cuda:0`` are then the same device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -10,7 +10,11 @@ Guarantees:
   checkpoints newest first and skips any whose manifest hash check fails,
   restoring the newest valid one.
 * **Placement** — checkpoints hold full tensors on disk; ``restore`` puts
-  every leaf on the caller's ``device`` (``None``: the CUDA device).
+  every leaf on the caller's ``device`` (``None``: the CUDA device), or on
+  its placement where ``shardings`` gives one (a tree over ``like`` whose
+  :class:`~repro_torch.distributed.sharding.NamedSharding` entries place
+  every leaf below them, after checking that the spec fits the leaf's
+  shape; the port keeps a placed leaf whole on its mesh's first device).
 * **Async** — ``save_async`` copies every leaf to the host before it
   returns (a blocking copy, so the snapshot is complete), then writes on a
   worker thread.
@@ -105,6 +109,30 @@ def tree_unflatten(structure: Any, leaves: List[Any]) -> Any:
         return cls(**static, **{name: build(c) for name, c in kids})
 
     return build(structure)
+
+
+def _placements(like: Any, shardings: Any) -> list:
+    """Per leaf of ``like``, in :func:`tree_flatten`'s order, its
+    placement: ``shardings`` mirrors ``like`` down to a ``NamedSharding``
+    (every leaf below it) or ``None`` (the caller's device)."""
+    # local: the distributed package imports this module
+    from ..distributed.sharding import NamedSharding
+    if shardings is None or isinstance(shardings, NamedSharding):
+        return [shardings] * len(tree_leaves(like))
+    out: list = []
+    if isinstance(like, dict):
+        for k in sorted(like):
+            out += _placements(like[k], shardings.get(k))
+    elif isinstance(like, (list, tuple)):
+        if len(shardings) != len(like):
+            raise ValueError(f"shardings of {len(shardings)} entries for "
+                             f"{len(like)}")
+        for x, sh in zip(like, shardings):
+            out += _placements(x, sh)
+    else:
+        raise ValueError(f"shardings {type(shardings).__name__} for a "
+                         f"{type(like).__name__}")
+    return out
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
@@ -214,15 +242,19 @@ class CheckpointManager:
                     return None
         return manifest
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like``, every leaf a tensor on
-        ``device`` (``None``: the CUDA device)."""
+        ``device`` (``None``: the CUDA device) or on its placement in
+        ``shardings`` (``ValueError`` where the spec does not fit the
+        leaf)."""
         dev = resolve_device(device)
         path = self.step_dir(step)
         manifest = self._verify(path)
         if manifest is None:
             raise IOError(f"checkpoint at {path} is missing or corrupt")
         leaves, structure = tree_flatten(like)
+        places = _placements(like, shardings)
         out = []
         for i, meta in zip(range(len(leaves)), manifest["leaves"]):
             arr = np.load(os.path.join(path, f"leaf_{i:06d}.npy"))
@@ -232,16 +264,20 @@ class CheckpointManager:
             else:
                 t = torch.from_numpy(arr.astype(np.dtype(meta["dtype"]),
                                                 copy=False))
-            out.append(t.reshape(meta["shape"]).to(dev))
+            sh = places[i]
+            if sh is not None:
+                sh.shard_shape(meta["shape"])     # the spec fits the leaf
+            out.append(t.reshape(meta["shape"]).to(
+                dev if sh is None else sh.device))
         if len(out) != len(leaves):
             raise IOError(f"checkpoint at {path} holds {len(out)} leaves; "
                           f"the structure asks for {len(leaves)}")
         return tree_unflatten(structure, out)
 
-    def restore_latest(self, like: Any, device=None):
+    def restore_latest(self, like: Any, device=None, shardings: Any = None):
         """Newest *valid* checkpoint (skips torn writes): ``(step, tree)``,
         or ``(None, None)`` when nothing restorable exists."""
         for step in reversed(self.all_steps()):
             if self._verify(self.step_dir(step)) is not None:
-                return step, self.restore(step, like, device)
+                return step, self.restore(step, like, device, shardings)
         return None, None

@@ -3,7 +3,8 @@
 ``get(name)`` returns the full :class:`~repro_torch.models.config.ModelConfig`
 (as the JAX package's ``configs.get``); ``get(name).reduced()`` the CPU test
 variant.  All ten configurations of the JAX registry, of its six families
-(``dense``, ``moe``, ``ssm``, ``hybrid``, ``audio``, ``vlm``).
+(``dense``, ``moe``, ``ssm``, ``hybrid``, ``audio``, ``vlm``); and the
+dry run's shape grid (:data:`SHAPES`, :func:`cells`).
 """
 from __future__ import annotations
 
@@ -29,3 +30,36 @@ def get(name: str) -> ModelConfig:
 
 def names() -> List[str]:
     return list(REGISTRY)
+
+
+# the shape grid of the LM dry run (seq_len, global_batch, kind), the
+# reference's ``configs.SHAPES``
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+
+def cells():
+    """Every (name, shape, meta, skip) cell of the configurations × shapes,
+    in the reference's order (its registry's, then the shapes'); ``skip``
+    says why ``long_500k`` does not run for a pure full-attention
+    configuration, else ``None``."""
+    out = []
+    for name in _DRYRUN_ORDER:
+        cfg = REGISTRY[name]
+        for shape, meta in SHAPES.items():
+            skip = None
+            if shape == "long_500k" and not cfg.subquadratic:
+                skip = ("pure full-attention arch: 500k decode cache is "
+                        "O(seq) with quadratic prefill")
+            out.append((name, shape, meta, skip))
+    return out
+
+
+# the reference registry's order (``configs/__init__.py:16-19``)
+_DRYRUN_ORDER = ("qwen2-1.5b", "smollm-360m", "minicpm-2b", "h2o-danube-3-4b",
+                 "falcon-mamba-7b", "whisper-base", "llama-3.2-vision-11b",
+                 "recurrentgemma-2b", "mixtral-8x7b", "kimi-k2-1t-a32b")

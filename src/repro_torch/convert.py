@@ -88,13 +88,18 @@ def params_from_numpy(cfg: ModelConfig, params, device=None
 
 
 def model_from_numpy(cfg: ModelConfig, params, device=None,
-                     scan: str = "auto") -> Model:
-    """A reference ``Model(cfg).init`` tree (nested dicts of arrays) as the
-    port's :class:`~repro_torch.models.Model`, whose parameters are
-    :func:`params_from_numpy`'s.  The model is what a train step takes as
-    its ``params``."""
+                     scan: str = "auto", ctx=None) -> Model:
+    """A reference ``Model(cfg, ctx).init`` tree (nested dicts of arrays)
+    as the port's :class:`~repro_torch.models.Model` over the same mesh
+    (``ctx``, a :class:`~repro_torch.distributed.context.MeshCtx`: its
+    padded ``wq``, ``wo`` and ``bq`` included), whose parameters are
+    :func:`params_from_numpy`'s; ``device=None`` is the mesh's first
+    device under a mesh.  The model is what a train step takes as its
+    ``params``."""
+    if device is None and ctx is not None and ctx.mesh is not None:
+        device = ctx.mesh.flat[0]
     dev = resolve_device(device)
-    return Model(cfg, device=dev, scan=scan,
+    return Model(cfg, ctx, device=dev, scan=scan,
                  params=params_from_numpy(cfg, params, dev))
 
 

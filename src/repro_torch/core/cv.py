@@ -7,7 +7,7 @@ of the k folds.  ``device=None`` runs on the CUDA device;
 ``backend='auto'`` picks the CUDA kernels there and ``torch.linalg`` on
 the CPU.  ``chol_fn=`` replaces the backend's factorization (it takes a
 (…, h, h) batch); ``mesh=`` splits the engine's sweep over a folds × λ
-mesh (``None``, ``'auto'`` or a ``CVMesh``)."""
+mesh (``None``, ``'auto'`` or a CV ``Mesh``)."""
 from __future__ import annotations
 
 import numpy as np

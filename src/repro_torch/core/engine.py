@@ -49,9 +49,9 @@ And the reference's distribution and tuning (``src/repro/core/engine.py:
 653-720, 780-941``):
 
 * ``mesh=`` — a (folds × λ) :class:`~repro_torch.distributed.sharding.
-  CVMesh` of devices: fold group i's state lives on its row's devices, the
-  λ grid is padded to the λ axis and split over it, and the errors are
-  gathered onto the engine's device;
+  Mesh` of devices (``cv_mesh``): fold group i's state lives on its row's
+  devices, the λ grid is padded to the λ axis and split over it, and the
+  errors are gathered onto the engine's device;
 * ``donate=`` — the sweep drops its own training Hessians (and
   gradients) once the state stage has consumed them and the λ stage does
   not read them;
@@ -710,7 +710,8 @@ class CVEngine:
     mesh:      ``None`` (one device), ``'auto'`` (a folds × λ mesh over
                every CUDA device; with one device the sweep runs unsharded,
                and ``extras['engine']['mesh']`` is ``None``) or a
-               :class:`~repro_torch.distributed.sharding.CVMesh`.  Fold
+               :class:`~repro_torch.distributed.sharding.Mesh` over the
+               CV axes (``cv_mesh``, ``make_cv_mesh``).  Fold
                group i's state lives on row i's devices (a
                ``batchable_state`` strategy fits it there); the λ grid is
                edge-padded to the λ axis and split over it, and the errors
@@ -755,9 +756,9 @@ class CVEngine:
                 and self.tune not in (False, "auto"):
             raise ValueError(f"tune must be False, 'auto' or a TunedConfig; "
                              f"got {self.tune!r}")
-        if not isinstance(self.mesh, shardlib.CVMesh) \
+        if not shardlib.is_cv_mesh(self.mesh) \
                 and self.mesh not in (None, "auto"):
-            raise ValueError(f"mesh must be None, 'auto' or a CVMesh; got "
+            raise ValueError(f"mesh must be None, 'auto' or a CV Mesh; got "
                              f"{self.mesh!r}")
         if isinstance(self.strategy, str):
             self.strategy = make_strategy(self.strategy)
@@ -806,17 +807,17 @@ class CVEngine:
     def _device_pool(self) -> list:
         """The devices a mesh of this engine may span: an explicit mesh's,
         else every CUDA device on the card, else the engine's device."""
-        if isinstance(self.mesh, shardlib.CVMesh):
+        if shardlib.is_cv_mesh(self.mesh):
             return self.mesh.flat
         if self._device.type == "cuda":
             return [torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())]
         return [self._device]
 
-    def _resolve_mesh(self, k: int) -> Optional[shardlib.CVMesh]:
+    def _resolve_mesh(self, k: int) -> Optional[shardlib.Mesh]:
         if self.mesh is None:
             return None
-        if isinstance(self.mesh, shardlib.CVMesh):
+        if shardlib.is_cv_mesh(self.mesh):
             return self.mesh
         pool = self._device_pool()
         if len(pool) == 1:        # 'auto' on one device: unsharded
@@ -824,7 +825,7 @@ class CVEngine:
         return shardlib.make_cv_mesh(k, pool)
 
     @staticmethod
-    def _check_fold_axis(mesh: Optional[shardlib.CVMesh], k: int) -> None:
+    def _check_fold_axis(mesh: Optional[shardlib.Mesh], k: int) -> None:
         """The engine's error, when the fold count does not tile the
         mesh's fold axis (folds cannot be padded)."""
         if mesh is None:
@@ -842,7 +843,7 @@ class CVEngine:
         k = folds.fold_hess.shape[0]
         k_loc = k // mesh.shape[shardlib.CV_FOLD_AXIS]
         rows = []
-        for i, row in enumerate(mesh.devices):
+        for i, row in enumerate(mesh.rows):
             lo, hi = i * k_loc, (i + 1) * k_loc
             st = state[i] if isinstance(state, _GroupStates) \
                 else _fold_slice(state, lo, hi, k)
@@ -913,14 +914,14 @@ class CVEngine:
         mesh = None
         if cfg.mesh_shape is not None:
             shape = tuple(cfg.mesh_shape)
-            if isinstance(self.mesh, shardlib.CVMesh) and (
+            if shardlib.is_cv_mesh(self.mesh) and (
                     self.mesh.shape[shardlib.CV_FOLD_AXIS],
                     self.mesh.shape[shardlib.CV_LAM_AXIS]) == shape:
                 mesh = self.mesh
             else:
                 pool = self._device_pool() if devices is None \
                     else list(devices)
-                mesh = shardlib.CVMesh.from_devices(pool, *shape)
+                mesh = shardlib.cv_mesh(pool, *shape)
         derived = CVEngine(
             strategy=strat, backend=bk, mesh=mesh, donate=self.donate,
             block=cfg.block, lam_chunk=int(cfg.lam_chunk),
@@ -1046,7 +1047,7 @@ class CVEngine:
             k_loc = h_tr.shape[0] // mesh.shape[shardlib.CV_FOLD_AXIS]
             groups = _GroupStates()
             with self._stage_scope("fold_state"):
-                for i, row in enumerate(mesh.devices):
+                for i, row in enumerate(mesh.rows):
                     dev, lo = row[0], i * k_loc
                     with _on(dev):
                         groups.append(strat.fold_state(

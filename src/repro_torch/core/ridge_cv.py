@@ -5,7 +5,7 @@ The fold statistics, the sweep and the refit at λ* run where ``device=``
 says (``None``: the CUDA device).  ``ctx=`` (a
 :class:`~repro_torch.distributed.context.MeshCtx`) places the rows on its
 mesh's first device (``MeshCtx(None)``: nowhere else), and ``cv_mesh=``
-(``None``, ``'auto'`` or a ``CVMesh``) splits the sweep over folds × λs
+(``None``, ``'auto'`` or a CV ``Mesh``) splits the sweep over folds × λs
 (:class:`~repro_torch.core.engine.CVEngine` ``mesh=``).
 """
 from __future__ import annotations
@@ -42,7 +42,7 @@ class RidgeCV:
     method: str = "pichol"
     ctx: Optional[MeshCtx] = None
     backend: object = "auto"        # 'auto' | 'cuda' | 'reference' | backend
-    cv_mesh: object = None          # None | 'auto' | CVMesh for the λ sweep
+    cv_mesh: object = None          # None | 'auto' | CV Mesh for the λ sweep
     precision: object = None        # PrecisionPolicy | preset name | None
     device: Optional[Union[str, torch.device]] = None
 
@@ -50,10 +50,10 @@ class RidgeCV:
         if self.ctx is not None and not isinstance(self.ctx, MeshCtx):
             raise TypeError(f"ctx must be a MeshCtx or None, got "
                             f"{type(self.ctx).__name__}")
-        from ..distributed.sharding import CVMesh
-        if not isinstance(self.cv_mesh, CVMesh) \
+        from ..distributed.sharding import is_cv_mesh
+        if not is_cv_mesh(self.cv_mesh) \
                 and self.cv_mesh not in (None, "auto"):
-            raise ValueError(f"cv_mesh must be None, 'auto' or a CVMesh; "
+            raise ValueError(f"cv_mesh must be None, 'auto' or a CV Mesh; "
                              f"got {self.cv_mesh!r}")
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; expected one "

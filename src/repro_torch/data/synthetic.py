@@ -113,7 +113,10 @@ def token_stream(generator: torch.Generator, vocab_size: int, batch: int,
     ``-log1p(arange(V))`` on the generator's device, ``{"tokens": (batch,
     seq_len), "labels": the same shifted by one}`` (int64).  The draws
     differ from ``jax.random``'s; parity tests hand both packages JAX's
-    tokens."""
+    tokens.  On the host a seed gives the same batches on every run; on
+    the card ``torch.multinomial`` does not (``scripts/
+    probe_token_stream.py``), so a run that must be repeated, as a resumed
+    training run, draws on the host."""
     dev = generator.device
     logits = -torch.log1p(torch.arange(vocab_size, dtype=torch.float32,
                                        device=dev))

@@ -1,14 +1,15 @@
 """``MeshCtx``: the mesh handle and its axis-name conventions
-(``src/repro/distributed/context.py``), what ``RidgeCV(ctx=)`` reads.
+(``src/repro/distributed/context.py``), what ``Model(cfg, ctx)`` and
+``RidgeCV(ctx=)`` read.
 
-  dp_axes — axes the rows (batch) split over;
-  tp_axis — tensor-parallel axis (``"model"``);
+  dp_axes — axes the rows (batch, tokens) split over;
+  tp_axis — tensor/expert-parallel axis (``"model"``);
   fsdp    — whether weights also split over ``dp_axes[-1]``.
 
 ``MeshCtx(None)`` runs everything on one device.  The port has no SPMD
 partitioner: :meth:`MeshCtx.constrain` checks that the spec names the
 mesh's axes, then places the tensor on the mesh's first device, where the
-CV engine's folds × λ split starts from.
+model lives and the CV engine's folds × λ split starts from.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+
+from .sharding import NamedSharding, _axes
 
 __all__ = ["MeshCtx"]
 
@@ -57,17 +60,12 @@ class MeshCtx:
             s *= self.axis_size(a)
         return s
 
-    def sharding(self, *spec) -> Optional[tuple]:
-        """``(mesh, spec)`` — the port's stand-in for a ``NamedSharding``
-        — or ``None`` without a mesh."""
+    def sharding(self, *spec) -> Optional[NamedSharding]:
+        """``(mesh, spec)`` as a :class:`~repro_torch.distributed.sharding.
+        NamedSharding`, or ``None`` without a mesh."""
         if self.mesh is None:
             return None
-        return self.mesh, spec
-
-    def _axes(self, entry) -> tuple:
-        if entry is None:
-            return ()
-        return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        return NamedSharding(self.mesh, spec)
 
     def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
         """``x`` on the mesh's first device, after checking that every
@@ -78,7 +76,7 @@ class MeshCtx:
             raise ValueError(f"spec {spec} has more entries than x has "
                              f"dimensions ({tuple(x.shape)})")
         for entry in spec:
-            for ax in self._axes(entry):
+            for ax in _axes(entry):
                 if ax not in self.mesh.shape:
                     raise ValueError(f"axis {ax!r} is not an axis of the "
                                      f"mesh {dict(self.mesh.shape)}")

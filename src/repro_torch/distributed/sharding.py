@@ -1,28 +1,200 @@
-"""The CV half of the JAX package's ``distributed/sharding.py``: the
-folds × λ mesh, the λ grid's padding and chunking, and the stage ring.
+"""Placement over a mesh (``src/repro/distributed/sharding.py``): the LM
+half (a spec tree's axes → per-leaf partition specs, the divisibility
+check) and the CV half (the folds × λ mesh, the λ grid's padding and
+chunking, the stage ring).
+
+JAX expresses both as a ``Mesh``, ``NamedSharding`` and ``shard_map``.
+The port has no SPMD partitioner: a mesh is a named grid of
+``torch.device`` objects (:class:`Mesh`: the LM's ``("data", "model")``
+or ``("pod", "data", "model")``, the CV sweep's ``(folds, lams)``), a
+device may repeat, and a sharding is the pair ``(mesh, spec)``
+(:class:`NamedSharding`), whose :meth:`~NamedSharding.shard_shape` and
+:meth:`~NamedSharding.block` give a leaf's local shape and its block at a
+mesh coordinate.  Tensors stay whole
+on the mesh's first device; where the reference's numbers depend on the
+partition (padded heads, the MoE's per-shard capacity) the model computes
+them shard by shard (:mod:`repro_torch.models.blocks`).
 
 The CV sweep is a dense (fold × λ) grid of independent solves, so its
 natural mesh is 2-D: fold Hessians split over :data:`CV_FOLD_AXIS`, the λ
-grid over :data:`CV_LAM_AXIS`.  JAX expresses that as a ``Mesh`` and
-``shard_map``; the port has no SPMD partitioner, so :class:`CVMesh` is a
-plain ``(n_fold, n_lam)`` grid of ``torch.device``\\ s and the engine
-places each fold group's state and each λ shard's work on its device
-itself (:class:`~repro_torch.core.engine.CVEngine` ``mesh=``).
-
-The LM half (``spec_pspec``, ``param_pspecs``, ``param_shardings``,
-``data_pspec``) comes with the port of training.
+grid over :data:`CV_LAM_AXIS`; the engine places each fold group's state
+and each λ shard's work on its device itself
+(:class:`~repro_torch.core.engine.CVEngine` ``mesh=``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["CV_FOLD_AXIS", "CV_LAM_AXIS", "CVMesh", "make_cv_mesh",
+__all__ = ["Mesh", "NamedSharding", "spec_pspec", "param_pspecs",
+           "param_shardings", "data_pspec",
+           "CV_FOLD_AXIS", "CV_LAM_AXIS", "cv_mesh", "is_cv_mesh",
+           "make_cv_mesh",
            "cv_axis_sizes", "mesh_shape_candidates", "pad_to_multiple",
            "chunk_lams", "auto_lam_chunk", "StageRing"]
+
+def _axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one entry of a spec (None, a name, or names)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A named grid of devices (``jax.sharding.Mesh``'s counterpart):
+    ``devices`` row-major over ``dims``, one name per dimension in
+    ``axis_names``.  :attr:`shape` maps each name to its size; a device
+    may appear more than once (``[torch.device("cpu")] * 4``), and the
+    ``meta`` device stands for devices that are not there (the dry run).
+    A CUDA device named without an index is the current one."""
+
+    dims: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        from .._device import canonical
+        devices = tuple(canonical(d) for d in self.devices)
+        dims = tuple(int(n) for n in self.dims)
+        if len(dims) != len(self.axis_names) or not dims or \
+                len(set(self.axis_names)) != len(dims):
+            raise ValueError(f"mesh dims {dims} and axis names "
+                             f"{self.axis_names} do not pair up")
+        if len(devices) != math.prod(dims):
+            raise ValueError(f"a {dims} mesh needs {math.prod(dims)} "
+                             f"devices, got {len(devices)}")
+        object.__setattr__(self, "dims", dims)
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "devices", devices)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def flat(self) -> list:
+        return list(self.devices)
+
+    @property
+    def rows(self) -> list:
+        """The devices as rows along the first axis (``rows[i][j]``)."""
+        n = len(self.devices) // self.dims[0]
+        return [list(self.devices[i * n:(i + 1) * n])
+                for i in range(self.dims[0])]
+
+    def __repr__(self) -> str:
+        kinds = sorted({str(d) for d in self.devices})
+        return f"Mesh({self.shape}, devices {kinds})"
+
+
+class NamedSharding(NamedTuple):
+    """A placement: ``spec`` (one entry per leading dimension: ``None``,
+    an axis name or a tuple of names) over ``mesh``; the pair
+    ``(mesh, spec)``."""
+    mesh: Any
+    spec: tuple
+
+    def _parts(self, shape) -> list:
+        """Per dimension: its axes and the number of blocks they cut it
+        into; ``ValueError`` when the spec does not fit ``shape``."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"shape {shape} has dimensions")
+        sizes = self.mesh.shape
+        parts = []
+        for dim, entry in itertools.zip_longest(shape, self.spec):
+            axes = _axes(entry)
+            for ax in axes:
+                if ax not in sizes:
+                    raise ValueError(f"axis {ax!r} is not an axis of the "
+                                     f"mesh {sizes}")
+            n = math.prod(sizes[a] for a in axes)
+            if dim % n:
+                raise ValueError(f"dimension {dim} of {shape} is not "
+                                 f"divisible by {n} ({axes} of {sizes})")
+            parts.append((axes, n))
+        return parts
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """Each device's block shape of a leaf of ``shape``
+        (``jax.sharding.NamedSharding.shard_shape``)."""
+        return tuple(dim // n for dim, (_, n) in
+                     zip(tuple(shape), self._parts(shape)))
+
+    def block(self, t: torch.Tensor, coord: Dict[str, int]) -> torch.Tensor:
+        """The block of ``t`` the device at ``coord`` ({axis name: index})
+        holds: along a dimension split over several axes, the first is the
+        major one, as in JAX."""
+        sizes = self.mesh.shape
+        out = t
+        for d, (axes, n) in enumerate(self._parts(t.shape)):
+            if n == 1:
+                continue
+            i = 0
+            for ax in axes:
+                i = i * sizes[ax] + coord[ax]
+            m = t.shape[d] // n
+            out = out.narrow(d, i * m, m)
+        return out
+
+    @property
+    def device(self) -> torch.device:
+        """Where the port keeps the whole leaf: the mesh's first device."""
+        return self.mesh.flat[0]
+
+
+def spec_pspec(spec, ctx) -> tuple:
+    """The partition spec of one parameter :class:`~repro_torch.models.
+    params.Spec` under ``ctx`` (``sharding.py:27-45``): ``"fsdp"`` becomes
+    the innermost data axis when FSDP is on and is dropped otherwise;
+    ``ValueError`` when a dimension does not divide its mesh axis."""
+    out = []
+    for dim, ax in zip(spec.shape, spec.axes):
+        if ax is None:
+            out.append(None)
+            continue
+        mesh_ax = ctx.fsdp_axis if ax == "fsdp" else ax
+        if mesh_ax is None:
+            out.append(None)
+            continue
+        size = ctx.axis_size(mesh_ax)
+        if size > 1 and dim % size != 0:
+            raise ValueError(
+                f"dim {dim} of {spec.shape} not divisible by mesh axis "
+                f"{mesh_ax}={size}")
+        out.append(mesh_ax)
+    return tuple(out)
+
+
+def param_pspecs(tree: Any, ctx) -> Dict[str, tuple]:
+    """Every parameter's partition spec by its dotted name."""
+    from ..models.params import flatten   # local: models import this
+    return {name: spec_pspec(s, ctx) for name, s in flatten(tree)}
+
+
+def param_shardings(tree: Any, ctx) -> Dict[str, NamedSharding]:
+    """Every parameter's :class:`NamedSharding` by its dotted name;
+    ``ValueError`` without a mesh."""
+    if ctx.mesh is None:
+        raise ValueError("param_shardings requires a mesh")
+    return {name: NamedSharding(ctx.mesh, ps)
+            for name, ps in param_pspecs(tree, ctx).items()}
+
+
+def data_pspec(ctx, ndim: int) -> tuple:
+    """Batch-sharded partition spec for an input of rank ``ndim``."""
+    return (ctx.dp_axes,) + (None,) * (ndim - 1)
+
 
 CV_FOLD_AXIS = "folds"
 CV_LAM_AXIS = "lams"
@@ -45,55 +217,26 @@ def mesh_shape_candidates(k: int, n_devices: int) -> list:
             if n_devices % n_fold == 0 and k % n_fold == 0]
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class CVMesh:
-    """A (n_fold, n_lam) grid of devices with the CV axis names.
-
-    ``devices[i][j]`` runs fold group ``i``'s share of λ shard ``j``;
-    :attr:`shape` is keyed by the axis names, as ``jax.sharding.Mesh``
-    has it.  A device may appear more than once (the CPU tests split a
-    mesh over ``[torch.device('cpu')] * n``)."""
-
-    devices: Tuple[Tuple[torch.device, ...], ...]
-    axis_names: Tuple[str, str] = (CV_FOLD_AXIS, CV_LAM_AXIS)
-
-    def __post_init__(self):
-        rows = tuple(tuple(torch.device(d) for d in row)
-                     for row in self.devices)
-        if not rows or not rows[0] or len({len(r) for r in rows}) != 1:
-            raise ValueError("CVMesh needs a non-empty rectangular grid of "
-                             f"devices, got {self.devices!r}")
-        object.__setattr__(self, "devices", rows)
-
-    @classmethod
-    def from_devices(cls, devices: Sequence, n_fold: int,
-                     n_lam: int) -> "CVMesh":
-        devices = list(devices)
-        if len(devices) < n_fold * n_lam:
-            raise ValueError(f"a ({n_fold}, {n_lam}) mesh needs "
-                             f"{n_fold * n_lam} devices, got {len(devices)}")
-        return cls(tuple(tuple(devices[i * n_lam:(i + 1) * n_lam])
-                         for i in range(n_fold)))
-
-    @property
-    def shape(self) -> dict:
-        return {CV_FOLD_AXIS: len(self.devices),
-                CV_LAM_AXIS: len(self.devices[0])}
-
-    @property
-    def size(self) -> int:
-        return len(self.devices) * len(self.devices[0])
-
-    @property
-    def flat(self) -> list:
-        return [d for row in self.devices for d in row]
-
-    def __repr__(self) -> str:
-        return (f"CVMesh({self.shape}, "
-                f"{[[str(d) for d in r] for r in self.devices]})")
+def cv_mesh(devices: Sequence, n_fold: int, n_lam: int) -> Mesh:
+    """A (n_fold, n_lam) :class:`Mesh` with the CV axis names over the
+    first ``n_fold · n_lam`` of ``devices``: ``rows[i][j]`` runs fold group
+    ``i``'s share of λ shard ``j``.  A device may appear more than once
+    (the CPU tests split a mesh over ``[torch.device('cpu')] * n``)."""
+    devices = list(devices)
+    if len(devices) < n_fold * n_lam:
+        raise ValueError(f"a ({n_fold}, {n_lam}) mesh needs "
+                         f"{n_fold * n_lam} devices, got {len(devices)}")
+    return Mesh((n_fold, n_lam), (CV_FOLD_AXIS, CV_LAM_AXIS),
+                devices[:n_fold * n_lam])
 
 
-def make_cv_mesh(k: int, devices: Optional[Sequence] = None) -> CVMesh:
+def is_cv_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a :class:`Mesh` over the CV axes."""
+    return isinstance(mesh, Mesh) and \
+        mesh.axis_names == (CV_FOLD_AXIS, CV_LAM_AXIS)
+
+
+def make_cv_mesh(k: int, devices: Optional[Sequence] = None) -> Mesh:
     """2-D (folds × lams) mesh over ``devices`` (``None``: every CUDA
     device; raises without one)."""
     if devices is None:
@@ -103,7 +246,7 @@ def make_cv_mesh(k: int, devices: Optional[Sequence] = None) -> CVMesh:
                    for i in range(torch.cuda.device_count())]
     devices = list(devices)
     n_fold, n_lam = cv_axis_sizes(k, len(devices))
-    return CVMesh.from_devices(devices, n_fold, n_lam)
+    return cv_mesh(devices, n_fold, n_lam)
 
 
 def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int = 0):

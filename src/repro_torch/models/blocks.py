@@ -2,7 +2,13 @@
 ``models/blocks.py``: the norm (``:500-505``), attention and the dense MLP
 (``:63-197``) for the ``dense`` family, the mixture of experts
 (``:200-337``) for ``moe``, the Mamba-1 mixer (``:340-425``) for ``ssm``
-and the RG-LRU (``:431-497``) for ``hybrid``.
+and the RG-LRU (``:431-497``) for ``hybrid``; each with its parameter
+specs, whose axes follow the mesh of a
+:class:`~repro_torch.distributed.context.MeshCtx` (``ctx``; ``None`` is no
+mesh) as the reference's spec functions do (``blocks.py:1-57``): attention
+shards its heads over ``"model"`` when they divide it (KV replicated when
+only the query heads do), else its head dim, else nothing; an MLP or mixer
+width its ``"model"`` axis when that divides it.
 
 Every block takes ``p``, a module (or any object) with the parameters as
 attributes under the JAX package's leaf names and layouts (attention: ``wq``
@@ -10,10 +16,16 @@ attributes under the JAX package's leaf names and layouts (attention: ``wq``
 ``bv``; the MLP: ``wi``, ``wg`` (d, f), ``wo`` (f, d); the mixer: ``wx``
 (d, di), ``x_proj`` (di, r+2N), ``a_log`` (di, N), …).  Attention is
 :func:`~repro_torch.models.layers.flash_attention` over the whole sequence
-and :func:`~repro_torch.models.layers.decode_attention` over the cache; one
-card pads no query heads, so query head j reads kv head j // (H / KV)
-(``_kv_index``).  Between its GEMMs the mixer runs two kernels, chosen by
-``scan=`` (:func:`repro_torch.kernels.ssm_scan.resolve_mixer`): the causal
+and :func:`~repro_torch.models.layers.decode_attention` over the cache.
+Under a mesh whose ``"model"`` axis does not divide the query heads, they
+are padded up to the next multiple (``_padded_heads``, with ``wq``,
+``bq`` and ``wo`` of the padded count), and query head j reads kv head
+``min(j, H - 1) // (H / KV)`` (``_kv_index``: the padded heads read the
+last real head's group, as the reference's code has it; its docstring
+says group 0); without padding that is j // (H / KV), the grouping the
+attention functions do themselves.  Between its GEMMs the mixer runs two
+kernels, chosen by ``scan=``
+(:func:`repro_torch.kernels.ssm_scan.resolve_mixer`): the causal
 convolution with its bias and silu, and ``mamba_scan`` (softplus, the
 selective scan and the gate); the JAX package computes the recurrence
 through ``layers.chunked_linear_recurrence``.
@@ -22,17 +34,20 @@ The MoE layer (``router`` (d, E), ``wi``/``wg`` (E, d, f), ``wo`` (E, f,
 d), ``shared`` an MLP) and the RG-LRU (``wx``, ``wy`` (d, W), ``conv_w``
 (W, K), ``w_input``/``w_rec`` (W, W), ``lam``, ``out_proj`` (W, d), …) run
 no kernel of the port: the reference computes them with XLA, and so does
-the port with PyTorch's operations (``ROADMAP.md`` queue 1).
+the port with PyTorch's operations.  Under a mesh the MoE layer runs per
+shard, as the reference's ``shard_map`` does (:func:`moe_apply`).
 """
 from __future__ import annotations
 
 import contextlib
 import math
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import MeshCtx
 from repro_torch.kernels.ssm_scan import resolve_mixer
 
 from . import layers
@@ -85,22 +100,81 @@ def _product(a: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
     return _on_rows(lambda t: t @ w, a, name)
 
 
+# ---------------------------------------------------------------- helpers
+
+
+def _ctx(ctx: Optional[MeshCtx]) -> MeshCtx:
+    return MeshCtx(None) if ctx is None else ctx
+
+
+def _padded_heads(cfg: ModelConfig, ctx: Optional[MeshCtx]) -> int:
+    """The query heads, padded up to a multiple of the ``"model"`` axis
+    when it does not divide them (``blocks.py:26-31``)."""
+    tp, h = _ctx(ctx).tp_size, cfg.n_heads
+    if cfg.pad_heads and tp > 1 and h % tp != 0:
+        return -(-h // tp) * tp
+    return h
+
+
+def _attn_layout(cfg: ModelConfig, ctx: Optional[MeshCtx]):
+    """(query heads, kv heads, query head dim, kv head dim) axes
+    (``blocks.py:34-43``)."""
+    tp = _ctx(ctx).tp_size
+    hp, kv, hd = _padded_heads(cfg, ctx), cfg.n_kv_heads, cfg.head_dim_
+    if hp % tp == 0 and kv % tp == 0:
+        return "model", "model", None, None
+    if hp % tp == 0:
+        return "model", None, None, None          # KV replicated (GQA-TP)
+    if hd % tp == 0:
+        return None, None, "model", "model"       # head_dim TP
+    return None, None, None, None
+
+
+def _kv_index(cfg: ModelConfig, ctx: Optional[MeshCtx]) -> List[int]:
+    """Each (padded) query head's kv head, ``min(j, H - 1) // group``
+    (``blocks.py:46-53``)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    group = max(h // kv, 1)
+    return [min(j, h - 1) // group for j in range(_padded_heads(cfg, ctx))]
+
+
+def _mlp_axis(d_ff: int, ctx: Optional[MeshCtx]) -> Optional[str]:
+    return "model" if d_ff % _ctx(ctx).tp_size == 0 else None
+
+
 # ---------------------------------------------------------------- attention
 
 
-def attention_spec(cfg: ModelConfig, *, cross: bool = False
-                   ) -> Dict[str, Spec]:
-    """``blocks.py:63-79`` on one card: no padded query heads."""
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    spec = {"wq": Spec((d, h, hd)), "wk": Spec((d, kv, hd)),
-            "wv": Spec((d, kv, hd)), "wo": Spec((h, hd, d))}
+def attention_spec(cfg: ModelConfig, ctx: Optional[MeshCtx] = None, *,
+                   cross: bool = False) -> Dict[str, Spec]:
+    """``blocks.py:63-80``: the query heads padded under ``ctx``'s mesh
+    (:func:`_padded_heads`), the axes of :func:`_attn_layout`."""
+    d, kv, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim_
+    hp = _padded_heads(cfg, ctx)
+    qh, kvh, qd, kvd = _attn_layout(cfg, ctx)
+    spec = {"wq": Spec((d, hp, hd), ("fsdp", qh, qd)),
+            "wk": Spec((d, kv, hd), ("fsdp", kvh, kvd)),
+            "wv": Spec((d, kv, hd), ("fsdp", kvh, kvd)),
+            "wo": Spec((hp, hd, d), (qh, qd, "fsdp"))}
     if cfg.qkv_bias and not cross:
-        spec["bq"] = Spec((h, hd), init="zeros")
-        spec["bk"] = Spec((kv, hd), init="zeros")
-        spec["bv"] = Spec((kv, hd), init="zeros")
+        spec["bq"] = Spec((hp, hd), (qh, qd), init="zeros")
+        spec["bk"] = Spec((kv, hd), (kvh, kvd), init="zeros")
+        spec["bv"] = Spec((kv, hd), (kvh, kvd), init="zeros")
     if cross:
-        spec["gate"] = Spec((), init="zeros")      # gated cross-attn (VLM)
+        spec["gate"] = Spec((), (), init="zeros")  # gated cross-attn (VLM)
     return spec
+
+
+def _for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+               ctx: Optional[MeshCtx]):
+    """k and v (B, S, KV, hd) for the query heads: with padded heads one kv
+    head per query head by :func:`_kv_index` (the reference's ``take``);
+    else as they are, the attention grouping query head j on kv head
+    j // (H / KV), the same map."""
+    if _padded_heads(cfg, ctx) == cfg.n_heads:
+        return k, v
+    idx = torch.as_tensor(_kv_index(cfg, ctx), device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _heads_product(p, x: torch.Tensor, leaf: str) -> torch.Tensor:
@@ -132,7 +206,8 @@ def _gated(p, y: torch.Tensor) -> torch.Tensor:
     return torch.tanh(p.gate.float()).to(y.dtype) * y
 
 
-def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+def attention_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                    ctx: Optional[MeshCtx] = None, *,
                     causal: bool = True, window: Optional[int] = None,
                     use_rope: bool = True,
                     positions: Optional[torch.Tensor] = None
@@ -145,23 +220,27 @@ def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
             x.shape[1], device=x.device)
         q = layers.rope(q, pos, cfg.rope_theta)
         k = layers.rope(k, pos, cfg.rope_theta)
-    out = layers.flash_attention(q, k, v, causal=causal, window=window,
+    out = layers.flash_attention(q, *_for_heads(k, v, cfg, ctx),
+                                 causal=causal, window=window,
                                  chunk=cfg.attn_chunk)
     return _out(p, out, x)
 
 
-def cross_attention(p, x: torch.Tensor, src: torch.Tensor, cfg: ModelConfig
+def cross_attention(p, x: torch.Tensor, src: torch.Tensor, cfg: ModelConfig,
+                    ctx: Optional[MeshCtx] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-attention of x over ``src`` (no RoPE, not causal, gated;
     ``blocks.py:93-116`` with ``kv_src``), and the k and v of ``src``
     (B, S_src, KV, hd): the cross cache that a prefill keeps for its decode
     steps (``model.py:562-567``)."""
     q, k, v = _qkv(p, x, src)
-    out = layers.flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    out = layers.flash_attention(q, *_for_heads(k, v, cfg, ctx),
+                                 causal=False, chunk=cfg.attn_chunk)
     return _gated(p, _out(p, out, x)), {"k": k, "v": v}
 
 
-def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, *,
+def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig,
+                      ctx: Optional[MeshCtx] = None, *,
                       window: Optional[int] = None,
                       cache_len: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -174,7 +253,8 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _qkv(p, x, x)
     q = layers.rope(q, pos, cfg.rope_theta)
     k = layers.rope(k, pos, cfg.rope_theta)
-    out = layers.flash_attention(q, k, v, causal=True, window=window,
+    out = layers.flash_attention(q, *_for_heads(k, v, cfg, ctx),
+                                 causal=True, window=window,
                                  chunk=cfg.attn_chunk)
     y = _out(p, out, x)
     if window:
@@ -194,7 +274,8 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                     pos: int, cfg: ModelConfig, *,
+                     pos: int, cfg: ModelConfig,
+                     ctx: Optional[MeshCtx] = None, *,
                      window: Optional[int] = None, cross: bool = False
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``blocks.py:146-177``.  x: (B, 1, D); cache: {"k", "v"} (B, S, KV,
@@ -206,8 +287,9 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     (encoder or image K/V), which is returned as it is."""
     if cross:
         q = _heads_product(p, x, "wq")
-        out = layers.decode_attention(q, cache["k"], cache["v"],
-                                      cache["k"].shape[1])
+        out = layers.decode_attention(
+            q, *_for_heads(cache["k"], cache["v"], cfg, ctx),
+            cache["k"].shape[1])
         return _gated(p, _out(p, out, x)), cache
     q, k, v = _qkv(p, x, x)
     pos_b = torch.full((x.shape[0], 1), pos, device=x.device)
@@ -217,19 +299,22 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     slot = pos % s if window else min(pos, s - 1)
     ck, cv = cache["k"].clone(), cache["v"].clone()
     ck[:, slot], cv[:, slot] = k[:, 0], v[:, 0]
-    out = layers.decode_attention(q, ck, cv, min(pos + 1, s))
+    out = layers.decode_attention(q, *_for_heads(ck, cv, cfg, ctx),
+                                  min(pos + 1, s))
     return _out(p, out, x), {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------- dense MLP
 
 
-def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None
-             ) -> Dict[str, Spec]:
+def mlp_spec(cfg: ModelConfig, ctx: Optional[MeshCtx] = None,
+             d_ff: Optional[int] = None) -> Dict[str, Spec]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    spec = {"wi": Spec((d, f)), "wo": Spec((f, d))}
+    ax = _mlp_axis(f, ctx)
+    spec = {"wi": Spec((d, f), ("fsdp", ax)),
+            "wo": Spec((f, d), (ax, "fsdp"))}
     if cfg.act == "silu":
-        spec["wg"] = Spec((d, f))
+        spec["wg"] = Spec((d, f), ("fsdp", ax))
     return spec
 
 
@@ -247,15 +332,20 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------- MoE
 
 
-def moe_spec(cfg: ModelConfig) -> Dict:
+def moe_spec(cfg: ModelConfig, ctx: Optional[MeshCtx] = None) -> Dict:
     """``blocks.py:200-216``: the float32-routed experts and, with
-    ``n_shared_experts``, one shared MLP of ``moe_d_ff · n_shared`` width."""
+    ``n_shared_experts``, one shared MLP of ``moe_d_ff · n_shared`` width.
+    The experts over ``"model"`` when it divides them (EP), else their
+    width."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    spec: Dict = {"router": Spec((d, e), scale=0.02 / math.sqrt(d)),
-                  "wi": Spec((e, d, f)), "wg": Spec((e, d, f)),
-                  "wo": Spec((e, f, d))}
+    ax = (("model", "fsdp", None) if e % _ctx(ctx).tp_size == 0
+          else (None, "fsdp", "model"))
+    spec: Dict = {"router": Spec((d, e), (None, None),
+                                 scale=0.02 / math.sqrt(d)),
+                  "wi": Spec((e, d, f), ax), "wg": Spec((e, d, f), ax),
+                  "wo": Spec((e, f, d), (ax[0], ax[2], ax[1]))}
     if cfg.n_shared_experts:
-        spec["shared"] = mlp_spec(cfg, d_ff=f * cfg.n_shared_experts)
+        spec["shared"] = mlp_spec(cfg, ctx, d_ff=f * cfg.n_shared_experts)
     return spec
 
 
@@ -356,24 +446,17 @@ class _Combine(torch.autograd.Function):
         return _gather_rows(g, tok), None, None, None
 
 
-def _moe_local(x: torch.Tensor, p, cfg: ModelConfig, capacity: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``blocks.py:219-267`` on one card, all experts local.  x: (T, D).
-    Returns (out (T, D) in x's dtype, the load-balance aux loss).
-
+def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+           capacity: int) -> SimpleNamespace:
+    """``blocks.py:219-243``: the routing of x (T, D) over all E experts.
     The router in float32 (TF32 off, :func:`repro_torch._device.
     resolve_device`), softmax, top-k renormalised; aux = E · Σ_e mean
-    prob_e · (choices of e)/(T·k).  Each expert takes its first
-    ``capacity`` choices (:func:`dispatch_slots`); the (E, C, D) buffer
-    runs silu(x·wi) ⊙ (x·wg), then ·wo, as three batched products in x's
-    dtype; each slot is scaled by its gate (float32, cast to x's dtype) and
-    summed into its token in ascending expert order.  The router, the
-    dispatch and the combine are the profiler range ``moe_route``, the
-    experts ``moe_experts``."""
-    t, d = x.shape
+    prob_e · (choices of e)/(T·k); each expert's first ``capacity``
+    choices (:func:`dispatch_slots`).  Profiler range ``moe_route``."""
+    t = x.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     with torch.profiler.record_function(MOE_ROUTE):
-        logits = x.float() @ p.router.float()
+        logits = x.float() @ router.float()
         probs = torch.softmax(logits, -1)                         # (T, E)
         topv, topi = torch.topk(probs, k, dim=-1)                 # (T, k)
         topv = topv / topv.sum(-1, keepdim=True)
@@ -381,39 +464,138 @@ def _moe_local(x: torch.Tensor, p, cfg: ModelConfig, capacity: int
         ce = torch.bincount(flat_e, minlength=e).float() / (t * k)
         aux = e * (probs.mean(0) * ce).sum()
         idx, valid, counts, slot = dispatch_slots(flat_e, e, capacity)
+    return SimpleNamespace(logits=logits, topv=topv, topi=topi,
+                           flat_e=flat_e, aux=aux, idx=idx, valid=valid,
+                           counts=counts, slot=slot, capacity=capacity)
+
+
+def _experts(x: torch.Tensor, p, r: SimpleNamespace,
+             n_local: Optional[int] = None, offset: int = 0
+             ) -> torch.Tensor:
+    """``blocks.py:244-267``: the dispatch of routing ``r``'s choices of
+    the ``n_local`` experts from ``offset`` (default: every expert), whose
+    weights ``p.wi``, ``p.wg`` (n_local, d, f) and ``p.wo`` (n_local, f,
+    d) are, those experts and the combine.  Returns (T, D) in x's dtype:
+    the local experts' share of each token's output.
+
+    The (n_local, C, D) buffer runs silu(x·wi) ⊙ (x·wg), then ·wo, as three
+    batched products in x's dtype; each slot is scaled by its gate
+    (float32, cast to x's dtype) and summed into its token in ascending
+    expert order.  The dispatch and the combine are the profiler range
+    ``moe_route``, the experts ``moe_experts``."""
+    t, d = x.shape
+    k, capacity, flat_e = r.topi.shape[1], r.capacity, r.flat_e
+    n_local = r.counts.numel() if n_local is None else n_local
+    with torch.profiler.record_function(MOE_ROUTE):
+        mine = slice(offset, offset + n_local)
+        idx, valid, counts = r.idx[mine], r.valid[mine], r.counts[mine]
         if _STATS is not None:
             _STATS.append(dict(
-                dropped=t * k - counts.clamp(max=capacity).sum(),
-                used=(counts > 0).sum(), topi=topi, logits=logits.detach()))
-        tok = torch.where(valid, idx // k, t).reshape(-1)          # (E·C,)
-        gate = torch.where(valid, topv.reshape(-1)[idx.clamp(max=t * k - 1)],
-                           0.0)                                   # (E, C)
+                dropped=(counts - capacity).clamp(min=0).sum(),
+                used=(counts > 0).sum(), topi=r.topi,
+                logits=r.logits.detach()))
+        tok = torch.where(valid, idx // k, t).reshape(-1)    # (n_local·C,)
+        gate = torch.where(valid,
+                           r.topv.reshape(-1)[idx.clamp(max=t * k - 1)],
+                           0.0)                              # (n_local, C)
         # each (token, choice)'s row in the flat buffer, the choices of a
-        # token in ascending expert order; kept when within capacity
-        pos = (flat_e * capacity + slot.clamp(max=capacity - 1)).view(t, k)
-        kept = (slot < capacity).view(t, k)
-        order = torch.argsort(topi, dim=-1)
+        # token in ascending expert order; kept when within capacity and
+        # local
+        local = (flat_e >= offset) & (flat_e < offset + n_local)
+        pos = ((flat_e - offset).clamp(0, n_local - 1) * capacity
+               + r.slot.clamp(max=capacity - 1)).view(t, k)
+        kept = ((r.slot < capacity) & local).view(t, k)
+        order = torch.argsort(r.topi, dim=-1)
         pos, kept = pos.gather(1, order), kept.gather(1, order)
-        xg = _Dispatch.apply(x, tok, pos, kept).view(e, capacity, d)
+        xg = _Dispatch.apply(x, tok, pos, kept).view(n_local, capacity, d)
     with torch.profiler.record_function(MOE_EXPERTS):
         wi, wg, wo = p.wi.to(x.dtype), p.wg.to(x.dtype), p.wo.to(x.dtype)
         hidden = F.silu(torch.bmm(xg, wi)) * torch.bmm(xg, wg)
-        ye = torch.bmm(hidden, wo) * gate[..., None].to(x.dtype)  # (E,C,D)
+        ye = torch.bmm(hidden, wo) * gate[..., None].to(x.dtype)
     with torch.profiler.record_function(MOE_ROUTE):
-        out = _Combine.apply(ye.view(e * capacity, d), tok, pos, kept)
-    return out, aux
+        return _Combine.apply(ye.view(n_local * capacity, d), tok, pos, kept)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
+def _moe_local(x: torch.Tensor, p, cfg: ModelConfig, capacity: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``blocks.py:219-267``: x (T, D) routed (:func:`_route`) and run
+    through every expert (:func:`_experts`).  Returns (out (T, D) in x's
+    dtype, the load-balance aux loss)."""
+    r = _route(x, p.router, cfg, capacity)
+    return _experts(x, p, r), r.aux
+
+
+def _moe_sharded(xf: torch.Tensor, p, cfg: ModelConfig, ctx: MeshCtx
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` branch (``blocks.py:283-333``), shard
+    by shard on x's device.  The tokens xf (T, D) split over the data axes
+    when they divide them (else every data shard holds all of them, and
+    computes one answer); each data shard has its own capacity
+    ``int(T_loc · k / E · capacity_factor) + 1``, rounded up to a multiple
+    of 8, and is routed once (:func:`_route`: every model shard of the
+    reference routes alike).  Under expert parallelism (``"model"``
+    divides E and is over 1) model shard m runs :func:`_experts` on its
+    E / tp experts from ``m · E / tp``; else on every expert's m-th slice
+    of the width (``wi``, ``wg`` columns, ``wo`` rows).  Its weights are
+    its block along ``"model"``, whole along the FSDP axis (the
+    reference's all-gather over it).  The model shards' outputs are summed
+    in ascending order (the psum over ``"model"``); aux is the mean of the
+    data shards' (the pmean) when they split the tokens.  Under
+    :func:`routing_stats` each model shard's record also names its
+    ``data_shard``, ``model_shard`` and ``experts`` (first, past-last):
+    its ``dropped`` counts its experts' drops, so a data shard's are the
+    sum over its records of distinct ``experts``."""
+    t = xf.shape[0]
+    e, tp = cfg.n_experts, ctx.tp_size
+    ep = e % tp == 0 and tp > 1
+    dp_ok = t % ctx.dp_size == 0
+    n_dp = ctx.dp_size if dp_ok else 1
+    t_loc = t // n_dp
+    cap = int(t_loc * cfg.top_k / e * cfg.capacity_factor) + 1
+    cap = -(-cap // 8) * 8
+    n_local = e // tp if ep else e
+    w_spec = ("model", None, None) if ep else (None, None, "model")
+    wo_spec = ("model", None, None) if ep else (None, "model", None)
+    shards = []
+    for m in range(tp):
+        coord = {"model": m}
+        w, wo = ctx.sharding(*w_spec), ctx.sharding(*wo_spec)
+        shards.append((SimpleNamespace(
+            wi=w.block(p.wi, coord), wg=w.block(p.wg, coord),
+            wo=wo.block(p.wo, coord)), m * n_local if ep else 0))
+    outs, auxes = [], []
+    for i in range(n_dp):
+        xl = xf[i * t_loc:(i + 1) * t_loc]
+        r = _route(xl, p.router, cfg, cap)
+        out = None
+        for m, (w, offset) in enumerate(shards):
+            o = _experts(xl, w, r, n_local, offset)
+            if _STATS is not None:
+                _STATS[-1].update(data_shard=i, model_shard=m,
+                                  experts=(offset, offset + n_local))
+            out = o if out is None else out + o
+        outs.append(out)
+        auxes.append(r.aux)
+    out = outs[0] if n_dp == 1 else torch.cat(outs)
+    return out, torch.stack(auxes).sum() / n_dp
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[MeshCtx] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) → (out, aux loss), the reference's single-device branch
-    (``blocks.py:270-281``, ``:334-337``): capacity ``int(B·S·k / E ·
+    """x: (B, S, D) → (out, aux loss) (``blocks.py:270-337``).  Without a
+    mesh the single-device branch: capacity ``int(B·S·k / E ·
     capacity_factor) + 1`` from this call's own tokens, so a decode step
-    of 4 tokens gets a capacity of its own; then the shared expert's MLP
-    added."""
+    of 4 tokens gets a capacity of its own.  Under a mesh
+    :func:`_moe_sharded`.  Then the shared expert's MLP added."""
     b, s, d = x.shape
-    cap = int(b * s * cfg.top_k / cfg.n_experts * cfg.capacity_factor) + 1
-    out, aux = _moe_local(x.reshape(b * s, d), p, cfg, cap)
+    xf = x.reshape(b * s, d)
+    if _ctx(ctx).mesh is None:
+        cap = int(b * s * cfg.top_k / cfg.n_experts
+                  * cfg.capacity_factor) + 1
+        out, aux = _moe_local(xf, p, cfg, cap)
+    else:
+        out, aux = _moe_sharded(xf, p, cfg, ctx)
     out = out.view(b, s, d).to(x.dtype)
     if cfg.n_shared_experts:
         out = out + mlp_apply(p.shared, x, cfg)
@@ -423,19 +605,22 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------- Mamba
 
 
-def mamba_spec(cfg: ModelConfig) -> Dict[str, Spec]:
+def mamba_spec(cfg: ModelConfig, ctx: Optional[MeshCtx] = None
+               ) -> Dict[str, Spec]:
+    """``blocks.py:340-353``: d_inner over ``"model"`` when it divides."""
     d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    ax = _mlp_axis(di, ctx)
     return {
-        "wx": Spec((d, di)),
-        "wz": Spec((d, di)),
-        "conv_w": Spec((di, cfg.d_conv)),
-        "conv_b": Spec((di,), init="zeros"),
-        "x_proj": Spec((di, r + 2 * n)),
-        "dt_proj": Spec((r, di)),
-        "dt_bias": Spec((di,), init="dt_bias"),
-        "a_log": Spec((di, n), init="mamba_a"),
-        "d_skip": Spec((di,), init="ones"),
-        "out_proj": Spec((di, d)),
+        "wx": Spec((d, di), ("fsdp", ax)),
+        "wz": Spec((d, di), ("fsdp", ax)),
+        "conv_w": Spec((di, cfg.d_conv), (ax, None)),
+        "conv_b": Spec((di,), (ax,), init="zeros"),
+        "x_proj": Spec((di, r + 2 * n), (ax, None)),
+        "dt_proj": Spec((r, di), (None, ax)),
+        "dt_bias": Spec((di,), (ax,), init="dt_bias"),
+        "a_log": Spec((di, n), (ax, None), init="mamba_a"),
+        "d_skip": Spec((di,), (ax,), init="ones"),
+        "out_proj": Spec((di, d), (ax, "fsdp")),
     }
 
 
@@ -509,20 +694,23 @@ def mamba_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------- RG-LRU
 
 
-def rglru_spec(cfg: ModelConfig) -> Dict[str, Spec]:
-    """``blocks.py:431-446``."""
+def rglru_spec(cfg: ModelConfig, ctx: Optional[MeshCtx] = None
+               ) -> Dict[str, Spec]:
+    """``blocks.py:431-446``: the width over ``"model"`` when it
+    divides."""
     d, w = cfg.d_model, cfg.lru_width_
+    ax = _mlp_axis(w, ctx)
     return {
-        "wx": Spec((d, w)),
-        "wy": Spec((d, w)),                      # the gate branch
-        "conv_w": Spec((w, cfg.d_conv)),
-        "conv_b": Spec((w,), init="zeros"),
-        "w_input": Spec((w, w)),
-        "b_input": Spec((w,), init="zeros"),
-        "w_rec": Spec((w, w)),
-        "b_rec": Spec((w,), init="zeros"),
-        "lam": Spec((w,), init="rglru_a"),
-        "out_proj": Spec((w, d)),
+        "wx": Spec((d, w), ("fsdp", ax)),
+        "wy": Spec((d, w), ("fsdp", ax)),        # the gate branch
+        "conv_w": Spec((w, cfg.d_conv), (ax, None)),
+        "conv_b": Spec((w,), (ax,), init="zeros"),
+        "w_input": Spec((w, w), (None, ax)),
+        "b_input": Spec((w,), (ax,), init="zeros"),
+        "w_rec": Spec((w, w), (None, ax)),
+        "b_rec": Spec((w,), (ax,), init="zeros"),
+        "lam": Spec((w,), (ax,), init="rglru_a"),
+        "out_proj": Spec((w, d), (ax, "fsdp")),
     }
 
 
@@ -605,7 +793,7 @@ def rglru_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 
 def norm_spec(cfg: ModelConfig) -> Dict[str, Spec]:
-    return {"scale": Spec((cfg.d_model,), init="zeros")}
+    return {"scale": Spec((cfg.d_model,), (None,), init="zeros")}
 
 
 def norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

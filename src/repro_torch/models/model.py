@@ -22,9 +22,14 @@ of ``n_enc_layers`` dense layers (``enc_groups``) and ``enc_norm``; a
 ``vlm`` group holds one as ``cross`` and ``cross_attn_every - 1`` dense
 layers as ``self`` (``model.py:142-146``).  The cross-attention source is
 ``extra["enc_frames"]`` through the encoder, or ``extra["image_embeds"]``
-as it is (``model.py:222-225``).  One card, no sharding.  Entry points, as
-in the JAX package: ``forward`` (logits and the MoE aux loss), ``loss``,
-``init_cache``, ``prefill`` and ``decode``.  The parameters are trainable:
+as it is (``model.py:222-225``).  Entry points, as in the JAX package:
+``forward`` (logits and the MoE aux loss), ``loss``, ``init_cache``,
+``prefill`` and ``decode``; ``abstract`` gives the parameters on the
+``meta`` device.  ``Model(cfg, ctx)`` lays the model out over ``ctx``'s
+mesh (``model.py:150-203``): every spec carries the reference's axes, the
+query heads are padded where the ``"model"`` axis does not divide them,
+and the MoE layers run per shard; the model lives whole on the mesh's
+first device (the port has no SPMD partitioner).  The parameters are trainable:
 ``forward`` and ``loss`` build a graph when grad is enabled (attention and
 the RG-LRU's recurrence have their custom backwards, the mixer's two
 kernels have backward kernels of their own), with each group recomputed in
@@ -45,12 +50,13 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch._device import resolve_device
+from repro_torch._device import canonical, resolve_device
+from repro_torch.distributed.context import MeshCtx
 from repro_torch.kernels.ssm_scan import resolve_mixer, segment_states
 
 from . import blocks
 from .config import ModelConfig
-from .params import Spec, flatten, init_params
+from .params import Spec, abstract_params, flatten, init_params
 
 __all__ = ["Model", "stack_sizes"]
 
@@ -88,55 +94,58 @@ class _Group(nn.Module):
                 setattr(self, name, nn.ModuleList(_Group(s) for s in spec))
 
 
-def _attention_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+def _attention_layer_spec(cfg: ModelConfig, ctx: MeshCtx) -> Dict[str, Any]:
     """``_dense_group_spec`` (``model.py:39-49``): an MoE layer has ``moe``
     where a dense one has ``mlp``."""
-    spec = {"ln1": blocks.norm_spec(cfg), "attn": blocks.attention_spec(cfg),
+    spec = {"ln1": blocks.norm_spec(cfg),
+            "attn": blocks.attention_spec(cfg, ctx),
             "ln2": blocks.norm_spec(cfg)}
     if cfg.family == "moe":
-        spec["moe"] = blocks.moe_spec(cfg)
+        spec["moe"] = blocks.moe_spec(cfg, ctx)
     else:
-        spec["mlp"] = blocks.mlp_spec(cfg)
+        spec["mlp"] = blocks.mlp_spec(cfg, ctx)
     return spec
 
 
-def _rnn_sublayer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+def _rnn_sublayer_spec(cfg: ModelConfig, ctx: MeshCtx) -> Dict[str, Any]:
     """``model.py:102-108``."""
-    return {"ln1": blocks.norm_spec(cfg), "mix": blocks.rglru_spec(cfg),
-            "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg)}
+    return {"ln1": blocks.norm_spec(cfg), "mix": blocks.rglru_spec(cfg, ctx),
+            "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg, ctx)}
 
 
-def _xdec_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+def _xdec_layer_spec(cfg: ModelConfig, ctx: MeshCtx) -> Dict[str, Any]:
     """A decoder layer with cross-attention (``_xdec_group_spec``,
     ``model.py:130-139``)."""
-    return {"ln1": blocks.norm_spec(cfg), "attn": blocks.attention_spec(cfg),
+    return {"ln1": blocks.norm_spec(cfg),
+            "attn": blocks.attention_spec(cfg, ctx),
             "lnx": blocks.norm_spec(cfg),
-            "xattn": blocks.attention_spec(cfg, cross=True),
-            "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg)}
+            "xattn": blocks.attention_spec(cfg, ctx, cross=True),
+            "ln2": blocks.norm_spec(cfg), "mlp": blocks.mlp_spec(cfg, ctx)}
 
 
-def _layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+def _layer_spec(cfg: ModelConfig, ctx: MeshCtx) -> Dict[str, Any]:
     """One entry of ``groups``: a layer; for ``hybrid`` a group of
     ``pattern_rnn`` RG-LRU sublayers and one local-attention layer
     (``_hybrid_group_spec``, ``model.py:111-118``); for ``vlm`` one
     cross-decoder layer and ``cross_attn_every - 1`` dense layers
     (``_vlm_group_spec``, ``model.py:142-146``)."""
     if cfg.family == "ssm":
-        return {"ln": blocks.norm_spec(cfg), "mamba": blocks.mamba_spec(cfg)}
+        return {"ln": blocks.norm_spec(cfg),
+                "mamba": blocks.mamba_spec(cfg, ctx)}
     if cfg.family == "hybrid":
-        return {"rnn": [_rnn_sublayer_spec(cfg)
+        return {"rnn": [_rnn_sublayer_spec(cfg, ctx)
                         for _ in range(cfg.pattern_rnn)],
                 "aln1": blocks.norm_spec(cfg),
-                "attn": blocks.attention_spec(cfg),
+                "attn": blocks.attention_spec(cfg, ctx),
                 "aln2": blocks.norm_spec(cfg),
-                "amlp": blocks.mlp_spec(cfg)}
+                "amlp": blocks.mlp_spec(cfg, ctx)}
     if cfg.family == "audio":
-        return _xdec_layer_spec(cfg)
+        return _xdec_layer_spec(cfg, ctx)
     if cfg.family == "vlm":
-        return {"cross": _xdec_layer_spec(cfg),
-                "self": [_attention_layer_spec(cfg)
+        return {"cross": _xdec_layer_spec(cfg, ctx),
+                "self": [_attention_layer_spec(cfg, ctx)
                          for _ in range(cfg.cross_attn_every - 1)]}
-    return _attention_layer_spec(cfg)
+    return _attention_layer_spec(cfg, ctx)
 
 
 def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
@@ -160,20 +169,24 @@ def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
 @dataclasses.dataclass(frozen=True)
 class _Pass:
     """Which entry point runs a layer: ``forward`` (no cache), ``prefill``
-    (returns the cache) or ``decode`` (from a cache, at ``pos``)."""
+    (returns the cache) or ``decode`` (from a cache, at ``pos``); ``ctx``
+    the model's mesh."""
     kind: str
     pos: int = 0
     cache_len: Optional[int] = None
+    ctx: Optional[MeshCtx] = None
 
 
 def _attend(p, h, cfg: ModelConfig, run: _Pass, cache, window):
     """Attention of the pass: (y, its cache; None for ``forward``)."""
     if run.kind == "forward":
-        return blocks.attention_apply(p, h, cfg, window=window), None
+        return (blocks.attention_apply(p, h, cfg, run.ctx, window=window),
+                None)
     if run.kind == "prefill":
-        return blocks.attention_prefill(p, h, cfg, window=window,
+        return blocks.attention_prefill(p, h, cfg, run.ctx, window=window,
                                         cache_len=run.cache_len)
-    return blocks.attention_decode(p, h, cache, run.pos, cfg, window=window)
+    return blocks.attention_decode(p, h, cache, run.pos, cfg, run.ctx,
+                                   window=window)
 
 
 def _recur(p, h, cfg: ModelConfig, run: _Pass, cache):
@@ -205,7 +218,7 @@ def _attention_layer(layer, x, cfg: ModelConfig, run: _Pass, cache=None):
     x = x + y
     h = blocks.norm_apply(layer.ln2, x, cfg)
     if cfg.family == "moe":
-        y, aux = blocks.moe_apply(layer.moe, h, cfg)
+        y, aux = blocks.moe_apply(layer.moe, h, cfg, run.ctx)
     else:
         y, aux = blocks.mlp_apply(layer.mlp, h, cfg), None
     return x + y, c, aux
@@ -228,9 +241,11 @@ def _xdec_layer(layer, x, src, cfg: ModelConfig, run: _Pass, cache=None):
         h = blocks.norm_apply(layer.lnx, x, cfg)
         if run.kind == "decode":
             y, cross_c = blocks.attention_decode(
-                layer.xattn, h, cache["cross"], run.pos, cfg, cross=True)
+                layer.xattn, h, cache["cross"], run.pos, cfg, run.ctx,
+                cross=True)
         else:
-            y, cross_c = blocks.cross_attention(layer.xattn, h, src, cfg)
+            y, cross_c = blocks.cross_attention(layer.xattn, h, src, cfg,
+                                                run.ctx)
     x = x + y
     h = blocks.norm_apply(layer.ln2, x, cfg)
     x = x + blocks.mlp_apply(layer.mlp, h, cfg)
@@ -251,7 +266,13 @@ class Model(nn.Module):
     layers) or ``vlm`` (gated cross-attention over image embeddings)
     family on one device (``ValueError`` for another family).
 
-    ``device=None`` is the CUDA device (``RuntimeError`` without one).
+    ``ctx`` (a :class:`~repro_torch.distributed.context.MeshCtx`; ``None``
+    is ``MeshCtx(None)``, no mesh) lays the model out over its mesh, as the
+    reference's ``Model(cfg, ctx)``: the specs' axes, padded query heads,
+    the MoE per shard.  ``device=None`` is the mesh's first device under a
+    mesh (``ValueError`` for another), else the CUDA device
+    (``RuntimeError`` without one); on the ``meta`` device the parameters
+    have no storage (the dry run).
     ``scan`` picks the Mamba mixer's two kernels (the causal convolution
     and the fused scan): ``"auto"`` the kernels for CUDA tensors and their
     plain versions for CPU ones, ``"reference"`` the plain versions
@@ -263,16 +284,24 @@ class Model(nn.Module):
     (default: a generator on the device seeded with 0), on the device.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None, scan: str = "auto",
+    def __init__(self, cfg: ModelConfig, ctx: Optional[MeshCtx] = None, *,
+                 device=None, scan: str = "auto",
                  generator: Optional[torch.Generator] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
         if cfg.family not in _FAMILIES:
             raise ValueError(f"family {cfg.family!r}: the families are "
                              f"{_FAMILIES}")
+        ctx = MeshCtx(None) if ctx is None else ctx
+        if ctx.mesh is not None:
+            first = ctx.mesh.flat[0]
+            if device is not None and canonical(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {first}")
+            device = first
         dev = resolve_device(device)
         resolve_mixer(scan, dev)
-        self.cfg, self.scan, self._device = cfg, scan, dev
+        self.cfg, self.ctx, self.scan, self._device = cfg, ctx, scan, dev
         for name, spec in self.param_specs().items():
             if isinstance(spec, Spec):
                 setattr(self, name, _placeholder(spec.shape))
@@ -280,7 +309,9 @@ class Model(nn.Module):
                 setattr(self, name, _Group(spec))
             else:
                 setattr(self, name, nn.ModuleList(_Group(s) for s in spec))
-        if params is None:
+        if params is None and dev.type == "meta":
+            params = self.abstract()
+        elif params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
             params = init_params(self.param_specs(), generator,
@@ -294,24 +325,40 @@ class Model(nn.Module):
     def param_specs(self) -> Dict[str, Any]:
         """The spec tree; its dotted names are ``named_parameters``'s.  The
         reference stacks each list (``groups``, ``tail``, ``enc_groups``)
-        along a leading axis (:func:`stack_sizes`)."""
-        cfg = self.cfg
+        along a leading axis (:func:`stack_sizes`), whose axis is ``None``:
+        each layer's spec here is the stacked one's without it.  The
+        vocabulary over ``"model"`` when it divides (the embedding width
+        then over FSDP), else the width (``model.py:155-171``)."""
+        cfg, ctx = self.cfg, self.ctx
         v, d = cfg.vocab_size, cfg.d_model
+        vocab_ax = "model" if v % ctx.tp_size == 0 else None
+        if vocab_ax == "model":
+            emb_ax = head_in_ax = "fsdp"
+        elif d % ctx.tp_size == 0:
+            emb_ax = head_in_ax = "model"
+        else:
+            emb_ax = head_in_ax = None
         tree: Dict[str, Any] = {
-            "embed": Spec((v, d)),
+            "embed": Spec((v, d), (vocab_ax, emb_ax)),
             "final_norm": blocks.norm_spec(cfg),
-            "lm_head": Spec((d, v)),
+            "lm_head": Spec((d, v), (head_in_ax, vocab_ax)),
         }
         sizes = stack_sizes(cfg)
-        tree["groups"] = [_layer_spec(cfg) for _ in range(sizes["groups"])]
+        tree["groups"] = [_layer_spec(cfg, ctx)
+                          for _ in range(sizes["groups"])]
         if "tail" in sizes:
-            tree["tail"] = [_rnn_sublayer_spec(cfg)
+            tree["tail"] = [_rnn_sublayer_spec(cfg, ctx)
                             for _ in range(sizes["tail"])]
         if cfg.family == "audio":
-            tree["enc_groups"] = [_attention_layer_spec(cfg)
+            tree["enc_groups"] = [_attention_layer_spec(cfg, ctx)
                                   for _ in range(sizes["enc_groups"])]
             tree["enc_norm"] = blocks.norm_spec(cfg)
         return tree
+
+    def abstract(self) -> Dict[str, torch.Tensor]:
+        """Every parameter as a tensor of its shape and ``param_dtype`` on
+        the ``meta`` device, by dotted name (``Model.abstract``)."""
+        return abstract_params(self.param_specs(), self.cfg.parameter_dtype)
 
     @torch.no_grad()
     def load_params(self, params: Dict[str, torch.Tensor]) -> "Model":
@@ -355,7 +402,7 @@ class Model(nn.Module):
         with torch.profiler.record_function(ENCODER_RANGE):
             for layer in self.enc_groups:
                 n = blocks.norm_apply(layer.ln1, h, cfg)
-                h = h + blocks.attention_apply(layer.attn, n, cfg,
+                h = h + blocks.attention_apply(layer.attn, n, cfg, self.ctx,
                                                causal=False)
                 n = blocks.norm_apply(layer.ln2, h, cfg)
                 h = h + blocks.mlp_apply(layer.mlp, n, cfg)
@@ -429,7 +476,8 @@ class Model(nn.Module):
     def _layer(self, layer: _Group, x: torch.Tensor,
                src: Optional[torch.Tensor] = None):
         """A ``forward`` group: (x, the MoE aux loss or None)."""
-        x, _, aux = self._group(layer, x, _Pass("forward"), src=src)
+        x, _, aux = self._group(layer, x, _Pass("forward", ctx=self.ctx),
+                                src=src)
         return x, aux
 
     # ---- forward ----
@@ -446,7 +494,13 @@ class Model(nn.Module):
         keeping its segment states for the backward that follows); the
         hybrid's ``tail`` and the audio encoder are not recomputed, as in
         the reference (``model.py:227-245``)."""
+        ctx = self.ctx
         x = self._embed(tokens)
+        # the reference's placement of the residual stream (sequence over
+        # "model" where it divides): checked against the mesh, kept whole
+        seq_ax = ("model" if ctx.mesh is not None
+                  and x.shape[1] % ctx.tp_size == 0 else None)
+        x = ctx.constrain(x, ctx.dp_axes, seq_ax, None)
         src = self._source(extra)
         aux = torch.zeros((), device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
@@ -460,7 +514,8 @@ class Model(nn.Module):
             if a is not None:
                 aux = aux + a
         for sub in getattr(self, "tail", ()):
-            x = _rnn_sublayer(sub, x, self.cfg, _Pass("forward"))[0]
+            x = _rnn_sublayer(sub, x, self.cfg,
+                              _Pass("forward", ctx=self.ctx))[0]
         return self._head(x), aux
 
     def loss(self, batch: Dict[str, Any], extra: Optional[Dict] = None
@@ -539,7 +594,7 @@ class Model(nn.Module):
         unused (``model.py:354``).  The MoE aux loss is dropped."""
         x = self._embed(tokens)
         src = self._source(extra)
-        run = _Pass("prefill", cache_len=cache_len)
+        run = _Pass("prefill", cache_len=cache_len, ctx=self.ctx)
         caches = []
         for layer in self.groups:
             x, c, _ = self._group(layer, x, run, src=src)
@@ -560,7 +615,7 @@ class Model(nn.Module):
         cache holds its cross k and v tensors themselves."""
         pos = cache["pos"]
         x = self._embed(tokens)
-        run = _Pass("decode", pos=pos)
+        run = _Pass("decode", pos=pos, ctx=self.ctx)
         new = []
         for layer, c in zip(self.groups, cache["groups"]):
             x, c, _ = self._group(layer, x, run, c)

@@ -1,29 +1,41 @@
 """Parameter specs and their initialisation on a ``torch.Generator``.
 
 A model describes its parameters as a nested tree (dicts and lists) of
-:class:`Spec` (shape + initializer), as the JAX package's
-``models/params.py`` does; :func:`init_params` materialises the tree on a
-device.  The numbers differ from ``jax.random``'s for the same seed:
-parity with the JAX package comes from carrying its weights across
-(:func:`repro_torch.convert.model_from_numpy`).
+:class:`Spec` (shape + logical axes + initializer), as the JAX package's
+``models/params.py`` does.  Interpreters: :func:`init_params` materialises
+the tree on a device, :func:`abstract_params` on the ``meta`` device (no
+storage: the dry run), and :func:`repro_torch.distributed.sharding.
+param_shardings` gives each leaf its placement.  The numbers differ from
+``jax.random``'s for the same seed: parity with the JAX package comes from
+carrying its weights across (:func:`repro_torch.convert.model_from_numpy`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
-__all__ = ["Spec", "init_params", "flatten"]
+__all__ = ["Spec", "init_params", "abstract_params", "flatten"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
+    """``axes``: one logical axis per dimension (``"model"``, ``"fsdp"``
+    or ``None``; all ``None`` when not given), as the reference's
+    ``Spec.axes`` (``params.py:22-30``)."""
     shape: Tuple[int, ...]
+    axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"     # normal | zeros | ones | mamba_a | dt_bias
                              # | rglru_a
     scale: float = 0.02
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
 
 
 def _init_leaf(spec: Spec, generator: torch.Generator, dtype: torch.dtype,
@@ -76,4 +88,12 @@ def init_params(tree: Any, generator: torch.Generator, dtype: torch.dtype,
     """Every :class:`Spec` of ``tree`` materialised on ``device``, keyed by
     its dotted name, drawn from ``generator`` in the tree's order."""
     return {name: _init_leaf(spec, generator, dtype, device)
+            for name, spec in flatten(tree)}
+
+
+def abstract_params(tree: Any, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Every :class:`Spec` of ``tree`` as a tensor of its shape and
+    ``dtype`` on the ``meta`` device, keyed by its dotted name (the
+    reference's ``abstract_params``, ``params.py:68``)."""
+    return {name: torch.empty(spec.shape, dtype=dtype, device="meta")
             for name, spec in flatten(tree)}

@@ -8,8 +8,11 @@ Fault-tolerance contract, as the reference's:
   blocking copy to the host, then the write on a thread);
 * on construction the loop resumes from the newest valid checkpoint (torn
   ones are skipped), copying the saved weights into the model's parameters
-  in place and taking the saved optimizer state;
-* a job rerun with the same arguments continues.
+  in place and taking the saved optimizer state; with ``shardings`` each
+  parameter is restored onto its placement first;
+* a job rerun with the same arguments continues; the last step's state is
+  saved when the loop ends, unless its step's checkpoint was just written
+  (the reference writes that step twice).
 
 Straggler mitigation: the per-step wall time's EWMA; steps slower than
 ``straggler_factor`` × EWMA are counted.  The data iterator runs in a
@@ -27,6 +30,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch._device import canonical
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.optim._tree import named_tensors
 
@@ -81,15 +85,27 @@ class _Prefetcher:
 class TrainLoop:
     """``step_fn(params, opt_state, batch, extra) -> (params, opt_state,
     metrics)`` (``make_train_step``'s); ``params`` the model (or a mapping
-    of named tensors).  ``shardings`` is the reference's argument and must
-    be ``None``: the port trains on one card (``ROADMAP.md`` queue 1
-    item 6)."""
+    of named tensors).  ``shardings``: each parameter's
+    :class:`~repro_torch.distributed.sharding.NamedSharding` by dotted name
+    (``param_shardings``'s), whose mesh's first device must be the
+    parameter's (``ValueError`` otherwise, or for a name that is not a
+    parameter's); a restore places every parameter on it and checks that
+    its spec fits (``CheckpointManager.restore``), the optimizer state
+    going to the parameters' device."""
 
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable, params: Any,
                  opt_state: Any, shardings: Any = None):
         if shardings is not None:
-            raise NotImplementedError("TrainLoop: parameter shardings come "
-                                      "with ROADMAP.md queue 1 item 6")
+            named = named_tensors(params)
+            if set(shardings) != set(named):
+                raise ValueError(f"shardings for "
+                                 f"{sorted(set(shardings) ^ set(named))} "
+                                 "missing or unknown")
+            for name, sh in shardings.items():
+                if canonical(sh.device) != canonical(named[name].device):
+                    raise ValueError(f"{name}: placed on {sh.device}, the "
+                                     f"parameter is on "
+                                     f"{named[name].device}")
         self.cfg = cfg
         self.step_fn = step_fn
         self.params = params
@@ -100,7 +116,8 @@ class TrainLoop:
         if self.ckpt is not None:
             named = named_tensors(params)
             device = next(iter(named.values())).device
-            step, state = self.ckpt.restore_latest(self._state(), device)
+            step, state = self.ckpt.restore_latest(
+                self._state(), device, {"params": shardings, "opt": None})
             if step is not None:
                 with torch.no_grad():
                     for name, t in state["params"].items():
@@ -144,7 +161,9 @@ class TrainLoop:
             pf.close()
             if self.ckpt is not None:
                 self.ckpt.wait()
-        if self.ckpt is not None and step > self.start_step:
+        # the last step's state, unless its checkpoint was just written
+        if self.ckpt is not None and step > self.start_step \
+                and step % cfg.ckpt_every:
             self.ckpt.save(step, self._state())
         return {"final_step": step, "log": self.metrics_log,
                 "straggler_steps": self.straggler_steps,

@@ -77,7 +77,7 @@ def test_make_cv_mesh_defaults_to_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         shard.make_cv_mesh(4)
     with pytest.raises(ValueError, match="devices"):
-        shard.CVMesh.from_devices([CPU] * 3, 2, 2)
+        shard.cv_mesh([CPU] * 3, 2, 2)
 
 
 @pytest.mark.parametrize("n, multiple", [(7, 3), (9, 3), (1, 4), (5, 1)])
@@ -420,7 +420,7 @@ def test_mesh_auto_on_one_device_runs_unsharded(folds):
 
 def test_mesh_refuses_a_fold_axis_that_does_not_divide_k(folds):
     tf = folds[3][0]
-    mesh = shard.CVMesh.from_devices([CPU] * 2, 2, 1)
+    mesh = shard.cv_mesh([CPU] * 2, 2, 1)
     for fn in (lambda e: e.run(tf, LAMS),
                lambda e: list(e.sweep_async(tf, LAMS)),
                lambda e: e.search(tf, LAMS)):

@@ -23,7 +23,7 @@ from repro_torch.core import engine, factor_cache as fc  # noqa: E402
 from repro_torch.core.backends import CountingBackend, \
     resolve_backend  # noqa: E402
 from repro_torch.core.folds import FoldData  # noqa: E402
-from repro_torch.distributed.sharding import CVMesh  # noqa: E402
+from repro_torch.distributed.sharding import cv_mesh  # noqa: E402
 
 H, BLOCK, G = 24, 8, 4
 LAMS = np.asarray(props.log_grid(17))
@@ -166,7 +166,7 @@ def test_sweep_argument_checks(folds):
             engine.CVEngine("exact", device="cpu", **{name: "bogus"})
     # a fold axis that does not divide k is refused before any work
     k = tf.fold_hess.shape[0]
-    bad = CVMesh.from_devices([torch.device("cpu")] * (k + 1), k + 1, 1)
+    bad = cv_mesh([torch.device("cpu")] * (k + 1), k + 1, 1)
     eng_bad = engine.CVEngine("exact", device="cpu", mesh=bad)
     with pytest.raises(ValueError, match="not divisible"):
         list(eng_bad.sweep_async(tf, LAMS))

@@ -355,7 +355,10 @@ def test_token_stream():
 
 
 def test_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``--mesh 2x2`` is the 16 × 16 production mesh, as in the
+    reference's launcher: on the CPU it raises, naming the 256 devices it
+    needs; nothing falls back to the CPU or to repeated devices."""
+    with pytest.raises(ValueError, match="256"):
         launch_train.main(["--mesh", "2x2", "--reduced", "--device", "cpu"])
 
 
