@@ -223,8 +223,9 @@ Every dense path launches none of the port's kernels: each counter 0.
 Last, the LM under a mesh (meshes of the one card repeated: what as many
 cards would compute, computed on one): ``mesh_dryrun`` (the dry run of
 every configuration × shape cell at both production meshes on the meta
-device: status, the fullest device's argument bytes, whether they fit the
-card), ``mesh_serve`` (Qwen2-1.5B and SmolLM-360M under (1, 16), their
+device: status, the fullest device's argument bytes and priced temp bytes,
+whether they fit the card, and the priced ``step_s`` and bottleneck; an
+``ok`` cell without them fails), ``mesh_serve`` (Qwen2-1.5B and SmolLM-360M under (1, 16), their
 query heads padded to 16: decode against forward; with the padded heads'
 ``wo`` rows zeroed, against the unsharded model on the real heads' weights
 in bf16 and float32; walls and peak memory beside the unsharded model's),
@@ -235,7 +236,16 @@ at capacity 1.25, then drop-free in bf16 and float32), ``mesh_ssm``
 ``mesh_ssm`` of ``launches_by_path``) and ``mesh_train`` (the launcher
 ``--mesh 1x1``, a second run resumed from its step-2 checkpoint through
 ``TrainLoop(shardings=)`` ending on its loss bit for bit;
-``compressed_psum_tree`` against float64).
+``compressed_psum_tree`` against float64).  Then ``step_cost`` (four LM
+steps priced by ``plan_cost.price_lm_step`` on a mesh of the card alone
+and run: a Qwen2-1.5B training step and prefill, a Falcon-Mamba-7B decode
+step and a Qwen2-1.5B decode step; the priced argument and temp bytes
+against ``torch.cuda.max_memory_allocated()`` after a reset, failing where
+the peak passes them by more than 10 % or the measured temporaries fall
+below 80 % of the priced ones, and the priced ``step_s`` against the wall
+and busy time) and ``examples`` (each of ``repro_torch.examples`` once as
+a user runs it: its printed lines, λ* or ids, seconds and launches, the
+paths ``example_<name>`` of ``launches_by_path``).
 
 Phases 15–19 run after ``baselines`` and before ``mamba_fixture`` (19
 before ``cv_serve``); each adds its paths to ``launches_by_path``, and
@@ -484,6 +494,21 @@ MESH_MOE_SHAPES = ((1, 8), (2, 4), (1, 16))
 # the launcher on Qwen2-1.5B as published: a checkpoint (bf16 weights,
 # float32 AdamW moments) is 17.8 GB, and the phase writes two
 MESH_TRAIN_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY = "qwen2-1.5b", 4, 2
+# the examples phase: each example's arguments (the defaults, ridge_cv
+# with its tuning, search and sketch sections, train_lm 10 steps)
+EXAMPLES = (("quickstart", []), ("ridge_cv", ["--tune", "--search",
+                                               "--sketch"]),
+            ("serve_cv", []), ("serve_lm", []),
+            ("train_lm", ["--steps", "10"]), ("lm_probe", []))
+# the step_cost phase: (name, configuration, kind) at the shapes of the
+# dense_train, dense_serve and serve phases
+STEP_COSTS = (("train", DENSE_TRAIN_ARCH, "train"),
+              ("prefill", DENSE_TRAIN_ARCH, "prefill"),
+              ("decode", MAMBA_ARCH, "decode"),
+              ("dense_decode", DENSE_TRAIN_ARCH, "decode"))
+PEAK_OVER_PRICED = 1.10    # measured peak / priced args + temp, at most
+TEMP_OVER_PRICED = 0.80    # measured temp / priced temp, at least: a
+                           # price too high would call a cell unfitting
 PSUM_TOL = 1e-6    # compressed_psum_tree against a float64 evaluation of
                    # the reference's formula on its codes: of max |g|
 
@@ -5135,8 +5160,10 @@ def _mesh_ctx(dev, shape, fsdp: bool = False):
 def phase_mesh_dryrun() -> None:
     """The port's dry run (``repro_torch.launch.dryrun``) of every cell at
     both production meshes, on the meta device: one line per mesh with
-    each cell's status and the fullest device's argument bytes, and which
-    cells' arguments fit the card's memory."""
+    each cell's status, the fullest device's argument bytes, its priced
+    temp bytes, ``step_s`` and bottleneck, which cells fit the card's
+    memory with their temporaries and which fit it with their arguments
+    only; an ``ok`` cell lacking any of them fails."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     for multi_pod in (False, True):
@@ -5146,14 +5173,28 @@ def phase_mesh_dryrun() -> None:
         cells = {r["cell"].rsplit("×", 1)[0]: dict(
             status=r["status"],
             argument_bytes=r.get("memory", {}).get("argument_size_in_bytes"),
-            fits=r.get("fits")) for r in res}
+            temp_bytes=r.get("memory", {}).get("temp_size_in_bytes"),
+            fits=r.get("fits"),
+            fits_arguments=(None if r["status"] != "ok" else
+                            r["memory"]["argument_size_in_bytes"]
+                            <= dryrun.card_memory()),
+            step_s=r.get("roofline", {}).get("step_s"),
+            bottleneck=r.get("roofline", {}).get("bottleneck"))
+            for r in res}
         emit("mesh_dryrun", mesh="2x16x16" if multi_pod else "16x16",
              seconds=time.perf_counter() - t0,
              card_bytes=dryrun.card_memory(), cells=cells,
              fit=[c for c, v in cells.items() if v["fits"]],
-             do_not_fit=[c for c, v in cells.items() if v["fits"] is False])
+             do_not_fit=[c for c, v in cells.items() if v["fits"] is False],
+             arguments_fit_temp_not=[c for c, v in cells.items()
+                                     if v["fits"] is False
+                                     and v["fits_arguments"]])
         bad = [r["cell"] for r in res if r["status"] not in ("ok", "skip")
-               or (r["status"] == "ok" and r["fits"] is None)]
+               or (r["status"] == "ok" and (
+                   r["fits"] is None
+                   or r["memory"].get("temp_size_in_bytes") is None
+                   or r.get("roofline", {}).get("step_s") is None
+                   or r.get("roofline", {}).get("bottleneck") is None))]
         if bad:
             FAILED.append(f"mesh_dryrun: {bad}")
 
@@ -5544,6 +5585,204 @@ def phase_mesh_train(dev) -> None:
                       f"against float64 {worst} (tol {PSUM_TOL})")
 
 
+# ---------------------------------------------------------------- examples
+
+
+def phase_examples() -> dict:
+    """Each of the port's six examples (``repro_torch.examples``) once on
+    the card, as a user runs them (``main(argv)``, no ``--device``): their
+    printed lines, λ* or generated ids, seconds and the kernel launches of
+    each (paths ``example_<name>``).  A failure lands in FAILED."""
+    import contextlib
+    import importlib
+    import io
+    counts = {}
+    for name, argv in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res, counts[f"example_{name}"] = counted_call(
+                    lambda: mod.main(argv))
+        except Exception as e:  # noqa: BLE001 -- reported, then raised
+            import traceback
+            FAILED.append(f"examples {name}: {type(e).__name__}: {e}")
+            emit("examples", example=name, argv=argv, ok=False,
+                 error=f"{type(e).__name__}: {e}",
+                 trace=traceback.format_exc()[-2000:],
+                 printout=buf.getvalue().splitlines())
+            continue
+        secs = time.perf_counter() - t0
+        out = dict(example=name, argv=argv, seconds=secs, ok=True,
+                   launches=_nonzero(counts[f"example_{name}"]),
+                   printout=buf.getvalue().splitlines())
+        if name == "quickstart":
+            out["max_rel_err"] = res["max_rel_err"]
+            if not res["max_rel_err"] < 1e-6:
+                FAILED.append(f"examples quickstart: {res['max_rel_err']}")
+        elif name == "ridge_cv":
+            out["best_lam"] = {k: r.best_lam for k, r in
+                               res["algos"].items()}
+            out["engine_best_lam"] = {k: r.best_lam for k, r in
+                                      res["engine"].items()}
+            out["tune"] = res.get("tune")
+        elif name == "serve_cv":
+            out["best_lam"] = res["tenants"]
+        elif name == "serve_lm":
+            out["ids"] = res["ids"]
+        elif name == "train_lm":
+            out["losses"] = [e["loss"] for e in res["log"]]
+            out["final_step"] = res["final_step"]
+            if res["final_step"] != 10 or not all(
+                    np.isfinite(out["losses"])):
+                FAILED.append(f"examples train_lm: {out['losses']}")
+        else:
+            out["best_lam"] = {"exact": res["exact"].best_lam,
+                               "picholesky": res["picholesky"].best_lam}
+        emit("examples", **out)
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- step cost
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a tree (dicts, lists, tuples, states)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0
+
+
+def step_cost(dev, name: str, arch: str, kind: str) -> dict:
+    """One LM step priced on a mesh of ``dev`` alone
+    (``plan_cost.price_lm_step``), then run there: the argument bytes (the
+    step's tensors: the weights, the optimizer state and the batch; the
+    tokens; the cache) plus the priced temporaries against
+    ``torch.cuda.max_memory_allocated()`` after a reset (one warm step
+    first), the measured temporaries (the peak less what was allocated
+    before the step) against the priced ones, and the priced ``step_s``
+    against the measured wall (median of 3) and the device's busy time of
+    one profiled step."""
+    import itertools
+    from repro_torch import configs
+    from repro_torch.data import token_stream
+    from repro_torch.distributed import plan_cost, roofline
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    cfg = configs.get(arch)
+    ctx = _mesh_ctx(dev, (1, 1))
+    batch = TRAIN_BATCH if kind == "train" else SERVE_BATCH
+    seq = TRAIN_SEQ if kind == "train" else SERVE_PROMPT
+    cost = plan_cost.price_lm_step(cfg, ctx, kind, batch, seq)
+    roof = roofline.roofline(cost, 1, roofline.detect_hw(
+        cfg.activation_dtype))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model(cfg, ctx, generator=gen)
+    if kind == "train":
+        opt = adamw()
+        holder = {"state": opt[0](model)}
+        step = make_train_step(model, opt)
+        data = next(itertools.islice(token_stream(
+            torch.Generator().manual_seed(1), cfg.vocab_size, batch, seq),
+            1))
+        data = {k: t.to(dev) for k, t in data.items()}
+        args = (_tensor_bytes(dict(model.named_parameters()))
+                + _tensor_bytes(holder["state"]) + _tensor_bytes(data))
+
+        def run():
+            _, holder["state"], m = step(model, holder["state"], data)
+            return m["loss"]
+    else:
+        prompts = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                generator=gen, device=dev)
+        if kind == "prefill":
+            args = (_tensor_bytes(dict(model.named_parameters()))
+                    + _tensor_bytes(prompts))
+
+            def run():
+                with torch.no_grad():
+                    return model.prefill(prompts)[0]
+        else:
+            with torch.no_grad():
+                logits, cache = model.prefill(prompts)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            del logits
+            args = (_tensor_bytes(dict(model.named_parameters()))
+                    + _tensor_bytes(cache) + _tensor_bytes(tok))
+
+            def run():
+                with torch.no_grad():
+                    return model.decode(cache, tok)[0]
+    run()                                           # warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out).all())
+    del out
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    trace, _ = profiled(run)
+    priced = args + cost.temp_bytes
+    res = dict(
+        step=name, arch=arch, kind=kind, batch=batch, seq=seq,
+        layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
+        mesh="1x1", hw=roof.hw.name, argument_bytes=args,
+        allocated_before=base, priced_temp_bytes=cost.temp_bytes,
+        priced_bytes=priced, max_memory_allocated=peak,
+        measured_temp_bytes=peak - base,
+        peak_over_priced=peak / priced, bound=PEAK_OVER_PRICED,
+        temp_over_priced=(peak - base) / cost.temp_bytes,
+        temp_bound=TEMP_OVER_PRICED,
+        priced_flops=cost.flops, priced_hbm_bytes=cost.hbm_bytes,
+        priced_launches=cost.launches, priced_step_s=roof.step_s,
+        priced_compute_s=roof.compute_s, priced_memory_s=roof.memory_s,
+        priced_launch_s=roof.launch_time_s, bottleneck=roof.bottleneck,
+        wall_s=float(np.median(walls)), walls_s=walls,
+        busy_s=trace["device_busy_ms"] / 1e3,
+        idle_share=trace["device_idle_share"], n_kernels=trace["n_kernels"],
+        wall_over_priced=float(np.median(walls)) / roof.step_s,
+        finite=finite)
+    del model, run
+    if kind == "train":
+        del holder, step
+    torch.cuda.empty_cache()
+    if peak > PEAK_OVER_PRICED * priced or not finite:
+        FAILED.append(f"step_cost {name}: peak {peak} > {PEAK_OVER_PRICED}"
+                      f" × priced {priced}, finite={finite}")
+    if peak - base < TEMP_OVER_PRICED * cost.temp_bytes:
+        FAILED.append(f"step_cost {name}: temporaries {peak - base} < "
+                      f"{TEMP_OVER_PRICED} × priced {cost.temp_bytes}")
+    return res
+
+
+def phase_step_cost(dev) -> None:
+    """Four steps priced and run (:func:`step_cost`): a Qwen2-1.5B
+    training step (TRAIN_BATCH × TRAIN_SEQ, AdamW, remat), a Qwen2-1.5B
+    prefill (SERVE_BATCH × SERVE_PROMPT), and a Falcon-Mamba-7B and a
+    Qwen2-1.5B decode step, each from a prefill of SERVE_PROMPT."""
+    for name, arch, kind in STEP_COSTS:
+        t0 = time.perf_counter()
+        res = step_cost(dev, name, arch, kind)
+        emit("step_cost", seconds=time.perf_counter() - t0, **res)
+
+
 def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda")
@@ -5592,6 +5831,8 @@ def main() -> None:
     phase_mesh_moe(dev)
     launches.update(phase_mesh_ssm(dev))
     phase_mesh_train(dev)
+    phase_step_cost(dev)
+    launches.update(phase_examples())
     rows = []
     for name in REPLACES:
         r = kern[name]

@@ -59,7 +59,8 @@ __all__ = ["attention_spec", "attention_apply", "cross_attention",
            "moe_spec", "moe_apply", "dispatch_slots", "routing_stats",
            "mamba_spec", "mamba_apply", "mamba_prefill", "mamba_init_cache",
            "mamba_decode", "rglru_spec", "rglru_apply", "rglru_prefill",
-           "rglru_init_cache", "rglru_decode", "norm_spec", "norm_apply"]
+           "rglru_init_cache", "rglru_decode", "norm_spec", "norm_apply",
+           "rows_run"]
 
 
 # On the card each of these products runs on at least this many rows (zero
@@ -83,16 +84,25 @@ __all__ = ["attention_spec", "attention_apply", "cross_attention",
 _MIN_ROWS = {"x_proj": 1024, "dt_proj": 64, "out_proj": 256}
 
 
+def rows_run(name: str, bsz: int, s: int, device_type: str) -> int:
+    """The rows :func:`_on_rows` runs the product ``name`` on for a (bsz,
+    s, K) input on a device of ``device_type``: bsz · s, or on the card
+    at least ``_MIN_ROWS[name]``, in whole rows of s."""
+    rows = _MIN_ROWS.get(name, 0)
+    if device_type != "cuda" or s == 0 or bsz * s >= rows:
+        return bsz * s
+    return -(-rows // s) * s
+
+
 def _on_rows(fn, a: torch.Tensor, name: str) -> torch.Tensor:
     """``fn(a)`` for ``a`` (B, S, K) and a row-wise ``fn``; on the card
     over at least ``_MIN_ROWS[name]`` rows (none for a name it does not
     list): batch rows of zeros appended, dropped after."""
     bsz, s = a.shape[0], a.shape[1]
-    rows = _MIN_ROWS.get(name, 0)
-    if a.device.type != "cuda" or s == 0 or bsz * s >= rows:
+    rows = rows_run(name, bsz, s, a.device.type)
+    if rows == bsz * s:
         return fn(a)
-    pad = -(-rows // s) - bsz
-    return fn(F.pad(a, (0, 0, 0, 0, 0, pad)))[:bsz]
+    return fn(F.pad(a, (0, 0, 0, 0, 0, rows // s - bsz)))[:bsz]
 
 
 def _product(a: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:

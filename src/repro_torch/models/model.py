@@ -58,7 +58,7 @@ from . import blocks
 from .config import ModelConfig
 from .params import Spec, abstract_params, flatten, init_params
 
-__all__ = ["Model", "stack_sizes"]
+__all__ = ["Model", "stack_sizes", "block_kinds"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # the cross-attention source of each family that has one: its key of
@@ -164,6 +164,39 @@ def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
         return {"groups": cfg.n_layers}
     n_full, rem = divmod(cfg.n_layers, cfg.pattern_rnn + 1)
     return {"groups": n_full, "tail": rem} if rem else {"groups": n_full}
+
+
+# what a pass runs at each key of a layer's spec tree (norms run nothing of
+# their own): self-attention, the gated cross-attention, the dense MLP, the
+# MoE layer (with its shared expert), the Mamba mixer, the RG-LRU
+_BLOCK_KINDS = {"attn": "attn", "xattn": "cross", "mlp": "mlp",
+                "amlp": "mlp", "moe": "moe", "mamba": "mamba",
+                "mix": "rglru"}
+
+
+def block_kinds(cfg: ModelConfig) -> Dict[str, list]:
+    """The blocks one entry of each stacked list (:func:`stack_sizes`'s
+    keys) runs, in the order a pass runs them, read off the entry's spec
+    tree: ``attn`` (self-attention), ``cross``, ``mlp``, ``moe``,
+    ``mamba`` or ``rglru``."""
+    ctx = MeshCtx(None)
+    entries = {"groups": lambda: _layer_spec(cfg, ctx),
+               "tail": lambda: _rnn_sublayer_spec(cfg, ctx),
+               "enc_groups": lambda: _attention_layer_spec(cfg, ctx)}
+
+    def walk(tree) -> list:
+        out: list = []
+        for key, sub in tree.items():
+            if key in _BLOCK_KINDS:
+                out.append(_BLOCK_KINDS[key])
+            elif isinstance(sub, dict):
+                out += walk(sub)
+            elif isinstance(sub, list):
+                for entry in sub:
+                    out += walk(entry)
+        return out
+
+    return {name: walk(entries[name]()) for name in stack_sizes(cfg)}
 
 
 @dataclasses.dataclass(frozen=True)
