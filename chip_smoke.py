@@ -236,7 +236,29 @@ at capacity 1.25, then drop-free in bf16 and float32), ``mesh_ssm``
 ``mesh_ssm`` of ``launches_by_path``) and ``mesh_train`` (the launcher
 ``--mesh 1x1``, a second run resumed from its step-2 checkpoint through
 ``TrainLoop(shardings=)`` ending on its loss bit for bit;
-``compressed_psum_tree`` against float64).  Then ``step_cost`` (four LM
+``compressed_psum_tree`` against float64), ``mesh_ranks`` (the LM over
+worlds of ranks, one process a mesh position holding only its blocks:
+a world of 1 over NCCL as (1, 1), worlds of 2 as (1, 2) and 4 as (2, 2)
+with FSDP sharing ``cuda:0`` over gloo, each spawned with the libraries
+already built; Falcon-Mamba-7B and Qwen2-1.5B at their widths, 4 layers,
+float32, seeded: a prefill and 4 greedy decodes, then 2 AdamW steps,
+against the single-process run on a (2, 2) mesh of the card repeated:
+logits blocks, losses and step 1's grad norm within 1e-5 of max |·|,
+each leaf of its gradient within 1e-5 in the 2-norm and 1e-4 of its max
+|·| entry by entry, the tokens equal; each rank's ``memory_allocated``
+after loading within 2 % of ``launch/specs.py``
+``param_specs_sharded``'s bytes at its mesh, its
+peak while the weights are drawn within two whole leaves of that, and
+while layer 0 is checkpointed within 2 % on every rank but 0, the files
+equal the single process's; the conv ``staged`` at 4096 and 2048
+channels; the mixer's kernels (rows 9-12) launched by the ranks and held
+against their plain versions at the ranks' shapes; a line per world and
+model with ms a step, one step's collective bytes by kind beside
+``plan_cost.price_lm_step``'s, the trained logits' drift and the leaves
+whose step-1 gradient signs differ most (reported), then the card's name
+and power limit; the path
+``mesh_ranks`` of ``launches_by_path``; a rank that fails fails the
+run).  Then ``step_cost`` (four LM
 steps priced by ``plan_cost.price_lm_step`` on a mesh of the card alone
 and run: a Qwen2-1.5B training step and prefill, a Falcon-Mamba-7B decode
 step and a Qwen2-1.5B decode step; the priced argument and temp bytes
@@ -494,6 +516,30 @@ MESH_MOE_SHAPES = ((1, 8), (2, 4), (1, 16))
 # the launcher on Qwen2-1.5B as published: a checkpoint (bf16 weights,
 # float32 AdamW moments) is 17.8 GB, and the phase writes two
 MESH_TRAIN_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY = "qwen2-1.5b", 4, 2
+# the LM over a world of ranks (phase mesh_ranks): one process a mesh
+# position, each holding only its blocks.  NCCL puts one rank on a card, so
+# on the one card the world of 1 runs NCCL and the worlds of 2 and 4 share
+# cuda:0 over gloo: ((data, model), backend, FSDP)
+MESH_RANK_WORLDS = (((1, 1), None, False), ((1, 2), "gloo", False),
+                    ((2, 2), "gloo", True))
+MESH_RANK_ARCHS = ("falcon-mamba-7b", "qwen2-1.5b")   # published widths
+MESH_RANK_LAYERS, MESH_RANK_STEPS, MESH_RANK_DECODE = 4, 2, 4
+MESH_RANK_BATCH, MESH_RANK_SEQ = 2, 256
+MESH_RANK_TOL = 1e-5       # loss, logits: max |Δ| / max |repeated-device|
+# step 1's gradient: each leaf's ‖Δ‖ / ‖leaf‖ within MESH_RANK_TOL, and its
+# max |Δ| within the repo's gradient bound of its max |leaf| (float32
+# noise: the dt path's blocks reach 1.07e-5 of theirs, an entry in 2e5 of
+# dt_proj's gradient takes the other sign)
+MESH_RANK_GRAD_TOL = 1e-4
+MESH_RANK_MEM = 0.02       # memory_allocated after loading / block bytes − 1
+# the leaves a rank checkpoints (every rank but 0 sends its blocks, holding
+# no whole leaf) and the single process writes alike
+MESH_RANK_CKPT = "groups.0."
+MESH_RANK_TIMEOUT = 600.0  # seconds a world may take
+# the mixer's kernels the ranks launch (rows 9-12) on their d_inner / tp
+# channels; kernel A counts its checkpoint mode apart
+MESH_RANK_KERNELS = ("ssm_scan", "causal_conv1d", "mamba_scan_bwd",
+                     "causal_conv1d_bwd")
 # the examples phase: each example's arguments (the defaults, ridge_cv
 # with its tuning, search and sketch sections, train_lm 10 steps)
 EXAMPLES = (("quickstart", []), ("ridge_cv", ["--tune", "--search",
@@ -5585,6 +5631,451 @@ def phase_mesh_train(dev) -> None:
                       f"against float64 {worst} (tol {PSUM_TOL})")
 
 
+# ---------------------------------------------------------------- ranks
+
+
+def _rank_cfg(arch: str):
+    """``arch`` at its published widths, MESH_RANK_LAYERS layers, float32."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), n_layers=MESH_RANK_LAYERS,
+                               dtype="float32", param_dtype="float32")
+
+
+def _rank_data(cfg) -> tuple:
+    """The training batches and the prompt, drawn on the host (the same on
+    every rank and in the parent)."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    batches = []
+    for _ in range(MESH_RANK_STEPS):
+        t = torch.randint(0, cfg.vocab_size,
+                          (MESH_RANK_BATCH, MESH_RANK_SEQ + 1), generator=gen)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (MESH_RANK_BATCH, MESH_RANK_SEQ), generator=gen)
+    return batches, prompt
+
+
+def _rank_whole(logits, model):
+    """A rank's block of a batch's last-position logits gathered whole."""
+    from repro_torch.distributed import collectives as coll
+    sh = model.logits_sharding(MESH_RANK_BATCH)
+    if sh is None:
+        return logits
+    w = model.ctx.world
+    for d, entry in ((2, sh.spec[2]), (0, sh.spec[0])):
+        if entry:
+            logits = coll.all_gather(logits, entry, w, axis=d)
+    return logits
+
+
+def _rank_serve(model, prompt) -> tuple:
+    """A prefill of ``prompt`` and MESH_RANK_DECODE greedy decode steps:
+    this process's logits blocks (on the host) and the tokens."""
+    logits, cache = model.prefill(prompt)
+    out, tokens = [logits.cpu()], []
+    for _ in range(MESH_RANK_DECODE):
+        tok = _rank_whole(logits, model)[:, -1].argmax(-1, keepdim=True)
+        tokens.append(tok.cpu())
+        logits, cache = model.decode(cache, tok)
+        out.append(logits.cpu())
+    return out, torch.cat(tokens, 1)
+
+
+def _rank_run(model, dev, on_grads) -> dict:
+    """The path each rank (and the parent, on the repeated-device mesh)
+    drives on the seeded weights: a prefill of the prompt and
+    MESH_RANK_DECODE greedy decode steps, then MESH_RANK_STEPS AdamW steps,
+    then the prefill once more on the trained weights.  Returns this
+    process's logits blocks, the tokens, the losses and grad norms, each
+    step's wall ms, the last step's collective bytes by kind, and
+    ``on_grads(model, grads)`` of step 1's gradient (after the steps).
+    (The serve runs first: AdamW's first step moves every weight by about
+    lr whatever its gradient's size, so a gradient that is float32 noise,
+    another on each rank layout, moves its weight another way; the trained
+    weights' logits are reported, not held: step 1's gradient is.)"""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    batches, prompt = _rank_data(model.cfg)
+    logits, tokens = _rank_serve(model, prompt)
+    init, update = adamw()
+    first: dict = {}
+
+    def keep_first(grads, state, params):
+        if not first:
+            first.update(grads)
+        return update(grads, state, params)
+
+    state = init(model)
+    step = make_train_step(model, (init, keep_first))
+    losses, norms, step_ms = [], [], []
+    for batch in batches:
+        coll.reset_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, metrics = step(model, state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    wire, payload = dict(coll.WIRE), dict(coll.PAYLOAD)
+    del state
+    grads = on_grads(model, first)
+    first.clear()
+    trained = model.prefill(prompt)[0].cpu()
+    torch.cuda.synchronize()
+    return dict(losses=losses, norms=norms, step_ms=step_ms, logits=logits,
+                tokens=tokens, trained_logits=trained, wire=wire,
+                payload=payload, grads=grads)
+
+
+def _save_grads(path: str):
+    """``on_grads`` of the repeated-device run: step 1's gradient whole on
+    the host, and each leaf's max |·|, to ``path``."""
+    def save(model, grads):
+        torch.save({"grads": {n: g.cpu() for n, g in grads.items()},
+                    "scale": {n: float(g.abs().max())
+                              for n, g in grads.items()}}, path)
+    return save
+
+
+def _held_grads(path: str):
+    """``on_grads`` of a rank: per leaf, its block of step 1's gradient
+    against the same block of the repeated-device run's (read from
+    ``path`` mapped, so only the block is read): (max |Δ| over the whole
+    leaf's max |·|, the entries whose signs differ, the entries, Σ Δ²,
+    Σ of the block's squares)."""
+    def held(model, grads):
+        ref = torch.load(path, mmap=True, weights_only=True)
+        shardings, out = model.param_shardings(), {}
+        for n, g in grads.items():
+            w = shardings[n].local(ref["grads"][n]).to(g.device)
+            d = (g - w).double()
+            out[n] = (float(d.abs().max()) / max(ref["scale"][n], 1e-30),
+                      int((torch.sign(g) * torch.sign(w) < 0).sum()),
+                      g.numel(), float(d.square().sum()),
+                      float(w.double().square().sum()))
+        return out
+    return held
+
+
+def _ckpt_digests(model, root: str) -> tuple:
+    """Checkpoints the leaves of MESH_RANK_CKPT (on a rank mesh with their
+    placements) under ``root``: (the written leaves' sha256, or None on a
+    rank that writes nothing; the peak of ``memory_allocated`` while
+    saving over what was allocated before)."""
+    import os
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    tree = {n: p.detach() for n, p in model.named_parameters()
+            if n.startswith(MESH_RANK_CKPT)}
+    shardings = None
+    if model.ctx.ranks:
+        placed = model.param_shardings()
+        shardings = {n: placed[n] for n in tree}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mgr = CheckpointManager(os.path.join(root, "ckpt"))
+    path = mgr.save(0, tree, shardings)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    digests = None
+    if not model.ctx.ranks or model.ctx.world.rank == 0:
+        with open(os.path.join(path, "manifest.json")) as f:
+            digests = [leaf["sha256"] for leaf in json.load(f)["leaves"]]
+        shutil.rmtree(mgr.directory)
+    if model.ctx.ranks:
+        model.ctx.world.barrier()
+    return digests, peak
+
+
+def _rank_main(rank: int, size: int, shape, backend, fsdp: bool, store: str,
+               out: str, grads: str) -> None:
+    """One rank of a world on the card (spawned by :func:`phase_mesh_ranks`):
+    joins the world, checks that the libraries the parent built load
+    without a build, then for each of MESH_RANK_ARCHS builds its blocks of
+    the seeded model (``memory_allocated`` after, and its peak while, they
+    are drawn), checkpoints layer 0 (:func:`_ckpt_digests`), drives
+    :func:`_rank_run` with the launch counts set to 0 just before and read
+    just after (step 1's gradient held against the repeated-device run's
+    in ``grads/<arch>.pt``), and holds the mixer's kernels at its local
+    shapes against their plain versions (after the counts were read).
+    Saves its results to ``out/rank<rank>.pt``."""
+    import os
+    from repro_torch.distributed.context import MeshCtx
+    from repro_torch.distributed.runtime import init_world
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model, blocks
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    world = init_world(shape, ("data", "model"), device=dev, backend=backend,
+                       init_method=store, rank=rank)
+    built = _build.build_all()
+    res = dict(rank=rank, coord=world.coord, backend=world.backend,
+               built_seconds=sum(built.values()), archs={})
+    ctx = MeshCtx.from_mesh(make_debug_mesh(*shape, world=world), fsdp=fsdp)
+    for arch in MESH_RANK_ARCHS:
+        cfg = _rank_cfg(arch)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = Model(cfg, ctx, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) - before
+        init_peak = torch.cuda.max_memory_allocated(dev) - before
+        blocks_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        digests, save_peak = _ckpt_digests(model, out)
+        run, counts = counted(lambda _: _rank_run(
+            model, dev, _held_grads(os.path.join(grads, f"{arch}.pt"))))
+        r = dict(run, held=held, block_bytes=blocks_bytes,
+                 init_peak=init_peak, save_peak=save_peak, digests=digests,
+                 launches=_nonzero(counts))
+        del model
+        torch.cuda.empty_cache()
+        if cfg.family == "ssm":
+            b = MESH_RANK_BATCH // shape[0]
+            di = blocks.mamba_width(cfg, ctx)
+            n = cfg.ssm_state
+            checks = dict(
+                ssm_scan=check_mamba_scan(dev, (b, MESH_RANK_SEQ, di, n),
+                                          torch.float32),
+                causal_conv1d=check_conv(dev, (b, MESH_RANK_SEQ, di),
+                                         torch.float32, False),
+                mamba_scan_bwd=check_mamba_scan_bwd(
+                    dev, (b, MESH_RANK_SEQ, di, n), torch.float32),
+                causal_conv1d_bwd=check_conv_bwd(
+                    dev, (b, MESH_RANK_SEQ, di), torch.float32, False))
+            # the conv's variant at the d_inner of "model" over 2 and 4
+            r["conv_variants"] = {
+                str(cfg.d_inner // tp): check_conv(
+                    dev, (b, 8, cfg.d_inner // tp), torch.float32,
+                    False)["variant"] for tp in (2, 4)}
+            r["checks"] = {k: dict(ok=bool(v.get("ok")), **{
+                key: v[key] for key in ("max_abs_err", "variant", "err")
+                if key in v}) for k, v in checks.items()}
+            torch.cuda.empty_cache()
+        res["archs"][arch] = r
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _spawn_world(shape, backend, fsdp: bool, root: str, grads: str) -> list:
+    """Spawns the ranks of one world; their results, rank by rank.  A rank
+    that fails or outlives MESH_RANK_TIMEOUT fails the run."""
+    import multiprocessing as mp
+    import os
+    size = shape[0] * shape[1]
+    store = f"file://{os.path.join(root, 'store')}"
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=_rank_main, args=(r, size, shape, backend,
+                                                    fsdp, store, root, grads))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 0.0))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+        codes.append(p.exitcode)
+    if codes != [0] * size:
+        raise AssertionError(f"mesh_ranks: world {shape} over "
+                             f"{backend or 'nccl'}: rank exit codes {codes}")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(size)]
+
+
+def _rank_block(full: torch.Tensor, spec, shape, rank: int) -> torch.Tensor:
+    from repro_torch.distributed.sharding import Mesh, NamedSharding
+    mesh = Mesh(shape, ("data", "model"), ["cpu"] * (shape[0] * shape[1]))
+    coord = dict(zip(("data", "model"), np.unravel_index(rank, shape)))
+    return NamedSharding(mesh, spec).block(full, coord)
+
+
+def phase_mesh_ranks(dev, dev_info) -> dict:
+    """The LM over worlds of ranks on the card: for each of
+    MESH_RANK_WORLDS a world of processes (NCCL for the world of 1, gloo
+    for the ranks that share cuda:0), each holding only its blocks of
+    Falcon-Mamba-7B and Qwen2-1.5B at their published widths, cut to
+    MESH_RANK_LAYERS layers, float32, seeded: a prefill and
+    MESH_RANK_DECODE greedy decode steps, then MESH_RANK_STEPS AdamW
+    steps, held against the single-process run on a (2, 2) mesh of the
+    card repeated (the same numbers as every world's repeated-device mesh
+    for these two models: no padded heads, no MoE): the losses, step 1's
+    grad norm and each rank's logits blocks within MESH_RANK_TOL of max
+    |·|, each leaf of step 1's gradient within MESH_RANK_TOL in the 2-norm
+    and, entry by entry, MESH_RANK_GRAD_TOL of its max |·|, the decoded
+    tokens equal; each rank's ``memory_allocated`` after loading within
+    MESH_RANK_MEM of the
+    per-device bytes ``launch/specs.py`` ``param_specs_sharded`` gives at
+    the world's mesh, its peak while the weights are drawn within two
+    whole leaves of that (a leaf is drawn whole, then its block kept);
+    layer 0 checkpointed by the world: the files' digests the single
+    process's, and every rank but 0 allocating at most MESH_RANK_MEM of
+    its blocks' bytes while saving; the conv ``staged`` at Falcon-Mamba's
+    8192 / 2 and 8192 / 4 channels; the mixer's kernels (rows 9-12)
+    launched by the ranks of every world and held against their plain
+    versions at the ranks' shapes.  Prints ms a step by world, one step's
+    collective bytes by kind beside ``plan_cost.price_lm_step``'s wire
+    bytes at the (2, 2) mesh, the trained logits' drift and the leaves
+    whose step-1 gradient signs differ most from the repeated-device
+    run's (reported), and the card's name and power limit.  The path
+    ``mesh_ranks`` of ``launches_by_path`` sums the ranks' launches."""
+    import os
+    import tempfile
+    from repro_torch.models import Model
+    torch.cuda.empty_cache()
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as phase_root:
+        grads = os.path.join(phase_root, "grads")
+        os.makedirs(grads)
+        refs = {}
+        for arch in MESH_RANK_ARCHS:
+            cfg = _rank_cfg(arch)
+            model = Model(cfg, _mesh_ctx(dev, (2, 2), fsdp=True),
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED))
+            digests, _ = _ckpt_digests(model, phase_root)
+            refs[arch] = dict(_rank_run(model, dev, _save_grads(
+                os.path.join(grads, f"{arch}.pt"))), digests=digests)
+            del model
+            torch.cuda.empty_cache()
+        for i, (shape, backend, fsdp) in enumerate(MESH_RANK_WORLDS):
+            t0 = time.perf_counter()
+            root = os.path.join(phase_root, f"world{i}")
+            os.makedirs(root)
+            ranks = _spawn_world(shape, backend, fsdp, root, grads)
+            wall = time.perf_counter() - t0
+            for arch in MESH_RANK_ARCHS:
+                _rank_verdict(arch, refs[arch], ranks, shape, backend, fsdp,
+                              wall, total)
+    print(dev_info["smi"], flush=True)
+    return {"mesh_ranks": total}
+
+
+def _rank_verdict(arch, ref, ranks, shape, backend, fsdp, wall,
+                  total) -> None:
+    """Holds one world's results for ``arch`` against the repeated-device
+    run ``ref`` and prints its line (see :func:`phase_mesh_ranks`)."""
+    from repro_torch.distributed import plan_cost
+    from repro_torch.distributed.context import MeshCtx
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import specs
+    from repro_torch.models import Model
+    cfg = _rank_cfg(arch)
+    size = shape[0] * shape[1]
+    meta = MeshCtx.from_mesh(Mesh(shape, ("data", "model"), ["meta"] * size),
+                             fsdp=fsdp)
+    placed = specs.param_specs_sharded(Model(cfg, meta, device="meta"))
+    want = sum(p.local_nbytes for p in placed.values())
+    leaf = max(p.tensor.numel() * p.tensor.element_size()
+               for p in placed.values())
+    vocab = "model" if shape[1] > 1 else None
+    spec = (("data",), None, vocab)
+    errs, grad_errs, trained_errs, launched = [], {}, [], {}
+    sq: dict = {}
+    mem, init_over, save_over, flips = [], [], [], {}
+    tokens_same = True
+    for r, res in enumerate(ranks):
+        got = res["archs"][arch]
+        errs += [abs(g - w) / w for g, w in zip(got["losses"],
+                                                ref["losses"])]
+        errs.append(abs(got["norms"][0] - ref["norms"][0])
+                    / ref["norms"][0])
+        for g, w in zip(got["logits"], ref["logits"]):
+            errs.append(float((g - _rank_block(w, spec, shape, r)).abs()
+                              .max()) / float(w.abs().max()))
+        w = ref["trained_logits"]
+        trained_errs.append(float(
+            (got["trained_logits"] - _rank_block(w, spec, shape, r))
+            .abs().max()) / float(w.abs().max()))
+        for n, (e, f, numel, dd, ww) in got["grads"].items():
+            grad_errs[n] = max(grad_errs.get(n, 0.0), e)
+            a, b = flips.get(n, (0, 0))
+            flips[n] = (a + f, b + numel)
+            a, b = sq.get(n, (0.0, 0.0))
+            sq[n] = (a + dd, b + ww)
+        tokens_same &= torch.equal(got["tokens"], ref["tokens"])
+        mem.append(got["held"] / want - 1.0)
+        init_over.append((got["init_peak"] - want) / leaf)
+        if r:
+            save_over.append(got["save_peak"] / got["block_bytes"])
+        for k, v in got["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+            total[k] = total.get(k, 0) + v
+    priced = None
+    if shape == (2, 2):
+        priced = plan_cost.price_lm_step(cfg, meta, "train", MESH_RANK_BATCH,
+                                         MESH_RANK_SEQ).wire
+    first = ranks[0]["archs"][arch]
+    wire, checks = first["wire"], first.get("checks", {})
+    worst = max(grad_errs, key=grad_errs.get)
+    # each distinct block counted as often as it is replicated, above and
+    # below: the ratio is the leaf's
+    l2 = {n: (a / b) ** 0.5 if b else (0.0 if a == 0 else float("inf"))
+          for n, (a, b) in sq.items()}
+    worst_l2 = max(l2, key=l2.get)
+    most = sorted(flips, key=lambda n: -flips[n][0])[:3]
+    most += [n for n in sorted(flips, key=lambda n: -flips[n][0]
+                               / flips[n][1])[:3] if n not in most]
+    verdict = dict(
+        logits_losses=max(errs) <= MESH_RANK_TOL,
+        grads=l2[worst_l2] <= MESH_RANK_TOL
+        and grad_errs[worst] <= MESH_RANK_GRAD_TOL,
+        tokens=tokens_same,
+        memory=max(abs(m) for m in mem) <= MESH_RANK_MEM
+        and all(res["archs"][arch]["block_bytes"] == want for res in ranks),
+        init_peak=max(init_over) <= 2.0,
+        save_peak=all(o <= MESH_RANK_MEM for o in save_over),
+        ckpt_files=first["digests"] == ref["digests"],
+        kernels_held=all(v["ok"] for res in ranks for v in
+                         res["archs"][arch].get("checks", {}).values()),
+        no_build=all(res["built_seconds"] == 0 for res in ranks))
+    if cfg.family == "ssm":
+        verdict["launched"] = not [
+            k for k in MESH_RANK_KERNELS if not launched.get(k)
+            and not (k == "mamba_scan_bwd"
+                     and launched.get("mamba_scan_bwd_ckpt"))]
+        verdict["conv_staged"] = first.get("conv_variants") == {
+            str(cfg.d_inner // tp): "staged" for tp in (2, 4)}
+    ok = all(verdict.values())
+    emit("mesh_ranks", world=list(shape), backend=ranks[0]["backend"],
+         fsdp=fsdp, arch=arch, layers=cfg.n_layers, batch=MESH_RANK_BATCH,
+         seq=MESH_RANK_SEQ, steps=MESH_RANK_STEPS, decode=MESH_RANK_DECODE,
+         world_s=wall, step_ms=[res["archs"][arch]["step_ms"]
+                                for res in ranks],
+         repeated_step_ms=ref["step_ms"], losses=first["losses"],
+         repeated_losses=ref["losses"], grad_norm=first["norms"][0],
+         repeated_grad_norm=ref["norms"][0], max_rel_err=max(errs),
+         grad_rel_err=grad_errs[worst], grad_worst_leaf=worst,
+         grad_tol=MESH_RANK_GRAD_TOL, grad_l2_rel_err=l2[worst_l2],
+         grad_l2_worst_leaf=worst_l2, tol=MESH_RANK_TOL,
+         trained_logits_rel_err=max(trained_errs),
+         sign_flips={n: list(flips[n]) + [flips[n][0] / flips[n][1]]
+                     for n in most},
+         tokens_same=tokens_same, tokens=ref["tokens"].tolist(),
+         held_over_specs=mem, specs_bytes=want, largest_leaf_bytes=leaf,
+         init_peak_over_specs_in_leaves=init_over,
+         save_peak_over_blocks=save_over, wire=wire,
+         payload=first["payload"], priced_wire=priced,
+         wire_over_priced=None if priced is None else {
+             k: (wire.get(k, 0.0) / v if v else None)
+             for k, v in priced.items()},
+         launches=launched, checks=checks,
+         conv_variants=first.get("conv_variants"),
+         built_seconds=[res["built_seconds"] for res in ranks],
+         verdict=verdict, ok=ok)
+    if not ok:
+        FAILED.append(f"mesh_ranks: world {shape} {arch}: "
+                      f"{[k for k, v in verdict.items() if not v]}")
+
+
 # ---------------------------------------------------------------- examples
 
 
@@ -5831,6 +6322,7 @@ def main() -> None:
     phase_mesh_moe(dev)
     launches.update(phase_mesh_ssm(dev))
     phase_mesh_train(dev)
+    launches.update(phase_mesh_ranks(dev, dev_info))
     phase_step_cost(dev)
     launches.update(phase_examples())
     rows = []

@@ -18,6 +18,15 @@ Guarantees:
 * **Async** — ``save_async`` copies every leaf to the host before it
   returns (a blocking copy, so the snapshot is complete), then writes on a
   worker thread.
+* **Any mesh** — the files do not depend on the mesh (as the reference's,
+  ``manager.py:11-13``).  On a mesh over a world of ranks, where each rank
+  holds its blocks, ``save`` and ``save_async`` take the tree's
+  ``shardings``: leaf by leaf, the ranks holding its distinct blocks send
+  them to rank 0 (no other rank holds a whole leaf), rank 0 writes the
+  same logical arrays in the same format, and the ranks meet
+  at a barrier once the write is done (in ``wait`` for ``save_async``);
+  ``restore`` with ``shardings`` on such a mesh gives each rank its
+  block of every leaf.
 
 A bf16 leaf goes to disk as its raw 16-bit view (``uint16``) with
 ``bfloat16`` in the manifest, and comes back through a torch view: numpy
@@ -33,7 +42,9 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
+import math
 import os
 import shutil
 import threading
@@ -135,6 +146,56 @@ def _placements(like: Any, shardings: Any) -> list:
     return out
 
 
+def _world(places: list):
+    """The world of the first placement on a mesh of ranks, or None."""
+    for sh in places:
+        if sh is not None and getattr(sh.mesh, "world", None) is not None:
+            return sh.mesh.world
+    return None
+
+
+def _gathered(leaves: list, places: list, world) -> Optional[list]:
+    """On rank 0 every leaf whole, else ``None``.  Leaf by leaf, the ranks
+    on rank 0's line along the axes the leaf is split over (they hold its
+    distinct blocks) send their blocks to rank 0 (``dist.gather``), which
+    puts each at its place: no other rank holds more than its blocks, and
+    rank 0 one whole leaf beside them at a time."""
+    import torch.distributed as dist
+    from ..distributed.sharding import _axes
+    sizes, coord, out = dict(zip(world.axis_names, world.dims)), \
+        world.coord, []
+    with torch.no_grad():
+        for leaf, sh in zip(leaves, places):
+            split = set() if sh is None or not isinstance(
+                leaf, torch.Tensor) else {a for e in sh.spec
+                                          for a in _axes(e)}
+            axes = tuple(a for a in world.axis_names
+                         if a in split and sizes[a] > 1)
+            if not axes:
+                out.append(leaf)
+                continue
+            if any(coord[a] for a in world.axis_names if a not in axes):
+                continue            # not on rank 0's line: sends nothing
+            blk = leaf.contiguous()
+            bufs = [torch.empty_like(blk) for _ in
+                    range(world.axis_size(axes))] if world.rank == 0 \
+                else None
+            dist.gather(blk, bufs, dst=0, group=world.group(axes))
+            if world.rank != 0:
+                continue
+            whole = blk.new_empty(tuple(
+                n * math.prod(sizes[a] for a in _axes(e)) for n, e in
+                itertools.zip_longest(blk.shape, sh.spec)))
+            for j, b in enumerate(bufs):     # the line's ranks, row-major
+                at = dict.fromkeys(world.axis_names, 0)
+                for a in reversed(axes):
+                    at[a], j = j % sizes[a], j // sizes[a]
+                sh.block(whole, at).copy_(b)
+            del bufs
+            out.append(whole)
+    return out if world.rank == 0 else None
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(numpy array to write, dtype name for the manifest); the copy is
     complete when this returns."""
@@ -157,17 +218,39 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._world = None       # set by a save over a world of ranks
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree: Any) -> str:
+    def _snapshot(self, tree: Any, shardings: Any):
+        """(host leaves to write, or None on a rank that writes nothing;
+        the structure): on a mesh of ranks each leaf gathered whole."""
         leaves, structure = tree_flatten(tree)
-        return self._write(step, [_to_host(l) for l in leaves], structure)
+        places = _placements(tree, shardings) if shardings is not None \
+            else [None] * len(leaves)
+        world = _world(places)
+        if world is not None:
+            self._world = world
+            leaves = _gathered(leaves, places, world)
+            if leaves is None:
+                return None, structure
+        return [_to_host(l) for l in leaves], structure
 
-    def save_async(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, shardings: Any = None) -> str:
+        host, structure = self._snapshot(tree, shardings)
+        path = self.step_dir(step) if host is None else \
+            self._write(step, host, structure)
+        if self._world is not None:
+            self._world.barrier()
+        return path
+
+    def save_async(self, step: int, tree: Any, shardings: Any = None
+                   ) -> None:
         self.wait()
-        leaves, structure = tree_flatten(tree)
-        host = [_to_host(l) for l in leaves]     # device → host snapshot now
+        # device → host snapshot now
+        host, structure = self._snapshot(tree, shardings)
+        if host is None:
+            return
 
         def work():
             self._write(step, host, structure)
@@ -179,6 +262,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._world is not None:
+            self._world.barrier()
 
     def step_dir(self, step: int) -> str:
         """Directory a step lives in (exists only once saved)."""
@@ -247,7 +332,7 @@ class CheckpointManager:
         """Restore into the structure of ``like``, every leaf a tensor on
         ``device`` (``None``: the CUDA device) or on its placement in
         ``shardings`` (``ValueError`` where the spec does not fit the
-        leaf)."""
+        leaf); on a mesh over a world of ranks, this rank's block of it."""
         dev = resolve_device(device)
         path = self.step_dir(step)
         manifest = self._verify(path)
@@ -265,10 +350,12 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.astype(np.dtype(meta["dtype"]),
                                                 copy=False))
             sh = places[i]
+            t = t.reshape(meta["shape"])
             if sh is not None:
                 sh.shard_shape(meta["shape"])     # the spec fits the leaf
-            out.append(t.reshape(meta["shape"]).to(
-                dev if sh is None else sh.device))
+                if sh.mesh.world is not None:
+                    t = sh.local(t).clone()
+            out.append(t.to(dev if sh is None else sh.device))
         if len(out) != len(leaves):
             raise IOError(f"checkpoint at {path} holds {len(out)} leaves; "
                           f"the structure asks for {len(leaves)}")

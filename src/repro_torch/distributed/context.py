@@ -7,9 +7,12 @@
   fsdp    — whether weights also split over ``dp_axes[-1]``.
 
 ``MeshCtx(None)`` runs everything on one device.  The port has no SPMD
-partitioner: :meth:`MeshCtx.constrain` checks that the spec names the
-mesh's axes, then places the tensor on the mesh's first device, where the
-model lives and the CV engine's folds × λ split starts from.
+partitioner.  On a mesh of devices :meth:`MeshCtx.constrain` checks that
+the spec names the mesh's axes, then places the tensor on the mesh's first
+device, where the model lives and the CV engine's folds × λ split starts
+from.  On a mesh over a world of ranks (:attr:`MeshCtx.ranks`) it checks
+that the tensor has its block's shape and moves nothing: data moves only
+through the collectives (:mod:`repro_torch.distributed.collectives`).
 """
 from __future__ import annotations
 
@@ -60,6 +63,28 @@ class MeshCtx:
             s *= self.axis_size(a)
         return s
 
+    @property
+    def ranks(self) -> bool:
+        """Whether the mesh is over a world of ranks (one process a
+        position, each holding only its blocks)."""
+        return self.mesh is not None and self.mesh.world is not None
+
+    @property
+    def world(self):
+        return self.mesh.world if self.mesh is not None else None
+
+    def rows_split(self, batch: int) -> bool:
+        """Whether a batch of ``batch`` rows splits over the data axes on a
+        rank mesh (else every data rank holds all of them)."""
+        return self.ranks and batch % self.dp_size == 0
+
+    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch ``t`` (dimension 0) on a rank
+        mesh, when they split over the data axes; else ``t``."""
+        if not self.rows_split(t.shape[0]):
+            return t
+        return NamedSharding(self.mesh, (self.dp_axes,)).local(t)
+
     def sharding(self, *spec) -> Optional[NamedSharding]:
         """``(mesh, spec)`` as a :class:`~repro_torch.distributed.sharding.
         NamedSharding`, or ``None`` without a mesh."""
@@ -67,9 +92,12 @@ class MeshCtx:
             return None
         return NamedSharding(self.mesh, spec)
 
-    def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
+    def constrain(self, x: torch.Tensor, *spec, shape=None) -> torch.Tensor:
         """``x`` on the mesh's first device, after checking that every
-        axis the spec names is the mesh's; a no-op without a mesh."""
+        axis the spec names is the mesh's; a no-op without a mesh.  On a
+        rank mesh ``x`` is this rank's block of a tensor of ``shape``
+        (required there): ``ValueError`` unless its shape is the spec's
+        ``shard_shape``; nothing moves."""
         if self.mesh is None:
             return x
         if len(spec) > x.ndim:
@@ -80,4 +108,10 @@ class MeshCtx:
                 if ax not in self.mesh.shape:
                     raise ValueError(f"axis {ax!r} is not an axis of the "
                                      f"mesh {dict(self.mesh.shape)}")
+        if self.ranks:
+            want = NamedSharding(self.mesh, spec).shard_shape(shape)
+            if tuple(x.shape) != want:
+                raise ValueError(f"a block of {tuple(x.shape)}; the spec "
+                                 f"{spec} of {tuple(shape)} gives {want}")
+            return x
         return x.to(self.mesh.flat[0])

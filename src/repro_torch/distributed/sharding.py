@@ -10,10 +10,14 @@ or ``("pod", "data", "model")``, the CV sweep's ``(folds, lams)``), a
 device may repeat, and a sharding is the pair ``(mesh, spec)``
 (:class:`NamedSharding`), whose :meth:`~NamedSharding.shard_shape` and
 :meth:`~NamedSharding.block` give a leaf's local shape and its block at a
-mesh coordinate.  Tensors stay whole
-on the mesh's first device; where the reference's numbers depend on the
-partition (padded heads, the MoE's per-shard capacity) the model computes
-them shard by shard (:mod:`repro_torch.models.blocks`).
+mesh coordinate.  A mesh is of one of two kinds.  Over devices (which
+may repeat) tensors stay whole on the mesh's first device; where the
+reference's numbers depend on the partition (padded heads, the MoE's
+per-shard capacity) the model computes them shard by shard
+(:mod:`repro_torch.models.blocks`).  Over a world of ranks
+(:meth:`Mesh.from_world`: one process per position,
+:mod:`repro_torch.distributed.runtime`) each rank holds only its blocks
+and exchanges with the others through :mod:`.collectives`.
 
 The CV sweep is a dense (fold × λ) grid of independent solves, so its
 natural mesh is 2-D: fold Hessians split over :data:`CV_FOLD_AXIS`, the λ
@@ -51,11 +55,27 @@ class Mesh:
     ``axis_names``.  :attr:`shape` maps each name to its size; a device
     may appear more than once (``[torch.device("cpu")] * 4``), and the
     ``meta`` device stands for devices that are not there (the dry run).
-    A CUDA device named without an index is the current one."""
+    A CUDA device named without an index is the current one.
+
+    Over a world of ranks (:meth:`from_world`), ``world`` is this rank's
+    :class:`~repro_torch.distributed.runtime.World` and every position
+    lists this rank's device: a rank addresses only its own."""
 
     dims: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     devices: Tuple[torch.device, ...]
+    world: Any = dataclasses.field(default=None, repr=False)
+
+    @classmethod
+    def from_world(cls, world) -> "Mesh":
+        """The mesh of ``world``'s shape and axes over its ranks."""
+        return cls(world.dims, world.axis_names,
+                   (world.device,) * world.size, world)
+
+    @property
+    def coord(self) -> Optional[Dict[str, int]]:
+        """This rank's coordinate over a world; ``None`` otherwise."""
+        return None if self.world is None else self.world.coord
 
     def __post_init__(self):
         from .._device import canonical
@@ -92,6 +112,9 @@ class Mesh:
                 for i in range(self.dims[0])]
 
     def __repr__(self) -> str:
+        if self.world is not None:
+            return (f"Mesh({self.shape}, rank {self.world.rank} on "
+                    f"{self.world.device})")
         kinds = sorted({str(d) for d in self.devices})
         return f"Mesh({self.shape}, devices {kinds})"
 
@@ -147,9 +170,14 @@ class NamedSharding(NamedTuple):
             out = out.narrow(d, i * m, m)
         return out
 
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's :meth:`block` of ``t`` on a mesh over a world."""
+        return self.block(t, self.mesh.coord)
+
     @property
     def device(self) -> torch.device:
-        """Where the port keeps the whole leaf: the mesh's first device."""
+        """Where the port keeps the leaf: the mesh's first device (over a
+        world, this rank's)."""
         return self.mesh.flat[0]
 
 

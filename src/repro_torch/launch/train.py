@@ -19,6 +19,17 @@ which restores a checkpoint onto them.  The tokens are drawn on the host
 (the same draws on every run); a resumed run skips the batches of the
 steps it resumes after, so it trains on what an unbroken run would.
 
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) the mesh is built
+over the world's ranks, one process a mesh position, each on
+``cuda:LOCAL_RANK`` (or ``--device``), holding only its blocks:
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh 1x1 ...
+
+``--mesh`` keeps the same rule, so a world of another size than the
+mesh's raises ``ValueError`` naming the ranks it needs (256 for any
+``DxM`` but ``1x1``).  Every rank logs alike; rank 0 prints.  Only the
+dense, MoE and Mamba families run over ranks, with AdamW.
+
 ``--arch`` is any name of ``repro_torch.configs.names()``: the dense
 configurations (``smollm-360m``, ``qwen2-1.5b``, ``minicpm-2b``,
 ``h2o-danube-3-4b``), ``falcon-mamba-7b``, ``recurrentgemma-2b``, the
@@ -37,6 +48,8 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -45,8 +58,10 @@ from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.data import cross_source, token_stream
 from repro_torch.distributed.context import MeshCtx
+from repro_torch.distributed.runtime import init_world
 from repro_torch.distributed.sharding import param_shardings
-from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.launch.mesh import (make_debug_mesh, make_production_mesh,
+                                     production_shape)
 from repro_torch.models import Model
 from repro_torch.optim import adafactor, adamw
 from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
@@ -74,7 +89,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     dims = [int(x) for x in args.mesh.split("x")]
-    if dims == [1, 1]:
+    rank = 0
+    if "WORLD_SIZE" in os.environ:          # a world started by torchrun
+        shape, axes = ((1, 1), ("data", "model")) if dims == [1, 1] else \
+            production_shape(multi_pod=len(dims) > 2)
+        found = int(os.environ["WORLD_SIZE"])
+        if found != math.prod(shape):
+            raise ValueError(f"--mesh {args.mesh} is the {shape} mesh of "
+                             f"{math.prod(shape)} ranks; the world has "
+                             f"{found}")
+        world = init_world(shape, axes, device=args.device or torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", "0"))))
+        mesh = (make_debug_mesh(world=world) if dims == [1, 1] else
+                make_production_mesh(multi_pod=len(dims) > 2, world=world))
+        rank = world.rank
+    elif dims == [1, 1]:
         mesh = make_debug_mesh(devices=[resolve_device(args.device)])
     else:
         mesh = make_production_mesh(multi_pod=len(dims) > 2)
@@ -102,11 +131,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          args.batch, args.seq)
     out = loop.run(itertools.islice(data, loop.start_step, args.steps + 4),
                    extra)
-    for e in out["log"]:
-        print(f"step {e['step']:6d}  loss {e['loss']:.4f}  "
-              f"{e['sec_per_step']:.3f}s/step")
-    print(f"final step {out['final_step']}  stragglers "
-          f"{out['straggler_steps']}")
+    if rank == 0:
+        for e in out["log"]:
+            print(f"step {e['step']:6d}  loss {e['loss']:.4f}  "
+                  f"{e['sec_per_step']:.3f}s/step")
+        print(f"final step {out['final_step']}  stragglers "
+              f"{out['straggler_steps']}")
     return out
 
 

@@ -36,6 +36,25 @@ d), ``shared`` an MLP) and the RG-LRU (``wx``, ``wy`` (d, W), ``conv_w``
 no kernel of the port: the reference computes them with XLA, and so does
 the port with PyTorch's operations.  Under a mesh the MoE layer runs per
 shard, as the reference's ``shard_map`` does (:func:`moe_apply`).
+
+On a mesh over a world of ranks (``ctx.ranks``) each block takes this
+rank's blocks of its weights and exchanges through
+:mod:`repro_torch.distributed.collectives`: every ``"fsdp"`` dimension is
+gathered over the FSDP axis where it is used (its gradient comes back
+reduce-scattered), the row-split products' partial sums (attention's
+``wo``, the MLP's ``wo``, the mixer's ``x_proj`` and ``out_proj``, the
+MoE's combine) are ``psum``-ed over ``"model"``.  Attention runs this
+rank's query heads (with KV replicated, the kv heads :func:`_kv_index`
+maps them to); with the head dim over ``"model"`` q, k and v are gathered
+along it (RoPE pairs dimension i with i + hd/2, which another rank holds)
+and this rank keeps its slice of the output (the part between computed
+alike on every rank, its backward on the whole output gradient), while a
+decode step sums its partial q·k scores over ``"model"`` against its slice
+of the cache.  The
+KV cache holds this rank's kv heads, or with KV replicated all of them, or
+its slice of the head dim.  The mixer's conv and scan run on this rank's
+``d_inner / tp`` channels, through the port's kernels.  The RG-LRU and the
+cross-attention have no rank path (the model refuses their families).
 """
 from __future__ import annotations
 
@@ -47,6 +66,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import MeshCtx
 from repro_torch.kernels.ssm_scan import resolve_mixer
 
@@ -60,7 +80,8 @@ __all__ = ["attention_spec", "attention_apply", "cross_attention",
            "mamba_spec", "mamba_apply", "mamba_prefill", "mamba_init_cache",
            "mamba_decode", "rglru_spec", "rglru_apply", "rglru_prefill",
            "rglru_init_cache", "rglru_decode", "norm_spec", "norm_apply",
-           "rows_run"]
+           "rows_run", "fsdp_gather", "attention_cache_heads",
+           "mamba_width"]
 
 
 # On the card each of these products runs on at least this many rows (zero
@@ -152,6 +173,46 @@ def _mlp_axis(d_ff: int, ctx: Optional[MeshCtx]) -> Optional[str]:
     return "model" if d_ff % _ctx(ctx).tp_size == 0 else None
 
 
+def _split(size: int, ctx: Optional[MeshCtx]) -> bool:
+    """Whether a width of ``size`` is split over ``"model"`` on a rank
+    mesh (its row-split products then sum over it)."""
+    ctx = _ctx(ctx)
+    return ctx.ranks and ctx.tp_size > 1 and size % ctx.tp_size == 0
+
+
+def _psum_model(y: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    return coll.psum(y, ctx.tp_axis, ctx.world)
+
+
+def fsdp_gather(t: torch.Tensor, dim: int, ctx: Optional[MeshCtx]
+                ) -> torch.Tensor:
+    """``t`` whole along dimension ``dim`` (an ``"fsdp"`` one) on a rank
+    mesh with FSDP: gathered over the FSDP axis; else ``t``."""
+    ctx = _ctx(ctx)
+    if not ctx.ranks or ctx.fsdp_axis is None:
+        return t
+    return coll.all_gather(t, ctx.fsdp_axis, ctx.world, axis=dim)
+
+
+def _whole(p, ctx: Optional[MeshCtx], dims: Dict[str, int]):
+    """``p`` with each leaf of ``dims`` (name → its ``"fsdp"`` dimension)
+    gathered over the FSDP axis on a rank mesh; ``p`` itself otherwise."""
+    ctx = _ctx(ctx)
+    if not ctx.ranks or ctx.fsdp_axis is None:
+        return p
+    attrs = (dict(p.named_parameters(recurse=False))
+             if isinstance(p, torch.nn.Module) else dict(vars(p)))
+    for name, dim in dims.items():
+        attrs[name] = fsdp_gather(attrs[name], dim, ctx)
+    return SimpleNamespace(**attrs)
+
+
+def _own_slice(t: torch.Tensor, ctx: MeshCtx, dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``"model"``."""
+    n = t.shape[dim] // ctx.tp_size
+    return t.narrow(dim, ctx.world.axis_index(ctx.tp_axis) * n, n)
+
+
 # ---------------------------------------------------------------- attention
 
 
@@ -216,6 +277,180 @@ def _gated(p, y: torch.Tensor) -> torch.Tensor:
     return torch.tanh(p.gate.float()).to(y.dtype) * y
 
 
+_ATTN_FSDP = {"wq": 0, "wk": 0, "wv": 0, "wo": 2}
+
+
+def _heads_split(cfg: ModelConfig, ctx: MeshCtx) -> bool:
+    """Whether attention splits over ``"model"`` (heads or head dim): its
+    ``wo`` is then row-split."""
+    return ctx.ranks and ctx.tp_size > 1 and \
+        _attn_layout(cfg, ctx) != (None,) * 4
+
+
+def _dim_split(cfg: ModelConfig, ctx: MeshCtx) -> bool:
+    return ctx.ranks and ctx.tp_size > 1 and \
+        _attn_layout(cfg, ctx)[2] == "model"
+
+
+def attention_cache_heads(cfg: ModelConfig, ctx: Optional[MeshCtx] = None
+                          ) -> Tuple[int, int]:
+    """(kv heads, head dim) of the KV cache a rank holds: its kv heads
+    where they split over ``"model"``, all of them where only the query
+    heads do, its slice of the head dim where that splits; whole off a
+    rank mesh."""
+    ctx = _ctx(ctx)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    if not ctx.ranks or ctx.tp_size == 1:
+        return kv, hd
+    _, kvh, _, kvd = _attn_layout(cfg, ctx)
+    return (kv // ctx.tp_size if kvh else kv,
+            hd // ctx.tp_size if kvd else hd)
+
+
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+             ctx: MeshCtx):
+    """k and v for this rank's query heads: with the query heads over
+    ``"model"`` and KV replicated, the kv head :func:`_kv_index` maps each
+    local query head to; else as :func:`_for_heads` gives them."""
+    qh, kvh, _, _ = _attn_layout(cfg, ctx)
+    if ctx.tp_size > 1 and qh == "model" and kvh is None:
+        hl = _padded_heads(cfg, ctx) // ctx.tp_size
+        m = ctx.world.axis_index(ctx.tp_axis)
+        idx = torch.as_tensor(_kv_index(cfg, ctx)[m * hl:(m + 1) * hl],
+                              device=k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return _for_heads(k, v, cfg, ctx)
+
+
+class _Replicated(torch.autograd.Function):
+    """x's blocks along its last dimension gathered over ``"model"``, so
+    that every rank computes the same thing on the whole tensor up to the
+    matching :class:`_OwnSlice`; the backward takes this rank's slice of
+    the gradient, which is whole and the same on every rank there.  The
+    pair is the exact vector-Jacobian product of the part between them
+    (the gradient of each rank's slice of its output reaches every rank
+    through :class:`_OwnSlice`'s gather)."""
+
+    @staticmethod
+    def forward(ctx, x, mctx):
+        ctx.mctx = mctx
+        return coll.all_gather(x, mctx.tp_axis, mctx.world, axis=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.mctx).contiguous(), None
+
+
+class _OwnSlice(torch.autograd.Function):
+    """This rank's slice of the last dimension of a tensor every rank
+    holds whole (:class:`_Replicated`); the backward gathers the slices'
+    gradients over ``"model"``."""
+
+    @staticmethod
+    def forward(ctx, x, mctx):
+        ctx.mctx = mctx
+        return _own_slice(x, mctx).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return coll.all_gather(g.contiguous(), ctx.mctx.tp_axis,
+                               ctx.mctx.world, axis=-1), None
+
+
+def _attention_ranks(p, x: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx, *,
+                     causal: bool, window: Optional[int], use_rope: bool,
+                     positions: Optional[torch.Tensor]):
+    """Self-attention on a rank mesh: (y summed over ``"model"``, this
+    rank's k and v after RoPE for the cache)."""
+    pw = _whole(p, ctx, _ATTN_FSDP)
+    q, k, v = _qkv(pw, x, x)
+    dim_split = _dim_split(cfg, ctx)
+    if dim_split:       # RoPE pairs dimension i with i + hd/2
+        q, k, v = (_Replicated.apply(t, ctx) for t in (q, k, v))
+    if use_rope:
+        pos = positions if positions is not None else torch.arange(
+            x.shape[1], device=x.device)
+        q = layers.rope(q, pos, cfg.rope_theta)
+        k = layers.rope(k, pos, cfg.rope_theta)
+    out = layers.flash_attention(q, *_rank_kv(k, v, cfg, ctx),
+                                 causal=causal, window=window,
+                                 chunk=cfg.attn_chunk)
+    if dim_split:
+        out, k, v = (_OwnSlice.apply(t, ctx) for t in (out, k, v))
+    y = _out(pw, out, x)
+    if _heads_split(cfg, ctx):
+        y = _psum_model(y, ctx)
+    return y, k, v
+
+
+def _decode_scores_split(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                         valid_len: int, head_dim: int, ctx: MeshCtx
+                         ) -> torch.Tensor:
+    """:func:`~repro_torch.models.layers.decode_attention` over this
+    rank's slice of the head dim: the partial q·k scores summed over
+    ``"model"``, then scaled by the whole head dim's 1/√hd; returns this
+    rank's slice of the output."""
+    b, _, h, hdl = q.shape
+    s, kvh = ck.shape[1], ck.shape[2]
+    qg = q.float().reshape(b, kvh, h // kvh, hdl)
+    scores = _psum_model(torch.einsum("bgrd,bsgd->bgrs", qg, ck.float()),
+                         ctx) * (1.0 / math.sqrt(head_dim))
+    valid = torch.arange(s, device=q.device) < valid_len
+    p = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", p, cv.float())
+    return out.reshape(b, 1, h, hdl).to(q.dtype)
+
+
+def _attention_decode_ranks(p, x: torch.Tensor, cache, pos: int,
+                            cfg: ModelConfig, ctx: MeshCtx,
+                            window: Optional[int]):
+    """:func:`attention_decode` on a rank mesh, the cache this rank's."""
+    pw = _whole(p, ctx, _ATTN_FSDP)
+    q, k, v = _qkv(pw, x, x)
+    dim_split = _dim_split(cfg, ctx)
+    if dim_split:
+        q, k = (coll.all_gather(t, ctx.tp_axis, ctx.world, axis=-1)
+                for t in (q, k))
+    pos_b = torch.full((x.shape[0], 1), pos, device=x.device)
+    q = layers.rope(q, pos_b, cfg.rope_theta)
+    k = layers.rope(k, pos_b, cfg.rope_theta)
+    if dim_split:
+        q, k = _own_slice(q, ctx), _own_slice(k, ctx)
+    s = cache["k"].shape[1]
+    slot = pos % s if window else min(pos, s - 1)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[:, slot], cv[:, slot] = k[:, 0], v[:, 0]
+    if dim_split:
+        out = _decode_scores_split(q, ck, cv, min(pos + 1, s),
+                                   cfg.head_dim_, ctx)
+    else:
+        out = layers.decode_attention(q, *_rank_kv(ck, cv, cfg, ctx),
+                                      min(pos + 1, s))
+    y = _out(pw, out, x)
+    if _heads_split(cfg, ctx):
+        y = _psum_model(y, ctx)
+    return y, {"k": ck, "v": cv}
+
+
+def _prefill_cache(k: torch.Tensor, v: torch.Tensor, s: int,
+                   window: Optional[int], cache_len: Optional[int]):
+    """The prefill's KV cache of k and v (B, S, KV, hd): a ring buffer of
+    ``window`` slots, token t at slot t % window; without a window k and v
+    padded to ``cache_len`` (default S + 128) slots."""
+    if window:
+        keep = min(window, s)
+        slots = torch.arange(s - keep, s, device=k.device) % window
+        shape = (k.shape[0], window) + k.shape[2:]
+        ck = k.new_zeros(shape).index_copy_(1, slots, k[:, s - keep:])
+        cv = v.new_zeros(shape).index_copy_(1, slots, v[:, s - keep:])
+        return {"k": ck, "v": cv}
+    cache_len = cache_len or s + 128
+    if cache_len < s:
+        raise ValueError(f"cache_len {cache_len} < the prompt's {s} tokens")
+    pad = (0, 0, 0, 0, 0, cache_len - s)
+    return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+
+
 def attention_apply(p, x: torch.Tensor, cfg: ModelConfig,
                     ctx: Optional[MeshCtx] = None, *,
                     causal: bool = True, window: Optional[int] = None,
@@ -224,6 +459,9 @@ def attention_apply(p, x: torch.Tensor, cfg: ModelConfig,
                     ) -> torch.Tensor:
     """``blocks.py:93-116``: self-attention over x (the reference's
     ``kv_src`` case is :func:`cross_attention`)."""
+    if _ctx(ctx).ranks:
+        return _attention_ranks(p, x, cfg, ctx, causal=causal, window=window,
+                                use_rope=use_rope, positions=positions)[0]
     q, k, v = _qkv(p, x, x)
     if use_rope:
         pos = positions if positions is not None else torch.arange(
@@ -257,8 +495,14 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig,
     """``blocks.py:119-143``: causal self-attention over x, and its KV
     cache.  With ``window`` a ring buffer of exactly ``window`` slots, token
     t at slot t % window; without, k and v padded to ``cache_len`` (default
-    S + 128) slots for the decode steps."""
+    S + 128) slots for the decode steps.  On a rank mesh the cache holds
+    this rank's kv heads (:func:`attention_cache_heads`)."""
     s = x.shape[1]
+    if _ctx(ctx).ranks:
+        y, k, v = _attention_ranks(p, x, cfg, ctx, causal=True,
+                                   window=window, use_rope=True,
+                                   positions=None)
+        return y, _prefill_cache(k, v, s, window, cache_len)
     pos = torch.arange(s, device=x.device)
     q, k, v = _qkv(p, x, x)
     q = layers.rope(q, pos, cfg.rope_theta)
@@ -266,21 +510,7 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig,
     out = layers.flash_attention(q, *_for_heads(k, v, cfg, ctx),
                                  causal=True, window=window,
                                  chunk=cfg.attn_chunk)
-    y = _out(p, out, x)
-    if window:
-        keep = min(window, s)
-        slots = torch.arange(s - keep, s, device=x.device) % window
-        shape = (k.shape[0], window) + k.shape[2:]
-        ck = k.new_zeros(shape).index_copy_(1, slots, k[:, s - keep:])
-        cv = v.new_zeros(shape).index_copy_(1, slots, v[:, s - keep:])
-    else:
-        cache_len = cache_len or s + 128
-        if cache_len < s:
-            raise ValueError(f"cache_len {cache_len} < the prompt's {s} "
-                             "tokens")
-        pad = (0, 0, 0, 0, 0, cache_len - s)
-        ck, cv = F.pad(k, pad), F.pad(v, pad)
-    return y, {"k": ck, "v": cv}
+    return _out(p, out, x), _prefill_cache(k, v, s, window, cache_len)
 
 
 def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -301,6 +531,8 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
             q, *_for_heads(cache["k"], cache["v"], cfg, ctx),
             cache["k"].shape[1])
         return _gated(p, _out(p, out, x)), cache
+    if _ctx(ctx).ranks:
+        return _attention_decode_ranks(p, x, cache, pos, cfg, ctx, window)
     q, k, v = _qkv(p, x, x)
     pos_b = torch.full((x.shape[0], 1), pos, device=x.device)
     q = layers.rope(q, pos_b, cfg.rope_theta)
@@ -328,15 +560,27 @@ def mlp_spec(cfg: ModelConfig, ctx: Optional[MeshCtx] = None,
     return spec
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[MeshCtx] = None, d_ff: Optional[int] = None
+              ) -> torch.Tensor:
     """``blocks.py:192-194``: the weights cast to x's dtype, then
-    :func:`~repro_torch.models.layers.mlp`."""
+    :func:`~repro_torch.models.layers.mlp`.  On a rank mesh its width
+    ``d_ff`` (default ``cfg.d_ff``) is this rank's block where
+    ``"model"`` divides it, and ``wo``'s output is summed over it."""
+    ctx = _ctx(ctx)
+    if ctx.ranks:
+        dims = {"wi": 0, "wo": 1}
+        if getattr(p, "wg", None) is not None:
+            dims["wg"] = 0
+        p = _whole(p, ctx, dims)
+
     def w(name):
         t = getattr(p, name, None)
         return None if t is None else t.to(x.dtype)
 
     wi, wo, wg = w("wi"), w("wo"), w("wg")
-    return _on_rows(lambda t: layers.mlp(t, wi, wo, wg, cfg.act), x, "mlp")
+    y = _on_rows(lambda t: layers.mlp(t, wi, wo, wg, cfg.act), x, "mlp")
+    return _psum_model(y, ctx) if _split(d_ff or cfg.d_ff, ctx) else y
 
 
 # ---------------------------------------------------------------- MoE
@@ -590,25 +834,74 @@ def _moe_sharded(xf: torch.Tensor, p, cfg: ModelConfig, ctx: MeshCtx
     return out, torch.stack(auxes).sum() / n_dp
 
 
+def _moe_ranks(xf: torch.Tensor, p, cfg: ModelConfig, ctx: MeshCtx,
+               rows_split: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_moe_sharded` on a rank mesh: this rank is data shard i and
+    model shard m.  Its tokens are its rows of the batch (``rows_split``),
+    else its slice of the flattened tokens when they divide the data axes
+    (gathered back over them after the psum), else all of them (the
+    reference's ``dp_ok`` fallback); the capacity is its shard's.  Its
+    experts are its block (``m · E / tp`` onward under expert parallelism,
+    else every expert's m-th slice of the width), gathered over the FSDP
+    axis (``blocks.py:309-312``); the partial outputs are summed over
+    ``"model"``, aux averaged over the data axes when they split the
+    tokens.  Under :func:`routing_stats` the rank's one record names its
+    ``data_shard``, ``model_shard`` and ``experts``."""
+    w = ctx.world
+    t = xf.shape[0]
+    e, tp = cfg.n_experts, ctx.tp_size
+    ep = e % tp == 0 and tp > 1
+    slice_tokens = not rows_split and ctx.dp_size > 1 and \
+        t % ctx.dp_size == 0
+    dp_ok = rows_split or slice_tokens
+    i = w.axis_index(ctx.dp_axes) if dp_ok else 0
+    xl = xf
+    if slice_tokens:
+        n = t // ctx.dp_size
+        xl = xf[i * n:(i + 1) * n]
+    cap = int(xl.shape[0] * cfg.top_k / e * cfg.capacity_factor) + 1
+    cap = -(-cap // 8) * 8
+    n_local = e // tp if ep else e
+    m = w.axis_index(ctx.tp_axis)
+    offset = m * n_local if ep else 0
+    weights = _whole(SimpleNamespace(wi=p.wi, wg=p.wg, wo=p.wo), ctx,
+                     {"wi": 1, "wg": 1, "wo": 2})
+    r = _route(xl, p.router, cfg, cap)
+    out = _experts(xl, weights, r, n_local, offset)
+    if _STATS is not None:
+        _STATS[-1].update(data_shard=i, model_shard=m,
+                          experts=(offset, offset + n_local))
+    out = _psum_model(out, ctx)
+    if slice_tokens:
+        out = coll.all_gather(out, ctx.dp_axes, w, axis=0)
+    aux = coll.pmean(r.aux, ctx.dp_axes, w) if dp_ok else r.aux
+    return out, aux
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
-              ctx: Optional[MeshCtx] = None
+              ctx: Optional[MeshCtx] = None, *, rows_split: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (out, aux loss) (``blocks.py:270-337``).  Without a
     mesh the single-device branch: capacity ``int(B·S·k / E ·
     capacity_factor) + 1`` from this call's own tokens, so a decode step
     of 4 tokens gets a capacity of its own.  Under a mesh
-    :func:`_moe_sharded`.  Then the shared expert's MLP added."""
+    :func:`_moe_sharded`; on a rank mesh :func:`_moe_ranks` (x this
+    rank's rows of the batch when ``rows_split``).  Then the shared
+    expert's MLP added."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     if _ctx(ctx).mesh is None:
         cap = int(b * s * cfg.top_k / cfg.n_experts
                   * cfg.capacity_factor) + 1
         out, aux = _moe_local(xf, p, cfg, cap)
+    elif ctx.ranks:
+        out, aux = _moe_ranks(xf, p, cfg, ctx, rows_split)
     else:
         out, aux = _moe_sharded(xf, p, cfg, ctx)
     out = out.view(b, s, d).to(x.dtype)
     if cfg.n_shared_experts:
-        out = out + mlp_apply(p.shared, x, cfg)
+        out = out + mlp_apply(p.shared, x, cfg, ctx,
+                              d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
     return out, aux
 
 
@@ -644,8 +937,18 @@ def _in_proj(p, x: torch.Tensor, scan: str, state=None):
     return xc, z, conv_state
 
 
+def mamba_width(cfg: ModelConfig, ctx: Optional[MeshCtx] = None) -> int:
+    """The mixer's channels a rank holds: ``d_inner / tp`` where
+    ``"model"`` divides it on a rank mesh, else ``d_inner``."""
+    di = cfg.d_inner
+    return di // _ctx(ctx).tp_size if _split(di, ctx) else di
+
+
+_MAMBA_FSDP = {"wx": 0, "wz": 0, "out_proj": 1}
+
+
 def _mamba_core(p, xc: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
-                scan: str = "auto", h0=None
+                scan: str = "auto", h0=None, ctx: Optional[MeshCtx] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xc: post-conv activations (B, S, di); z: the gate's input.  Returns
     (y gated by silu(z), in xc's dtype; h_last (B, di, N) float32).  The
@@ -653,9 +956,13 @@ def _mamba_core(p, xc: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
     from ``h0`` (zero state when ``None``) and the gate in one kernel
     (``mamba_scan``), B and C read in place from the ``x_proj`` output.
     The scan runs in float32 (the JAX package's bf16 path runs its
-    recurrence in bf16, ``blocks.py:369-375``; float32 agrees with it)."""
+    recurrence in bf16, ``blocks.py:369-375``; float32 agrees with it).
+    On a rank mesh with ``d_inner`` split the ``x_proj`` output is a
+    partial sum, summed over ``"model"`` before its split."""
     n, r = cfg.ssm_state, cfg.dt_rank_
     proj = _product(xc, p.x_proj.to(xc.dtype), "x_proj")         # (B,S,r+2N)
+    if _split(cfg.d_inner, ctx):
+        proj = _psum_model(proj, ctx)
     dt_r, b_mat, c_mat = torch.split(proj, [r, n, n], dim=-1)
     dt_lin = _product(dt_r.float(), p.dt_proj.float(), "dt_proj")  # (B,S,di)
     a = -torch.exp(p.a_log.float())                                # (di,N)
@@ -663,42 +970,54 @@ def _mamba_core(p, xc: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
     return mixer(xc, dt_lin, p.dt_bias, b_mat, c_mat, a, p.d_skip, z, h0)
 
 
+def _mamba_out(p, y: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+               ctx: Optional[MeshCtx]) -> torch.Tensor:
+    out = _product(y, p.out_proj.to(x.dtype), "out_proj")
+    return _psum_model(out, ctx) if _split(cfg.d_inner, ctx) else out
+
+
 def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
-                scan: str = "auto") -> torch.Tensor:
-    return mamba_prefill(p, x, cfg, scan)[0]
+                scan: str = "auto", ctx: Optional[MeshCtx] = None
+                ) -> torch.Tensor:
+    return mamba_prefill(p, x, cfg, scan, ctx)[0]
 
 
-def mamba_prefill(p, x: torch.Tensor, cfg: ModelConfig, scan: str = "auto"
+def mamba_prefill(p, x: torch.Tensor, cfg: ModelConfig, scan: str = "auto",
+                  ctx: Optional[MeshCtx] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mixer over a whole sequence, and the cache a decode continues
     from: the conv tail (B, K-1, di) and the scan's final state
-    (``model.py:525-550``)."""
+    (``model.py:525-550``); on a rank mesh di is this rank's channels
+    (:func:`mamba_width`)."""
+    p = _whole(p, ctx, _MAMBA_FSDP)
     xc, z, conv_state = _in_proj(p, x, scan)
-    y, h_last = _mamba_core(p, xc, z, cfg, scan)
-    out = _product(y, p.out_proj.to(x.dtype), "out_proj")
-    return out, {"conv": conv_state, "h": h_last}
+    y, h_last = _mamba_core(p, xc, z, cfg, scan, ctx=ctx)
+    return _mamba_out(p, y, x, cfg, ctx), {"conv": conv_state, "h": h_last}
 
 
 def mamba_init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                     device) -> Dict[str, torch.Tensor]:
+                     device, ctx: Optional[MeshCtx] = None
+                     ) -> Dict[str, torch.Tensor]:
+    di = mamba_width(cfg, ctx)
     return {
-        "conv": torch.zeros(batch, cfg.d_conv - 1, cfg.d_inner, dtype=dtype,
+        "conv": torch.zeros(batch, cfg.d_conv - 1, di, dtype=dtype,
                             device=device),
-        "h": torch.zeros(batch, cfg.d_inner, cfg.ssm_state,
-                         dtype=torch.float32, device=device),
+        "h": torch.zeros(batch, di, cfg.ssm_state, dtype=torch.float32,
+                         device=device),
     }
 
 
 def mamba_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 cfg: ModelConfig, scan: str = "auto"
+                 cfg: ModelConfig, scan: str = "auto",
+                 ctx: Optional[MeshCtx] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token recurrent step: the prefill's two kernels at S = 1,
     from the cache's conv tail and scan state.  x: (B, 1, D).  Returns the
     output and a new cache; ``cache`` is not modified."""
+    p = _whole(p, ctx, _MAMBA_FSDP)
     xc, z, conv_state = _in_proj(p, x, scan, cache["conv"])
-    y, h = _mamba_core(p, xc, z, cfg, scan, h0=cache["h"])
-    out = _product(y, p.out_proj.to(x.dtype), "out_proj")
-    return out, {"conv": conv_state, "h": h}
+    y, h = _mamba_core(p, xc, z, cfg, scan, h0=cache["h"], ctx=ctx)
+    return _mamba_out(p, y, x, cfg, ctx), {"conv": conv_state, "h": h}
 
 
 # ---------------------------------------------------------------- RG-LRU

@@ -29,15 +29,26 @@ as it is (``model.py:222-225``).  Entry points, as in the JAX package:
 mesh (``model.py:150-203``): every spec carries the reference's axes, the
 query heads are padded where the ``"model"`` axis does not divide them,
 and the MoE layers run per shard; the model lives whole on the mesh's
-first device (the port has no SPMD partitioner).  The parameters are trainable:
-``forward`` and ``loss`` build a graph when grad is enabled (attention and
-the RG-LRU's recurrence have their custom backwards, the mixer's two
-kernels have backward kernels of their own), with each group recomputed in
-the backward when ``cfg.remat`` (the reference's ``nothing_saveable`` per
-group, ``model.py:230-232``); that recompute runs right before the group's
-backward, so it keeps the fused scan's segment states for it
-(:func:`repro_torch.kernels.ssm_scan.segment_states`).  ``prefill`` and
-``decode`` run under ``torch.no_grad``.
+first device (the port has no SPMD partitioner).  On a mesh over a world of
+ranks (one process a position, ``ctx.ranks``) the ``dense``, ``moe`` and
+``ssm`` families hold only this rank's block of every parameter and
+exchange through collectives (:mod:`repro_torch.models.blocks`); every
+rank takes the whole batch and keeps its rows when the data axes divide
+them; the embedding looks up this rank's vocabulary range and sums over
+``"model"`` (or gathers its width), and the loss is a vocabulary-parallel
+cross-entropy that never gathers the logits; ``forward``, ``prefill`` and
+``decode`` return this rank's block of the logits (:meth:`Model.
+logits_sharding`).  The residual stream stays whole on each model rank
+(the reference splits its sequence over ``"model"``, ``model.py:
+217-237``: a difference of memory, not of numbers).  The parameters are
+trainable: ``forward`` and ``loss`` build a graph when grad is enabled
+(attention and the RG-LRU's recurrence have their custom backwards, the
+mixer's two kernels have backward kernels of their own), with each group
+recomputed in the backward when ``cfg.remat`` (the reference's
+``nothing_saveable`` per group, ``model.py:230-232``); that recompute runs
+right before the group's backward, so it keeps the fused scan's segment
+states for it (:func:`repro_torch.kernels.ssm_scan.segment_states`).
+``prefill`` and ``decode`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -51,7 +62,9 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import canonical, resolve_device
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import MeshCtx
+from repro_torch.distributed.sharding import NamedSharding, param_shardings
 from repro_torch.kernels.ssm_scan import resolve_mixer, segment_states
 
 from . import blocks
@@ -61,6 +74,9 @@ from .params import Spec, abstract_params, flatten, init_params
 __all__ = ["Model", "stack_sizes", "block_kinds"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the families a mesh over a world of ranks runs; the others wait for
+# ROADMAP queue 1 item 8b
+RANK_FAMILIES = ("dense", "moe", "ssm")
 # the cross-attention source of each family that has one: its key of
 # ``extra``
 _SOURCES = {"audio": "enc_frames", "vlm": "image_embeds"}
@@ -70,6 +86,13 @@ ENCODER_RANGE, CROSS_RANGE = "encoder", "cross_attention"
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=t.is_floating_point())
+
+
+def _block_of(sharding: NamedSharding, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t``: ``t`` itself where the
+    block is the whole, else a copy (so the rest of ``t`` can be freed)."""
+    block = sharding.local(t)
+    return t if block.shape == t.shape else block.clone()
 
 
 def _placeholder(shape) -> nn.Parameter:
@@ -208,6 +231,7 @@ class _Pass:
     pos: int = 0
     cache_len: Optional[int] = None
     ctx: Optional[MeshCtx] = None
+    rows_split: bool = False    # on a rank mesh: the batch's rows split
 
 
 def _attend(p, h, cfg: ModelConfig, run: _Pass, cache, window):
@@ -251,9 +275,10 @@ def _attention_layer(layer, x, cfg: ModelConfig, run: _Pass, cache=None):
     x = x + y
     h = blocks.norm_apply(layer.ln2, x, cfg)
     if cfg.family == "moe":
-        y, aux = blocks.moe_apply(layer.moe, h, cfg, run.ctx)
+        y, aux = blocks.moe_apply(layer.moe, h, cfg, run.ctx,
+                                  rows_split=run.rows_split)
     else:
-        y, aux = blocks.mlp_apply(layer.mlp, h, cfg), None
+        y, aux = blocks.mlp_apply(layer.mlp, h, cfg, run.ctx), None
     return x + y, c, aux
 
 
@@ -326,6 +351,10 @@ class Model(nn.Module):
             raise ValueError(f"family {cfg.family!r}: the families are "
                              f"{_FAMILIES}")
         ctx = MeshCtx(None) if ctx is None else ctx
+        if ctx.ranks and cfg.family not in RANK_FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family} family on a mesh of ranks: ROADMAP queue "
+                f"1 item 8b (the ranks run {RANK_FAMILIES})")
         if ctx.mesh is not None:
             first = ctx.mesh.flat[0]
             if device is not None and canonical(device) != first:
@@ -347,13 +376,22 @@ class Model(nn.Module):
         elif params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
+            place = None
+            if ctx.ranks:       # each leaf drawn whole, its block kept
+                shardings = self.param_shardings()
+                place = lambda name, t: _block_of(shardings[name], t)
             params = init_params(self.param_specs(), generator,
-                                 cfg.parameter_dtype, dev)
+                                 cfg.parameter_dtype, dev, place=place)
         self.load_params(params)
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    def param_shardings(self) -> Dict[str, NamedSharding]:
+        """Every parameter's placement over the model's mesh, by dotted
+        name (``ValueError`` without a mesh)."""
+        return param_shardings(self.param_specs(), self.ctx)
 
     def param_specs(self) -> Dict[str, Any]:
         """The spec tree; its dotted names are ``named_parameters``'s.  The
@@ -364,17 +402,11 @@ class Model(nn.Module):
         then over FSDP), else the width (``model.py:155-171``)."""
         cfg, ctx = self.cfg, self.ctx
         v, d = cfg.vocab_size, cfg.d_model
-        vocab_ax = "model" if v % ctx.tp_size == 0 else None
-        if vocab_ax == "model":
-            emb_ax = head_in_ax = "fsdp"
-        elif d % ctx.tp_size == 0:
-            emb_ax = head_in_ax = "model"
-        else:
-            emb_ax = head_in_ax = None
+        vocab_ax, emb_ax = self._embed_axes()
         tree: Dict[str, Any] = {
             "embed": Spec((v, d), (vocab_ax, emb_ax)),
             "final_norm": blocks.norm_spec(cfg),
-            "lm_head": Spec((d, v), (head_in_ax, vocab_ax)),
+            "lm_head": Spec((d, v), (emb_ax, vocab_ax)),
         }
         sizes = stack_sizes(cfg)
         tree["groups"] = [_layer_spec(cfg, ctx)
@@ -388,6 +420,29 @@ class Model(nn.Module):
             tree["enc_norm"] = blocks.norm_spec(cfg)
         return tree
 
+    def _embed_axes(self) -> Tuple[Optional[str], Optional[str]]:
+        """(vocabulary axis, width axis) of the embedding, the head's the
+        same: the vocabulary over ``"model"`` when it divides (the width
+        then ``"fsdp"``), else the width over ``"model"`` when that
+        divides, else neither (``model.py:163-171``)."""
+        tp = self.ctx.tp_size
+        if self.cfg.vocab_size % tp == 0:
+            return "model", "fsdp"
+        return None, ("model" if self.cfg.d_model % tp == 0 else None)
+
+    def logits_sharding(self, batch: int) -> Optional[NamedSharding]:
+        """The placement of the logits of a batch of ``batch`` rows on a
+        rank mesh (what ``forward``, ``prefill`` and ``decode`` return is
+        this rank's block): rows over the data axes when they divide them,
+        the vocabulary over ``"model"`` when it is split; ``None`` off a
+        rank mesh."""
+        ctx = self.ctx
+        if not ctx.ranks:
+            return None
+        rows = ctx.dp_axes if ctx.rows_split(batch) else None
+        vocab = self._embed_axes()[0] if ctx.tp_size > 1 else None
+        return NamedSharding(ctx.mesh, (rows, None, vocab))
+
     def abstract(self) -> Dict[str, torch.Tensor]:
         """Every parameter as a tensor of its shape and ``param_dtype`` on
         the ``meta`` device, by dotted name (``Model.abstract``)."""
@@ -397,15 +452,23 @@ class Model(nn.Module):
     def load_params(self, params: Dict[str, torch.Tensor]) -> "Model":
         """Take every parameter from ``params`` (dotted name → tensor of the
         spec's shape); tensors on the model's device become its parameters
-        as they are, others are copied there."""
+        as they are, others are copied there.  On a rank mesh a tensor is
+        this rank's block, or the whole logical array, of which the rank
+        keeps its block."""
         specs = dict(flatten(self.param_specs()))
         if set(params) != set(specs):
             raise ValueError(f"parameters {sorted(set(params) ^ set(specs))} "
                              "missing or unknown")
+        shardings = self.param_shardings() if self.ctx.ranks else {}
         for name, t in params.items():
-            if tuple(t.shape) != specs[name].shape:
+            want = specs[name].shape
+            if name in shardings and tuple(t.shape) == want:
+                t = _block_of(shardings[name], t)
+            if name in shardings:
+                want = shardings[name].shard_shape(want)
+            if tuple(t.shape) != want:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                                 f"{specs[name].shape}")
+                                 f"{want}")
             mod_name, _, leaf = name.rpartition(".")
             mod = self.get_submodule(mod_name) if mod_name else self
             setattr(mod, leaf, _param(t.to(self._device)))
@@ -414,15 +477,58 @@ class Model(nn.Module):
     # ---- layers ----
 
     def _tokens(self, tokens) -> torch.Tensor:
+        """The ids on the model's device; on a rank mesh this rank's rows
+        (:meth:`MeshCtx.local_rows`)."""
         if isinstance(tokens, np.ndarray):
             tokens = torch.from_numpy(tokens)
-        return torch.as_tensor(tokens, device=self.device).long()
+        return self.ctx.local_rows(
+            torch.as_tensor(tokens, device=self.device).long())
+
+    def _vocab_split(self) -> bool:
+        return self.ctx.ranks and self.ctx.tp_size > 1 and \
+            self._embed_axes()[0] == "model"
+
+    def _vocab_range(self, tokens: torch.Tensor, n: int):
+        """(ids less this rank's first id of its ``n``-word range, clamped
+        into it; whether each id lies in it)."""
+        loc = tokens - self.ctx.world.axis_index(self.ctx.tp_axis) * n
+        inside = (loc >= 0) & (loc < n)
+        return loc.clamp(0, n - 1), inside
 
     def _embed(self, tokens) -> torch.Tensor:
-        return self.embed[self._tokens(tokens)].to(self.cfg.activation_dtype)
+        tok, ctx = self._tokens(tokens), self.ctx
+        if not ctx.ranks:
+            return self.embed[tok].to(self.cfg.activation_dtype)
+        vocab_ax, width_ax = self._embed_axes()
+        table = self.embed
+        if vocab_ax == "model":
+            table = blocks.fsdp_gather(table, 1, ctx)
+            if ctx.tp_size > 1:
+                loc, inside = self._vocab_range(tok, table.shape[0])
+                rows = table[loc]
+                x = coll.psum(torch.where(inside[..., None], rows,
+                                          rows.new_zeros(())),
+                              ctx.tp_axis, ctx.world)
+            else:
+                x = table[tok]
+        elif width_ax == "model":
+            x = coll.all_gather(table[tok], ctx.tp_axis, ctx.world, axis=-1)
+        else:
+            x = table[tok]
+        return x.to(self.cfg.activation_dtype)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = blocks.norm_apply(self.final_norm, x, self.cfg)
+        ctx = self.ctx
+        if not ctx.ranks:
+            return (x @ self.lm_head.to(x.dtype)).float()
+        vocab_ax, width_ax = self._embed_axes()
+        if vocab_ax == "model":
+            w = blocks.fsdp_gather(self.lm_head, 0, ctx)
+            return (x @ w.to(x.dtype)).float()
+        if width_ax == "model" and ctx.tp_size > 1:
+            part = blocks._own_slice(x, ctx) @ self.lm_head.to(x.dtype)
+            return coll.psum(part, ctx.tp_axis, ctx.world).float()
         return (x @ self.lm_head.to(x.dtype)).float()
 
     def _encode(self, frames: torch.Tensor) -> torch.Tensor:
@@ -468,12 +574,14 @@ class Model(nn.Module):
         if cfg.family == "ssm":
             h = blocks.norm_apply(layer.ln, x, cfg)
             if run.kind == "forward":
-                y, c = blocks.mamba_apply(layer.mamba, h, cfg, self.scan), None
+                y, c = blocks.mamba_apply(layer.mamba, h, cfg, self.scan,
+                                          self.ctx), None
             elif run.kind == "prefill":
-                y, c = blocks.mamba_prefill(layer.mamba, h, cfg, self.scan)
+                y, c = blocks.mamba_prefill(layer.mamba, h, cfg, self.scan,
+                                            self.ctx)
             else:
                 y, c = blocks.mamba_decode(layer.mamba, h, cache, cfg,
-                                           self.scan)
+                                           self.scan, self.ctx)
             return x + y, c, None
         if cfg.family == "hybrid":
             caches = {"rnn": []}
@@ -506,12 +614,16 @@ class Model(nn.Module):
                        "self": selfs}, None
         return _attention_layer(layer, x, cfg, run, cache)
 
-    def _layer(self, layer: _Group, x: torch.Tensor,
+    def _layer(self, layer: _Group, x: torch.Tensor, run: _Pass,
                src: Optional[torch.Tensor] = None):
         """A ``forward`` group: (x, the MoE aux loss or None)."""
-        x, _, aux = self._group(layer, x, _Pass("forward", ctx=self.ctx),
-                                src=src)
+        x, _, aux = self._group(layer, x, run, src=src)
         return x, aux
+
+    def _pass(self, kind: str, batch: int, **kw) -> _Pass:
+        """The pass ``kind`` over a batch of ``batch`` rows."""
+        return _Pass(kind, ctx=self.ctx,
+                     rows_split=self.ctx.rows_split(batch), **kw)
 
     # ---- forward ----
 
@@ -529,21 +641,29 @@ class Model(nn.Module):
         the reference (``model.py:227-245``)."""
         ctx = self.ctx
         x = self._embed(tokens)
-        # the reference's placement of the residual stream (sequence over
-        # "model" where it divides): checked against the mesh, kept whole
-        seq_ax = ("model" if ctx.mesh is not None
-                  and x.shape[1] % ctx.tp_size == 0 else None)
-        x = ctx.constrain(x, ctx.dp_axes, seq_ax, None)
+        if ctx.ranks:
+            # this rank's rows, the sequence and width whole
+            b = len(tokens)
+            x = ctx.constrain(x, ctx.dp_axes if ctx.rows_split(b) else None,
+                              None, None, shape=(b,) + tuple(x.shape[1:]))
+        else:
+            # the reference's placement of the residual stream (sequence
+            # over "model" where it divides): checked against the mesh,
+            # kept whole
+            seq_ax = ("model" if ctx.mesh is not None
+                      and x.shape[1] % ctx.tp_size == 0 else None)
+            x = ctx.constrain(x, ctx.dp_axes, seq_ax, None)
         src = self._source(extra)
         aux = torch.zeros((), device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        run = self._pass("forward", len(tokens))
         for layer in self.groups:
             if remat:
-                x, a = checkpoint(self._layer, layer, x, src,
+                x, a = checkpoint(self._layer, layer, x, run, src,
                                   use_reentrant=False,
                                   context_fn=_keep_states_in_recompute)
             else:
-                x, a = self._layer(layer, x, src)
+                x, a = self._layer(layer, x, run, src)
             if a is not None:
                 aux = aux + a
         for sub in getattr(self, "tail", ()):
@@ -554,12 +674,29 @@ class Model(nn.Module):
     def loss(self, batch: Dict[str, Any], extra: Optional[Dict] = None
              ) -> Tuple[torch.Tensor, Dict]:
         """Mean next-token NLL of ``batch["labels"]`` plus 0.01 · aux, and
-        ``{"nll", "aux"}`` (``model.py:296-302``)."""
+        ``{"nll", "aux"}`` (``model.py:296-302``).  On a rank mesh with the
+        vocabulary split the max, the sum of exponentials and the target
+        logit are each reduced over ``"model"`` in float32, and the mean
+        is averaged over the data axes when they split the rows: every
+        rank returns the loss of the whole batch."""
         logits, aux = self.forward(batch["tokens"], extra)
         labels = self._tokens(batch["labels"])
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ctx = self.ctx
+        if self._vocab_split():
+            w, ax = ctx.world, ctx.tp_axis
+            m = coll.pmax(logits.detach().amax(-1), ax, w)
+            se = coll.psum(torch.exp(logits - m[..., None]).sum(-1), ax, w)
+            logz = m + torch.log(se)
+            loc, inside = self._vocab_range(labels, logits.shape[-1])
+            gold = torch.gather(logits, -1, loc[..., None])[..., 0]
+            gold = coll.psum(torch.where(inside, gold, gold.new_zeros(())),
+                             ax, w)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         nll = (logz - gold).mean()
+        if ctx.rows_split(len(batch["tokens"])):
+            nll = coll.pmean(nll, ctx.dp_axes, ctx.world)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     # ---- serving ----
@@ -578,9 +715,11 @@ class Model(nn.Module):
         does not give the forward's cross-attention, in the reference
         either."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.activation_dtype
+        if self.ctx.rows_split(batch):      # this rank's rows, heads, width
+            batch //= self.ctx.dp_size
         if cfg.family == "ssm":
             return {"pos": 0, "groups": [
-                blocks.mamba_init_cache(cfg, batch, dt, dev)
+                blocks.mamba_init_cache(cfg, batch, dt, dev, self.ctx)
                 for _ in range(cfg.n_layers)]}
         if cache_len is None:
             raise ValueError(f"a {cfg.family} model's cache needs cache_len")
@@ -588,8 +727,10 @@ class Model(nn.Module):
                   else cfg.sliding_window)
         slots = min(cache_len, window or cache_len)
 
+        kv_heads, head_dim = blocks.attention_cache_heads(cfg, self.ctx)
+
         def kv(length: int = slots):
-            shape = (batch, length, cfg.n_kv_heads, cfg.head_dim_)
+            shape = (batch, length, kv_heads, head_dim)
             return {"k": torch.zeros(shape, dtype=dt, device=dev),
                     "v": torch.zeros(shape, dtype=dt, device=dev)}
 
@@ -627,7 +768,7 @@ class Model(nn.Module):
         unused (``model.py:354``).  The MoE aux loss is dropped."""
         x = self._embed(tokens)
         src = self._source(extra)
-        run = _Pass("prefill", cache_len=cache_len, ctx=self.ctx)
+        run = self._pass("prefill", len(tokens), cache_len=cache_len)
         caches = []
         for layer in self.groups:
             x, c, _ = self._group(layer, x, run, src=src)
@@ -648,7 +789,7 @@ class Model(nn.Module):
         cache holds its cross k and v tensors themselves."""
         pos = cache["pos"]
         x = self._embed(tokens)
-        run = _Pass("decode", pos=pos, ctx=self.ctx)
+        run = self._pass("decode", len(tokens), pos=pos)
         new = []
         for layer, c in zip(self.groups, cache["groups"]):
             x, c, _ = self._group(layer, x, run, c)

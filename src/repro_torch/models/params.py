@@ -84,11 +84,16 @@ def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 
 def init_params(tree: Any, generator: torch.Generator, dtype: torch.dtype,
-                device) -> Dict[str, torch.Tensor]:
+                device, place=None) -> Dict[str, torch.Tensor]:
     """Every :class:`Spec` of ``tree`` materialised on ``device``, keyed by
-    its dotted name, drawn from ``generator`` in the tree's order."""
-    return {name: _init_leaf(spec, generator, dtype, device)
-            for name, spec in flatten(tree)}
+    its dotted name, drawn from ``generator`` in the tree's order;
+    ``place(name, leaf)``, when given, is kept in each leaf's stead as soon
+    as it is drawn (a rank keeps its block)."""
+    out = {}
+    for name, spec in flatten(tree):
+        leaf = _init_leaf(spec, generator, dtype, device)
+        out[name] = leaf if place is None else place(name, leaf)
+    return out
 
 
 def abstract_params(tree: Any, dtype: torch.dtype) -> Dict[str, torch.Tensor]:

@@ -32,9 +32,34 @@ import torch
 
 from repro_torch._device import canonical
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.optim._tree import named_tensors
+from repro_torch.optim._tree import leaves, named_tensors
 
 __all__ = ["TrainLoop", "TrainLoopConfig"]
+
+
+def _state_shardings(state: Any, params: Any, shardings: Dict) -> Any:
+    """The placements of an optimizer state over a rank mesh, mirroring
+    ``state``: a tree keyed by parameter names (the error-feedback
+    residual) takes the parameters'; one keyed by the reference's leaf
+    names (the moments) its leaf's, with the layer axis first where the
+    leaf is stacked; any other tensor (the step) is replicated."""
+    from repro_torch.distributed.sharding import NamedSharding
+    mesh = next(iter(shardings.values())).mesh
+    by_leaf = {}
+    for leaf in leaves(named_tensors(params)):
+        sh = shardings[leaf.parts[0][0]]
+        by_leaf[leaf.name] = NamedSharding(
+            mesh, ((None,) + tuple(sh.spec)) if leaf.stacked else sh.spec)
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: shardings.get(k) or by_leaf.get(k) or walk(v)
+                    for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        return NamedSharding(mesh, ())
+
+    return walk(state)
 
 
 @dataclasses.dataclass
@@ -91,7 +116,12 @@ class TrainLoop:
     parameter's (``ValueError`` otherwise, or for a name that is not a
     parameter's); a restore places every parameter on it and checks that
     its spec fits (``CheckpointManager.restore``), the optimizer state
-    going to the parameters' device."""
+    going to the parameters' device.  On a mesh over a world of ranks every
+    rank runs the loop on its blocks: the optimizer state's leaves take
+    their parameters' placements (a stacked moment the layer axis first),
+    a checkpoint holds the whole logical arrays (rank 0 writes them, and a
+    restore gives each rank its blocks), and the log is the same on every
+    rank."""
 
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable, params: Any,
                  opt_state: Any, shardings: Any = None):
@@ -113,11 +143,18 @@ class TrainLoop:
         self.start_step = 0
         self.ckpt = (CheckpointManager(cfg.ckpt_dir)
                      if cfg.ckpt_dir else None)
+        self._shardings = None
+        if shardings is not None and \
+                next(iter(shardings.values())).mesh.world is not None:
+            self._shardings = {"params": shardings,
+                               "opt": _state_shardings(opt_state, params,
+                                                       shardings)}
         if self.ckpt is not None:
             named = named_tensors(params)
             device = next(iter(named.values())).device
             step, state = self.ckpt.restore_latest(
-                self._state(), device, {"params": shardings, "opt": None})
+                self._state(), device,
+                self._shardings or {"params": shardings, "opt": None})
             if step is not None:
                 with torch.no_grad():
                     for name, t in state["params"].items():
@@ -156,7 +193,8 @@ class TrainLoop:
                     self.metrics_log.append(
                         {"step": step, "loss": loss, "sec_per_step": dt})
                 if self.ckpt is not None and step % cfg.ckpt_every == 0:
-                    self.ckpt.save_async(step, self._state())
+                    self.ckpt.save_async(step, self._state(),
+                                         self._shardings)
         finally:
             pf.close()
             if self.ckpt is not None:
@@ -164,7 +202,7 @@ class TrainLoop:
         # the last step's state, unless its checkpoint was just written
         if self.ckpt is not None and step > self.start_step \
                 and step % cfg.ckpt_every:
-            self.ckpt.save(step, self._state())
+            self.ckpt.save(step, self._state(), self._shardings)
         return {"final_step": step, "log": self.metrics_log,
                 "straggler_steps": self.straggler_steps,
                 "ewma_sec_per_step": self._ewma}
